@@ -1,0 +1,16 @@
+from tpu_flash_torch.engine.cache import PagedKVCache, side_dtypes
+from tpu_flash_torch.engine.health import HealthConfig
+from tpu_flash_torch.engine.runner import InferenceEngine
+from tpu_flash_torch.engine.sampling import (
+    GREEDY,
+    SamplingParams,
+    filtered_logits,
+    sample_tokens,
+)
+from tpu_flash_torch.engine.scheduler import Request, Scheduler, StepPlan
+
+__all__ = [
+    "PagedKVCache", "side_dtypes", "HealthConfig", "InferenceEngine",
+    "GREEDY", "SamplingParams", "filtered_logits", "sample_tokens",
+    "Request", "Scheduler", "StepPlan",
+]

@@ -1,0 +1,274 @@
+"""Llama-style decoder transformer over the port's attention kernels.
+
+The port of ``tpu_flash/models/transformer.py``: RMSNorm -> GQA flash
+attention with rotary embeddings -> SwiGLU MLP, pre-norm residuals, an
+untied LM head. Parameters are a plain dict of tensors with the JAX tree's
+names and layouts (dense weights are [in, out]); :class:`FlashTransformer`
+is a functional class over it. Prefill runs ``flash_attention``; the
+engine's decode step uses ``decode_qkv`` and the paged decode kernel. The
+projection and MLP matmuls stay ``torch.matmul``, as the JAX package left
+them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from tpu_flash_torch.core.reference import alibi_slopes
+from tpu_flash_torch.models.configs import ModelConfig
+from tpu_flash_torch.ops.flash import flash_attention
+
+Params = Dict[str, Any]
+
+
+def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float):
+    dtype = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dtype) * weight
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def scaled_rope_frequencies(cfg, device=None):
+    """(freqs, q_mult) for the config's RoPE scheme: "linear" (position
+    interpolation), "ntk" (theta rescale), "yarn" (per-band ramp plus the
+    t^2 attention temperature folded into q), "llama3" (Llama-3.1's
+    wavelength thresholds). A Gemma-2 ``query_pre_attn_scalar`` folds
+    into q_mult too."""
+    base = rope_frequencies(cfg.head_dim, cfg.rope_theta, device)
+    s = float(cfg.rope_scaling_factor)
+    kind = cfg.rope_scaling
+    q_mult = 1.0
+    qpas = getattr(cfg, "query_pre_attn_scalar", None)
+    if qpas is not None:
+        q_mult *= math.sqrt(cfg.head_dim / qpas)
+    if kind is None or s == 1.0:
+        return base, q_mult
+    if kind == "linear":
+        return base / s, q_mult
+    if kind == "ntk":
+        d = cfg.head_dim
+        return rope_frequencies(d, cfg.rope_theta * s ** (d / (d - 2)),
+                                device), q_mult
+    if kind == "yarn":
+        wavelengths = 2.0 * math.pi / base
+        rotations = cfg.rope_orig_context / wavelengths
+        beta_fast, beta_slow = 32.0, 1.0
+        ramp = torch.clamp(
+            (rotations - beta_slow) / (beta_fast - beta_slow), 0.0, 1.0
+        )
+        freqs = (1.0 - ramp) * (base / s) + ramp * base
+        t = 0.1 * math.log(s) + 1.0
+        return freqs, q_mult * t * t
+    if kind == "llama3":
+        low_f = getattr(cfg, "rope_low_freq_factor", 1.0)
+        high_f = getattr(cfg, "rope_high_freq_factor", 4.0)
+        wavelengths = 2.0 * math.pi / base
+        low_wl = cfg.rope_orig_context / low_f
+        high_wl = cfg.rope_orig_context / high_f
+        smooth = torch.clamp(
+            (cfg.rope_orig_context / wavelengths - low_f) / (high_f - low_f),
+            0.0, 1.0,
+        )
+        freqs = torch.where(
+            wavelengths > low_wl,
+            base / s,
+            torch.where(
+                wavelengths < high_wl,
+                base,
+                (1.0 - smooth) * base / s + smooth * base,
+            ),
+        )
+        return freqs, q_mult
+    raise ValueError(
+        f"unknown rope_scaling {kind!r}; expected linear|ntk|yarn|llama3"
+    )
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, freqs):
+    """Rotary embedding, split-half convention. x [b, h, s, d];
+    positions [b, s] or [s]."""
+    dtype = x.dtype
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].float() * freqs  # [b, s, d/2]
+    cos = torch.cos(angles)[:, None]
+    sin = torch.sin(angles)[:, None]
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2].float(), x[..., d2:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dtype)
+
+
+class FlashTransformer:
+    """Stateless model: the parameters are an explicit dict of tensors.
+
+    ``device``: where the rope tables (and ``init``'s weights) live;
+    "cuda" unless the caller asks for "cpu"."""
+
+    def __init__(self, config: ModelConfig, device=None):
+        self.config = config
+        self.device = torch.device(device if device is not None else "cuda")
+        self.dtype = getattr(torch, config.dtype)
+        self.freqs, self._q_mult = scaled_rope_frequencies(
+            config, self.device
+        )
+        # ALiBi replaces rotary embeddings (BLOOM/MPT): fixed slopes.
+        self._alibi = (
+            alibi_slopes(config.num_q_heads, self.device)
+            if config.attn_alibi else None
+        )
+
+    def alibi_for(self):
+        """Per-head ALiBi slopes, or None when the model uses rope."""
+        return self._alibi
+
+    def init(self, generator: torch.Generator) -> Params:
+        """Random weights: N(0, 1/fan_in) per dense weight (embedding
+        N(0, 1)), ones for the norms, zero sink logits -- the JAX init's
+        scaling rule, drawn from ``generator`` on its device."""
+        cfg = self.config
+        h, d = cfg.hidden_size, cfg.head_dim
+        qd, kvd = cfg.num_q_heads * d, cfg.num_kv_heads * d
+        dev = generator.device
+
+        def dense(fan_in, shape):
+            w = torch.randn(shape, generator=generator, device=dev,
+                            dtype=torch.float32)
+            return (w * fan_in ** -0.5).to(self.dtype)
+
+        def ones(n):
+            return torch.ones((n,), dtype=self.dtype, device=dev)
+
+        layers = []
+        for _ in range(cfg.num_layers):
+            layer = {
+                "attn_norm": ones(h),
+                "wq": dense(h, (h, qd)),
+                "wk": dense(h, (h, kvd)),
+                "wv": dense(h, (h, kvd)),
+                "wo": dense(qd, (qd, h)),
+                "mlp_norm": ones(h),
+                "w_gate": dense(h, (h, cfg.intermediate_size)),
+                "w_up": dense(h, (h, cfg.intermediate_size)),
+                "w_down": dense(cfg.intermediate_size,
+                                (cfg.intermediate_size, h)),
+            }
+            if cfg.attn_sinks:
+                layer["sinks"] = torch.zeros(
+                    (cfg.num_q_heads,), dtype=torch.float32, device=dev
+                )
+            layers.append(layer)
+        return {
+            "embed": dense(1, (cfg.vocab_size, h)),
+            "layers": layers,
+            "final_norm": ones(h),
+            "lm_head": dense(h, (h, cfg.vocab_size)),
+        }
+
+    def _scale_q(self, q: torch.Tensor) -> torch.Tensor:
+        # YaRN temperature / query_pre_attn_scalar, multiplied in q's
+        # dtype as JAX does with a weakly-typed scalar.
+        if self._q_mult == 1.0:
+            return q
+        return q * torch.tensor(self._q_mult, dtype=q.dtype)
+
+    def _qkv(self, layer: Params, x: torch.Tensor, positions):
+        """x [b, s, hidden] -> q [b, hq, s, d], k/v [b, hkv, s, d], with
+        rope on q/k (head counts from the weight shapes)."""
+        b, s, _ = x.shape
+        d = self.config.head_dim
+        hq = layer["wq"].shape[1] // d
+        hkv = layer["wk"].shape[1] // d
+        q = (x @ layer["wq"]).reshape(b, s, hq, d).transpose(1, 2)
+        k = (x @ layer["wk"]).reshape(b, s, hkv, d).transpose(1, 2)
+        v = (x @ layer["wv"]).reshape(b, s, hkv, d).transpose(1, 2)
+        if self._alibi is not None:
+            return q, k, v
+        q = self._scale_q(apply_rope(q, positions, self.freqs))
+        k = apply_rope(k, positions, self.freqs)
+        return q, k, v
+
+    def _mlp(self, layer: Params, x: torch.Tensor) -> torch.Tensor:
+        gate = torch.nn.functional.silu((x @ layer["w_gate"]).float())
+        up = (x @ layer["w_up"]).float()
+        return (gate * up).to(x.dtype) @ layer["w_down"]
+
+    def forward(
+        self,
+        params: Params,
+        tokens: torch.Tensor,  # [batch, seq] int
+        *,
+        q_offset: int = 0,
+        return_kv: bool = False,
+        kv_hook=None,
+        positions: Optional[torch.Tensor] = None,
+        attention_fn=None,
+    ):
+        """Causal forward over a token block; logits [b, s, vocab] f32.
+
+        ``kv_hook(layer_idx, k, v) -> (k_all, v_all)`` splices per-layer
+        history in front of the block's K/V and captures the new K/V (the
+        engine's chunked prefill); ``positions`` [s] or [b, s] overrides
+        ``q_offset + arange`` for rope; ``attention_fn(q, k, v)`` replaces
+        the causal flash call. With ``return_kv`` also the per-layer
+        (k, v)."""
+        cfg = self.config
+        x = params["embed"][tokens].to(self.dtype)
+        if positions is None:
+            positions = q_offset + torch.arange(
+                tokens.shape[1], device=tokens.device
+            )
+        kvs = []
+        for li, layer in enumerate(params["layers"]):
+            xn = _rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+            q, k, v = self._qkv(layer, xn, positions)
+            if return_kv:
+                kvs.append((k, v))
+            if kv_hook is not None:
+                k, v = kv_hook(li, k, v)
+            if attention_fn is not None:
+                attn = attention_fn(q, k, v)
+            else:
+                attn = flash_attention(
+                    q, k, v, causal=True, q_offset=q_offset,
+                    window=cfg.layer_window(li), softcap=cfg.attn_softcap,
+                    sinks=layer.get("sinks"),
+                    alibi=self.alibi_for(),
+                )
+            b, h, s, d = attn.shape
+            attn = attn.transpose(1, 2).reshape(b, s, h * d)
+            x = x + attn @ layer["wo"]
+            xn = _rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
+            x = x + self._mlp(layer, xn)
+        x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
+        logits = (x @ params["lm_head"]).float()
+        if return_kv:
+            return logits, kvs
+        return logits
+
+    def decode_qkv(self, params: Params, layer_idx: int, x: torch.Tensor,
+                   positions: torch.Tensor):
+        """Decode-path projections: x [b, hidden] at positions [b] ->
+        q [b, hq, d], k/v [b, hkv, d], rope applied."""
+        layer = params["layers"][layer_idx]
+        b = x.shape[0]
+        d = self.config.head_dim
+        hq = layer["wq"].shape[1] // d
+        hkv = layer["wk"].shape[1] // d
+        q = (x @ layer["wq"]).reshape(b, hq, 1, d)
+        k = (x @ layer["wk"]).reshape(b, hkv, 1, d)
+        v = (x @ layer["wv"]).reshape(b, hkv, d)
+        if self._alibi is not None:
+            return q[:, :, 0], k[:, :, 0], v
+        q = apply_rope(q, positions[:, None], self.freqs)[:, :, 0]
+        k = apply_rope(k, positions[:, None], self.freqs)[:, :, 0]
+        return self._scale_q(q), k, v

@@ -1,0 +1,165 @@
+"""Build, load and count the package's hand-written CUDA kernels.
+
+Each kernel is one CUDA C++ source in ``tpu_flash_torch/csrc/`` with a
+plain C entry point. At first use it is compiled by ``nvcc`` for
+``sm_90a`` into a shared library under ``build/tpu_flash_torch/`` at the
+repository root (named by a hash of the sources and flags, so an edited
+source rebuilds) and loaded with ``ctypes``. Nothing here runs at import
+time; on a machine without ``nvcc`` only the CPU plain versions work.
+
+Every kernel carries ``launches``, a plain integer its wrapper raises by
+one per launch, so a run can show which kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "tpu_flash_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+]
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def find_nvcc() -> str:
+    for cand in (
+        os.environ.get("NVCC"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels build only where the CUDA "
+        "toolkit is installed (set NVCC or put nvcc on PATH)"
+    )
+
+
+class CudaKernel:
+    """One CUDA source with a C entry point ``symbol`` taking
+    ``argtypes`` and returning an int (cudaGetLastError())."""
+
+    def __init__(self, name: str, symbol: str, argtypes: List, *,
+                 replaces: str):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.replaces = replaces  # the TPU kernel, file:line
+        self.source = CSRC_DIR / f"{name}.cu"
+        self.launches = 0
+        self.build_seconds: Optional[float] = None
+        self.build_log = ""
+        self._lib = None
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(
+            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+
+    def start_build(self) -> Optional[subprocess.Popen]:
+        """Start nvcc (returns the process), or None when the library for
+        the current sources is already built."""
+        out = self.library_path()
+        if out.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        self._t0 = time.perf_counter()
+        self._tmp = tmp
+        return subprocess.Popen(
+            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+
+    def finish_build(self, proc: Optional[subprocess.Popen]) -> None:
+        if proc is None:
+            self.build_seconds = 0.0
+            return
+        log, _ = proc.communicate()
+        self.build_log = log
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {self.source.name} "
+                f"(exit {proc.returncode}):\n{log}"
+            )
+        os.replace(self._tmp, self.library_path())
+        self.build_seconds = time.perf_counter() - self._t0
+
+    def function(self):
+        """The loaded C entry point (building the library if needed)."""
+        if self._lib is None:
+            if not self.library_path().exists():
+                self.finish_build(self.start_build())
+            lib = ctypes.CDLL(str(self.library_path()))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._lib = lib
+        return getattr(self._lib, self.symbol)
+
+    def launch(self, *args) -> None:
+        """Run the entry point; raise on a CUDA error; count the launch."""
+        rc = self.function()(*args)
+        if rc != 0:
+            raise RuntimeError(
+                f"{self.name} kernel launch failed: CUDA error {rc}"
+            )
+        self.launches += 1
+
+
+FLASH_FWD = CudaKernel(
+    "flash_fwd", "flash_fwd",
+    [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I, I, F, F, P],
+    replaces="tpu_flash/ops/flash/forward.py:102",
+)
+PAGED_DECODE = CudaKernel(
+    "paged_decode", "paged_decode",
+    [P] * 14 + [I] * 11 + [F, I, F, F, P],
+    replaces="tpu_flash/ops/decode/paged.py:122",
+)
+KERNELS: Dict[str, CudaKernel] = {
+    k.name: k for k in (FLASH_FWD, PAGED_DECODE)
+}
+
+
+def build_all() -> Dict[str, float]:
+    """Build every kernel, one nvcc per source, all started together.
+    Returns each kernel's build seconds (0.0 when already built)."""
+    procs = {name: k.start_build() for name, k in KERNELS.items()}
+    for name, proc in procs.items():
+        KERNELS[name].finish_build(proc)
+    return {name: k.build_seconds for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def stream_handle(tensor) -> int:
+    """The current CUDA stream of the tensor's device, as an int."""
+    import torch
+
+    return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def ptr(tensor) -> Optional[int]:
+    """data_ptr() of a tensor, None (a C null pointer) for None."""
+    return None if tensor is None else tensor.data_ptr()
