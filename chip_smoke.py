@@ -8,18 +8,24 @@ toolkit (nvcc) and PyTorch built for CUDA; it needs no JAX and no
 network. Phases, one JSON line each:
 
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: both CUDA kernels from tpu_flash_torch/csrc (one nvcc each,
-     started together), with the build seconds;
+  2. build: the four CUDA kernels from tpu_flash_torch/csrc (one nvcc
+     each, started together), with the build seconds;
   3. kernels: each kernel against its plain PyTorch version on the card
      at the main path's shapes, with times, bounds and a library
      yardstick;
   4. main path: Llama-3-8B geometry at full width (all 32 layers, seeded
-     random bf16 weights made on the card) served by the port's engine,
-     8 requests x 32 greedy tokens, on an int8 cache with the recent ring
-     and then on a bf16 cache; launch counters reset before each run;
-  5. trained model: checkpoints/tiny-byte-llama served with bf16 and
-     int8 caches, its greedy text against the same engine on the plain
-     versions.
+     random bf16 weights made on the card) served by the port's engine at
+     its default routing (paged prefill, fused mixed steps, speculation
+     k 8): 8 requests x 32 greedy tokens on an int8 cache with the recent
+     ring and on a bf16 cache; the same two with paged_prefill=False
+     (gathered history, the ragged kernel); and 8 prompts of 1024 tokens
+     built so that prompt lookup drafts, served for 16 tokens through
+     speculative verify. Launch counters reset before each run;
+  5. trained model: checkpoints/tiny-byte-llama served at the engine's
+     defaults with bf16 and int8 caches, and a staggered two-request
+     scenario that reaches every route; the int8 runs again with
+     paged_prefill=False; each run's greedy text against the same engine
+     on the plain versions.
 
 Then the nvidia-smi line, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -337,21 +343,228 @@ def check_decode(dev):
     return dict(primary, max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
+def prefill_pairs(offsets, q_len, window=None):
+    """(query, key) pairs a chunk at per-row history ``offsets`` attends,
+    summed over rows: its history (inside the window) plus itself,
+    causally."""
+    pairs = 0
+    for off in offsets:
+        for i in range(q_len):
+            lo = max(0, off + i - window + 1) if window else 0
+            pairs += off + i + 1 - lo
+    return pairs
+
+
+def prefill_bound(q, hkv, offsets, window, kv_bytes_per_token):
+    """Least time for a prefill chunk's attention: q, the chunk's K/V and
+    o once, the history K/V some query of a row sees once (as stored,
+    ``kv_bytes_per_token`` for all kv heads), and 4 d FLOPs per (q head,
+    query, key) pair."""
+    b, hq, q_len, d = q.shape
+    hist = sum(min(off, window - 1) if window else off for off in offsets)
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * b * hkv * q_len * d * q.element_size()
+              + 2 * hist * kv_bytes_per_token + 4 * b)
+    ops = 4.0 * hq * d * prefill_pairs(offsets, q_len, window)
+    return bound(nbytes, ops, "bfloat16")
+
+
+def paged_prefill_inputs(dev, b, q_len, hist_cap, kv_dtype, seed=SEED):
+    """Chunk q/K/V (hq 32 / hkv 8, d 128, bf16) and 128-token pages
+    holding hist_cap tokens per row (bf16, or int8 with per-token
+    scales), with a random page table over 16 * b + 1 pages."""
+    import torch
+
+    from tpu_flash_torch.ops.quant import quantize
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ps, pps = 128, 16
+    n_pages = pps * b + 1
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    q = rn(b, 32, q_len, 128).bfloat16()
+    ck, cv = rn(b, 8, q_len, 128).bfloat16(), rn(b, 8, q_len, 128).bfloat16()
+    kp, vp = rn(8, n_pages, ps, 128), rn(8, n_pages, ps, 128)
+    if kv_dtype == "int8":
+        kp, vp = quantize(kp), quantize(vp)
+    else:
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    table = torch.randperm(n_pages - 1, generator=g, device=dev)[
+        : b * pps].reshape(b, pps).int()
+    return q, ck, cv, kp, vp, table
+
+
+def check_paged_prefill(dev):
+    """K5 at the main path's shapes: chunks at history 1024, mixed stages,
+    the verify shape and each option, each against its plain version and
+    a control that drops the case's option."""
+    import torch
+
+    from tpu_flash_torch.ops.flash import paged_prefill as pp
+    from tpu_flash_torch.ops.quant import QuantizedTensor
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    # Scores have std ~1 here: softcap 5 bends the largest, sinks near
+    # log(kv_len) + 1 weigh about as much as all the keys.
+    sinks = (math.log(1536) + 1.0
+             + 0.5 * torch.randn(32, generator=g, device=dev))
+    slopes = torch.linspace(0.5, 0.004, 32, device=dev)
+    rows = []
+    # (case, b, q_len, hist_cap, pages, offsets, kwargs, control): the
+    # control is kwargs/offsets overrides, or "unscaled" (int8 pages
+    # without their scales).
+    verify_lens = [1100 + 100 * i for i in range(8)]
+    for name, b, q_len, hist_cap, kv, offsets, kw, control in [
+        ("chunk_bf16", 4, 512, 1024, "bfloat16", [1024] * 4, {},
+         dict(offsets=[0] * 4)),
+        ("chunk_int8", 4, 512, 1024, "int8", [1024] * 4, {}, "unscaled"),
+        ("mixed_offsets", 4, 512, 1536, "bfloat16", [0, 512, 1024, 1536],
+         {}, dict(offsets=[1536] * 4)),
+        ("verify", 8, 9, 2048, "bfloat16", verify_lens, {},
+         dict(offsets=[1450] * 8)),
+        ("window", 2, 512, 1024, "bfloat16", [1024] * 2, dict(window=256),
+         dict(kw={})),
+        ("softcap", 2, 512, 1024, "bfloat16", [1024] * 2,
+         dict(softcap=5.0), dict(kw={})),
+        ("sinks", 2, 512, 1024, "bfloat16", [1024] * 2, dict(sinks=sinks),
+         dict(kw={})),
+        ("alibi", 2, 512, 1024, "bfloat16", [1024] * 2, dict(alibi=slopes),
+         dict(kw={})),
+    ]:
+        q, ck, cv, kp, vp, table = paged_prefill_inputs(dev, b, q_len,
+                                                        hist_cap, kv)
+
+        def run(offs=offsets, pages=(kp, vp), kw=kw):
+            o = torch.tensor(offs, dtype=torch.int32, device=dev)
+            return pp.paged_prefill_attention(
+                q, ck, cv, pages[0], pages[1], o, table, hist_cap=hist_cap,
+                **kw)
+
+        out = run()
+        torch.cuda.synchronize()
+        with plain_versions():
+            ref = run()
+            plain_ms = time_ms(run, 3)
+            if control == "unscaled":
+                pages = tuple(QuantizedTensor(t.values,
+                                              torch.ones_like(t.scales),
+                                              "int8") for t in (kp, vp))
+                off = max_err(out, run(pages=pages))
+            else:
+                off = max_err(out, run(
+                    offs=control.get("offsets", offsets),
+                    kw=control.get("kw", kw)))
+        # Per token and all 8 kv heads: d payload bytes (+ an f32 scale
+        # for int8 pages).
+        per_tok = 8 * (128 + 4 if kv == "int8" else 2 * 128)
+        bound_ms, bound_by = prefill_bound(q, 8, offsets, kw.get("window"),
+                                           per_tok)
+        row = dict(case=name, batch=b, q_len=q_len, hist_cap=hist_cap,
+                   pages=kv, offsets=offsets,
+                   control=control if isinstance(control, str)
+                   else {k_: str(v_) for k_, v_ in control.items()},
+                   **agreement(out, ref, off), ms=time_ms(run, 10),
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=None)
+        rows.append(row)
+        log("kernel_vs_plain", kernel="paged_prefill", **row)
+    raise_if_failed("paged_prefill", rows)
+    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
+def ragged_mask(offsets, q_len, hist_cap, window, dev):
+    """The boolean [b, 1, q_len, hist_cap + q_len] mask of the ragged
+    layout, for PyTorch's fused attention as a yardstick."""
+    import torch
+
+    j = torch.arange(hist_cap + q_len, device=dev)[None, None, None, :]
+    i = torch.arange(q_len, device=dev)[None, None, :, None]
+    offs = torch.tensor(offsets, device=dev)[:, None, None, None]
+    hist = (j < offs) & (j < hist_cap)
+    chunk = (j >= hist_cap) & (j - hist_cap <= i)
+    if window:
+        hist = hist & (j > offs + i - window)
+        chunk = chunk & (j - hist_cap > i - window)
+    return hist | chunk
+
+
+def check_ragged(dev):
+    """K6 at the main path's fused-step shape: chunks of 512 at history
+    {0, 512, 1024, 1536} over [history padded to 1536 | chunk], and a
+    window case."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from tpu_flash_torch.ops.flash import ragged
+
+    rows = []
+    q_len, hist_cap = 512, 1536
+    for name, offsets, kw, control in [
+        ("mixed_offsets", [0, 512, 1024, 1536], {},
+         dict(offsets=[1536] * 4)),
+        ("window", [0, 512, 1024, 1536], dict(window=256), dict(kw={})),
+    ]:
+        g = torch.Generator(device=dev).manual_seed(SEED + 2)
+        b = len(offsets)
+        q = torch.randn(b, 32, q_len, 128, generator=g, device=dev).bfloat16()
+        k, v = (torch.randn(b, 8, hist_cap + q_len, 128, generator=g,
+                            device=dev).bfloat16() for _ in range(2))
+
+        def run(offs=offsets, kw=kw):
+            o = torch.tensor(offs, dtype=torch.int32, device=dev)
+            return ragged.flash_attention_ragged(q, k, v, o,
+                                                 hist_cap=hist_cap, **kw)
+
+        out = run()
+        torch.cuda.synchronize()
+        with plain_versions():
+            ref = run()
+            plain_ms = time_ms(run, 3)
+            off = max_err(out, run(offs=control.get("offsets", offsets),
+                                   kw=control.get("kw", kw)))
+        bound_ms, bound_by = prefill_bound(q, 8, offsets, kw.get("window"),
+                                           8 * 128 * 2)
+        mask = ragged_mask(offsets, q_len, hist_cap, kw.get("window"), dev)
+        try:
+            sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+            library_ms = time_ms(
+                lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), 10)
+        except TypeError:  # PyTorch without enable_gqa
+            library_ms = None
+        row = dict(case=name, batch=b, q_len=q_len, hist_cap=hist_cap,
+                   offsets=offsets,
+                   control={k_: str(v_) for k_, v_ in control.items()},
+                   **agreement(out, ref, off), ms=time_ms(run, 10),
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms)
+        rows.append(row)
+        log("kernel_vs_plain", kernel="ragged_prefill", **row)
+    raise_if_failed("ragged_prefill", rows)
+    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route CUDA tensors through the plain PyTorch versions instead of
     the kernels, for the reference runs on the card (the wrappers
     themselves never do this)."""
     from tpu_flash_torch.ops.decode import paged
-    from tpu_flash_torch.ops.flash import api, forward
+    from tpu_flash_torch.ops.flash import api, forward, paged_prefill, ragged
 
-    saved = (api.flash_fwd, paged._paged_decode_cuda)
+    saved = (api.flash_fwd, paged._paged_decode_cuda,
+             paged_prefill._paged_prefill_cuda, ragged._ragged_prefill_cuda)
     api.flash_fwd = forward.flash_fwd_plain
     paged._paged_decode_cuda = paged.paged_decode_plain
+    paged_prefill._paged_prefill_cuda = paged_prefill.paged_prefill_plain
+    ragged._ragged_prefill_cuda = ragged.ragged_prefill_plain
     try:
         yield
     finally:
-        api.flash_fwd, paged._paged_decode_cuda = saved
+        (api.flash_fwd, paged._paged_decode_cuda,
+         paged_prefill._paged_prefill_cuda,
+         ragged._ragged_prefill_cuda) = saved
 
 
 # -- phase 4: the main path at full width -------------------------------------
@@ -378,8 +591,9 @@ def main_path_prompts(vocab_size):
             .tolist() for i in range(8)]
 
 
-def main_path_engine(model, params, kv_dtype, ring, prompts):
-    """The main path's engine, warmed up by one short request so that
+def main_path_engine(model, params, kv_dtype, ring, prompts, **config):
+    """The main path's engine at its default routing (``config`` overrides
+    EngineConfig fields), warmed up by one short request so that
     CUDA/cuBLAS initialisation and allocator growth stay out of timed
     runs."""
     from tpu_flash_torch.core.config import CacheConfig, EngineConfig
@@ -389,7 +603,7 @@ def main_path_engine(model, params, kv_dtype, ring, prompts):
         max_batch_size=8, max_seq_len=2048, prefill_chunk=512,
         cache=CacheConfig(page_size=128, num_pages=161, max_pages_per_seq=16,
                           kv_dtype=kv_dtype, recent_window=ring),
-        paged_prefill=False, fused_mixed_step=False,
+        **config,
     )
     eng = InferenceEngine(model, params, cfg)
     eng.submit(prompts[0][:64], 2)
@@ -397,21 +611,28 @@ def main_path_engine(model, params, kv_dtype, ring, prompts):
     return eng
 
 
-def serve_8b(model, params, kv_dtype, ring, prompts, new_tokens):
+PREFILL_ROUTES = ("prefill_group", "prefill_ragged", "fused")
+DECODE_ROUTES = ("decode", "speculative")
+
+
+def serve_main(model, params, kv_dtype, ring, prompts, new_tokens, *,
+               check_logits=True, **config):
     """Serve ``prompts`` on the port's engine; returns the phase record.
 
     prefill_tok_per_s: prompt tokens over the time spent in prefill
-    groups; decode_tok_per_s: tokens from decode bursts over the time
-    spent in them (each timed between device synchronisations; the first
-    token of each request comes from its prefill)."""
+    dispatches (same-stage groups and ragged steps, fused decode rows
+    included); decode_tok_per_s: tokens from decode calls (bursts and
+    speculative steps) over the time spent in them. The engine's metrics
+    time each dispatch between device synchronisations and count them by
+    route; the first token of each request comes from its prefill."""
     import torch
 
+    from tpu_flash_torch.engine.metrics import EngineMetrics
     from tpu_flash_torch.ops import build
     from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
 
-    eng = main_path_engine(model, params, kv_dtype, ring, prompts)
+    eng = main_path_engine(model, params, kv_dtype, ring, prompts, **config)
     first = {}
-    spent = {"prefill": 0.0, "decode": 0.0}
     impl = eng._chunked_prefill_impl
 
     def capture(hist_len, tokens, table_rows, n_valids, slots):
@@ -421,36 +642,37 @@ def serve_8b(model, params, kv_dtype, ring, prompts, new_tokens):
                          last=last.clone())
         return last, finite
 
-    def timed(name, fn):
-        def run(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            spent[name] += time.perf_counter() - t
-            return out
-        return run
-
     eng._chunked_prefill_impl = capture
-    eng._run_prefill_group = timed("prefill", eng._run_prefill_group)
-    eng._run_decode = timed("decode", eng._run_decode)
+    eng.metrics = m = EngineMetrics(sync_dispatches=True)
     torch.cuda.synchronize()
-    tok0, dec0 = eng.metrics.prefill_tokens, eng.metrics.decode_tokens
     build.reset_launch_counts()
     ids = [eng.submit(p, new_tokens) for p in prompts]
     t0 = time.perf_counter()
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    prefill_tok = eng.metrics.prefill_tokens - tok0
-    decode_tok = eng.metrics.decode_tokens - dec0
     launches = build.launch_counts()
-    eng._chunked_prefill_impl = impl
     out = [eng.outputs[i] for i in ids]
     if any(len(o) != new_tokens for o in out):
         raise AssertionError(f"token counts {[len(o) for o in out]}")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel never launched: {launches}")
+    prefill_s = sum(m.route_seconds.get(r, 0.0) for r in PREFILL_ROUTES)
+    decode_s = sum(m.route_seconds.get(r, 0.0) for r in DECODE_ROUTES)
+    decode_tok = sum(m.route_tokens.get(r, 0) for r in DECODE_ROUTES)
+    rec = dict(
+        kv_dtype=kv_dtype, recent_window=ring,
+        config={k: str(v) for k, v in config.items()},
+        requests=len(prompts), prompt_tokens=m.prefill_tokens,
+        new_tokens_each=new_tokens, wall_s=wall, prefill_s=prefill_s,
+        prefill_tok_per_s=m.prefill_tokens / prefill_s,
+        decode_tokens=decode_tok, decode_s=decode_s,
+        decode_tok_per_s=decode_tok / decode_s if decode_s else None,
+        routes=m.route_counts(), speculation=eng.speculation_stats(),
+        launches=launches,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    eng.close()
+    if not check_logits:
+        return rec, out
     # First step's last-position logits against a forward through the
     # plain versions on the card (same weights, same tokens).
     with torch.no_grad():
@@ -464,24 +686,15 @@ def serve_8b(model, params, kv_dtype, ring, prompts, new_tokens):
     ref_last = ref[rows, first["n_valids"] - 1]
     err = float((first["last"] - ref_last).abs().max())
     scale = float(ref_last.abs().max())
-    argmax_equal = float(
-        (first["last"].argmax(-1) == ref_last.argmax(-1)).float().mean()
-    )
-    finite = bool(torch.isfinite(first["last"]).all())
-    rec = dict(
-        kv_dtype=kv_dtype, recent_window=ring, requests=len(prompts),
-        prompt_tokens=prefill_tok, new_tokens_each=new_tokens,
-        wall_s=wall, prefill_s=spent["prefill"],
-        prefill_tok_per_s=prefill_tok / spent["prefill"],
-        decode_tokens=decode_tok, decode_s=spent["decode"],
-        decode_tok_per_s=decode_tok / spent["decode"],
-        launches=launches, finite=finite,
+    rec.update(
+        finite=bool(torch.isfinite(first["last"]).all()),
         first_logits_max_abs_err=err, first_logits_max_abs=scale,
-        first_logits_rel_err=err / scale, first_argmax_equal=argmax_equal,
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        first_logits_rel_err=err / scale,
+        first_argmax_equal=float(
+            (first["last"].argmax(-1) == ref_last.argmax(-1)).float().mean()
+        ),
     )
-    eng.close()
-    return rec
+    return rec, out
 
 
 # Kernel and plain forwards differ only in summation order inside
@@ -491,7 +704,36 @@ def serve_8b(model, params, kv_dtype, ring, prompts, new_tokens):
 LOGITS_REL_TOL = 0.05
 
 
+def require_launches(rec, kernels):
+    missing = [k for k in kernels if not rec["launches"][k]]
+    if missing:
+        raise AssertionError(f"{missing} never launched: {rec}")
+
+
+def speculation_prompts(model, params, vocab_size):
+    """8 seeded prompts of 1024 tokens whose positions 100-101 hold each
+    prompt's last token and its first greedy token t1 (from a run with
+    speculation off), so prompt lookup proposes prompt[102:110] after
+    t1: 8 drafts for every row that keeps its t1."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 3)
+    prompts = [torch.randint(0, vocab_size, (1024,), generator=g).tolist()
+               for _ in range(8)]
+    eng = main_path_engine(model, params, "bfloat16", 0, prompts)
+    eng.speculation_k = 0
+    ids = [eng.submit(p, 1) for p in prompts]
+    eng.run()
+    for p, i in zip(prompts, ids):
+        p[100:102] = [p[-1], eng.outputs[i][0]]
+    eng.close()
+    return prompts
+
+
 def check_main_path(dev):
+    """Phase 4: the default routing on both tiers, both tiers again with
+    paged_prefill=False (gathered history, the ragged kernel), and a
+    speculative run."""
     import torch
 
     from tpu_flash_torch.models import LLAMA3_8B
@@ -510,8 +752,12 @@ def check_main_path(dev):
     prompts = main_path_prompts(LLAMA3_8B.vocab_size)
     recs = []
     with torch.no_grad():
-        for kv_dtype, ring in MAIN_TIERS:
-            rec = serve_8b(model, params, kv_dtype, ring, prompts, 32)
+        runs = [(kv, ring, {}) for kv, ring in MAIN_TIERS]
+        runs += [(kv, ring, dict(paged_prefill=False))
+                 for kv, ring in MAIN_TIERS]
+        for kv_dtype, ring, config in runs:
+            rec, _ = serve_main(model, params, kv_dtype, ring, prompts, 32,
+                                **config)
             log("main_path", gpu=gpu_query(), **rec)
             if not rec["finite"]:
                 raise AssertionError("non-finite logits")
@@ -519,7 +765,23 @@ def check_main_path(dev):
                 raise AssertionError(
                     f"first-step logits off the plain forward: {rec}"
                 )
+            if rec["routes"]["fused"] < 1:
+                raise AssertionError(f"no fused step: {rec}")
+            gathered = config.get("paged_prefill") is False
+            require_launches(rec, ["flash_fwd", "paged_decode"] + (
+                ["ragged_prefill"] if gathered else ["paged_prefill"]))
+            if gathered and rec["launches"]["paged_prefill"]:
+                raise AssertionError(f"paged history with paging off: {rec}")
             recs.append(rec)
+        spec_prompts = speculation_prompts(model, params,
+                                           LLAMA3_8B.vocab_size)
+        rec, _ = serve_main(model, params, "bfloat16", 0, spec_prompts, 16,
+                            check_logits=False)
+        log("main_path_speculation", gpu=gpu_query(), **rec)
+        if rec["routes"]["speculative"] < 1:
+            raise AssertionError(f"no speculative step: {rec}")
+        require_launches(rec, ["paged_prefill"])
+        recs.append(rec)
     del params
     torch.cuda.empty_cache()
     return recs
@@ -539,9 +801,16 @@ TRAINED_PROMPTS = [
 TRAINED_MATCH_MIN = 1.0
 
 
-def check_trained(dev):
-    import torch
+# The staggered two-request scenario of tests/test_torch_engine_routes.py:
+# a same-stage group, a ragged step, a fused step, speculative steps.
+STAGGERED = (list(b"for i in range(10):\n    print(i)\nfor i in range(10):\n"
+                  b"    print(i)\nfor i in range(10):\n    print("),
+             list(b"import numpy as np\n"))
 
+
+def check_trained(dev):
+    """Phase 5: the trained checkpoint at the engine's defaults, kernels
+    against plain versions token for token, speculation proposing."""
     from tpu_flash_torch.checkpoint import load_hf_dir
     from tpu_flash_torch.core.config import CacheConfig, EngineConfig
     from tpu_flash_torch.engine import InferenceEngine
@@ -551,34 +820,55 @@ def check_trained(dev):
         dtype="bfloat16", device=dev,
     )
     results = []
-    for kv_dtype, ring in (("bfloat16", 0), ("int8", 0)):
+    # (kv dtype, ring, staggered, paged_prefill): TRAINED_PROMPTS arrive
+    # together, 32 tokens each; the staggered scenario takes 12 tokens
+    # each. paged_prefill=False gathers int8 history (the ring overlaid)
+    # and runs the ragged kernel and the gathered verify.
+    for kv_dtype, ring, staggered, paged in (
+            ("bfloat16", 0, False, "auto"), ("int8", 0, False, "auto"),
+            ("int8", 32, True, "auto"), ("int8", 0, False, False),
+            ("int8", 32, True, False)):
         cfg = EngineConfig(
-            max_batch_size=4, max_seq_len=128, prefill_chunk=32,
-            cache=CacheConfig(page_size=32, num_pages=14,
+            max_batch_size=2 if staggered else 4, max_seq_len=128,
+            prefill_chunk=32, paged_prefill=paged,
+            cache=CacheConfig(page_size=32, num_pages=12 if staggered else 14,
                               max_pages_per_seq=4, kv_dtype=kv_dtype,
                               recent_window=ring),
-            paged_prefill=False, fused_mixed_step=False,
         )
 
         def serve():
             eng = InferenceEngine(model, params, cfg)
-            ids = [eng.submit(list(p), 32) for p in TRAINED_PROMPTS]
+            if staggered:
+                ids = [eng.submit(STAGGERED[0], 12)]
+                eng.step()
+                ids.append(eng.submit(STAGGERED[1], 12))
+            else:
+                ids = [eng.submit(list(p), 32) for p in TRAINED_PROMPTS]
             out = eng.run()
             eng.close()
-            return [out[i] for i in ids]
+            return ([out[i] for i in ids], eng.metrics.route_counts(),
+                    eng.speculation_stats())
 
-        got = serve()
+        got, routes, spec = serve()
         with plain_versions():
-            want = serve()
+            want, _, _ = serve()
         same = sum(a == b for g_, w in zip(got, want) for a, b in zip(g_, w))
         total = sum(len(w) for w in want)
         match = same / total
-        rec = dict(kv_dtype=kv_dtype, match=match, min_match=TRAINED_MATCH_MIN,
+        rec = dict(kv_dtype=kv_dtype, recent_window=ring,
+                   staggered=staggered, paged_prefill=str(paged), match=match,
+                   min_match=TRAINED_MATCH_MIN, routes=routes,
+                   speculation=spec,
                    text=[bytes(t).decode("utf-8", "replace") for t in got])
         log("trained_model", **rec)
         if not match >= TRAINED_MATCH_MIN:
             raise AssertionError(f"trained-model greedy match {match}")
+        if staggered and not all(routes[k] for k in (
+                "prefill_group", "prefill_ragged", "fused", "speculative")):
+            raise AssertionError(f"a route was not reached: {routes}")
         results.append(rec)
+    if not sum(r["speculation"]["proposed"] for r in results):
+        raise AssertionError("no draft was proposed on the trained model")
     return results
 
 
@@ -602,7 +892,9 @@ def main() -> int:
         ptxas=[ln.strip() for k in build.KERNELS.values()
                for ln in k.build_log.splitlines() if "Used" in ln])
     summary = {"flash_fwd": check_flash(dev),
-               "paged_decode": check_decode(dev)}
+               "paged_decode": check_decode(dev),
+               "paged_prefill": check_paged_prefill(dev),
+               "ragged_prefill": check_ragged(dev)}
     main_runs = check_main_path(dev)
     check_trained(dev)
     kernels = []

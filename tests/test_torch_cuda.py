@@ -8,9 +8,19 @@ card. Marked ``cuda``: each test skips unless a CUDA device is present
 machine need not have.)
 
 Both sides produce bf16 (or f32) from the same roundings and differ only
-in f32 summation order: bars 2e-2 for bf16 outputs (one bf16 ulp at
-magnitude < 2), 1e-4 for f32.
+in f32 summation order. The flash forward and paged decode cases hold
+bars of 2e-2 for bf16 outputs (one bf16 ulp at magnitude < 2), 1e-4 for
+f32. The paged and ragged prefill cases take each case's bar from its own
+reference (``_case_bar``, the bar of chip_smoke.py's phase 3): 2 bf16
+ulps of max |ref| for bf16 outputs -- a flipped output rounding is one
+ulp, a flipped bf16 P element moves an output by a small part of one --
+and 2^-12 of max |ref| for f32 outputs, which keep no bf16 rounding here
+(f32 q promotes bf16 and int8 history to f32, and P rounds to f32). Each
+of those cases also holds a control: the kernel against the plain
+version without the case's offsets or options must miss the bar.
 """
+
+import math
 
 import pytest
 import torch
@@ -18,6 +28,20 @@ import torch
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _case_bar(ref):
+    top = float(ref.float().abs().max())
+    if ref.dtype == torch.bfloat16:
+        return 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    return 2.0 ** -12 * top
+
+
+def _check_with_control(out, ref, control):
+    """out within ref's bar, and out off the control by more than it."""
+    bar = _case_bar(ref)
+    assert (out.float() - ref.float()).abs().max() <= bar
+    assert (out.float() - control.float()).abs().max() > bar
 
 
 @pytest.fixture
@@ -130,3 +154,133 @@ def test_cuda_tensor_never_takes_the_plain_path(dev):
     q = torch.zeros(1, 2, 8, 64, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, q)
+
+
+def _prefill_inputs(g, dtype, q_len, offsets, pps=16, ps=16, n_pages=80):
+    b = len(offsets)
+    q = _rn(g, b, 8, q_len, 128, dtype=dtype)
+    ck = _rn(g, b, 2, q_len, 128, dtype=dtype)
+    cv = _rn(g, b, 2, q_len, 128, dtype=dtype)
+    table = torch.randperm(n_pages, generator=g, device=g.device)[
+        : b * pps].reshape(b, pps).int()
+    offs = torch.tensor(offsets, dtype=torch.int32, device=g.device)
+    return q, ck, cv, table, offs
+
+
+OPTIONS = ("window", "softcap", "sinks", "alibi")
+
+
+def _control(kw, offs):
+    """The case's control: without its options where it has any, else
+    with no history (every offset 0)."""
+    if any(k in kw for k in OPTIONS):
+        return {k: v for k, v in kw.items() if k not in OPTIONS}, offs
+    return kw, torch.zeros_like(offs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize(
+    "case",
+    [dict(q_len=300, offsets=(0, 64, 250), pages_per_compute_block=4),
+     dict(q_len=9, offsets=(100, 255, 1)),
+     dict(q_len=200, offsets=(37, 160, 0), window=77, softcap=5.0,
+          sinks=True, alibi=True)],
+    ids=["chunk-mixed", "verify", "window-softcap-sinks-alibi"],
+)
+def test_paged_prefill_kernel_matches_plain(dev, dtype, pages, case):
+    from tpu_flash_torch.ops.flash import paged_prefill as pp
+    from tpu_flash_torch.ops.quant import quantize
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    kw = dict(case)
+    q, ck, cv, table, offs = _prefill_inputs(g, dtype, kw.pop("q_len"),
+                                             kw.pop("offsets"))
+    kp, vp = _rn(g, 2, 80, 16, 128), _rn(g, 2, 80, 16, 128)
+    if pages == "int8":
+        kp, vp = quantize(kp), quantize(vp)
+    else:
+        kp, vp = kp.to(getattr(torch, pages)), vp.to(getattr(torch, pages))
+    if kw.pop("sinks", False):
+        kw["sinks"] = _rn(g, 8)
+    if kw.pop("alibi", False):
+        kw["alibi"] = torch.linspace(0.3, 0.01, 8, device=dev)
+    before = pp.build.PAGED_PREFILL.launches
+    out = pp.paged_prefill_attention(q, ck, cv, kp, vp, offs, table,
+                                     hist_cap=256, **kw)
+    torch.cuda.synchronize()
+    assert pp.build.PAGED_PREFILL.launches == before + 1
+    saved = pp._paged_prefill_cuda
+    pp._paged_prefill_cuda = pp.paged_prefill_plain
+    try:
+        ref = pp.paged_prefill_attention(q, ck, cv, kp, vp, offs, table,
+                                         hist_cap=256, **kw)
+        ckw, coffs = _control(kw, offs)
+        control = pp.paged_prefill_attention(q, ck, cv, kp, vp, coffs,
+                                             table, hist_cap=256, **ckw)
+    finally:
+        pp._paged_prefill_cuda = saved
+    _check_with_control(out, ref, control)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "case",
+    [dict(q_len=300, hist_cap=200, offsets=(0, 130, 200)),
+     dict(q_len=1, hist_cap=256, offsets=(9, 256, 140)),
+     dict(q_len=200, hist_cap=128, offsets=(128, 5, 77), window=50,
+          softcap=5.0, sinks=True, alibi=True)],
+    ids=["mixed", "decode-rows", "window-softcap-sinks-alibi"],
+)
+def test_ragged_prefill_kernel_matches_plain(dev, dtype, case):
+    from tpu_flash_torch.ops.flash import ragged
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    kw = dict(case)
+    q_len, hist_cap = kw.pop("q_len"), kw.pop("hist_cap")
+    offs = torch.tensor(kw.pop("offsets"), dtype=torch.int32, device=dev)
+    b = offs.shape[0]
+    q = _rn(g, b, 8, q_len, 128, dtype=dtype)
+    k = _rn(g, b, 2, hist_cap + q_len, 128, dtype=dtype)
+    v = _rn(g, b, 2, hist_cap + q_len, 128, dtype=dtype)
+    for i, o in enumerate(offs.tolist()):  # garbage past each offset
+        k[i, :, o:hist_cap] = float("nan")
+        v[i, :, o:hist_cap] = float("nan")
+    if kw.pop("sinks", False):
+        kw["sinks"] = _rn(g, 8)
+    if kw.pop("alibi", False):
+        kw["alibi"] = torch.linspace(0.3, 0.01, 8, device=dev)
+    before = ragged.build.RAGGED_PREFILL.launches
+    out = ragged.flash_attention_ragged(q, k, v, offs, hist_cap=hist_cap,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert ragged.build.RAGGED_PREFILL.launches == before + 1
+    assert torch.isfinite(out).all()
+
+    def plain(offs, **kw):
+        return ragged.ragged_prefill_plain(
+            q, k, v, offs, hist_cap=hist_cap, sm_scale=128 ** -0.5,
+            block_kv=ragged.TILES.ragged_block_kv, **kw,
+        )
+
+    ckw, coffs = _control(kw, offs)
+    _check_with_control(out, plain(offs, **kw), plain(coffs, **ckw))
+
+
+def test_prefill_kernels_never_take_the_plain_path(dev):
+    """A CUDA call the prefill kernels do not serve raises instead of
+    falling back to the plain versions."""
+    from tpu_flash_torch.ops.flash import (
+        flash_attention_ragged,
+        paged_prefill_attention,
+    )
+
+    q = torch.zeros(1, 2, 8, 64, device=dev)
+    offs = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_ragged(q, q, q, offs, hist_cap=0)
+    pages = torch.zeros(2, 4, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_prefill_attention(q, q, q, pages, pages, offs,
+                                torch.zeros(1, 2, dtype=torch.int32,
+                                            device=dev), hist_cap=8)

@@ -2,9 +2,10 @@
 the same appends, the scheduler's plans, the sampling filters, and greedy
 serving of the trained checkpoint, token for token.
 
-The engine settings are the slice's: explicit cache layout, gathered
-prefill history (``paged_prefill=False``), the unfused step and no
-speculation on the JAX side, so both engines run the same exact paths.
+The token-parity test holds the gathered-history, unfused,
+no-speculation route (``paged_prefill=False``, ``fused_mixed_step=False``,
+``speculation_k = 0`` on both sides) against JAX; the engine's default
+routes are held in ``test_torch_engine_routes.py``.
 """
 
 import os
@@ -32,6 +33,18 @@ from tpu_flash_torch.engine import scheduler as tsched
 from tpu_flash_torch.engine.allocator import PageAllocator
 from tpu_flash_torch.engine.prefix import PrefixIndex
 from tpu_flash_torch.engine.sampling import filtered_logits, sample_tokens
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's tiny CPU tensors: the suite
+    runs several test workers on a few cores, where each worker's default
+    torch thread pool slows such ops tens of times."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 CKPT = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                     "checkpoints", "tiny-byte-llama")
@@ -213,6 +226,7 @@ def test_greedy_engine_is_token_exact_vs_jax(trained, kv_dtype, ring):
     jout = jeng.run()
     teng = InferenceEngine(tm, tp, EngineConfig(cache=CacheConfig(**cache),
                                                 **ENGINE))
+    teng.speculation_k = 0
     tids = [teng.submit(p, NEW_TOKENS) for p in PROMPTS]
     tout = teng.run()
     for ji, ti in zip(jids, tids):
@@ -228,24 +242,43 @@ def test_greedy_engine_is_token_exact_vs_jax(trained, kv_dtype, ring):
 
 
 def test_engine_refuses_what_the_slice_does_not_port(trained):
+    """Still refused: an unresolved cache layout, optimistic admission,
+    n > 1 and int4 pages in paged prefill. Paged prefill, fused mixed
+    steps and speculation (k = 8 by default) construct and step."""
+    from tpu_flash_torch.ops.flash import paged_prefill_attention
+    from tpu_flash_torch.ops.quant import QuantizedTensor
+
     _, _, tm, tp = trained
     resolved = CacheConfig(**LAYOUT, recent_window=0)
     with pytest.raises(ValueError, match="unresolved"):
         InferenceEngine(tm, tp, EngineConfig(cache=CacheConfig()))
-    for kw, match in [(dict(paged_prefill=True), "K5"),
-                      (dict(fused_mixed_step=True), "K6"),
-                      (dict(admission="optimistic"), "preemption")]:
-        with pytest.raises(NotImplementedError, match=match):
-            InferenceEngine(tm, tp, EngineConfig(cache=resolved, **kw))
+    with pytest.raises(NotImplementedError, match="preemption"):
+        InferenceEngine(tm, tp, EngineConfig(cache=resolved,
+                                             admission="optimistic"))
     eng = InferenceEngine(tm, tp, EngineConfig(cache=resolved))
     with pytest.raises(NotImplementedError, match="parallel sampling"):
         eng.submit([1, 2, 3], 4, n=2)
     assert eng.cancel(eng.submit([1, 2, 3], 4))
     assert not eng.scheduler.has_work()
-    eng.speculation_k = 4
-    eng.submit([1, 2, 3], 4)
-    with pytest.raises(NotImplementedError, match="K5"):
-        eng.step()
+    x = torch.zeros(1, 4, 8, 128)
+    int4 = QuantizedTensor(torch.zeros(2, 12, 32, 64, dtype=torch.int8),
+                           torch.ones(2, 12, 32, 1), "int4")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        paged_prefill_attention(x, x[:, :2], x[:, :2], int4, int4,
+                                torch.zeros(1, dtype=torch.int32),
+                                torch.zeros(1, 4, dtype=torch.int32),
+                                hist_cap=32)
+    eng = InferenceEngine(tm, tp, EngineConfig(
+        cache=resolved, paged_prefill=True, fused_mixed_step=True,
+        **{k: v for k, v in ENGINE.items()
+           if k not in ("paged_prefill", "fused_mixed_step")}))
+    assert eng.speculation_k == 8
+    rid = eng.submit(PROMPTS[1], 12)
+    eng.step()
+    eng.submit(PROMPTS[0], 12)
+    out = eng.run()
+    assert len(out[rid]) == 12
+    assert eng.speculation_stats()["proposed"] >= 0
 
 
 def test_jax_is_on_cpu():
@@ -259,9 +292,9 @@ def test_jax_is_on_cpu():
     ids=["plain", "window-softcap-sinks", "alibi"],
 )
 def test_engine_matches_cache_free_greedy_loop(variant):
-    """The engine's chunked prefill (gathered history, pages a window can
-    no longer see dropped), paged decode and cache on an f32 model give
-    the tokens of re-running the whole sequence through the model at
+    """The engine's gathered-history route (pages a window can no longer
+    see dropped), unfused steps, burst decode and cache on an f32 model
+    give the tokens of re-running the whole sequence through the model at
     every step, with no cache at all."""
     import dataclasses
 
@@ -278,7 +311,9 @@ def test_engine_matches_cache_free_greedy_loop(variant):
         max_decode_burst=3,
         cache=CacheConfig(page_size=4, num_pages=25, max_pages_per_seq=12,
                           kv_dtype="float32", recent_window=0),
+        paged_prefill=False, fused_mixed_step=False,
     ))
+    eng.speculation_k = 0
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, 256, n).tolist() for n in (19, 11)]
     ids = [eng.submit(p, 7) for p in prompts]

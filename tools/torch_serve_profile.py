@@ -5,20 +5,27 @@
 
 Serves the work of ``chip_smoke.py`` phase 4 with its own model, prompts
 and engines (Llama-3-8B geometry, 32 layers, seeded random bf16 weights;
-8 prompts of 100..1500 tokens) on an int8 cache with the 128-token ring
-and on a bf16 cache, and traces two windows with ``torch.profiler``:
+8 prompts of 100..1500 tokens) at the engine's default routing (paged
+prefill, fused mixed steps, speculation k 8) on an int8 cache with the
+128-token ring and on a bf16 cache, and traces two windows with
+``torch.profiler``:
 
   * prefill: the requests with max_new_tokens=1, so every step is a
-    prefill group;
+    prefill dispatch (chunks past the first attend their history through
+    paged_prefill);
   * decode: 32-token requests from the first step after every prompt is
-    in the cache, so every step is a decode burst. The window runs twice
-    with the same greedy work: untraced for its wall time, then traced.
+    in the cache, so every step is a decode call (a burst, or a
+    speculative verify where prompt lookup drafts). The window runs three
+    times with the same greedy work: untraced for its wall time, untraced
+    again with speculation off (what the per-step draft lookup costs
+    where it rarely engages), then traced.
 
-For each window it prints one JSON line: host wall time, summed device
-kernel time, the device's idle share (1 - kernel time / wall, one
-stream; for decode also against the untraced wall time), the kernel
-time by class (flash_fwd, paged_decode, matmul, other) and the heaviest
-kernels. Needs a CUDA card, nvcc and PyTorch.
+For each window it prints one JSON line: the engine's dispatches by
+route, host wall time, summed device kernel time, the device's idle
+share (1 - kernel time / wall, one stream; for decode also against the
+untraced wall time), the kernel time by class (flash_fwd, paged_decode,
+paged_prefill, ragged_prefill, matmul, other) and the heaviest kernels.
+Needs a CUDA card, nvcc and PyTorch.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 CLASSES = (
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("paged_decode", ("paged_decode_kernel",)),
+    ("paged_prefill", ("paged_prefill_kernel",)),
+    ("ragged_prefill", ("ragged_prefill_kernel",)),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet", "sm90_")),
 )
 
@@ -69,7 +78,8 @@ def trace(fn):
     return wall, kernels
 
 
-def report(window, kv_dtype, wall, kernels, tokens, untraced_wall=None):
+def report(window, kv_dtype, wall, kernels, tokens, routes,
+           untraced_wall=None, untraced_wall_no_spec=None):
     busy = sum(kernels.values())
     by_class = {}
     for name, sec in kernels.items():
@@ -78,11 +88,13 @@ def report(window, kv_dtype, wall, kernels, tokens, untraced_wall=None):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     print(json.dumps({
         "window": window, "kv_dtype": kv_dtype, "tokens": tokens,
+        "dispatches": routes,
         "wall_s": wall, "device_kernel_s": busy,
         "idle_share": 1.0 - busy / wall if wall else None,
         "untraced_wall_s": untraced_wall,
         "untraced_idle_share": (1.0 - busy / untraced_wall
                                 if untraced_wall else None),
+        "untraced_wall_speculation_off_s": untraced_wall_no_spec,
         "by_class_s": by_class,
         "top_kernels": [[n[:80], s] for n, s in top],
     }), flush=True)
@@ -107,6 +119,7 @@ def main() -> int:
         return 2
     from chip_smoke import (MAIN_TIERS, main_path_engine, main_path_model,
                             main_path_prompts)
+    from tpu_flash_torch.engine.metrics import EngineMetrics
     from tpu_flash_torch.models import LLAMA3_8B
 
     model, params = main_path_model("cuda")
@@ -116,22 +129,29 @@ def main() -> int:
             eng = main_path_engine(model, params, kv_dtype, ring, prompts)
             for p in prompts:
                 eng.submit(p, 1)
+            eng.metrics = EngineMetrics()
             wall, kernels = trace(eng.run)
             report("prefill", kv_dtype, wall, kernels,
-                   sum(len(p) for p in prompts))
-            # The decode window twice, the same greedy work each time:
-            # untraced for its wall time, then traced for its kernels.
+                   sum(len(p) for p in prompts), eng.metrics.route_counts())
+            # The decode window three times, the same greedy work each
+            # time: untraced for its wall time, untraced with speculation
+            # off, then traced for its kernels.
+            untraced = []
+            for spec_k in (eng.speculation_k, 0):
+                fill_to_decode(eng, prompts, 32)
+                eng.speculation_k, saved = spec_k, eng.speculation_k
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.run()
+                torch.cuda.synchronize()
+                untraced.append(time.perf_counter() - t0)
+                eng.speculation_k = saved
             fill_to_decode(eng, prompts, 32)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eng.run()
-            torch.cuda.synchronize()
-            untraced = time.perf_counter() - t0
-            fill_to_decode(eng, prompts, 32)
-            before = eng.metrics.decode_tokens
+            eng.metrics = EngineMetrics()
             wall, kernels = trace(eng.run)
             report("decode", kv_dtype, wall, kernels,
-                   eng.metrics.decode_tokens - before, untraced)
+                   eng.metrics.decode_tokens, eng.metrics.route_counts(),
+                   *untraced)
             eng.close()
     return 0
 

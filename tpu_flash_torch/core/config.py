@@ -17,10 +17,17 @@ def _check_pos(name: str, v: int) -> None:
         raise ValueError(f"{name} must be positive, got {v}")
 
 
+# Paged prefill's fixed block rules (the JAX kernel's constants): history
+# tokens per block before the cut to a divisor of the history pages, and
+# the most query rows (q heads x block_q) one block stacks.
+PREFILL_HIST_TOKENS = 2048
+PREFILL_ROWS_CAP = 1024
+
+
 @dataclasses.dataclass(frozen=True)
 class TileSizes:
-    """Tiles of the two CUDA kernels (and of their plain versions, which
-    walk the same tiles so that their roundings agree).
+    """Tiles of the CUDA kernels (and of their plain versions, which walk
+    the same tiles so that their roundings agree).
 
     ``block_kv``: the flash forward's kv rows per online-softmax step
     (``csrc/flash_fwd.cu`` compiles ``BK = 128``; the plain version must
@@ -29,11 +36,40 @@ class TileSizes:
     online-softmax step for bf16/int8 and for f32 pages -- the extent
     the JAX kernel uses (``tpu_flash/ops/decode/paged.py:926-934``),
     because int8 decode quantizes each P row over that whole extent.
+
+    Paged prefill walks history blocks of ``PREFILL_HIST_TOKENS // ps``
+    pages (cut until it divides the history pages) and then the chunk in
+    blocks of ``prefill_block_q`` rows, capped so that ``q_per_kv *
+    block_q <= PREFILL_ROWS_CAP`` -- the JAX kernel's defaults
+    (``tpu_flash/ops/flash/paged_prefill.py:419-441``). P is rounded
+    after each block's running max, so both versions step these blocks.
+    ``ragged_block_kv``: the ragged prefill's kv tile over the dense
+    [history | chunk] buffer (the JAX kernel takes its tile from a TPU
+    tuning table; the port fixes one for kernel and plain version).
     """
 
     block_kv: int = 128
     decode_block_tokens: int = 4096
     decode_block_tokens_f32: int = 2048
+    prefill_block_q: int = 512
+    ragged_block_kv: int = 128
+
+    def prefill_blocks(self, q_per_kv: int, q_len: int, page_size: int,
+                       hist_pages: int, block_q: Optional[int] = None,
+                       pages_per_block: Optional[int] = None):
+        """(block_q, history pages per block) of paged prefill for one
+        call's shapes, as the JAX kernel picks them; a given ``block_q``
+        or ``pages_per_block`` is honored as the JAX kernel honors it."""
+        if pages_per_block is None:
+            pages_per_block = PREFILL_HIST_TOKENS // page_size
+        ppb = max(1, min(pages_per_block, hist_pages))
+        while hist_pages % ppb:
+            ppb -= 1
+        if block_q is None:
+            block_q = self.prefill_block_q
+            if q_per_kv * block_q > PREFILL_ROWS_CAP:
+                block_q = max(8, PREFILL_ROWS_CAP // q_per_kv)
+        return min(block_q, -(-q_len // 8) * 8), ppb
 
     def __post_init__(self):
         for f in dataclasses.fields(self):
@@ -142,11 +178,13 @@ class CacheConfig:
 class EngineConfig:
     """Continuous-batching engine configuration (the JAX fields).
 
-    This slice serves through the gathered-history prefill and the
-    unfused step: ``paged_prefill`` "auto"/False and ``fused_mixed_step``
-    "auto"/False take those paths, and True raises in the engine until
-    the paged-prefill (K5) and ragged (K6) kernels are ported.
-    ``health`` is an ``engine.health.HealthConfig`` or None (defaults).
+    ``paged_prefill``: "auto" and True attend chunk history straight from
+    the pages (the paged-prefill kernel), False gathers it dense first;
+    the int4g32/k8v4 tiers always gather, as in JAX. ``fused_mixed_step``:
+    "auto" folds a step's decode slots into its prefill dispatch when
+    ``0 < live decode slots <= prefill chunks``, True whenever both exist,
+    False never. ``health`` is an ``engine.health.HealthConfig`` or None
+    (defaults).
     """
 
     max_batch_size: int = 8

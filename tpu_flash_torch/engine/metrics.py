@@ -14,6 +14,13 @@ import time
 from typing import Dict, List
 
 
+# The engine's dispatch routes: a same-stage prefill group, a mixed-stage
+# ragged prefill, a ragged prefill that carries the step's decode rows, a
+# decode burst, a speculative verify.
+ROUTES = ("prefill_group", "prefill_ragged", "fused", "decode",
+          "speculative")
+
+
 @dataclasses.dataclass
 class EngineMetrics:
     prefill_tokens: int = 0
@@ -23,6 +30,17 @@ class EngineMetrics:
     step_times: List[float] = dataclasses.field(default_factory=list)
     occupancy_sum: float = 0.0
     started_at: float = dataclasses.field(default_factory=time.perf_counter)
+    # One entry per engine dispatch, in order: its route (one of ROUTES).
+    dispatches: List[str] = dataclasses.field(default_factory=list)
+    # Per route: seconds spent in its dispatches, and their tokens
+    # (prompt tokens for the prefill routes and fused steps, committed
+    # tokens for decode bursts and speculative steps).
+    route_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    route_tokens: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # Synchronise the device around each dispatch, so that route_seconds
+    # hold its device work (for profiling: it gives up the overlap of
+    # host and device work between dispatches).
+    sync_dispatches: bool = False
 
     def record_step(
         self,
@@ -37,6 +55,18 @@ class EngineMetrics:
         self.total_seconds += step_seconds
         self.step_times.append(step_seconds)
         self.occupancy_sum += batch_occupancy
+
+    def record_dispatch(self, route: str, seconds: float,
+                        tokens: int) -> None:
+        self.dispatches.append(route)
+        self.route_seconds[route] = (
+            self.route_seconds.get(route, 0.0) + seconds
+        )
+        self.route_tokens[route] = self.route_tokens.get(route, 0) + tokens
+
+    def route_counts(self) -> Dict[str, int]:
+        """Dispatches per route, every route listed."""
+        return {r: self.dispatches.count(r) for r in ROUTES}
 
     @property
     def decode_tokens_per_second(self) -> float:
@@ -53,7 +83,7 @@ class EngineMetrics:
         idx = min(int(len(xs) * pct / 100.0), len(xs) - 1)
         return xs[idx] * 1e3
 
-    def summary(self) -> Dict[str, float]:
+    def summary(self) -> Dict[str, object]:
         return {
             "steps": self.steps,
             "prefill_tokens": self.prefill_tokens,
@@ -63,6 +93,7 @@ class EngineMetrics:
             "p50_step_ms": round(self.percentile_step_ms(50), 3),
             "p99_step_ms": round(self.percentile_step_ms(99), 3),
             "wall_seconds": round(self.total_seconds, 3),
+            "dispatches": self.route_counts(),
         }
 
     def to_json(self) -> str:

@@ -1,27 +1,33 @@
 """Inference engine: continuous batching over the paged KV cache.
 
-The port of ``tpu_flash/engine/runner.py`` for the serving slice:
-``submit`` -> ``step``/``run`` -> prefill groups -> the model forward
-(``flash_attention``) -> ``PagedKVCache.append`` -> burst decode
-(``paged_attention``) -> sampling.
+The port of ``tpu_flash/engine/runner.py``: ``submit`` -> ``step``/``run``
+-> prefill dispatches -> the model forward -> ``PagedKVCache.append`` ->
+burst decode (``paged_attention``) or speculative verify -> sampling.
+``step`` routes as the JAX engine does:
 
-  * prefill: same-stage chunks (equal start) run as one batch: tokens
-    pad to a power-of-two bucket, rows to a power-of-two count (pad rows
-    write only the trash page and trash slot). A chunk attends its
-    history gathered dense and dequantized from its pages, plus itself,
-    with ``q_offset``; its K/V append into its pages. The final chunk's
-    last-position logits give the first token.
-  * decode: bursts of up to ``max_decode_burst`` single-token steps over
-    every batch slot (inactive slots write the trash page), as a Python
-    loop with one host fetch of tokens per burst.
+  * same-stage chunks (equal start) run as one batch: tokens pad to a
+    power-of-two bucket, rows to a power-of-two count (pad rows write only
+    the trash page and trash slot). A chunk whose history is page-aligned
+    attends it straight from the pages (``paged_prefill_attention``, with
+    ``paged_prefill`` "auto"/True); otherwise the history is gathered
+    dense and dequantized and the chunk runs ``flash_attention`` with
+    ``q_offset``. The final chunk's last-position logits give the first
+    token.
+  * chunks at different stages go to one ragged dispatch: every row's
+    history bound padded to one ``hist_cap``, per-row offsets, attention
+    over the pages (paged) or over gathered ``[history | chunk]`` buffers
+    (``flash_attention_ragged``). With ``fused_mixed_step`` the step's
+    decode slots ride along as length-1 rows at their KV position and
+    sample from the same dispatch.
+  * decode: with ``speculation_k`` > 0 and nothing waiting, every active
+    slot proposes a prompt-lookup draft and all drafts are verified in one
+    batched forward (paged prefill over the pages, or an f32 einsum over
+    the gathered table with ``paged_prefill=False``), then exact rejection
+    sampling; otherwise bursts of up to ``max_decode_burst`` single-token
+    steps over every batch slot, one host fetch per burst.
 
-Routing in this slice: ``paged_prefill`` "auto"/False take the gathered
-history (True raises until the paged-prefill kernel K5 is ported);
-``fused_mixed_step`` "auto"/False take the unfused step, and chunks at
-different stages run group by group (True raises until the ragged kernel
-K6 is ported); speculation is off (``speculation_k`` 0). All three
-replaced paths are exact in the JAX engine, so the tokens are the same.
-n>1 forks, preemption/swap, LoRA and logit_bias are later slices.
+n>1 forks, preemption/swap, draft-model speculation, LoRA and logit_bias
+are later slices.
 
 The engine runs on ``model.device`` ("cuda" unless the model was built
 for "cpu"); it mutates its cache and slot tensors in place.
@@ -51,10 +57,15 @@ from tpu_flash_torch.engine.sampling import (
     GREEDY,
     SamplingParams,
     sample_tokens,
+    speculative_sample,
 )
 from tpu_flash_torch.engine.scheduler import Request, Scheduler
 from tpu_flash_torch.models.transformer import FlashTransformer, _rms_norm
 from tpu_flash_torch.ops.decode import paged_attention
+from tpu_flash_torch.ops.flash import (
+    flash_attention_ragged,
+    paged_prefill_attention,
+)
 from tpu_flash_torch.ops.quant import QuantizedTensor, dequantize
 
 
@@ -81,16 +92,6 @@ class InferenceEngine:
                 "(the auto layout policy, tpu_flash.utils.tuning."
                 "resolve_cache_config, is not ported: ROADMAP queue 1, "
                 "item 9)"
-            )
-        if config.paged_prefill is True:
-            raise NotImplementedError(
-                "paged_prefill=True needs the paged-prefill kernel (K5), "
-                "not ported yet (ROADMAP queue 2)"
-            )
-        if config.fused_mixed_step is True:
-            raise NotImplementedError(
-                "fused_mixed_step=True needs the ragged prefill kernel "
-                "(K6), not ported yet (ROADMAP queue 2)"
             )
         if config.admission != "reserve":
             raise NotImplementedError(
@@ -150,9 +151,17 @@ class InferenceEngine:
         self._fetcher = DeadlineFetcher(self.health_config.step_timeout_s)
         self._next_id = 0
         self.max_decode_burst = config.max_decode_burst
-        # Speculative decoding is a later slice (its verify path rides the
-        # paged-prefill kernel, K5); 0 keeps every step on burst decode.
-        self.speculation_k = 0
+        # Speculative decoding by prompt lookup (0 disables): all active
+        # decode slots verify their drafts in ONE batched forward (slots
+        # without a draft ride along as a plain 1-token sample); the
+        # accepted prefix plus one correction/bonus token commit per slot.
+        self.speculation_k = 8
+        # Verify without paging gathers each row's whole page table dense;
+        # cap the TOTAL (row bucket x table) tokens it is worth that for,
+        # beyond it burst decode.
+        self.speculation_max_table_tokens = 32768
+        self._spec_proposed = 0
+        self._spec_accepted = 0
 
     # -- client API ----------------------------------------------------------
 
@@ -233,33 +242,92 @@ class InferenceEngine:
     # -- engine step -----------------------------------------------------------
 
     def step(self) -> None:
-        if self.speculation_k:
-            raise NotImplementedError(
-                "speculative decoding (speculation_k > 0) needs the verify "
-                "path on the paged-prefill kernel (K5), not ported yet "
-                "(ROADMAP queue 1, item 13)"
-            )
-        self.scheduler.max_step_tokens = self.max_decode_burst
+        # Most tokens one plan can commit per slot: a decode burst or a
+        # fully accepted draft plus its bonus token.
+        self.scheduler.max_step_tokens = max(
+            self.max_decode_burst, self.speculation_k + 1
+        )
         plan = self.scheduler.step()
         t0 = time.perf_counter()
         n_decoded = 0
+        n_prefill = sum(c.length for c in plan.prefill)
         with StepTimer(self.health):
             groups: Dict[int, list] = {}
             for chunk in plan.prefill:
                 groups.setdefault(chunk.start, []).append(chunk)
-            for group in groups.values():
-                self._run_prefill_group(group)
-            if plan.decode_slots:
-                n_decoded = self._run_decode(plan.decode_slots)
+            fuse = self.config.fused_mixed_step
+            decode_live = [
+                s for s in plan.decode_slots
+                if self.active[s] and self.scheduler.slots[s] is not None
+            ]
+            if fuse == "auto":
+                fuse = 0 < len(decode_live) <= len(plan.prefill)
+            record = self.metrics.record_dispatch
+            if fuse and plan.prefill and decode_live:
+                # One dispatch for the whole step: decode slots ride the
+                # ragged prefill as length-1 rows.
+                n_decoded, secs = self._timed(
+                    self._run_prefill_ragged, plan.prefill,
+                    decode_slots=decode_live,
+                )
+                record("fused", secs, n_prefill)
+            else:
+                if len(groups) > 1:
+                    # Mixed stages: one ragged dispatch for every chunk.
+                    _, secs = self._timed(self._run_prefill_ragged,
+                                          plan.prefill)
+                    record("prefill_ragged", secs, n_prefill)
+                else:
+                    for group in groups.values():
+                        _, secs = self._timed(self._run_prefill_group, group)
+                        record("prefill_group", secs,
+                               sum(c.length for c in group))
+                if plan.decode_slots:
+                    (route, n_decoded), secs = self._timed(
+                        self._run_decode, plan.decode_slots
+                    )
+                    record(route, secs, n_decoded)
         self.metrics.record_step(
-            prefill_tokens=sum(c.length for c in plan.prefill),
+            prefill_tokens=n_prefill,
             decode_tokens=n_decoded,
             step_seconds=time.perf_counter() - t0,
             batch_occupancy=self.scheduler.num_active()
             / self.config.max_batch_size,
         )
 
+    def _timed(self, fn, *args, **kw):
+        """(fn(*args, **kw), its seconds): between device synchronisations
+        when ``metrics.sync_dispatches`` is set."""
+        sync = self.metrics.sync_dispatches and self.device.type == "cuda"
+        if sync:
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        if sync:
+            torch.cuda.synchronize(self.device)
+        return out, time.perf_counter() - t
+
     # -- prefill ---------------------------------------------------------------
+
+    def _paged_enabled(self) -> bool:
+        """Resolve ``config.paged_prefill`` ("auto" | True | False) for a
+        dispatch site: "auto" is True. The int4g32 and k8v4 tiers always
+        gather (the JAX paged-prefill kernel has no per-group or mixed
+        dequant), whatever the setting."""
+        if self.config.cache.kv_dtype in ("int4g32", "k8v4"):
+            return False
+        mode = self.config.paged_prefill
+        return True if mode == "auto" else bool(mode)
+
+    def _attention_opts(self, li: int) -> dict:
+        """Layer ``li``'s attention options (window, softcap, sinks,
+        ALiBi) for the paged and ragged prefill calls."""
+        return dict(
+            window=self._windows[li],
+            softcap=self.model.config.attn_softcap,
+            sinks=self.params["layers"][li].get("sinks"),
+            alibi=self.model.alibi_for(),
+        )
 
     def _gather_history(self, layer: int, table_rows: torch.Tensor,
                         hist_len: int, start_page: int = 0):
@@ -294,10 +362,11 @@ class InferenceEngine:
                               n_valids, slots):
         """One batch of same-stage chunks: tokens [B, bucket] at positions
         [hist_len, hist_len + bucket) of their sequences. Each row attends
-        its gathered history plus itself (q_offset = kept history); the
-        first n_valids[b] tokens' K/V append to the row's pages (pads to
-        the trash page). Returns (last-valid-position logits [B, vocab],
-        finite flag)."""
+        its history plus itself: straight from the pages when paging is on
+        and the history is page-aligned, else gathered dense (q_offset =
+        kept history). The first n_valids[b] tokens' K/V append to the
+        row's pages (pads to the trash page). Returns (last-valid-position
+        logits [B, vocab], finite flag)."""
         ps = self.config.cache.page_size
         pps = self.config.cache.max_pages_per_seq
         b, bucket = tokens.shape
@@ -312,6 +381,11 @@ class InferenceEngine:
             torch.full_like(table_rows[:, :1], self.trash_page),
         )
         offsets = (positions % ps).expand(b, bucket)
+        # Paged history (each page read once in the kernel) when the stage
+        # is page-aligned; otherwise gather-to-dense.
+        use_paged = (
+            self._paged_enabled() and hist_len > 0 and hist_len % ps == 0
+        )
         # Sliding window: drop whole leading pages no row can attend.
         drop_pages = 0
         if self._window is not None and hist_len > 0:
@@ -324,9 +398,10 @@ class InferenceEngine:
             .reshape(-1) if ring else None
         )
         tok_pos = positions.expand(b, bucket).reshape(-1)
+        li_cell = [0]
 
         def kv_hook(li, k, v):
-            if hist_len:
+            if hist_len and not use_paged:
                 hk, hv = self._gather_history(
                     li, table_rows, hist_keep, start_page=drop_pages
                 )
@@ -342,51 +417,78 @@ class InferenceEngine:
                 page_ids.reshape(-1), offsets.reshape(-1),
                 slots=tok_slots, positions=tok_pos,
             )
+            li_cell[0] = li
             return k_all, v_all
+
+        attention_fn = None
+        if use_paged:
+            starts_b = torch.full((b,), hist_len, dtype=torch.int32,
+                                  device=dev)
+
+            def attention_fn(q, k, v):
+                # k/v are the chunk's own (already appended to the pages;
+                # history stays paged below hist_len).
+                li = li_cell[0]
+                kp, vp = self.cache.layer_view(li)
+                return paged_prefill_attention(
+                    q, k, v, kp, vp, starts_b, table_rows,
+                    hist_cap=hist_len, **self._attention_opts(li),
+                )
 
         logits = self.model.forward(
             self.params, tokens, q_offset=hist_keep, kv_hook=kv_hook,
-            positions=positions,
+            positions=positions, attention_fn=attention_fn,
         )
         last = logits[torch.arange(b, device=dev), n_valids.long() - 1]
         return last, torch.isfinite(logits).all()
 
-    def _run_prefill_group(self, chunks) -> None:
-        """Prefill same-stage chunks (equal start) as one batch."""
-        start = chunks[0].start
-        bucket = _pow2_bucket(max(max(c.length for c in chunks), 8))
-        bb = _pow2_bucket(len(chunks), lo=1)
+    def _chunk_rows(self, chunks, bucket: int):
+        """Per prefill chunk: its tokens padded to ``bucket``, its page
+        table padded with the trash page, the table itself, its valid
+        length and its batch slot."""
         pps = self.config.cache.max_pages_per_seq
-        tok_rows, table_rs, n_valids, tables, slot_rows = [], [], [], [], []
+        rows = dict(tokens=[], table_rows=[], tables=[], n_valids=[],
+                    slots=[])
         for c in chunks:
             req = self.scheduler.active[c.req_id]
             toks = req._prompt[c.start:c.start + c.length]
-            tok_rows.append(toks + [0] * (bucket - c.length))
             table = self.scheduler.page_table(c.req_id)
-            tables.append(table)
-            table_rs.append(table + [self.trash_page] * (pps - len(table)))
-            n_valids.append(c.length)
-            slot_rows.append(
+            rows["tokens"].append(toks + [0] * (bucket - c.length))
+            rows["table_rows"].append(
+                table + [self.trash_page] * (pps - len(table)))
+            rows["tables"].append(table)
+            rows["n_valids"].append(c.length)
+            rows["slots"].append(
                 req.batch_slot if req.batch_slot >= 0 else self.trash_slot
             )
-        for _ in range(bb - len(chunks)):
-            # Pad rows write only the trash page; 1 valid token keeps the
-            # last-logits index in range.
-            tok_rows.append([0] * bucket)
-            table_rs.append([self.trash_page] * pps)
-            n_valids.append(1)
-            slot_rows.append(self.trash_slot)
+        return rows
 
-        def dev_tensor(rows, dtype):
-            return torch.tensor(rows, dtype=dtype).to(self.device)
+    def _pad_rows(self, rows, n: int, bucket: int) -> None:
+        """Append ``n`` pad rows: they write only the trash page and trash
+        slot; 1 valid token keeps the last-logits index in range."""
+        pps = self.config.cache.max_pages_per_seq
+        for _ in range(n):
+            rows["tokens"].append([0] * bucket)
+            rows["table_rows"].append([self.trash_page] * pps)
+            rows["n_valids"].append(1)
+            rows["slots"].append(self.trash_slot)
 
-        table_t = dev_tensor(table_rs, torch.int32)
+    def _dev_tensor(self, rows, dtype):
+        return torch.tensor(rows, dtype=dtype).to(self.device)
+
+    def _run_prefill_group(self, chunks) -> None:
+        """Prefill same-stage chunks (equal start) as one batch."""
+        bucket = _pow2_bucket(max(max(c.length for c in chunks), 8))
+        rows = self._chunk_rows(chunks, bucket)
+        self._pad_rows(rows, _pow2_bucket(len(chunks), lo=1) - len(chunks),
+                       bucket)
+        table_t = self._dev_tensor(rows["table_rows"], torch.int32)
         last_logits, finite = self._chunked_prefill_impl(
-            start,
-            dev_tensor(tok_rows, torch.int64),
+            chunks[0].start,
+            self._dev_tensor(rows["tokens"], torch.int64),
             table_t,
-            dev_tensor(n_valids, torch.int64),
-            dev_tensor(slot_rows, torch.int64),
+            self._dev_tensor(rows["n_valids"], torch.int64),
+            self._dev_tensor(rows["slots"], torch.int64),
         )
         if self.health_config.check_numerics:
             watchdog_check(
@@ -395,9 +497,170 @@ class InferenceEngine:
             )
         for i, c in enumerate(chunks):
             self._finish_prefill_chunk(
-                self.scheduler.active[c.req_id], c, table_t[i], tables[i],
-                last_logits[i],
+                self.scheduler.active[c.req_id], c, table_t[i],
+                rows["tables"][i], last_logits[i],
             )
+
+    def _ragged_prefill_impl(self, hist_cap: int, tokens, table_rows,
+                             starts, n_valids, slots):
+        """A batch of chunks at different stages in one dispatch: row b's
+        tokens sit at positions [starts[b], starts[b] + n_valids[b]) of
+        its own sequence. Attention runs over the pages with per-row
+        offsets (paged, when hist_cap is page-aligned) or over each row's
+        history gathered to hist_cap plus the chunk
+        (``flash_attention_ragged``); the chunk's K/V append to the row's
+        pages. Returns (last-valid-position logits [B, vocab], finite)."""
+        ps = self.config.cache.page_size
+        pps = self.config.cache.max_pages_per_seq
+        b, bucket = tokens.shape
+        dev = self.device
+        rel = torch.arange(bucket, device=dev)
+        positions = starts[:, None] + rel[None, :]  # [B, bucket]
+        valid = rel[None, :] < n_valids[:, None]
+        page_ids = torch.where(
+            valid,
+            table_rows.gather(1, (positions // ps).clamp(max=pps - 1)),
+            torch.full_like(table_rows[:, :1], self.trash_page),
+        )
+        offsets = positions % ps
+        use_paged = self._paged_enabled() and hist_cap % ps == 0
+        ring = self.cache.k_recent is not None
+        tok_slots = (
+            torch.where(valid, slots[:, None],
+                        torch.full_like(slots[:, None], self.trash_slot))
+            .reshape(-1) if ring else None
+        )
+        tok_pos = positions.reshape(-1)
+        li_cell = [0]
+
+        def kv_hook(li, k, v):
+            if use_paged:
+                k_all, v_all = k, v  # history stays paged
+            else:
+                hk, hv = self._gather_history(li, table_rows, hist_cap)
+                k_all = torch.cat([hk, k.to(hk.dtype)], dim=2)
+                v_all = torch.cat([hv, v.to(hv.dtype)], dim=2)
+            hkv, d = k.shape[1], k.shape[3]
+            self.cache.append(
+                li,
+                k.transpose(1, 2).reshape(b * bucket, hkv, d),
+                v.transpose(1, 2).reshape(b * bucket, hkv, d),
+                page_ids.reshape(-1), offsets.reshape(-1),
+                slots=tok_slots, positions=tok_pos,
+            )
+            li_cell[0] = li
+            return k_all, v_all
+
+        def attention_fn(q, k, v):
+            li = li_cell[0]
+            if use_paged:
+                # Per-row offsets bound each row's history read; chunk K/V
+                # just appended at or past a row's offset stay masked.
+                kp, vp = self.cache.layer_view(li)
+                return paged_prefill_attention(
+                    q, k, v, kp, vp, starts, table_rows, hist_cap=hist_cap,
+                    **self._attention_opts(li),
+                )
+            return flash_attention_ragged(
+                q, k, v, starts, hist_cap=hist_cap,
+                **self._attention_opts(li),
+            )
+
+        logits = self.model.forward(
+            self.params, tokens, kv_hook=kv_hook, positions=positions,
+            attention_fn=attention_fn,
+        )
+        last = logits[torch.arange(b, device=dev), n_valids.long() - 1]
+        return last, torch.isfinite(logits).all()
+
+    def _run_prefill_ragged(self, chunks, decode_slots=()) -> int:
+        """Prefill chunks at mixed stages in one dispatch; histories pad to
+        the power-of-two bucket of the deepest stage. ``decode_slots``
+        (fused mixed steps) also fold the step's decode work into it: each
+        decoding slot rides as a length-1 row feeding its pending token at
+        its KV position ``prefilled + generated - 1``, and its next token
+        samples from the row's last logits. Returns the number of decode
+        tokens committed."""
+        ditems = []
+        for s in decode_slots:
+            rid = self.scheduler.slots[s]
+            req = self.scheduler.active.get(rid)
+            if req is None or not self.active[s]:
+                continue
+            # KV is written for all but the newest emitted token.
+            ditems.append((req, s, req.prefilled + req.generated - 1))
+        bucket = _pow2_bucket(max(max(c.length for c in chunks), 8))
+        bb = _pow2_bucket(len(chunks) + len(ditems), lo=1)
+        pps = self.config.cache.max_pages_per_seq
+        ps = self.config.cache.page_size
+        max_start = max([c.start for c in chunks] + [f for _, _, f in ditems])
+        hist_cap = min(
+            _pow2_bucket(max_start, lo=max(self.config.prefill_chunk, 8)),
+            pps * ps,
+        )
+        rows = self._chunk_rows(chunks, bucket)
+        starts = [c.start for c in chunks]
+        for req, s, feed in ditems:
+            table = self.scheduler.page_table(req.req_id)
+            rows["tokens"].append(
+                [self.outputs[req.req_id][-1]] + [0] * (bucket - 1))
+            rows["table_rows"].append(
+                table + [self.trash_page] * (pps - len(table)))
+            rows["n_valids"].append(1)
+            rows["slots"].append(s)
+            starts.append(feed)
+        n_pad = bb - len(chunks) - len(ditems)
+        self._pad_rows(rows, n_pad, bucket)
+        starts += [0] * n_pad
+        table_t = self._dev_tensor(rows["table_rows"], torch.int32)
+        last_logits, finite = self._ragged_prefill_impl(
+            hist_cap,
+            self._dev_tensor(rows["tokens"], torch.int64),
+            table_t,
+            self._dev_tensor(starts, torch.int64),
+            self._dev_tensor(rows["n_valids"], torch.int64),
+            self._dev_tensor(rows["slots"], torch.int64),
+        )
+        if self.health_config.check_numerics:
+            watchdog_check(
+                self.health, self._fetcher.fetch(finite),
+                phase="prefill",
+                request_ids=[c.req_id for c in chunks]
+                + [it[0].req_id for it in ditems],
+            )
+        for i, c in enumerate(chunks):
+            self._finish_prefill_chunk(
+                self.scheduler.active[c.req_id], c, table_t[i],
+                rows["tables"][i], last_logits[i],
+            )
+        if not ditems:
+            return 0
+        # The fused decode rows: one batched sample with per-row
+        # parameters, then the decode step's per-slot bookkeeping.
+        dlog = last_logits[len(chunks):len(chunks) + len(ditems)]
+        sps = [it[0].sampling for it in ditems]
+        toks = self._sample(
+            dlog,
+            np.array([sp.temperature for sp in sps], np.float32),
+            np.array([sp.top_k for sp in sps], np.int32),
+            np.array([sp.top_p for sp in sps], np.float32),
+            np.array([sp.min_p for sp in sps], np.float32),
+        )
+        logps = torch.log_softmax(dlog, dim=-1).gather(1, toks[:, None])[:, 0]
+        host = self._fetcher.fetch(torch.stack([toks.double(),
+                                                logps.double()]))
+        for i, (req, s, feed) in enumerate(ditems):
+            tok = int(host[0, i])
+            self.outputs[req.req_id].append(tok)
+            self.logprobs[req.req_id].append(float(host[1, i]))
+            self.last_tokens[s] = tok
+            self.lengths[s] = feed + 1
+            self.scheduler.report_decoded(req.req_id)
+            if tok in req.stop_tokens:
+                req.stopped = True
+            if req.done:
+                self.active[s] = False
+        return len(ditems)
 
     def _sample(self, logits, temps, top_ks, top_ps, min_ps):
         """[rows] tokens from [rows, vocab] logits with host parameter
@@ -533,17 +796,281 @@ class InferenceEngine:
             logps.append(lp)
         return torch.stack(toks), torch.stack(flags).all(), torch.stack(logps)
 
-    def _run_decode(self, decode_slots: List[int]) -> int:
+    # -- speculative decoding ----------------------------------------------------
+
+    @staticmethod
+    def _find_draft(context: List[int], k: int, ngram: int = 2) -> List[int]:
+        """Prompt-lookup drafting: find the latest earlier occurrence of the
+        context's final n-gram and propose the tokens that followed it."""
+        if len(context) < ngram + 1 or k < 1:
+            return []
+        key = tuple(context[-ngram:])
+        for i in range(len(context) - ngram - 1, -1, -1):
+            if tuple(context[i:i + ngram]) == key:
+                return list(context[i + ngram:i + ngram + k])
+        return []
+
+    def _propose_drafts(self, contexts: List[List[int]],
+                        k: int) -> List[List[int]]:
+        """Up to k draft tokens per context by prompt lookup (draft-model
+        proposals are a later slice)."""
+        return [self._find_draft(c, k) for c in contexts]
+
+    def _verify_dense_attention(self, q, k, v, positions, li: int):
+        """Verify attention without paging: exact f32 attention of the
+        draft rows q [B, hq, n_tok, d] over each row's whole gathered table
+        k/v [B, hkv, hist_full, d], masked per row by position (the JAX
+        engine's einsum route, outside any kernel)."""
+        cfg = self.model.config
+        rep = q.shape[1] // k.shape[1]
+        kf = k.float().repeat_interleave(rep, dim=1)
+        vf = v.float().repeat_interleave(rep, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (
+            cfg.head_dim ** -0.5
+        )
+        softcap = cfg.attn_softcap
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        key_pos = torch.arange(k.shape[2], device=q.device)[None, None, None]
+        q_pos = positions[:, None, :, None]
+        allow = key_pos <= q_pos
+        win = self._windows[li]
+        if win is not None:
+            allow = allow & (key_pos > q_pos - win)
+        alibi = self.model.alibi_for()
+        if alibi is not None:
+            s = s + alibi.float()[None, :, None, None] * (
+                key_pos - q_pos
+            ).float()
+        s = torch.where(allow, s, torch.full_like(s, -1e30))
+        sinks = self.params["layers"][li].get("sinks")
+        if sinks is not None:
+            sink_col = sinks.float()[None, :, None, None].expand(
+                *s.shape[:3], 1
+            )
+            w = torch.softmax(torch.cat([s, sink_col], dim=-1), dim=-1)
+            w = w[..., :-1]
+        else:
+            w = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bhkd->bhqd", w, vf).to(q.dtype)
+
+    def _verify_impl(self, n_tok: int, tokens, lengths_b, table_rows, temps,
+                     top_ks, top_ps, draft_lens, min_ps, slots):
+        """Verify a batch of [last_token, draft...] rows [B, n_tok] in one
+        forward at per-row offsets ``lengths_b``, then exact rejection
+        sampling per row. Every row's n_tok tokens' K/V append to the
+        pages (rejected entries are masked by lengths and overwritten when
+        their positions are reached); the exact ring takes only the
+        accepted rows, after the sampler (the rest go to the trash slot).
+        Returns (emit [B, n_tok], n_emit [B], finite, logps [B, n_tok])."""
+        ps = self.config.cache.page_size
+        pps = self.config.cache.max_pages_per_seq
+        hist_full = pps * ps
+        b = tokens.shape[0]
+        dev = self.device
+        positions = lengths_b[:, None].long() + torch.arange(
+            n_tok, device=dev
+        )[None]
+        # Positions past the reserved pages land on the trash page (the
+        # table padding), and past the table nowhere live.
+        page_idx = positions // ps
+        page_ids = torch.where(
+            page_idx < pps,
+            table_rows.gather(1, page_idx.clamp(max=pps - 1)),
+            torch.full_like(table_rows[:, :1], self.trash_page),
+        )
+        offsets = positions % ps
+        use_paged = self._paged_enabled()
+        kv_stash = {}
+        li_cell = [0]
+
+        def kv_hook(li, k, v):
+            hkv, d = k.shape[1], k.shape[3]
+            kn = k.transpose(1, 2).reshape(b * n_tok, hkv, d)
+            vn = v.transpose(1, 2).reshape(b * n_tok, hkv, d)
+            self.cache.append(li, kn, vn, page_ids.reshape(-1),
+                              offsets.reshape(-1))
+            if self.cache.k_recent is not None:
+                kv_stash[li] = (kn, vn)
+            li_cell[0] = li
+            if use_paged:
+                return k, v  # history stays paged
+            return self._gather_history(li, table_rows, hist_full)
+
+        def attention_fn(q, k, v):
+            li = li_cell[0]
+            if use_paged:
+                kp, vp = self.cache.layer_view(li)
+                return paged_prefill_attention(
+                    q, k, v, kp, vp, lengths_b, table_rows,
+                    hist_cap=hist_full, **self._attention_opts(li),
+                )
+            return self._verify_dense_attention(q, k, v, positions, li)
+
+        logits = self.model.forward(
+            self.params, tokens, kv_hook=kv_hook, positions=positions,
+            attention_fn=attention_fn,
+        )  # [B, n_tok, vocab]
+        emit, n_emit = speculative_sample(
+            logits, tokens[:, 1:], self._generator, temps, top_ks, top_ps,
+            draft_lens, min_p=min_ps,
+        )
+        # Reported log-probs are the raw model distribution's.
+        logps = torch.log_softmax(logits, dim=-1).gather(
+            -1, emit[..., None]
+        )[..., 0]
+        finite = torch.isfinite(logits).all()
+        if kv_stash:
+            accept = torch.arange(n_tok, device=dev)[None] < n_emit[:, None]
+            wslots = torch.where(
+                accept, slots[:, None],
+                torch.full_like(slots[:, None], self.trash_slot),
+            ).reshape(-1)
+            for li, (kn, vn) in kv_stash.items():
+                self.cache.write_recent(li, kn, vn, wslots,
+                                        positions.reshape(-1))
+        return emit, n_emit, finite, logps
+
+    def _run_speculative(self, items) -> int:
+        """Verify every item's draft in one batched forward. ``items``:
+        (req, slot, draft) for all active decode slots; items with an empty
+        draft ride along as one plain token. Rows pad to a power of two."""
+        max_k = max(len(d) for _, _, d in items)
+        n_tok = 1 + max_k
+        bb = _pow2_bucket(len(items), lo=1)
+        pps = self.config.cache.max_pages_per_seq
+        tok_rows, dlens, sps = [], [], []
+        for req, _slot, draft in items:
+            last = (self.outputs[req.req_id] or req._prompt)[-1]
+            tok_rows.append([last] + draft + [0] * (max_k - len(draft)))
+            dlens.append(len(draft))
+            sps.append(req.sampling)
+        n_pad = bb - len(items)
+        tok_rows += [[0] * n_tok] * n_pad
+        dlens += [0] * n_pad
+        sps += [GREEDY] * n_pad
+        dev = self.device
+        slots_t = torch.tensor([slot for _, slot, _ in items],
+                               dtype=torch.long, device=dev)
+        lengths_b = torch.cat([
+            self.lengths[slots_t],
+            torch.zeros((n_pad,), dtype=torch.int32, device=dev),
+        ])
+        table_rows = torch.cat([
+            self.page_tables[slots_t],
+            torch.full((n_pad, pps), self.trash_page, dtype=torch.int32,
+                       device=dev),
+        ])
+        slot_rows = torch.cat([
+            slots_t,
+            torch.full((n_pad,), self.trash_slot, dtype=torch.long,
+                       device=dev),
+        ])
+
+        def param(name, dtype):
+            return torch.tensor([getattr(sp, name) for sp in sps],
+                                dtype=dtype, device=dev)
+
+        emit, n_emit, finite, logps = self._verify_impl(
+            n_tok, torch.tensor(tok_rows, dtype=torch.long, device=dev),
+            lengths_b, table_rows, param("temperature", torch.float32),
+            param("top_k", torch.int64), param("top_p", torch.float32),
+            torch.tensor(dlens, dtype=torch.long, device=dev),
+            param("min_p", torch.float32), slot_rows,
+        )
+        # One host fetch: tokens, log-probs, counts (exact in float64) and
+        # the finite flag.
+        host = self._fetcher.fetch(torch.cat([
+            emit.double(), logps.double(), n_emit.double()[:, None],
+            finite.double().expand(bb, 1),
+        ], dim=1))
+        if self.health_config.check_numerics:
+            watchdog_check(
+                self.health, host[0, -1], phase="decode",
+                request_ids=[r.req_id for r, _, _ in items],
+            )
+        total = 0
+        for i, (req, slot, draft) in enumerate(items):
+            n_emit_i = int(host[i, 2 * n_tok])
+            emitted = [int(t) for t in host[i, :n_emit_i]]
+            emitted = emitted[:req.max_new_tokens - req.generated]
+            final: List[int] = []
+            for t in emitted:
+                final.append(t)
+                if t in req.stop_tokens:
+                    req.stopped = True
+                    break
+            self._spec_proposed += len(draft)
+            self._spec_accepted += n_emit_i - 1
+            self.outputs[req.req_id].extend(final)
+            self.logprobs[req.req_id].extend(
+                float(host[i, n_tok + j]) for j in range(len(final))
+            )
+            self.scheduler.report_decoded(req.req_id, len(final))
+            self.lengths[slot] += len(final)
+            self.last_tokens[slot] = final[-1]
+            if req.done:
+                self.active[slot] = False
+            total += len(final)
+        return total
+
+    def speculation_stats(self) -> Dict[str, float]:
+        return {
+            "proposed": float(self._spec_proposed),
+            "accepted": float(self._spec_accepted),
+            "acceptance_rate": (
+                self._spec_accepted / self._spec_proposed
+                if self._spec_proposed else 0.0
+            ),
+        }
+
+    def _run_decode(self, decode_slots: List[int]):
+        """Decode every live slot of ``decode_slots``: one speculative
+        verify or one burst. Returns (route, tokens committed)."""
         mask = np.zeros((self.config.max_batch_size,), bool)
         for s in decode_slots:
             mask[s] = True
         mask &= self.active
-        active_mask = torch.from_numpy(mask).to(self.device)
         rids = [
             self.scheduler.slots[s]
             for s in decode_slots
             if mask[s] and self.scheduler.slots[s] is not None
         ]
+        # Speculative path: verify every slot's draft in one batched
+        # forward instead of k sequential steps, when nothing waits for
+        # admission and the verify batch fits its token cap.
+        table_tokens = (self.config.cache.max_pages_per_seq
+                        * self.config.cache.page_size)
+        if (
+            self.speculation_k > 0
+            and rids
+            and not self.scheduler.waiting
+            and table_tokens * _pow2_bucket(len(rids), lo=1)
+            <= self.speculation_max_table_tokens
+        ):
+            items, want = [], []  # want: (items index, context, k)
+            for rid in rids:
+                req = self.scheduler.active.get(rid)
+                if req is None:
+                    continue
+                k = min(self.speculation_k,
+                        req.max_new_tokens - req.generated - 1)
+                items.append((req, req.batch_slot, []))
+                if k > 0:
+                    want.append((len(items) - 1,
+                                 req._prompt + self.outputs[req.req_id], k))
+            if want:
+                proposals = self._propose_drafts(
+                    [c for _, c, _ in want], max(k for _, _, k in want)
+                )
+                for (idx, _, k), d in zip(want, proposals):
+                    req, slot, _ = items[idx]
+                    items[idx] = (req, slot, d[:k])
+            # Engage when the draft mass beats what one burst step would
+            # yield anyway.
+            if items and sum(len(d) for _, _, d in items) >= len(items):
+                return "speculative", self._run_speculative(items)
+        active_mask = torch.from_numpy(mask).to(self.device)
         # Burst size: as many steps as every active request can still
         # take, capped; single steps while work is waiting (admission).
         remaining = [
@@ -595,4 +1122,4 @@ class InferenceEngine:
             if req is not None and req.done:
                 self.active[s] = False
             n += taken
-        return n
+        return "decode", n

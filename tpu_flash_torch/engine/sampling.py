@@ -96,8 +96,98 @@ def sample_tokens(
     ``argmax`` alone and skip the filters)."""
     greedy = logits.argmax(dim=-1)
     filtered = filtered_logits(logits, temperature, top_k, top_p, min_p)
-    u = torch.rand(filtered.shape, generator=generator,
-                   device=filtered.device)
+    return torch.where(temperature <= 0.0, greedy,
+                       _categorical(filtered, generator))
+
+
+def _categorical(logits: torch.Tensor, generator: torch.Generator):
+    """One draw per row of softmax(logits) by Gumbel-max."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
     u = u.clamp(min=torch.finfo(torch.float32).tiny)
-    sampled = (filtered - torch.log(-torch.log(u))).argmax(dim=-1)
-    return torch.where(temperature <= 0.0, greedy, sampled)
+    return (logits - torch.log(-torch.log(u))).argmax(dim=-1)
+
+
+def speculative_sample(
+    logits: torch.Tensor,  # [B, k+1, vocab] f32: row i of a batch row is
+    # the target distribution after draft token i-1 (row 0: after the last
+    # committed token)
+    draft: torch.Tensor,  # [B, k] proposed tokens
+    generator: torch.Generator,
+    temperature: torch.Tensor,  # [B] f32
+    top_k: torch.Tensor,  # [B] int
+    top_p: torch.Tensor,  # [B] f32
+    draft_len: Optional[torch.Tensor] = None,  # [B]: only the first
+    # draft_len proposals of a row are real (rows pad to a common k)
+    min_p: Optional[torch.Tensor] = None,  # [B] f32
+):
+    """Exact speculative rejection sampling for a deterministic draft, per
+    batch row (``tpu_flash.engine.sampling.speculative_sample`` with the
+    batch written out in place of ``vmap``).
+
+    The draft is a point mass, so draft[i] is accepted with probability
+    p_i(draft[i]) of the filtered target distribution; at the first
+    rejection the correction is drawn from p_i with draft[i] zeroed; when
+    every real proposal is accepted, a bonus token is drawn from the next
+    row unmodified. Every emitted token is an exact sample of the target.
+    Greedy rows (temperature <= 0) have one-hot rows, so they accept
+    exactly the draft tokens that equal the argmax and emit the argmax.
+
+    Returns (tokens [B, k+1], n_emit [B]): the first n_emit tokens of a
+    row are its accepted prefix plus one correction or bonus token.
+    """
+    b, n_tok, vocab = logits.shape
+    k = n_tok - 1
+    dev = logits.device
+    draft = draft.long()
+    rows = torch.arange(b, device=dev)
+    if draft_len is None:
+        k_eff = torch.full((b,), k, dtype=torch.long, device=dev)
+    else:
+        k_eff = draft_len.to(dev).long()
+    real = torch.arange(k, device=dev)[None, :] < k_eff[:, None]
+    greedy = temperature.to(dev) <= 0.0
+    if bool(greedy.all()):
+        # One-hot targets: the same result without filters or draws.
+        top = logits.argmax(dim=-1)  # [B, k+1]
+        accept = (draft == top[:, :k]) & real
+        a = torch.cumprod(accept.long(), dim=1).sum(dim=1)
+        correction = top[rows, a]
+    else:
+        def per_token(x):
+            return None if x is None else x.repeat_interleave(n_tok)
+
+        probs = torch.softmax(
+            filtered_logits(
+                logits.reshape(b * n_tok, vocab), per_token(temperature),
+                per_token(top_k), per_token(top_p), per_token(min_p),
+            ),
+            dim=-1,
+        ).reshape(b, n_tok, vocab)
+        p_draft = probs[:, :k].gather(-1, draft[..., None])[..., 0]
+        u = torch.rand((b, k), generator=generator, device=dev)
+        accept = (u < p_draft) & real
+        a = torch.cumprod(accept.long(), dim=1).sum(dim=1)  # leading accepts
+        # Correction (a < real draft length): row a with draft[a] zeroed;
+        # bonus (every real proposal accepted): row a unmodified.
+        p_row = probs[rows, a]  # [B, vocab]
+        rejected = torch.full_like(a, -1)
+        if k:
+            rejected = torch.where(
+                a < k_eff, draft[rows, a.clamp(max=k - 1)], rejected
+            )
+        p_adj = torch.where(
+            torch.arange(vocab, device=dev)[None, :] == rejected[:, None],
+            torch.zeros_like(p_row), p_row,
+        )
+        correction = torch.where(
+            greedy, p_adj.argmax(dim=-1),
+            _categorical(torch.log(p_adj), generator),
+        )
+    draft_padded = torch.cat(
+        [draft, torch.zeros((b, 1), dtype=torch.long, device=dev)], dim=1
+    )
+    tokens = torch.where(
+        torch.arange(n_tok, device=dev)[None, :] < a[:, None], draft_padded,
+        correction[:, None],
+    )
+    return tokens, a + 1

@@ -1,10 +1,11 @@
 """Build, load and count the package's hand-written CUDA kernels.
 
 Each kernel is one CUDA C++ source in ``tpu_flash_torch/csrc/`` with a
-plain C entry point. At first use it is compiled by ``nvcc`` for
-``sm_90a`` into a shared library under ``build/tpu_flash_torch/`` at the
-repository root (named by a hash of the sources and flags, so an edited
-source rebuilds) and loaded with ``ctypes``. Nothing here runs at import
+plain C entry point (sources may include the shared ``*.cuh`` headers
+there). At first use it is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library under ``build/tpu_flash_torch/`` at the repository root
+(named by a hash of the source, every header and the flags, so an edited
+source or header rebuilds) and loaded with ``ctypes``. Nothing here runs at import
 time; on a machine without ``nvcc`` only the CPU plain versions work.
 
 Every kernel carries ``launches``, a plain integer its wrapper raises by
@@ -64,10 +65,11 @@ class CudaKernel:
         self._lib = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:
         """Start nvcc (returns the process), or None when the library for
@@ -130,8 +132,19 @@ PAGED_DECODE = CudaKernel(
     [P] * 14 + [I] * 11 + [F, I, F, F, P],
     replaces="tpu_flash/ops/decode/paged.py:122",
 )
+PAGED_PREFILL = CudaKernel(
+    "paged_prefill", "paged_prefill",
+    [P] * 12 + [I] * 12 + [F, I, F, F, P],
+    replaces="tpu_flash/ops/flash/paged_prefill.py:69",
+)
+RAGGED_PREFILL = CudaKernel(
+    "ragged_prefill", "ragged_prefill",
+    [P] * 7 + [I] * 8 + [F, I, F, F, P],
+    replaces="tpu_flash/ops/flash/ragged.py:56",
+)
 KERNELS: Dict[str, CudaKernel] = {
-    k.name: k for k in (FLASH_FWD, PAGED_DECODE)
+    k.name: k for k in (FLASH_FWD, PAGED_DECODE, PAGED_PREFILL,
+                        RAGGED_PREFILL)
 }
 
 
@@ -158,6 +171,13 @@ def stream_handle(tensor) -> int:
     import torch
 
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def aligned(tensor):
+    """``tensor`` contiguous and starting on a 16-byte boundary (kernels
+    that read rows in 16-byte pieces need it); copied only where not."""
+    t = tensor.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ptr(tensor) -> Optional[int]:
