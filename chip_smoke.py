@@ -8,11 +8,13 @@ toolkit (nvcc) and PyTorch built for CUDA; it needs no JAX and no
 network. Phases, one JSON line each:
 
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: the four CUDA kernels from tpu_flash_torch/csrc (one nvcc
-     each, started together), with the build seconds;
+  2. build: the CUDA kernels from tpu_flash_torch/csrc (one nvcc per
+     source, all started together), with the build seconds;
   3. kernels: each kernel against its plain PyTorch version on the card
      at the main path's shapes, with times, bounds and a library
-     yardstick;
+     yardstick: the forward (segment ids included), the backward pair
+     (dK/dV and dQ) at the training shape, decode, paged and ragged
+     prefill;
   4. main path: Llama-3-8B geometry at full width (all 32 layers, seeded
      random bf16 weights made on the card) served by the port's engine at
      its default routing (paged prefill, fused mixed steps, speculation
@@ -25,7 +27,16 @@ network. Phases, one JSON line each:
      defaults with bf16 and int8 caches, and a staggered two-request
      scenario that reaches every route; the int8 runs again with
      paged_prefill=False; each run's greedy text against the same engine
-     on the plain versions.
+     on the plain versions;
+  6. training at full width: Llama-3-8B widths cut to 4 of its 32 layers
+     (the only cut), seeded random bf16 weights made on the card, batch
+     4 x 2048 tokens, AdamW with a norm clip for 6 steps on one repeated
+     seeded batch: loss per step, train tok/s, the first step's
+     gradients against the plain versions' (and a control batch's);
+  7. the trained checkpoint: its loss over windows of the repo's own
+     Markdown on the kernels and on the plain versions, then 10 AdamW
+     steps on each path from the same weights and batches (one batch
+     packed with segment ids), step losses compared.
 
 Then the nvidia-smi line, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -45,6 +56,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+SCALE = 128 ** -0.5
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
 # Kernel vs plain version: they take every rounding the TPU kernel
 # specifies and differ only in f32 summation order. That can flip the
@@ -160,6 +172,7 @@ def flash_cases(dev):
              + 0.5 * torch.randn(32, generator=g, device=dev))
     slopes = torch.linspace(0.5, 0.004, 32, device=dev)
     causal = dict(causal=True)
+    seg = segment_ids(2, 512, 3, dev)
     return [
         ("prompt_causal", *qkv(4, 512, 512), causal, dict(causal=False)),
         ("chunk_q_offset", *qkv(4, 512, 1536),
@@ -169,19 +182,30 @@ def flash_cases(dev):
          causal),
         ("sinks", *qkv(2, 512, 512), dict(causal=True, sinks=sinks), causal),
         ("alibi", *qkv(2, 512, 512), dict(causal=True, alibi=slopes), causal),
+        ("segments", *qkv(2, 512, 512),
+         dict(causal=True, q_seg=seg, kv_seg=seg), causal),
     ]
+
+
+def segment_ids(b, n, docs, dev):
+    """[b, n] int32 ids of ``docs`` documents a row, each row's cuts
+    shifted by 37 tokens from the last."""
+    import torch
+
+    i = (torch.arange(n, device=dev)[None, :]
+         + 37 * torch.arange(b, device=dev)[:, None])
+    return (i * docs // (n + 37 * b)).int()
+
+
+def live_pairs(b, sq, skv, kw):
+    """(query, key) pairs the options leave live, summed over the batch,
+    as this run's inputs give them."""
+    return int(attention_mask(b, sq, skv, kw).sum())
 
 
 def flash_bound(q, k, kw):
     b, hq, sq, d = q.shape
-    skv = k.shape[2]
-    off, win = kw.get("q_offset", 0), kw.get("window")
-    pairs = 0
-    for i in range(sq):
-        hi = min(skv, i + off + 1) if kw.get("causal") else skv
-        lo = max(0, i + off - win + 1) if win else 0
-        pairs += hi - lo
-    ops = 4.0 * b * hq * pairs * d
+    ops = 4.0 * hq * d * live_pairs(b, sq, k.shape[2], kw)
     nbytes = 2 * (2 * q.numel() + 2 * k.numel())
     return bound(nbytes, ops, "bfloat16")
 
@@ -210,23 +234,256 @@ def check_flash(dev):
                    bound_ms=bound_ms, bound_by=bound_by)
         if name == "prompt_causal":
             row["library_ms"] = sdpa_ms(q, k, v)
+        elif name == "chunk_q_offset":
+            row["library_ms"] = sdpa_ms(q, k, v, mask=attention_mask(
+                q.shape[0], q.shape[2], k.shape[2], kw))
         rows.append(row)
         log("kernel_vs_plain", kernel="flash_fwd", **row)
     raise_if_failed("flash_fwd", rows)
     return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
-def sdpa_ms(q, k, v):
-    """PyTorch's fused attention on the same causal whole-prompt inputs:
-    a yardstick only, never called by the port."""
+def sdpa_ms(q, k, v, mask=None):
+    """PyTorch's fused attention on the same inputs (causal, or under a
+    boolean ``mask``): a yardstick only, never called by the port."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
+    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
     try:
-        sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        sdpa(q, k, v, enable_gqa=True, **kw)
     except TypeError:  # PyTorch without enable_gqa
         return None
-    return time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
-                   10)
+    return time_ms(lambda: sdpa(q, k, v, enable_gqa=True, **kw), 10)
+
+
+def attention_mask(b, sq, skv, kw):
+    """The boolean [b, 1, sq, skv] mask of flash options (causal with
+    q_offset, window, kv tail, segment ids), for PyTorch's fused
+    attention as a yardstick."""
+    import torch
+
+    dev = "cuda"
+    i = torch.arange(sq, device=dev)[:, None] + kw.get("q_offset", 0)
+    j = torch.arange(skv, device=dev)[None, :]
+    m = j < (kw.get("kv_len") or skv)
+    if kw.get("causal"):
+        m = m & (j <= i)
+        if kw.get("window"):
+            m = m & (j > i - kw["window"])
+    m = m[None, None].expand(b, 1, sq, skv)
+    if kw.get("q_seg") is not None:
+        m = m & (kw["q_seg"][:, None, :, None]
+                 == kw["kv_seg"][:, None, None, :])
+    return m
+
+
+def sdpa_bwd_ms(q, k, v, do, kw):
+    """The backward of PyTorch's fused attention through autograd on the
+    same inputs and mask (forward outside the timer); None where it
+    cannot compute the same function (softcap, sinks, ALiBi, an lse
+    cotangent) or lacks ``enable_gqa``."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    if any(kw.get(x) is not None for x in ("softcap", "sinks", "alibi",
+                                           "dlse")):
+        return None
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    if kw == dict(causal=True) and q.shape[2] == k.shape[2]:
+        opts = dict(is_causal=True)
+    elif kw == dict(causal=False):
+        opts = {}
+    else:
+        opts = dict(attn_mask=attention_mask(q.shape[0], q.shape[2],
+                                             k.shape[2], kw))
+    try:
+        out = sdpa(*leaves, enable_gqa=True, **opts)
+    except TypeError:  # PyTorch without enable_gqa
+        return None
+    return time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                               retain_graph=True), 5)
+
+
+def kernel_ms(kernel, fn, iters: int, warmup: int = 1) -> float:
+    """Mean device milliseconds of one kernel's launches inside fn(), by
+    CUDA events recorded around each of its launches."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    events = []
+    launch = kernel.launch
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(*args)
+        end.record()
+        events.append((start, end))
+
+    kernel.launch = timed
+    try:
+        for _ in range(iters):
+            fn()
+    finally:
+        del kernel.launch  # back to the class's method
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / len(events)
+
+
+def bwd_bound(q, k, kw, which):
+    """Least time of one backward kernel: its inputs read once (q, dO,
+    k, v, lse and di) and the function's outputs written once (dK and dV
+    per kv head, as the backward returns them, or dQ), against its
+    products over the live pairs: S, dP, dV, dK (8 d FLOPs a pair) for
+    dK/dV, S, dP, dQ (6 d) for dQ."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    es = q.element_size()
+    pairs = hq * live_pairs(b, sq, skv, kw)
+    nbytes = 2 * b * hq * sq * d * es + 2 * b * hkv * skv * d * es \
+        + 2 * 4 * b * hq * sq
+    if which == "dkv":
+        nbytes += 2 * b * hkv * skv * d * es
+        ops = 8.0 * d * pairs
+    else:
+        nbytes += b * hq * sq * d * es
+        ops = 6.0 * d * pairs
+    return bound(nbytes, ops, str(q.dtype).removeprefix("torch."))
+
+
+def flash_bwd_cases(dev):
+    """(name, dtype, b, sq, skv, options, control options) at the training
+    shape: hq 32 / hkv 8, d 128, s 2048; b 4 (the main path's) for the
+    causal case, b 2 for the rest. Options are flash options; ``sinks``
+    reaches only the forward that makes o and lse, ``dlse`` only the
+    backward. The control drops the case's option."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    sinks = (math.log(2048) + 1.0
+             + 0.5 * torch.randn(32, generator=g, device=dev))
+    slopes = torch.linspace(0.5, 0.004, 32, device=dev)
+    seg = segment_ids(2, 2048, 3, dev)
+    dlse = torch.randn(2, 32, 2048, generator=g, device=dev)
+    bf, causal = torch.bfloat16, dict(causal=True)
+    return [
+        ("causal", bf, TRAIN_TOKENS[0], 2048, 2048, causal,
+         dict(causal=False)),
+        ("noncausal", bf, 2, 2048, 2048, dict(causal=False), causal),
+        ("offset_tail", bf, 2, 1024, 2048,
+         dict(causal=True, q_offset=1000, kv_len=2024), causal),
+        ("window", bf, 2, 2048, 2048, dict(causal=True, window=256), causal),
+        ("softcap", bf, 2, 2048, 2048, dict(causal=True, softcap=5.0),
+         causal),
+        ("sinks", bf, 2, 2048, 2048, dict(causal=True, sinks=sinks), causal),
+        ("alibi", bf, 2, 2048, 2048, dict(causal=True, alibi=slopes), causal),
+        ("segments", bf, 2, 2048, 2048, dict(causal=True, q_seg=seg,
+                                              kv_seg=seg), causal),
+        ("dlse", bf, 2, 2048, 2048, dict(causal=True, dlse=dlse), causal),
+        ("f32_causal", torch.float32, 2, 2048, 2048, causal,
+         dict(causal=False)),
+    ]
+
+
+def check_flash_bwd(dev):
+    """K8/K9 at the training shape: dq, dk and dv (per q head) of the two
+    kernels against the plain version, each within its own bar, and the
+    control (the plain version without the case's option) outside it. o
+    and lse come from the plain forward for both sides. The sinks case
+    also holds the autograd path's dsinks (kernels) against the plain
+    path's."""
+    import torch
+
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.ops.flash import api
+    from tpu_flash_torch.ops.flash import backward as bw
+    from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
+
+    def residuals(q, k, v, do, kw):
+        fkw = {x: y for x, y in kw.items() if x != "dlse"}
+        o, lse = flash_fwd_plain(q, k, v, sm_scale=SCALE, save_lse=True,
+                                 **fkw)
+        bkw = {x: y for x, y in kw.items() if x != "sinks"}
+        return (q, k, v, o, do, lse), bkw
+
+    rows = []
+    for name, dt, b, sq, skv, kw, control in flash_bwd_cases(dev):
+        g = torch.Generator(device=dev).manual_seed(SEED + 5)
+        q = torch.randn(b, 32, sq, 128, generator=g, device=dev).to(dt)
+        k, v = (torch.randn(b, 8, skv, 128, generator=g, device=dev).to(dt)
+                for _ in range(2))
+        do = torch.randn(b, 32, sq, 128, generator=g, device=dev).to(dt)
+        args, bkw = residuals(q, k, v, do, kw)
+        out = bw.flash_bwd(*args, sm_scale=SCALE, **bkw)
+        torch.cuda.synchronize()
+        ref = bw.flash_bwd_plain(*args, sm_scale=SCALE, **bkw)
+        cargs, ckw = residuals(q, k, v, do, control)
+        off = bw.flash_bwd_plain(*cargs, sm_scale=SCALE, **ckw)
+        grads = {}
+        for gname, a, r, c in zip(("dq", "dk", "dv"), out, ref, off):
+            # dV = P^T dO does not depend on an lse cotangent: no control.
+            no_control = gname == "dv" and "dlse" in kw
+            grads[gname] = agreement(a, r, None if no_control
+                                     else max_err(a, c))
+        if "sinks" in kw:
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            sk = kw["sinks"].clone().requires_grad_()
+
+            def dsinks():
+                o = api.flash_attention(*leaves, causal=True, sinks=sk)
+                return torch.autograd.grad(o, sk, do)[0]
+
+            got = dsinks()
+            with plain_versions():
+                want = dsinks()
+            o0, lse0 = flash_fwd_plain(q, k, v, sm_scale=SCALE,
+                                       causal=True, save_lse=True)
+            ctrl = api.sink_grad(kw["sinks"], lse0, bw.softmax_di(o0, do))
+            grads["dsinks"] = agreement(got, want, max_err(got, ctrl))
+
+        def run():
+            return bw.flash_bwd(*args, sm_scale=SCALE, **bkw)
+
+        ms = {"dkv": kernel_ms(build.FLASH_BWD_DKV, run, 5),
+              "dq": kernel_ms(build.FLASH_BWD_DQ, run, 5)}
+        plain_ms = {w: time_ms(lambda w=w: bw.flash_bwd_plain(
+            *args, sm_scale=SCALE, part=w, **bkw), 2) for w in ms}
+        bounds = {w: bwd_bound(q, k, bkw, w) for w in ms}
+        # The pair as flash_bwd launches it, its plain version and PyTorch's
+        # fused-attention backward: three times of the whole backward.
+        whole = dict(ms=time_ms(run, 5), plain_ms=time_ms(
+            lambda: bw.flash_bwd_plain(*args, sm_scale=SCALE, **bkw), 2),
+            library_ms=sdpa_bwd_ms(q, k, v, do, kw))
+        row = dict(case=name, dtype=str(dt).removeprefix("torch."),
+                   shape=list(q.shape), kv_len=skv,
+                   options={x: str(y) if not torch.is_tensor(y) else "tensor"
+                            for x, y in kw.items()},
+                   control={x: str(y) for x, y in control.items()},
+                   **grads, ok=all(r_["ok"] for r_ in grads.values()),
+                   ms=ms, plain_ms=plain_ms,
+                   bound_ms={w: b_[0] for w, b_ in bounds.items()},
+                   bound_by={w: b_[1] for w, b_ in bounds.items()},
+                   whole=whole)
+        rows.append(row)
+        log("kernel_vs_plain", kernel="flash_bwd", **row)
+    raise_if_failed("flash_bwd", rows)
+    first = rows[0]
+    out = {}
+    for which, outputs in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
+        # No one PyTorch call computes one kernel's outputs alone: the
+        # library's time stands only beside the whole backward's.
+        out[f"flash_bwd_{which}"] = dict(
+            max_abs_err=max(r[x]["max_abs_err"] for r in rows
+                            for x in outputs),
+            ms=first["ms"][which], plain_ms=first["plain_ms"][which],
+            bound_ms=first["bound_ms"][which],
+            bound_by=first["bound_by"][which], library_ms=None,
+            whole_ms=first["whole"]["ms"],
+            whole_plain_ms=first["whole"]["plain_ms"],
+            whole_library_ms=first["whole"]["library_ms"])
+    return out
 
 
 def decode_inputs(dev, kv_dtype, ring):
@@ -551,18 +808,20 @@ def plain_versions():
     the kernels, for the reference runs on the card (the wrappers
     themselves never do this)."""
     from tpu_flash_torch.ops.decode import paged
-    from tpu_flash_torch.ops.flash import api, forward, paged_prefill, ragged
+    from tpu_flash_torch.ops.flash import (api, backward, forward,
+                                           paged_prefill, ragged)
 
-    saved = (api.flash_fwd, paged._paged_decode_cuda,
+    saved = (api.flash_fwd, api.flash_bwd, paged._paged_decode_cuda,
              paged_prefill._paged_prefill_cuda, ragged._ragged_prefill_cuda)
     api.flash_fwd = forward.flash_fwd_plain
+    api.flash_bwd = backward.flash_bwd_plain
     paged._paged_decode_cuda = paged.paged_decode_plain
     paged_prefill._paged_prefill_cuda = paged_prefill.paged_prefill_plain
     ragged._ragged_prefill_cuda = ragged.ragged_prefill_plain
     try:
         yield
     finally:
-        (api.flash_fwd, paged._paged_decode_cuda,
+        (api.flash_fwd, api.flash_bwd, paged._paged_decode_cuda,
          paged_prefill._paged_prefill_cuda,
          ragged._ragged_prefill_cuda) = saved
 
@@ -872,6 +1131,235 @@ def check_trained(dev):
     return results
 
 
+# -- phase 6: training at full width ------------------------------------------
+
+TRAIN_LAYERS = 4       # of LLAMA3_8B's 32: the only cut
+TRAIN_TOKENS = (4, 2049)  # 4 rows of 2048 trained positions
+TRAIN_STEPS = 6
+TRAIN_LR = 1e-4
+# The first step's gradients on the kernels against those on the plain
+# versions, per tensor: ||g_kernel - g_plain|| / ||g_plain||. The two
+# differ only in attention's f32 summation order, but that flips bf16
+# roundings (o, dS, each layer's activations, and the bf16 logits, where
+# one flip moves a token's softmax weight by up to 1% at these logits'
+# magnitude), and each flip spreads through 4 layers of bf16 matmuls.
+# On the CPU, tiny-byte-llama's bf16 gradients in JAX and in the port
+# differ by 1.4-2.6% per tensor for the same reason; the bar is 5%. The
+# control, the plain gradients of another seeded batch, must miss it.
+TRAIN_GRAD_REL_TOL = 0.05
+
+
+def train_model(dev):
+    """LLAMA3_8B at full width cut to TRAIN_LAYERS layers, with seeded
+    random bf16 weights made on ``dev``."""
+    import dataclasses
+
+    import torch
+
+    from tpu_flash_torch.models import LLAMA3_8B, FlashTransformer
+
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=TRAIN_LAYERS)
+    model = FlashTransformer(cfg, device=dev)
+    return model, model.init(torch.Generator(device=dev).manual_seed(SEED))
+
+
+def train_batch(dev, vocab_size, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, vocab_size, TRAIN_TOKENS, generator=g,
+                         device=dev)
+
+
+def first_step_grads(model, params, tokens):
+    """(loss, every parameter's gradient) of one backward pass, the
+    leaves' ``.grad`` cleared so that dropping the list frees them."""
+    from tpu_flash_torch.parallel import loss_and_grads, param_leaves
+
+    loss, grads = loss_and_grads(model, params, tokens)
+    for w in param_leaves(params):
+        w.grad = None
+    return float(loss), grads
+
+
+def check_training(dev):
+    """Phase 6: gradients against the plain versions, then AdamW steps
+    on one repeated batch."""
+    import torch
+
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.parallel import (make_train_step, param_leaves,
+                                          param_names)
+
+    t0 = time.perf_counter()
+    model, params = train_model(dev)
+    cfg = model.config
+    n_params = sum(w.numel() for w in param_leaves(params))
+    batch = train_batch(dev, cfg.vocab_size, SEED + 6)
+    other = train_batch(dev, cfg.vocab_size, SEED + 7)
+    log("train_weights", model=cfg.name, layers=cfg.num_layers,
+        cut=f"depth {cfg.num_layers} of 32 layers; widths uncut",
+        params=n_params, batch=list(TRAIN_TOKENS),
+        init_s=time.perf_counter() - t0)
+
+    with plain_versions():
+        loss_plain, plain = first_step_grads(model, params, batch)
+        _, control = first_step_grads(model, params, other)
+    loss_kernel, kernel = first_step_grads(model, params, batch)
+    rel, ctrl = [], []
+    for a, r, c in zip(kernel, plain, control):
+        norm = float(r.float().norm())
+        rel.append(float((a.float() - r.float()).norm()) / norm)
+        ctrl.append(float((c.float() - r.float()).norm()) / norm)
+    names = param_names(params)
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    rec = dict(loss_kernel=loss_kernel, loss_plain=loss_plain,
+               tol=TRAIN_GRAD_REL_TOL, max_rel=rel[worst],
+               worst=names[worst], min_control_rel=min(ctrl),
+               rel={n: r for n, r in zip(names, rel)})
+    log("train_first_step_grads", **rec)
+    del kernel, plain, control
+    torch.cuda.empty_cache()
+    if not (max(rel) <= TRAIN_GRAD_REL_TOL
+            and min(ctrl) > TRAIN_GRAD_REL_TOL):
+        raise AssertionError(f"first-step gradients off the plain path, "
+                             f"or a control within the bar: {rec}")
+
+    opt = torch.optim.AdamW(param_leaves(params), lr=TRAIN_LR,
+                            weight_decay=0.01)
+    step = make_train_step(model, optimizer=opt, max_grad_norm=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        loss = step(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(float(loss))
+    launches = build.launch_counts()
+    positions = TRAIN_TOKENS[0] * (TRAIN_TOKENS[1] - 1)
+    rec = dict(gpu=gpu_query(), losses=losses, step_s=secs,
+               train_tok_per_s=positions * (TRAIN_STEPS - 1)
+               / sum(secs[1:]),
+               tokens_per_step=positions, lr=TRAIN_LR, launches=launches,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("train_steps", **rec)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    require_launches(rec, ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"])
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+# -- phase 7: the trained checkpoint, trained ---------------------------------
+
+# Kernel and plain paths on the bf16 checkpoint differ only in
+# attention's summation order: a bf16 flip moves a logit by one ulp (1/16
+# at its magnitude), which moves a mean loss over 4096 bytes by well
+# under 1e-3; through 10 AdamW steps, whose first updates are about lr
+# times the gradient's sign, only entries whose gradient sits within
+# that noise of 0 can step apart. 0.02 nats (about 1% of the loss) bars
+# each step's loss; the control, each kernel-path loss against the next
+# step's plain-path loss (another batch), must miss it. This phase checks
+# that the two paths train alike end to end, not the kernels' gradients:
+# AdamW's early steps barely see a per-tensor factor on a gradient, so
+# such a fault would pass here. Phase 3 (each kernel against its plain
+# version) and phase 6 (every first-step gradient against the plain
+# path's) are what would catch it.
+TRAINED_LOSS_TOL = 0.02
+TRAINED_STEPS = 10
+TRAINED_LR = 3e-4  # checkpoints/tiny-byte-llama/train_meta.json
+TRAINED_ROWS, TRAINED_LEN = 8, 513
+
+
+def markdown_bytes() -> bytes:
+    """The repo's own Markdown files (root level), concatenated."""
+    names = sorted(n for n in os.listdir(REPO) if n.endswith(".md"))
+    return b"".join(open(os.path.join(REPO, n), "rb").read() for n in names)
+
+
+def markdown_batches(dev, n):
+    """``n`` seeded batches of TRAINED_ROWS windows of TRAINED_LEN bytes,
+    with segment ids or None: batch n // 2 packs two documents a row (the
+    first 256 bytes of one window, the rest from another)."""
+    import torch
+
+    data = torch.frombuffer(bytearray(markdown_bytes()), dtype=torch.uint8)
+    g = torch.Generator().manual_seed(SEED + 8)
+    out = []
+    for i in range(n):
+        starts = torch.randint(0, len(data) - TRAINED_LEN, (TRAINED_ROWS,),
+                               generator=g)
+        rows = torch.stack([data[s:s + TRAINED_LEN] for s in starts]).long()
+        seg = None
+        if i == n // 2:
+            rows[:, 256:] = rows.roll(1, dims=0)[:, 256:]
+            seg = torch.zeros_like(rows)
+            seg[:, 256:] = 1
+            seg = seg.to(dev)
+        out.append((rows.to(dev), seg))
+    return out
+
+
+def check_trained_training(dev):
+    """Phase 7: the checkpoint's loss on the kernels and on the plain
+    versions, then 10 AdamW steps on each path from the same weights."""
+    import torch
+
+    from tpu_flash_torch.checkpoint import load_hf_dir
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.parallel import make_train_step, param_leaves
+
+    ckpt = os.path.join(REPO, "checkpoints", "tiny-byte-llama")
+    batches = markdown_batches(dev, TRAINED_STEPS + 1)
+    evals = {}
+    for path in ("kernel", "plain"):
+        model, params = load_hf_dir(ckpt, dtype="bfloat16", device=dev)
+        ctx = plain_versions() if path == "plain" else contextlib.nullcontext()
+        with ctx:
+            with torch.no_grad():
+                evals[path] = float(model.loss_fn(params, batches[-1][0]))
+            opt = torch.optim.AdamW(param_leaves(params), lr=TRAINED_LR,
+                                    weight_decay=0.01)
+            step = make_train_step(model, optimizer=opt, max_grad_norm=1.0)
+            build.reset_launch_counts()
+            losses = [float(step(params, toks, seg))
+                      for toks, seg in batches[:TRAINED_STEPS]]
+            launches = build.launch_counts()
+        evals[path + "_steps"] = losses
+        evals[path + "_launches"] = launches
+    diff = [abs(a - b) for a, b in zip(evals["kernel_steps"],
+                                       evals["plain_steps"])]
+    control = [abs(a - b) for a, b in zip(evals["kernel_steps"],
+                                          evals["plain_steps"][1:])]
+    rec = dict(eval_loss_kernel=evals["kernel"],
+               eval_loss_plain=evals["plain"], ln_256=math.log(256),
+               step_losses_kernel=evals["kernel_steps"],
+               step_losses_plain=evals["plain_steps"],
+               max_step_diff=max(diff), control_max_diff=max(control),
+               tol=TRAINED_LOSS_TOL, lr=TRAINED_LR,
+               launches=evals["kernel_launches"],
+               batch=[TRAINED_ROWS, TRAINED_LEN],
+               packed_step=TRAINED_STEPS // 2)
+    log("trained_training", **rec)
+    if not (abs(evals["kernel"] - evals["plain"]) <= TRAINED_LOSS_TOL
+            and evals["kernel"] < 0.5 * math.log(256)):
+        raise AssertionError(f"trained-checkpoint loss: {rec}")
+    if not (max(diff) <= TRAINED_LOSS_TOL
+            and max(control) > TRAINED_LOSS_TOL
+            and all(math.isfinite(x) for x in evals["kernel_steps"])):
+        raise AssertionError(f"training steps off the plain path: {rec}")
+    require_launches(rec, ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"])
+    if any(evals["plain_launches"].values()):
+        raise AssertionError(f"the plain path launched a kernel: {rec}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -882,6 +1370,9 @@ def main() -> int:
     from tpu_flash_torch.ops import build
 
     dev = "cuda"
+    # Plain versions and references compute f32 products in full f32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_query()
     log("device", gpu=gpu, kind=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
@@ -892,11 +1383,14 @@ def main() -> int:
         ptxas=[ln.strip() for k in build.KERNELS.values()
                for ln in k.build_log.splitlines() if "Used" in ln])
     summary = {"flash_fwd": check_flash(dev),
+               **check_flash_bwd(dev),
                "paged_decode": check_decode(dev),
                "paged_prefill": check_paged_prefill(dev),
                "ragged_prefill": check_ragged(dev)}
     main_runs = check_main_path(dev)
     check_trained(dev)
+    main_runs.append(check_training(dev))
+    check_trained_training(dev)
     kernels = []
     for name, k in build.KERNELS.items():
         s = summary[name]
@@ -908,6 +1402,7 @@ def main() -> int:
             max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
+            **{x: y for x, y in s.items() if x.startswith("whole_")},
         ))
     print(gpu_query(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -284,3 +284,124 @@ def test_prefill_kernels_never_take_the_plain_path(dev):
         paged_prefill_attention(q, q, q, pages, pages, offs,
                                 torch.zeros(1, 2, dtype=torch.int32,
                                             device=dev), hist_cap=8)
+
+
+def _segment_ids(b, n, docs, dev):
+    """[b, n] int32 ids: ``docs`` equal documents a row, the cuts
+    shifted per row."""
+    i = torch.arange(n, device=dev)[None, :] + 7 * torch.arange(
+        b, device=dev)[:, None]
+    return (i * docs // (n + 7 * b)).int()
+
+
+BWD_CASES = {
+    # name: (sq, skv, options, control options)
+    "causal-gqa": (200, 200, dict(causal=True), dict(causal=False)),
+    "noncausal-tail": (70, 300, dict(causal=False, kv_len=250),
+                       dict(causal=False)),
+    "offset": (100, 300, dict(causal=True, q_offset=200),
+               dict(causal=True)),
+    "window-softcap": (300, 300, dict(causal=True, window=77, softcap=5.0),
+                       dict(causal=True)),
+    "alibi-segments": (256, 256, dict(causal=True, alibi=True, segments=3),
+                       dict(causal=True)),
+    "dlse": (200, 200, dict(causal=True, dlse=True), dict(causal=True)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_bwd_kernels_match_plain(dev, dtype, case):
+    """dq, dk and dv of the two backward kernels against the plain
+    version, each within its own bar, and off the control (the plain
+    version without the case's option) by more than it."""
+    from tpu_flash_torch.ops.flash import backward as bw
+    from tpu_flash_torch.ops.flash.forward import flash_fwd
+
+    sq, skv, kw, ckw = BWD_CASES[case]
+    kw, ckw = dict(kw), dict(ckw)
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = _rn(g, 2, 8, sq, 128, dtype=dtype)
+    k, v = _rn(g, 2, 2, skv, 128, dtype=dtype), _rn(g, 2, 2, skv, 128,
+                                                    dtype=dtype)
+    do = _rn(g, 2, 8, sq, 128, dtype=dtype)
+    if kw.pop("alibi", False):
+        kw["alibi"] = torch.linspace(0.3, 0.01, 8, device=dev)
+    if kw.pop("segments", 0):
+        kw["q_seg"] = kw["kv_seg"] = _segment_ids(2, sq, 3, dev)
+    dlse = _rn(g, 2, 8, sq) if kw.pop("dlse", False) else None
+    o, lse = flash_fwd(q, k, v, sm_scale=128 ** -0.5, save_lse=True, **kw)
+    args = (q, k, v, o, do, lse)
+    before = (bw.build.FLASH_BWD_DKV.launches, bw.build.FLASH_BWD_DQ.launches)
+    out = bw.flash_bwd(*args, sm_scale=128 ** -0.5, dlse=dlse, **kw)
+    torch.cuda.synchronize()
+    assert (bw.build.FLASH_BWD_DKV.launches,
+            bw.build.FLASH_BWD_DQ.launches) == (before[0] + 1, before[1] + 1)
+    ref = bw.flash_bwd_plain(*args, sm_scale=128 ** -0.5, dlse=dlse, **kw)
+    control = bw.flash_bwd_plain(*args, sm_scale=128 ** -0.5, **ckw)
+    for name, a, r, c in zip(("dq", "dk", "dv"), out, ref, control):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        if case == "dlse" and name == "dv":
+            # dV = P^T dO does not depend on the lse cotangent.
+            assert (a.float() - r.float()).abs().max() <= _case_bar(r)
+            continue
+        _check_with_control(a, r, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_segments_kernel_matches_plain(dev, dtype):
+    from tpu_flash_torch.ops.flash.forward import flash_fwd, flash_fwd_plain
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = _rn(g, 2, 8, 300, 128, dtype=dtype)
+    k, v = _rn(g, 2, 2, 300, 128, dtype=dtype), _rn(g, 2, 2, 300, 128,
+                                                    dtype=dtype)
+    seg = _segment_ids(2, 300, 3, dev)
+    kw = dict(causal=True, sm_scale=128 ** -0.5)
+    out = flash_fwd(q, k, v, q_seg=seg, kv_seg=seg, **kw)
+    torch.cuda.synchronize()
+    _check_with_control(out, flash_fwd_plain(q, k, v, q_seg=seg, kv_seg=seg,
+                                             **kw),
+                        flash_fwd_plain(q, k, v, **kw))
+
+
+def test_backward_through_autograd_launches_the_kernels(dev):
+    """flash_attention(...).backward() on CUDA tensors runs flash_fwd and
+    both backward kernels (their counts rise), and rows that see no key
+    (a segment absent from kv, a NaN-filled kv tail) get zero, finite
+    gradients."""
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.ops.flash import flash_attention
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = _rn(g, 1, 8, 96, 128, dtype=torch.bfloat16).requires_grad_()
+    k = _rn(g, 1, 2, 160, 128, dtype=torch.bfloat16)
+    v = _rn(g, 1, 2, 160, 128, dtype=torch.bfloat16)
+    k[:, :, 140:] = float("nan")
+    v[:, :, 140:] = float("nan")
+    k.requires_grad_()
+    v.requires_grad_()
+    q_seg = torch.zeros(1, 96, dtype=torch.int32, device=dev)
+    q_seg[:, 60:] = 9
+    kv_seg = torch.zeros(1, 160, dtype=torch.int32, device=dev)
+    before = build.launch_counts()
+    out = flash_attention(q, k, v, kv_len=140, segment_ids=(q_seg, kv_seg))
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert after[name] == before[name] + 1, name
+    for t in (q, k, v):
+        assert torch.isfinite(t.grad).all()
+    assert float(q.grad[:, :, 60:].abs().max()) == 0.0
+    assert float(k.grad[:, :, 140:].abs().max()) == 0.0
+    assert float(q.grad[:, :, :60].float().abs().max()) > 0.0
+
+
+def test_backward_kernels_never_take_the_plain_path(dev):
+    from tpu_flash_torch.ops.flash.backward import flash_bwd
+
+    q = torch.zeros(1, 2, 8, 64, device=dev)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_bwd(q, q, q, q, q, lse, causal=True, sm_scale=0.125)

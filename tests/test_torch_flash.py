@@ -116,5 +116,7 @@ def test_validation_errors():
             1, 3, 8, 16))
     with pytest.raises(ValueError, match="alibi requires causal"):
         t_flash(tq, tk, tv, alibi=torch.ones(4))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        t_flash(tq, tk, tv, segment_ids=(None, None))
+    with pytest.raises(ValueError, match="q segment ids must be"):
+        t_flash(tq, tk, tv, segment_ids=(torch.zeros(1, 7), torch.zeros(1, 8)))
+    with pytest.raises(ValueError, match="kv segment ids must be"):
+        t_flash(tq, tk, tv, segment_ids=(torch.zeros(1, 8), torch.zeros(2, 8)))

@@ -60,8 +60,10 @@ def reference_attention(
     ``tpu_flash.core.reference.reference_attention`` (causal with
     ``q_offset``, ``window`` counting attended positions including self,
     ``softcap`` before masking, per-head ``sinks`` in the denominator,
-    per-head ``alibi`` slopes on absolute positions). Returns the output in
-    q.dtype, or ``(output, weights)``.
+    per-head ``alibi`` slopes on absolute positions, ``q_segment_ids``
+    [batch, q_len] / ``kv_segment_ids`` [batch, kv_len] masking every
+    score whose ids differ). Returns the output in q.dtype, or
+    ``(output, weights)``.
     """
     orig_dtype = q.dtype
     q, k, v = q.float(), k.float(), v.float()
@@ -114,9 +116,13 @@ def reference_gqa_attention(
     softcap: Optional[float] = None,
     sinks: Optional[torch.Tensor] = None,
     alibi: Optional[torch.Tensor] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Exact grouped-query attention: k/v [batch, hkv, kv_len, d] with hkv
-    dividing q's head count."""
+    dividing q's head count; segment ids as in :func:`reference_attention`.
+    Plain differentiable torch: its autograd gradient is the port's own
+    gradient oracle."""
     num_q_heads, num_kv_heads = q.shape[1], k.shape[1]
     if num_q_heads % num_kv_heads != 0:
         raise ValueError(f"{num_q_heads=} not a multiple of {num_kv_heads=}")
@@ -125,6 +131,7 @@ def reference_gqa_attention(
         q, k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1),
         causal=causal, sm_scale=sm_scale, q_offset=q_offset, window=window,
         softcap=softcap, sinks=sinks, alibi=alibi,
+        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
     )
 
 

@@ -1,0 +1,495 @@
+// flash_bwd: FlashAttention-2 backward for Hopper (sm_90a), two kernels.
+//
+// Replaces the Pallas TPU kernels of tpu_flash/ops/flash/backward.py:
+//   _flash_bwd_dkv_kernel (:102) and _flash_bwd_dq_kernel (:211), K8, on
+//   their rectangular and triangular grids, and the single-pass pair
+//   _bwd_dq_onepass_kernel (:315) / _bwd_dkv_onepass_kernel (:365), K9,
+//   which is a TPU geometry of the same two computations. On the TPU each
+//   kernel carries its sum across a sequential grid axis in VMEM scratch;
+//   here that axis is a loop inside the block, and the tiles the loop
+//   visits are the triangular grid's active cells (_build_dkv_cells :528
+//   for dK/dV, the forward's cell list for dQ): causal tiles above the
+//   diagonal, tiles outside a sliding window and the kv tail are never
+//   loaded.
+//
+//   flash_bwd_dkv: one block per (64-row kv tile, q head, batch). The K/V
+//     tile stays in shared memory; the block loops over the q tiles that
+//     can see it and sums dV += P^T dO and dK += round(dS)^T Q in
+//     registers. dK/dV are written per q head ([b, hq, skv, d]); the
+//     caller sums each GQA group.
+//   flash_bwd_dq: one block per (64-row q tile, q head, batch), looping
+//     over its live kv tiles: dQ += round(dS) K.
+//
+// Both recompute, per (q tile, kv tile):
+//   s = q k^T (f32, from the inputs' values) * sm_scale; softcap
+//   c tanh(s / c) with dcap = 1 - tanh^2; ALiBi; p = exp(s - lse), 0 where
+//   masked (causal with q_offset, window, kv tail, segment ids);
+//   dp = dO V^T; dS = p (dp - di) dcap sm_scale, with di = rowsum(o dO) -
+//   dlse precomputed by the wrapper; dS rounded to the input type before
+//   it meets Q or K (the TPU kernel's `ds.astype(q.dtype)`).
+// Each block owns its outputs: no atomics, so the gradients are
+// deterministic.
+//
+// What bounds it on this card: the backward does 2.5x the forward's
+// matrix work at these shapes (dV, dP, dK besides the recomputed S, plus
+// S and dP again for dQ: 7 products of 2 d FLOPs per (q, kv) pair against
+// the forward's 2), so at training lengths it is FLOP-bound on the tensor
+// cores' 989 TFLOP/s (bf16). This first kernel is deliberately simple:
+// f32 FMAs on the CUDA cores from f32 tiles in shared memory (each
+// thread a 4 x 4 tile of S and dP and a 4 x 8 tile of each accumulator;
+// ~167 KB of shared memory in dK/dV, ~150 KB in dQ, one block per SM).
+// It reaches the CUDA-core f32 rate at best, far below the bound; wgmma
+// tiles, TMA staging, and summing each GQA group inside the kernel (the
+// per-q-head dK/dV cost hq/hkv times their bytes) are later work
+// (ROADMAP item 17).
+//
+// Layout: q/o/dO [b, hq, sq, d], k/v [b, hkv, skv, d], lse/di f32
+// [b, hq, sq], dQ like q, dK/dV [b, hq, skv, d]; all contiguous. GQA by
+// index: q head h reads kv head h / (hq / hkv). Each launch runs on the
+// caller's stream and returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;     // q rows per tile
+constexpr int BKV = 64;    // kv rows per tile
+constexpr int D = 128;     // head dim (the only one this build serves)
+constexpr int THREADS = 256;
+constexpr int DS = D + 4;  // padded row strides (floats), 16-byte aligned
+constexpr int PS = BKV + 4;
+
+// dK/dV: K, V, Q, dO tiles, P and dS tiles, lse and di of the q tile.
+constexpr size_t kDkvSmem =
+    sizeof(float) * (4 * BQ * DS + 2 * BQ * PS + 2 * BQ);
+// dQ: Q, dO, K, V tiles, the dS tile, lse and di.
+constexpr size_t kDqSmem = sizeof(float) * (4 * BQ * DS + BQ * PS + 2 * BQ);
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;    // [b, hq, sq]
+  const float* di;     // [b, hq, sq]: rowsum(o dO) - dlse
+  void* out1;          // dK (dkv kernel) or dQ (dq kernel)
+  void* out2;          // dV (dkv kernel)
+  const float* alibi;  // [hq] or nullptr
+  const int* q_seg;    // [b, sq] or nullptr
+  const int* kv_seg;   // [b, skv]
+  int hq, hkv, sq, skv;
+  int kv_len;          // kv positions >= kv_len are masked
+  float scale;         // sm_scale as an f32 number
+  int causal, q_offset, window;  // window <= 0: none
+  float softcap, inv_softcap;    // softcap <= 0: none
+};
+
+// Rows [r0, r0 + BQ) of a [rows, D] matrix into an f32 shared tile with
+// row stride DS; rows at or past `rows` load as zeros.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
+                                          int rows) {
+  for (int idx = threadIdx.x; idx < BQ * D; idx += THREADS) {
+    const int r = idx / D, c = idx % D;
+    dst[r * DS + c] =
+        r0 + r < rows ? to_f(src[(long long)(r0 + r) * D + c]) : 0.f;
+  }
+}
+
+// S = Qs Ks^T and dP = dOs Vs^T for the thread's 4 x 4 cells (q rows
+// ty*4+i, kv cols tx+16*j), then P and dS in place: s[i][j] becomes p,
+// dp[i][j] becomes the unrounded dS.
+template <typename T>
+__device__ __forceinline__ void scores_and_ds(
+    const BwdParams& p, int b, int h, int q0, int k0, const float* Qs,
+    const float* Ks, const float* dOs, const float* Vs, const float* lse_s,
+    const float* di_s, float (&s)[4][4], float (&dp)[4][4]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+  for (int kk = 0; kk < D; kk += 4) {
+    float4 qv[4], dv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * DS + kk]);
+      dv[i] = *reinterpret_cast<const float4*>(&dOs[(ty * 4 + i) * DS + kk]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 kv =
+          *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * DS + kk]);
+      const float4 vv =
+          *reinterpret_cast<const float4*>(&Vs[(tx + 16 * j) * DS + kk]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float a = s[i][j];
+        a = fmaf(qv[i].x, kv.x, a);
+        a = fmaf(qv[i].y, kv.y, a);
+        a = fmaf(qv[i].z, kv.z, a);
+        a = fmaf(qv[i].w, kv.w, a);
+        s[i][j] = a;
+        float c = dp[i][j];
+        c = fmaf(dv[i].x, vv.x, c);
+        c = fmaf(dv[i].y, vv.y, c);
+        c = fmaf(dv[i].z, vv.z, c);
+        c = fmaf(dv[i].w, vv.w, c);
+        dp[i][j] = c;
+      }
+    }
+  }
+  const float slope = p.alibi != nullptr ? p.alibi[h] : 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    const int qi = q0 + r;
+    const int qpos = qi + p.q_offset;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kpos = k0 + tx + 16 * j;
+      float x = s[i][j] * p.scale;
+      float dcap = 1.f;
+      if (p.softcap > 0.f) {
+        const float t = tanhf(x * p.inv_softcap);
+        x = p.softcap * t;
+        dcap = 1.f - t * t;
+      }
+      if (p.alibi != nullptr) x += slope * (float)(kpos - qpos);
+      bool valid = qi < p.sq && kpos < p.kv_len;
+      if (p.causal) {
+        valid = valid && kpos <= qpos;
+        if (p.window > 0) valid = valid && kpos > qpos - p.window;
+      }
+      if (valid && p.q_seg != nullptr) {
+        valid = p.q_seg[(long long)b * p.sq + qi] ==
+                p.kv_seg[(long long)b * p.skv + kpos];
+      }
+      const float pp = valid ? expf(x - lse_s[r]) : 0.f;
+      float ds = pp * (dp[i][j] - di_s[r]);
+      if (p.softcap > 0.f) ds = ds * dcap;
+      s[i][j] = pp;
+      dp[i][j] = ds * p.scale;
+    }
+  }
+}
+
+// lse and di of q rows [q0, q0 + BQ) into shared memory (0 past sq).
+__device__ __forceinline__ void load_row_stats(const BwdParams& p, int b,
+                                               int h, int q0, float* lse_s,
+                                               float* di_s) {
+  if (threadIdx.x < BQ) {
+    const int qi = q0 + threadIdx.x;
+    const long long at = ((long long)b * p.hq + h) * p.sq + qi;
+    lse_s[threadIdx.x] = qi < p.sq ? p.lse[at] : 0.f;
+    di_s[threadIdx.x] = qi < p.sq ? p.di[at] : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_kernel(BwdParams p) {
+  extern __shared__ float smem[];
+  float* Ks = smem;               // [BKV][DS]
+  float* Vs = Ks + BKV * DS;      // [BKV][DS]
+  float* Qs = Vs + BKV * DS;      // [BQ][DS]
+  float* dOs = Qs + BQ * DS;      // [BQ][DS]
+  float* Ps = dOs + BQ * DS;      // [BQ][PS]  P, q-major
+  float* dSs = Ps + BQ * PS;      // [BQ][PS]  round(dS), q-major
+  float* lse_s = dSs + BQ * PS;   // [BQ]
+  float* di_s = lse_s + BQ;       // [BQ]
+
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.hq / p.hkv);
+  const int k0 = kt * BKV;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const long long qbase = ((long long)b * p.hq + h) * (long long)p.sq * D;
+  const long long kbase = ((long long)b * p.hkv + hk) * (long long)p.skv * D;
+  const T* q = static_cast<const T*>(p.q) + qbase;
+  const T* dout = static_cast<const T*>(p.dout) + qbase;
+
+  load_tile(Ks, static_cast<const T*>(p.k) + kbase, k0, p.kv_len);
+  load_tile(Vs, static_cast<const T*>(p.v) + kbase, k0, p.kv_len);
+
+  // q tiles that can see this kv tile (none past the kv tail).
+  const int n_qt = (p.sq + BQ - 1) / BQ;
+  int first = 0, last = k0 < p.kv_len ? n_qt - 1 : -1;
+  if (p.causal) {
+    const int lo = k0 - p.q_offset;  // first q row at or past k0
+    first = lo > 0 ? lo / BQ : 0;
+    if (p.window > 0) {
+      const int hi = k0 + BKV - 1 + p.window - 1 - p.q_offset;
+      last = hi < 0 ? -1 : min(last, hi / BQ);
+    }
+  }
+
+  float dk[4][D / 16], dv[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  for (int qt = first; qt <= last; ++qt) {
+    const int q0 = qt * BQ;
+    __syncthreads();  // the previous step's readers are done
+    load_tile(Qs, q, q0, p.sq);
+    load_tile(dOs, dout, q0, p.sq);
+    load_row_stats(p, b, h, q0, lse_s, di_s);
+    __syncthreads();
+
+    float s[4][4], ds[4][4];
+    scores_and_ds<T>(p, b, h, q0, k0, Qs, Ks, dOs, Vs, lse_s, di_s, s, ds);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        Ps[(ty * 4 + i) * PS + tx + 16 * j] = s[i][j];
+        dSs[(ty * 4 + i) * PS + tx + 16 * j] = round_to<T>(ds[i][j]);
+      }
+    __syncthreads();
+
+    // dV += P^T dO, dK += dS^T Q: thread kv rows ty*4+i, cols tx+16*j.
+    for (int r = 0; r < BQ; ++r) {
+      const float4 pv = *reinterpret_cast<const float4*>(&Ps[r * PS + ty * 4]);
+      const float4 sv =
+          *reinterpret_cast<const float4*>(&dSs[r * PS + ty * 4]);
+      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
+      const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        const float o = dOs[r * DS + tx + 16 * j];
+        const float x = Qs[r * DS + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dv[i][j] = fmaf(pa[i], o, dv[i][j]);
+          dk[i][j] = fmaf(sa[i], x, dk[i][j]);
+        }
+      }
+    }
+  }
+
+  T* dk_out = static_cast<T*>(p.out1) + ((long long)b * p.hq + h) *
+                                            (long long)p.skv * D;
+  T* dv_out = static_cast<T*>(p.out2) + ((long long)b * p.hq + h) *
+                                            (long long)p.skv * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kr = k0 + ty * 4 + i;
+    if (kr >= p.skv) continue;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      const long long at = (long long)kr * D + tx + 16 * j;
+      dk_out[at] = from_f<T>(dk[i][j]);
+      dv_out[at] = from_f<T>(dv[i][j]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(BwdParams p) {
+  extern __shared__ float smem[];
+  float* Qs = smem;               // [BQ][DS]
+  float* dOs = Qs + BQ * DS;      // [BQ][DS]
+  float* Ks = dOs + BQ * DS;      // [BKV][DS]
+  float* Vs = Ks + BKV * DS;      // [BKV][DS]
+  float* dSs = Vs + BKV * DS;     // [BQ][PS]  round(dS)
+  float* lse_s = dSs + BQ * PS;   // [BQ]
+  float* di_s = lse_s + BQ;       // [BQ]
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.hq / p.hkv);
+  const int q0 = qt * BQ;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const long long qbase = ((long long)b * p.hq + h) * (long long)p.sq * D;
+  const long long kbase = ((long long)b * p.hkv + hk) * (long long)p.skv * D;
+  const T* k = static_cast<const T*>(p.k) + kbase;
+  const T* v = static_cast<const T*>(p.v) + kbase;
+
+  load_tile(Qs, static_cast<const T*>(p.q) + qbase, q0, p.sq);
+  load_tile(dOs, static_cast<const T*>(p.dout) + qbase, q0, p.sq);
+  load_row_stats(p, b, h, q0, lse_s, di_s);
+
+  // kv tiles this q tile sees: the forward's active cells.
+  const int q_first = q0 + p.q_offset;
+  const int q_last = min(q0 + BQ, p.sq) - 1 + p.q_offset;
+  int first = 0;
+  int last = (p.kv_len + BKV - 1) / BKV - 1;
+  if (p.causal) {
+    last = min(last, q_last / BKV);
+    if (p.window > 0) {
+      const int lo = q_first - p.window + 1;
+      first = lo > 0 ? lo / BKV : 0;
+    }
+  }
+
+  float dq[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) dq[i][j] = 0.f;
+
+  for (int kt = first; kt <= last; ++kt) {
+    const int k0 = kt * BKV;
+    __syncthreads();
+    load_tile(Ks, k, k0, p.kv_len);
+    load_tile(Vs, v, k0, p.kv_len);
+    __syncthreads();
+
+    float s[4][4], ds[4][4];
+    scores_and_ds<T>(p, b, h, q0, k0, Qs, Ks, dOs, Vs, lse_s, di_s, s, ds);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dSs[(ty * 4 + i) * PS + tx + 16 * j] = round_to<T>(ds[i][j]);
+    __syncthreads();
+
+    // dQ += dS K: thread q rows ty*4+i, cols tx+16*j.
+    for (int t = 0; t < BKV; t += 4) {
+      float4 sv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        sv[i] = *reinterpret_cast<const float4*>(&dSs[(ty * 4 + i) * PS + t]);
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        const int c = tx + 16 * j;
+        const float k0v = Ks[(t + 0) * DS + c], k1v = Ks[(t + 1) * DS + c];
+        const float k2v = Ks[(t + 2) * DS + c], k3v = Ks[(t + 3) * DS + c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float a = dq[i][j];
+          a = fmaf(sv[i].x, k0v, a);
+          a = fmaf(sv[i].y, k1v, a);
+          a = fmaf(sv[i].z, k2v, a);
+          a = fmaf(sv[i].w, k3v, a);
+          dq[i][j] = a;
+        }
+      }
+    }
+  }
+
+  T* dq_out = static_cast<T*>(p.out1) + qbase;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    if (qi >= p.sq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      dq_out[(long long)qi * D + tx + 16 * j] = from_f<T>(dq[i][j]);
+  }
+}
+
+BwdParams make_params(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* di,
+                      void* out1, void* out2, const void* alibi,
+                      const void* q_seg, const void* kv_seg, int hq, int hkv,
+                      int sq, int skv, int kv_len, float scale, int causal,
+                      int q_offset, int window, float softcap,
+                      float inv_softcap) {
+  BwdParams p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.di = static_cast<const float*>(di);
+  p.out1 = out1;
+  p.out2 = out2;
+  p.alibi = static_cast<const float*>(alibi);
+  p.q_seg = static_cast<const int*>(q_seg);
+  p.kv_seg = static_cast<const int*>(kv_seg);
+  p.hq = hq;
+  p.hkv = hkv;
+  p.sq = sq;
+  p.skv = skv;
+  p.kv_len = kv_len;
+  p.scale = scale;
+  p.causal = causal;
+  p.q_offset = q_offset;
+  p.window = window;
+  p.softcap = softcap;
+  p.inv_softcap = inv_softcap;
+  return p;
+}
+
+template <typename T>
+int launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
+  cudaFuncSetAttribute(flash_bwd_dkv_kernel<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)kDkvSmem);
+  dim3 grid((p.skv + BKV - 1) / BKV, p.hq, batch);
+  flash_bwd_dkv_kernel<T><<<grid, THREADS, kDkvSmem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
+  cudaFuncSetAttribute(flash_bwd_dq_kernel<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)kDqSmem);
+  dim3 grid((p.sq + BQ - 1) / BQ, p.hq, batch);
+  flash_bwd_dq_kernel<T><<<grid, THREADS, kDqSmem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs share it).
+// flash_bwd_dkv writes dK to out1 and dV to out2; flash_bwd_dq writes dQ
+// to out1 (out2 unused). Each returns cudaGetLastError() after its launch;
+// 1 (cudaErrorInvalidValue) for a dtype or head_dim this build does not
+// serve.
+#define FLASH_BWD_ARGS                                                      \
+  const void *q, const void *k, const void *v, const void *dout,           \
+      const void *lse, const void *di, void *out1, void *out2,              \
+      const void *alibi, const void *q_seg, const void *kv_seg, int dtype, \
+      int batch, int hq, int hkv, int sq, int skv, int kv_len,              \
+      int head_dim, float scale, int causal, int q_offset, int window,      \
+      float softcap, float inv_softcap, void *stream
+#define FLASH_BWD_PARAMS                                                   \
+  make_params(q, k, v, dout, lse, di, out1, out2, alibi, q_seg, kv_seg, hq, \
+              hkv, sq, skv, kv_len, scale, causal, q_offset, window,        \
+              softcap, inv_softcap)
+
+extern "C" int flash_bwd_dkv(FLASH_BWD_ARGS) {
+  if (head_dim != D || (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const BwdParams p = FLASH_BWD_PARAMS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_dkv<float>(p, batch, s)
+                    : launch_dkv<__nv_bfloat16>(p, batch, s);
+}
+
+extern "C" int flash_bwd_dq(FLASH_BWD_ARGS) {
+  if (head_dim != D || (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const BwdParams p = FLASH_BWD_PARAMS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_dq<float>(p, batch, s)
+                    : launch_dq<__nv_bfloat16>(p, batch, s);
+}

@@ -12,7 +12,8 @@
 //
 // Computes, per (batch, q head, 64-row q tile):
 //   s = (round_T(q * sm_scale)) k^T in f32; softcap; ALiBi; masks
-//   (causal with q_offset, sliding window, kv tail); online softmax with
+//   (causal with q_offset, sliding window, kv tail, segment ids: a score
+//   whose q and kv ids differ, as _seg_mask :44); online softmax with
 //   deferred normalisation; P rounded to the input type before P V (the
 //   TPU kernel's `p.astype(v.dtype)`); optional per-head sink logits in the
 //   denominator; optional lse.
@@ -78,6 +79,8 @@ struct FwdParams {
   float* lse;          // nullptr: not requested
   const float* sinks;  // [hq] or nullptr
   const float* alibi;  // [hq] or nullptr
+  const int* q_seg;    // [b, sq] segment ids or nullptr
+  const int* kv_seg;   // [b, skv] (set with q_seg)
   int hq, hkv, sq, skv;
   int kv_len;          // kv positions >= kv_len are masked (padded tail)
   float scale;         // sm_scale, already rounded to T by the wrapper
@@ -201,6 +204,10 @@ flash_fwd_kernel(FwdParams p) {
           if (p.window > 0) valid = valid && kpos > qpos - p.window;
           if (p.alibi != nullptr) x += slope * (float)(kpos - qpos);
         }
+        if (valid && p.q_seg != nullptr && q0 + r < p.sq) {
+          valid = p.q_seg[(long long)b * p.sq + q0 + r] ==
+                  p.kv_seg[(long long)b * p.skv + kpos];
+        }
         Ss[r * SS + c] = valid ? x : MASK_VALUE;
       }
     }
@@ -309,7 +316,8 @@ int launch(const FwdParams& p, int batch, cudaStream_t stream) {
 // for a dtype or head_dim this build does not serve.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, const void* sinks,
-                         const void* alibi, int dtype, int batch, int hq,
+                         const void* alibi, const void* q_seg,
+                         const void* kv_seg, int dtype, int batch, int hq,
                          int hkv, int sq, int skv, int kv_len, int head_dim,
                          float scale, int causal, int q_offset, int window,
                          float softcap, float inv_softcap, void* stream) {
@@ -324,6 +332,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   p.lse = static_cast<float*>(lse);
   p.sinks = static_cast<const float*>(sinks);
   p.alibi = static_cast<const float*>(alibi);
+  p.q_seg = static_cast<const int*>(q_seg);
+  p.kv_seg = static_cast<const int*>(kv_seg);
   p.hq = hq;
   p.hkv = hkv;
   p.sq = sq;

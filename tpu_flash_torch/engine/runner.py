@@ -241,9 +241,12 @@ class InferenceEngine:
 
     # -- engine step -----------------------------------------------------------
 
+    @torch.inference_mode()
     def step(self) -> None:
-        # Most tokens one plan can commit per slot: a decode burst or a
-        # fully accepted draft plus its bonus token.
+        # Serving never builds autograd graphs, even when the params are
+        # leaves that require grad (a trainer's dict shared with the
+        # engine). Most tokens one plan can commit per slot: a decode burst
+        # or a fully accepted draft plus its bonus token.
         self.scheduler.max_step_tokens = max(
             self.max_decode_burst, self.speculation_k + 1
         )

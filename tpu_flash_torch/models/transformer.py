@@ -5,7 +5,9 @@ attention with rotary embeddings -> SwiGLU MLP, pre-norm residuals, an
 untied LM head. Parameters are a plain dict of tensors with the JAX tree's
 names and layouts (dense weights are [in, out]); :class:`FlashTransformer`
 is a functional class over it. Prefill runs ``flash_attention``; the
-engine's decode step uses ``decode_qkv`` and the paged decode kernel. The
+engine's decode step uses ``decode_qkv`` and the paged decode kernel;
+training takes ``loss_fn`` (the forward is differentiable end to end:
+no in-place writes into saved tensors, no detaching casts). The
 projection and MLP matmuls stay ``torch.matmul``, as the JAX package left
 them to XLA.
 """
@@ -17,7 +19,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from tpu_flash_torch.core.reference import alibi_slopes
+from tpu_flash_torch.core.reference import SegmentIds, alibi_slopes
 from tpu_flash_torch.models.configs import ModelConfig
 from tpu_flash_torch.ops.flash import flash_attention
 
@@ -106,6 +108,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, freqs):
     x1, x2 = x[..., :d2].float(), x[..., d2:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dtype)
+
+
+def document_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Rope positions that restart at each document of a packed row:
+    arange minus the start of each token's segment (a cummax over the
+    boundary indices), [b, s]."""
+    s = segment_ids.shape[1]
+    ar = torch.arange(s, device=segment_ids.device)
+    boundary = torch.ones_like(segment_ids, dtype=torch.bool)
+    boundary[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+    starts = torch.where(boundary, ar[None], torch.zeros_like(ar)[None])
+    return ar[None] - torch.cummax(starts, dim=1).values
 
 
 class FlashTransformer:
@@ -212,6 +226,7 @@ class FlashTransformer:
         kv_hook=None,
         positions: Optional[torch.Tensor] = None,
         attention_fn=None,
+        segment_ids: Optional[torch.Tensor] = None,
     ):
         """Causal forward over a token block; logits [b, s, vocab] f32.
 
@@ -219,14 +234,27 @@ class FlashTransformer:
         history in front of the block's K/V and captures the new K/V (the
         engine's chunked prefill); ``positions`` [s] or [b, s] overrides
         ``q_offset + arange`` for rope; ``attention_fn(q, k, v)`` replaces
-        the causal flash call. With ``return_kv`` also the per-layer
-        (k, v)."""
+        the causal flash call. ``segment_ids`` [b, s]: packed
+        multi-document training -- attention is segment-masked and rope
+        positions restart at each document (not with kv_hook or
+        attention_fn). With ``return_kv`` also the per-layer (k, v)."""
         cfg = self.config
+        seg_attn = None
+        if segment_ids is not None:
+            if kv_hook is not None or attention_fn is not None:
+                raise ValueError(
+                    "segment_ids (packed training) cannot combine with "
+                    "kv_hook/attention_fn (serving seams)"
+                )
+            seg_attn = SegmentIds(segment_ids, segment_ids)
         x = params["embed"][tokens].to(self.dtype)
         if positions is None:
-            positions = q_offset + torch.arange(
-                tokens.shape[1], device=tokens.device
-            )
+            if segment_ids is not None:
+                positions = document_positions(segment_ids)
+            else:
+                positions = q_offset + torch.arange(
+                    tokens.shape[1], device=tokens.device
+                )
         kvs = []
         for li, layer in enumerate(params["layers"]):
             xn = _rms_norm(x, layer["attn_norm"], cfg.rms_eps)
@@ -241,7 +269,7 @@ class FlashTransformer:
                 attn = flash_attention(
                     q, k, v, causal=True, q_offset=q_offset,
                     window=cfg.layer_window(li), softcap=cfg.attn_softcap,
-                    sinks=layer.get("sinks"),
+                    segment_ids=seg_attn, sinks=layer.get("sinks"),
                     alibi=self.alibi_for(),
                 )
             b, h, s, d = attn.shape
@@ -254,6 +282,25 @@ class FlashTransformer:
         if return_kv:
             return logits, kvs
         return logits
+
+    def loss_fn(self, params: Params, tokens: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Mean next-token cross-entropy over a batch [b, s] (the training
+        objective). With ``segment_ids`` [b, s] (packed documents) only
+        positions whose next token is in the same document count."""
+        logits = self.forward(
+            params, tokens[:, :-1],
+            segment_ids=None if segment_ids is None else segment_ids[:, :-1],
+        )
+        targets = tokens[:, 1:]
+        nll = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), targets.reshape(-1).long(),
+            reduction="none",
+        ).reshape(targets.shape)
+        if segment_ids is None:
+            return nll.mean()
+        same = (segment_ids[:, :-1] == segment_ids[:, 1:]).to(nll.dtype)
+        return (nll * same).sum() / same.sum().clamp(min=1.0)
 
     def decode_qkv(self, params: Params, layer_idx: int, x: torch.Tensor,
                    positions: torch.Tensor):

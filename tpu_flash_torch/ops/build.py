@@ -1,12 +1,14 @@
 """Build, load and count the package's hand-written CUDA kernels.
 
-Each kernel is one CUDA C++ source in ``tpu_flash_torch/csrc/`` with a
-plain C entry point (sources may include the shared ``*.cuh`` headers
-there). At first use it is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library under ``build/tpu_flash_torch/`` at the repository root
-(named by a hash of the source, every header and the flags, so an edited
-source or header rebuilds) and loaded with ``ctypes``. Nothing here runs at import
-time; on a machine without ``nvcc`` only the CPU plain versions work.
+Each kernel is a plain C entry point in a CUDA C++ source in
+``tpu_flash_torch/csrc/`` (sources may include the shared ``*.cuh``
+headers there; one source may hold several entry points, each a kernel
+with its own launch count). At first use the source is compiled by
+``nvcc`` for ``sm_90a`` into a shared library under
+``build/tpu_flash_torch/`` at the repository root (named by a hash of
+the source, every header and the flags, so an edited source or header
+rebuilds) and loaded with ``ctypes``. Nothing here runs at import time;
+on a machine without ``nvcc`` only the CPU plain versions work.
 
 Every kernel carries ``launches``, a plain integer its wrapper raises by
 one per launch, so a run can show which kernels its path went through.
@@ -49,16 +51,17 @@ def find_nvcc() -> str:
 
 
 class CudaKernel:
-    """One CUDA source with a C entry point ``symbol`` taking
-    ``argtypes`` and returning an int (cudaGetLastError())."""
+    """A C entry point ``symbol`` of a CUDA source (``csrc/<source>.cu``,
+    by default ``<name>.cu``) taking ``argtypes`` and returning an int
+    (cudaGetLastError())."""
 
     def __init__(self, name: str, symbol: str, argtypes: List, *,
-                 replaces: str):
+                 replaces: str, source: Optional[str] = None):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.replaces = replaces  # the TPU kernel, file:line
-        self.source = CSRC_DIR / f"{name}.cu"
+        self.source = CSRC_DIR / f"{source or name}.cu"
         self.launches = 0
         self.build_seconds: Optional[float] = None
         self.build_log = ""
@@ -69,7 +72,7 @@ class CudaKernel:
         for header in sorted(self.source.parent.glob("*.cuh")):
             h.update(header.name.encode() + header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:
         """Start nvcc (returns the process), or None when the library for
@@ -124,8 +127,19 @@ class CudaKernel:
 
 FLASH_FWD = CudaKernel(
     "flash_fwd", "flash_fwd",
-    [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I, I, F, F, P],
+    [P] * 9 + [I] * 8 + [F, I, I, I, F, F, P],
     replaces="tpu_flash/ops/flash/forward.py:102",
+)
+# The FA2 backward pair: one source, two entry points (K8; K9 is a TPU
+# geometry of the same two computations).
+_FLASH_BWD_ARGS = [P] * 11 + [I] * 8 + [F, I, I, I, F, F, P]
+FLASH_BWD_DKV = CudaKernel(
+    "flash_bwd_dkv", "flash_bwd_dkv", _FLASH_BWD_ARGS, source="flash_bwd",
+    replaces="tpu_flash/ops/flash/backward.py:102",
+)
+FLASH_BWD_DQ = CudaKernel(
+    "flash_bwd_dq", "flash_bwd_dq", _FLASH_BWD_ARGS, source="flash_bwd",
+    replaces="tpu_flash/ops/flash/backward.py:211",
 )
 PAGED_DECODE = CudaKernel(
     "paged_decode", "paged_decode",
@@ -144,17 +158,21 @@ RAGGED_PREFILL = CudaKernel(
 )
 KERNELS: Dict[str, CudaKernel] = {
     k.name: k for k in (FLASH_FWD, PAGED_DECODE, PAGED_PREFILL,
-                        RAGGED_PREFILL)
+                        RAGGED_PREFILL, FLASH_BWD_DKV, FLASH_BWD_DQ)
 }
 
 
 def build_all() -> Dict[str, float]:
-    """Build every kernel, one nvcc per source, all started together.
-    Returns each kernel's build seconds (0.0 when already built)."""
-    procs = {name: k.start_build() for name, k in KERNELS.items()}
-    for name, proc in procs.items():
-        KERNELS[name].finish_build(proc)
-    return {name: k.build_seconds for name, k in KERNELS.items()}
+    """Build every kernel source, one nvcc per source, all started
+    together. Returns each source's build seconds (0.0 when already
+    built)."""
+    owners = {}  # one kernel per source runs its build
+    for k in KERNELS.values():
+        owners.setdefault(k.source, k)
+    procs = [(k, k.start_build()) for k in owners.values()]
+    for k, proc in procs:
+        k.finish_build(proc)
+    return {k.source.stem: k.build_seconds for k in owners.values()}
 
 
 def reset_launch_counts() -> None:

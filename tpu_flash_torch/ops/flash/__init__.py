@@ -1,5 +1,6 @@
 from tpu_flash_torch.core.reference import SegmentIds
-from tpu_flash_torch.ops.flash.api import flash_attention
+from tpu_flash_torch.ops.flash.api import FlashAttentionFn, flash_attention
+from tpu_flash_torch.ops.flash.backward import flash_bwd, flash_bwd_plain
 from tpu_flash_torch.ops.flash.forward import flash_fwd, flash_fwd_plain
 from tpu_flash_torch.ops.flash.paged_prefill import (
     paged_prefill_attention,
@@ -11,7 +12,8 @@ from tpu_flash_torch.ops.flash.ragged import (
 )
 
 __all__ = [
-    "SegmentIds", "flash_attention", "flash_attention_ragged", "flash_fwd",
+    "FlashAttentionFn", "SegmentIds", "flash_attention",
+    "flash_attention_ragged", "flash_bwd", "flash_bwd_plain", "flash_fwd",
     "flash_fwd_plain", "paged_prefill_attention", "paged_prefill_plain",
     "ragged_prefill_plain",
 ]

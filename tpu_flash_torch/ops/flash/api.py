@@ -1,11 +1,19 @@
-"""Public flash-attention API (forward only in this slice).
+"""Public flash-attention API, differentiable.
 
 The port of ``tpu_flash/ops/flash/api.py::flash_attention``: the same
-arguments and validation, on PyTorch tensors. The CUDA kernel masks its
-own ragged edges, so there is no padding layer; ``kv_len`` exposes the
-kv-tail mask for callers that hand over padded k/v buckets. Gradients
-(``tpu_flash/ops/flash/backward.py``) and segment ids come with the
-training slice.
+arguments and validation, on PyTorch tensors. The CUDA kernels mask
+their own ragged edges, so there is no padding layer; ``kv_len`` exposes
+the kv-tail mask for callers that hand over padded k/v buckets.
+
+Gradients: :class:`FlashAttentionFn` (a ``torch.autograd.Function``)
+stands in for the JAX package's two ``custom_vjp`` cores (``_flash_core``
+and ``_flash_core_res``, ``tpu_flash/ops/flash/api.py:113-275``). Its
+forward runs ``flash_fwd`` with lse and saves q, k, v, o and lse; its
+backward runs ``flash_bwd`` (with the lse cotangent folded into di when
+the caller used lse), sums the per-q-head dK/dV over each GQA group, and
+gives the sink logits their closed-form gradient (``_sink_grad``).
+Segment ids and ALiBi slopes get none. Without autograd (no input
+requires grad, or grad mode off) the forward kernel runs alone.
 """
 
 from __future__ import annotations
@@ -14,7 +22,52 @@ from typing import Optional
 
 import torch
 
+from tpu_flash_torch.ops.flash.backward import flash_bwd, softmax_di
 from tpu_flash_torch.ops.flash.forward import flash_fwd
+
+
+def sink_grad(sinks: torch.Tensor, lse: torch.Tensor,
+              di_eff: torch.Tensor) -> torch.Tensor:
+    """dL/dsinks[h] = -sum_{b,q} exp(sinks[h] - lse[b,h,q]) di_eff[b,h,q]:
+    the sink is a softmax column with no value row, so its gradient is
+    p_sink (dlse - di) and needs no kernel pass (``_sink_grad``,
+    ``tpu_flash/ops/flash/api.py:103``)."""
+    p_sink = torch.exp(sinks.float()[None, :, None] - lse.float())
+    return (-(p_sink * di_eff).sum(dim=(0, 2))).to(sinks.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """(o, lse) = attention(q, k, v); differentiable in q, k, v, sinks and
+    through lse. ``opts`` holds the forward's non-tensor options."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sinks, alibi, q_seg, kv_seg, opts):
+        o, lse = flash_fwd(q, k, v, sinks=sinks, alibi=alibi, q_seg=q_seg,
+                           kv_seg=kv_seg, save_lse=True, **opts)
+        ctx.save_for_backward(q, k, v, o, lse, sinks, alibi, q_seg, kv_seg)
+        ctx.opts = opts
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse, sinks, alibi, q_seg, kv_seg = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = flash_bwd(q, k, v, o, do, lse, alibi=alibi,
+                               q_seg=q_seg, kv_seg=kv_seg, dlse=dlse,
+                               **ctx.opts)
+        b, hq, skv, d = dk.shape
+        hkv = k.shape[1]
+        if hq != hkv:
+            # Per-q-head partials, each already rounded to k's dtype,
+            # summed over each GQA group (as the JAX backward does).
+            dk = dk.reshape(b, hkv, hq // hkv, skv, d).sum(2)
+            dv = dv.reshape(b, hkv, hq // hkv, skv, d).sum(2)
+        dsinks = None
+        if sinks is not None and ctx.needs_input_grad[3]:
+            dsinks = sink_grad(sinks, lse, softmax_di(o, do, dlse))
+        return dq, dk, dv, dsinks, None, None, None, None
 
 
 def flash_attention(
@@ -49,13 +102,17 @@ def flash_attention(
         ``[p - window + 1, p]``.
       softcap: scores become ``softcap * tanh(scores / softcap)`` after
         scaling, before masking.
-      segment_ids: not supported until the training slice.
+      segment_ids: ``SegmentIds(q=[batch, q_len], kv=[batch, kv_len])``
+        int ids (or a 2-tuple) for packed multi-document attention:
+        positions with differing ids never attend each other. No
+        gradient flows to the ids.
       sinks: [num_q_heads] per-head sink logits in the denominator.
       alibi: [num_q_heads] ALiBi slopes (causal only), added after
         softcap: ``slope * (kv_pos - q_pos)``.
 
     Returns o [batch, num_q_heads, q_len, head_dim] in q.dtype, or
-    ``(o, lse)``.
+    ``(o, lse)``; differentiable in q, k, v, sinks and (with
+    ``save_residuals``) through lse.
     """
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(
@@ -89,11 +146,19 @@ def flash_attention(
         if softcap <= 0:
             raise ValueError(f"softcap must be > 0, got {softcap}")
         softcap = float(softcap)
+    q_seg = kv_seg = None
     if segment_ids is not None:
-        raise NotImplementedError(
-            "segment_ids (packed training) come with the training slice: "
-            "ROADMAP queue 1, item 10"
-        )
+        q_seg, kv_seg = segment_ids  # SegmentIds NamedTuple or 2-tuple
+        if tuple(q_seg.shape) != (q.shape[0], q.shape[2]):
+            raise ValueError(
+                f"q segment ids must be [batch, q_len] = "
+                f"{(q.shape[0], q.shape[2])}, got {tuple(q_seg.shape)}"
+            )
+        if tuple(kv_seg.shape) != (k.shape[0], k.shape[2]):
+            raise ValueError(
+                f"kv segment ids must be [batch, kv_len] = "
+                f"{(k.shape[0], k.shape[2])}, got {tuple(kv_seg.shape)}"
+            )
     if sinks is not None and tuple(sinks.shape) != (q.shape[1],):
         raise ValueError(
             f"sinks must be [num_q_heads] = ({q.shape[1]},), got "
@@ -109,8 +174,14 @@ def flash_attention(
             )
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    return flash_fwd(
-        q, k, v, causal=causal, sm_scale=float(sm_scale),
-        q_offset=int(q_offset), kv_len=kv_len, window=window,
-        softcap=softcap, sinks=sinks, alibi=alibi, save_lse=save_residuals,
-    )
+    opts = dict(causal=causal, sm_scale=float(sm_scale),
+                q_offset=int(q_offset), kv_len=kv_len, window=window,
+                softcap=softcap)
+    grads = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, sinks))
+    if not grads:
+        return flash_fwd(q, k, v, sinks=sinks, alibi=alibi, q_seg=q_seg,
+                         kv_seg=kv_seg, save_lse=save_residuals, **opts)
+    o, lse = FlashAttentionFn.apply(q, k, v, sinks, alibi, q_seg, kv_seg,
+                                    opts)
+    return (o, lse) if save_residuals else o

@@ -37,6 +37,15 @@ def rounded_scale(sm_scale: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(sm_scale, dtype=dtype).float())
 
 
+def segment_ids_for_kernel(q_seg, kv_seg):
+    """Segment ids as the kernels read them: contiguous int32 (None
+    stays None)."""
+    if q_seg is None:
+        return None, None
+    return (q_seg.to(torch.int32).contiguous(),
+            kv_seg.to(torch.int32).contiguous())
+
+
 def flash_fwd_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -50,6 +59,8 @@ def flash_fwd_plain(
     softcap: Optional[float] = None,
     sinks: Optional[torch.Tensor] = None,
     alibi: Optional[torch.Tensor] = None,
+    q_seg: Optional[torch.Tensor] = None,
+    kv_seg: Optional[torch.Tensor] = None,
     save_lse: bool = False,
 ):
     """Plain PyTorch version of the ``flash_fwd`` kernel (same arguments
@@ -88,6 +99,9 @@ def flash_fwd_plain(
                 valid = valid & (kpos > qpos - window)
             if slopes is not None:
                 s = s + slopes * (kpos - qpos).float()
+        if q_seg is not None:
+            same = q_seg[:, :, None] == kv_seg[:, None, t0:t1]
+            valid = (valid & same)[:, None, None]
         s = torch.where(valid, s, torch.full_like(s, DEFAULT_MASK_VALUE))
         m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_next)
@@ -127,34 +141,33 @@ def flash_fwd(
     softcap: Optional[float] = None,
     sinks: Optional[torch.Tensor] = None,
     alibi: Optional[torch.Tensor] = None,
+    q_seg: Optional[torch.Tensor] = None,
+    kv_seg: Optional[torch.Tensor] = None,
     save_lse: bool = False,
 ):
     """Attention forward over q [b, hq, sq, d], k/v [b, hkv, skv, d].
 
     Masks: causal (q row i sits at position i + q_offset), the kv tail
-    (positions >= kv_len), a sliding ``window``; ``softcap`` applies
-    before masking, ``alibi`` slopes [hq] after it; ``sinks`` [hq] join
-    the denominator. Returns o in q's dtype, and lse f32 [b, hq, sq] with
-    ``save_lse``. CPU tensors take :func:`flash_fwd_plain`; CUDA tensors
-    launch the kernel.
+    (positions >= kv_len), a sliding ``window``, segment ids (``q_seg``
+    [b, sq] and ``kv_seg`` [b, skv] int32: a score whose ids differ is
+    masked); ``softcap`` applies before masking, ``alibi`` slopes [hq]
+    after it; ``sinks`` [hq] join the denominator. Returns o in q's
+    dtype, and lse f32 [b, hq, sq] with ``save_lse``. CPU tensors take
+    :func:`flash_fwd_plain`; CUDA tensors launch the kernel.
     """
+    kw = dict(causal=causal, sm_scale=sm_scale, q_offset=q_offset,
+              kv_len=kv_len, window=window, softcap=softcap, sinks=sinks,
+              alibi=alibi, q_seg=q_seg, kv_seg=kv_seg, save_lse=save_lse)
     if q.device.type == "cpu":
-        return flash_fwd_plain(
-            q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset,
-            kv_len=kv_len, window=window, softcap=softcap, sinks=sinks,
-            alibi=alibi, save_lse=save_lse,
-        )
+        return flash_fwd_plain(q, k, v, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
-    return _flash_fwd_cuda(
-        q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset,
-        kv_len=kv_len, window=window, softcap=softcap, sinks=sinks,
-        alibi=alibi, save_lse=save_lse,
-    )
+    return _flash_fwd_cuda(q, k, v, **kw)
 
 
 def _flash_fwd_cuda(q, k, v, *, causal, sm_scale, q_offset, kv_len,
-                    window, softcap, sinks, alibi, save_lse):
+                    window, softcap, sinks, alibi, q_seg, kv_seg,
+                    save_lse):
     if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise ValueError(
@@ -168,12 +181,13 @@ def _flash_fwd_cuda(q, k, v, *, causal, sm_scale, q_offset, kv_len,
             f"flash_fwd kernel is built for head_dim {KERNEL_HEAD_DIM}, "
             f"got {d}"
         )
-    for t in (k, v, sinks, alibi):
+    for t in (k, v, sinks, alibi, q_seg, kv_seg):
         if t is not None and t.device != q.device:
             raise ValueError("flash_fwd: all tensors must share q's device")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     sinks = None if sinks is None else sinks.float().contiguous()
     alibi = None if alibi is None else alibi.float().contiguous()
+    q_seg, kv_seg = segment_ids_for_kernel(q_seg, kv_seg)
     o = torch.empty_like(q)
     lse = (
         torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -182,6 +196,7 @@ def _flash_fwd_cuda(q, k, v, *, causal, sm_scale, q_offset, kv_len,
     build.FLASH_FWD.launch(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
         build.ptr(lse), build.ptr(sinks), build.ptr(alibi),
+        build.ptr(q_seg), build.ptr(kv_seg),
         KERNEL_DTYPES[q.dtype], b, hq, hkv, sq, skv,
         skv if kv_len is None else int(kv_len), d,
         rounded_scale(sm_scale, q.dtype), int(bool(causal)), int(q_offset),
