@@ -13,21 +13,27 @@ network. Phases, one JSON line each:
   3. kernels: each kernel against its plain PyTorch version on the card
      at the main path's shapes, with times, bounds and a library
      yardstick: the forward (segment ids included), the backward pair
-     (dK/dV and dQ) at the training shape, decode, paged and ragged
+     (dK/dV and dQ) at the training shape, decode over every page tier
+     (bf16, int8, int4, int4g32, k8v4, fp8; int8_mxu and fp8_native on
+     and off), paged prefill over bf16, int8, int4 and fp8 pages, ragged
      prefill;
   4. main path: Llama-3-8B geometry at full width (all 32 layers, seeded
      random bf16 weights made on the card) served by the port's engine at
      its default routing (paged prefill, fused mixed steps, speculation
      k 8): 8 requests x 32 greedy tokens on an int8 cache with the recent
      ring and on a bf16 cache; the same two with paged_prefill=False
-     (gathered history, the ragged kernel); and 8 prompts of 1024 tokens
-     built so that prompt lookup drafts, served for 16 tokens through
-     speculative verify. Launch counters reset before each run;
+     (gathered history, the ragged kernel); the int4, fp8, int4g32 and
+     k8v4 tiers with no layout fields (the engine's auto layout, printed);
+     and 8 prompts of 1024 tokens built so that prompt lookup drafts,
+     served for 16 tokens through speculative verify. Launch counters
+     (per kernel and per page tier) reset before each run;
   5. trained model: checkpoints/tiny-byte-llama served at the engine's
-     defaults with bf16 and int8 caches, and a staggered two-request
-     scenario that reaches every route; the int8 runs again with
+     defaults on every cache tier, and a staggered two-request scenario
+     that reaches every route (int8, int4, fp8); the int8 runs again with
      paged_prefill=False; each run's greedy text against the same engine
-     on the plain versions;
+     on the plain versions (token for token; every kernel call also held
+     against its plain version on the same inputs, decode to the bit),
+     and each tier's greedy match against the bf16 cache's tokens;
   6. training at full width: Llama-3-8B widths cut to 4 of its 32 layers
      (the only cut), seeded random bf16 weights made on the card, batch
      4 x 2048 tokens, AdamW with a norm clip for 6 steps on one repeated
@@ -41,6 +47,7 @@ network. Phases, one JSON line each:
 Then the nvidia-smi line, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
 exits non-zero and prints no result. Without CUDA it exits 2 at once.
+``--trained-only`` runs phases 1, 2 and 5 and prints no result.
 """
 
 from __future__ import annotations
@@ -57,7 +64,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 SCALE = 128 ** -0.5
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "int8": 1979e12, "fp8": 1979e12,
+                  "float32": 67e12}
 # Kernel vs plain version: they take every rounding the TPU kernel
 # specifies and differ only in f32 summation order. That can flip the
 # rounding of a bf16 output element (one ulp at its own magnitude, so at
@@ -486,25 +494,31 @@ def check_flash_bwd(dev):
     return out
 
 
-def decode_inputs(dev, kv_dtype, ring):
+def decode_inputs(dev, kv_dtype, ring, ps=128):
     """The main path's decode shape: b 8, hq 32 / hkv 8, d 128, context
-    2048 in 128-token pages (16 per sequence) out of 161."""
+    2048 in ``ps``-token pages (128 as phase 4's explicit bf16/int8
+    layout, 512 as the auto layout of the quantized tiers) out of 1 +
+    160 * 128 / ps. ``kv_dtype`` is a cache tier (k8v4: int8 K, int4
+    V)."""
     import torch
 
-    from tpu_flash_torch.ops.quant import quantize
+    from tpu_flash_torch.engine.cache import side_dtypes
+    from tpu_flash_torch.ops.quant import quantize_pages
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    b, hq, hkv, d, ps, pps, n_pages = 8, 32, 8, 128, 128, 16, 161
+    b, hq, hkv, d = 8, 32, 8, 128
+    pps, n_pages = 2048 // ps, 1 + 160 * 128 // ps
     kp = torch.randn(hkv, n_pages, ps, d, generator=g, device=dev)
     vp = torch.randn(hkv, n_pages, ps, d, generator=g, device=dev)
     table = torch.randperm(n_pages - 1, generator=g, device=dev)[
         : b * pps].reshape(b, pps).int()
     lengths = torch.full((b,), 2048, dtype=torch.int32, device=dev)
     q = torch.randn(b, hq, d, generator=g, device=dev).bfloat16()
-    if kv_dtype == "int8":
-        kp, vp = quantize(kp), quantize(vp)
-    else:
+    if kv_dtype == "bfloat16":
         kp, vp = kp.bfloat16(), vp.bfloat16()
+    else:
+        k_t, v_t = side_dtypes(kv_dtype)
+        kp, vp = quantize_pages(kp, k_t), quantize_pages(vp, v_t)
     kw = {}
     if ring:
         r = torch.randn(2, b, hkv, ring, d, generator=g, device=dev)
@@ -512,21 +526,31 @@ def decode_inputs(dev, kv_dtype, ring):
     return q, kp, vp, lengths, table, kw
 
 
-def decode_bound(q, k, lengths, kw, kv_dtype):
-    from tpu_flash_torch.ops.quant import QuantizedTensor
+# Bytes one token of one kv head takes in the cache, per side: payload
+# (4-bit tiers half a byte an element) and scales (an f32 per token, or
+# int4g32's 2 * d/32 f32 (scale, zero) pairs).
+SIDE_BYTES = {"bfloat16": 2 * 128, "int8": 128 + 4, "int4": 64 + 4,
+              "int4g32": 64 + 8 * 4, "fp8": 128 + 4}
+# The operation type each tier's dots run in, for the bound.
+TIER_OPS = {"bfloat16": "bfloat16", "int8": "int8", "int4": "int8",
+            "int4g32": "bfloat16", "k8v4": "int8", "fp8": "fp8"}
+
+
+def decode_bound(q, lengths, kw, kv_dtype, hkv=8):
+    from tpu_flash_torch.engine.cache import side_dtypes
 
     b, hq, d = q.shape
-    hkv = (k.values if isinstance(k, QuantizedTensor) else k).shape[0]
     w = kw["recent_k"].shape[2] if "recent_k" in kw else 0
-    tokens = int(lengths.sum())
-    page_tokens = sum(max(int(n) - w, 0) for n in lengths)
-    per_tok = hkv * d * (1 if kv_dtype == "int8" else 2)
-    if kv_dtype == "int8":
-        per_tok += hkv * 4  # one f32 scale per token and kv head
-    nbytes = (2 * page_tokens * per_tok + 2 * b * w * hkv * d * 2
+    window = kw.get("window")
+    # Tokens attended, and those the pages must give (before the ring).
+    attended = sum(min(int(n), window or int(n)) for n in lengths)
+    page_tokens = sum(min(max(int(n) - w, 0), window or int(n))
+                      for n in lengths)
+    per_tok = hkv * sum(SIDE_BYTES[t] for t in side_dtypes(kv_dtype))
+    nbytes = (page_tokens * per_tok + 2 * b * w * hkv * d * 2
               + 2 * q.numel() * q.element_size() + 8 * b + 4 * b * 16)
-    ops = 4.0 * hq * d * tokens
-    return bound(nbytes, ops, kv_dtype)
+    ops = 4.0 * hq * d * attended
+    return bound(nbytes, ops, TIER_OPS[kv_dtype])
 
 
 def without_p_cast(q, kp, vp, lengths, table, sm_scale, **_):
@@ -538,43 +562,109 @@ def without_p_cast(q, kp, vp, lengths, table, sm_scale, **_):
 
     ppb = dp.pages_per_block(kp.shape[2], table.shape[1], True)
     return dp.paged_decode_plain(
-        q, kp, vp, None, None, lengths, table, tier=dp.TIER_F32,
-        sm_scale=sm_scale, pages_per_compute_block=ppb,
+        q, kp, vp, None, None, lengths, table, k_tier="float32",
+        v_tier="float32", sm_scale=sm_scale, pages_per_compute_block=ppb,
     )
 
 
+def swapped_halves(pages):
+    """Token-packed int4 pages with each byte's two nibbles swapped: every
+    token reads its partner's (the half-page) values."""
+    import torch
+
+    b = pages.values.view(torch.uint8)
+    return pages._replace(values=((b >> 4) | (b << 4)).view(torch.int8))
+
+
+def zeros_dropped(pages):
+    """int4g32 pages with every zero-point row set to 0."""
+    ng = pages.scales.shape[2] // 2
+    scales = pages.scales.clone()
+    scales[:, :, ng:] = 0.0
+    return pages._replace(scales=scales)
+
+
+def unscaled(pages):
+    """Quantized pages with every per-token scale 1."""
+    import torch
+
+    return pages._replace(scales=torch.ones_like(pages.scales))
+
+
+# (case, kv dtype, page size, f32 q, kwargs, control). The control is the
+# kwargs with the case's option dropped, a plain function, or a page
+# transform that a kernel ignoring part of the tier's format would match
+# (on V only where K would swamp it). The 4-bit and fp8 cases take the
+# auto layout's 512-token pages and 128-token ring of phase 4.
+DECODE_CASES = [
+    ("bf16", "bfloat16", 128, False, {}, None),
+    ("bf16_f32_q", "bfloat16", 128, True, dict(sm_scale=0.125),
+     without_p_cast),
+    ("int8_mxu", "int8", 128, False, dict(int8_mxu=True),
+     dict(int8_mxu=False)),
+    ("int8_exact", "int8", 128, False, dict(int8_mxu=False),
+     dict(int8_mxu=True)),
+    ("int8_mxu_ring128", "int8", 128, False, dict(int8_mxu=True, ring=128),
+     dict(int8_mxu=True)),
+    ("int4_mxu_ring128", "int4", 512, False, dict(int8_mxu=True, ring=128),
+     dict(int8_mxu=False, ring=128)),
+    ("int4_exact_ring128", "int4", 512, False,
+     dict(int8_mxu=False, ring=128), ("v", swapped_halves)),
+    ("int4_mxu_window", "int4", 512, False, dict(int8_mxu=True, window=700),
+     dict(int8_mxu=True)),
+    ("int4g32_ring128", "int4g32", 512, False, dict(ring=128),
+     ("v", zeros_dropped)),
+    ("k8v4_mxu_ring128", "k8v4", 512, False, dict(int8_mxu=True, ring=128),
+     ("v", swapped_halves)),
+    ("k8v4_exact_ring128", "k8v4", 512, False,
+     dict(int8_mxu=False, ring=128), dict(int8_mxu=True, ring=128)),
+    ("fp8_native_ring128", "fp8", 512, False,
+     dict(fp8_native=True, ring=128), dict(fp8_native=False, ring=128)),
+    ("fp8_exact_ring128", "fp8", 512, False,
+     dict(fp8_native=False, ring=128), ("v", unscaled)),
+]
+
+
+def decode_tag(kv_dtype, kw):
+    """The kernel's launch tag of a case: its K/V tiers as the wrapper
+    names them (int8_mxu and fp8_native default on, on this card)."""
+    from tpu_flash_torch.engine.cache import side_dtypes
+
+    def tier(t):
+        if t in ("int8", "int4") and kw.get("int8_mxu", True):
+            return t + "_mxu"
+        if t == "fp8" and kw.get("fp8_native", True):
+            return "fp8_native"
+        return t
+
+    k, v = (tier(t) for t in side_dtypes(kv_dtype))
+    return k if k == v else f"{k}/{v}"
+
+
 def check_decode(dev):
+    """K4 per tier at the main path's decode shape. Returns the int8 ring
+    case (the kernel's summary row) and a row for each other tier tag."""
     import torch
 
     from tpu_flash_torch.ops.decode import paged as dp
 
     rows = []
-    # (case, kv dtype, f32 q, kwargs, control): the control is the
-    # kwargs with the case's option dropped, or a plain function. A bf16
-    # output cannot show the bf16 P cast (it moves outputs by under one
-    # output ulp here), so "bf16_f32_q" shows it on an f32 output.
-    for name, kv_dtype, f32_q, kw, control in [
-        ("bf16", "bfloat16", False, {}, None),
-        ("bf16_f32_q", "bfloat16", True, dict(sm_scale=0.125),
-         without_p_cast),
-        ("int8_mxu", "int8", False, dict(int8_mxu=True),
-         dict(int8_mxu=False)),
-        ("int8_exact", "int8", False, dict(int8_mxu=False),
-         dict(int8_mxu=True)),
-        ("int8_mxu_ring128", "int8", False, dict(int8_mxu=True, ring=128),
-         dict(int8_mxu=True)),
-    ]:
+    for name, kv_dtype, ps, f32_q, kw, control in DECODE_CASES:
         kw = dict(kw)
         q, kp, vp, lengths, table, ring = decode_inputs(
-            dev, kv_dtype, kw.pop("ring", 0)
+            dev, kv_dtype, kw.pop("ring", 0), ps
         )
         if f32_q:
             q = q.float()
         kw.update(ring)
 
-        def kernel(**over):
-            return dp.paged_attention(q, kp, vp, lengths, table,
-                                      **(over or kw))
+        def kernel(over=None, pages=(kp, vp)):
+            args = dict(kw)
+            if over is not None:
+                args = dict(over)
+                if args.pop("ring", 0):
+                    args.update(ring)
+            return dp.paged_attention(q, *pages, lengths, table, **args)
 
         out = kernel()
         torch.cuda.synchronize()
@@ -583,21 +673,32 @@ def check_decode(dev):
             plain_ms = time_ms(kernel, 3)
             if callable(control):
                 off = max_err(out, control(q, kp, vp, lengths, table, **kw))
+            elif isinstance(control, tuple):
+                off = max_err(out, kernel(pages=(kp, control[1](vp))))
             else:
-                off = None if control is None else max_err(out,
-                                                           kernel(**control))
-        bound_ms, bound_by = decode_bound(q, kp, lengths, kw, kv_dtype)
-        row = dict(case=name, batch=q.shape[0], context=int(lengths[0]),
+                off = None if control is None else max_err(
+                    out, kernel(dict(control)))
+        bound_ms, bound_by = decode_bound(q, lengths, kw, kv_dtype)
+        ctl = (getattr(control, "__name__", control)
+               if not isinstance(control, tuple)
+               else f"{control[0]}:{control[1].__name__}")
+        row = dict(case=name, tier=decode_tag(kv_dtype, kw), batch=q.shape[0],
+                   context=int(lengths[0]), page_size=ps,
                    q_dtype=str(q.dtype).removeprefix("torch."),
-                   control=getattr(control, "__name__", control),
-                   **agreement(out, ref, off), ms=time_ms(kernel, 50),
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=None)
+                   control=str(ctl), **agreement(out, ref, off),
+                   ms=time_ms(kernel, 50), plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         rows.append(row)
         log("kernel_vs_plain", kernel="paged_decode", **row)
     raise_if_failed("paged_decode", rows)
     primary = next(r for r in rows if r["case"] == "int8_mxu_ring128")
-    return dict(primary, max_abs_err=max(r["max_abs_err"] for r in rows))
+    out = {"paged_decode": dict(
+        primary, max_abs_err=max(r["max_abs_err"] for r in rows))}
+    served = {decode_tag(t, {}) for t in AUTO_TIERS}
+    for r in rows:  # the tiers phase 4 serves, at the auto layout
+        if r["page_size"] == 512 and r["tier"] in served:
+            out.setdefault(f"paged_decode:{r['tier']}", r)
+    return out
 
 
 def prefill_pairs(offsets, q_len, window=None):
@@ -626,16 +727,18 @@ def prefill_bound(q, hkv, offsets, window, kv_bytes_per_token):
     return bound(nbytes, ops, "bfloat16")
 
 
-def paged_prefill_inputs(dev, b, q_len, hist_cap, kv_dtype, seed=SEED):
-    """Chunk q/K/V (hq 32 / hkv 8, d 128, bf16) and 128-token pages
-    holding hist_cap tokens per row (bf16, or int8 with per-token
-    scales), with a random page table over 16 * b + 1 pages."""
+def paged_prefill_inputs(dev, b, q_len, hist_cap, kv_dtype, seed=SEED,
+                         ps=128):
+    """Chunk q/K/V (hq 32 / hkv 8, d 128, bf16) and ``ps``-token pages
+    holding up to 2048 tokens per row (bf16, or int8 / int4 / fp8 with
+    per-token scales), with a random page table over b * 2048 / ps + 1
+    pages."""
     import torch
 
-    from tpu_flash_torch.ops.quant import quantize
+    from tpu_flash_torch.ops.quant import quantize_pages
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    ps, pps = 128, 16
+    pps = 2048 // ps
     n_pages = pps * b + 1
 
     def rn(*shape):
@@ -644,10 +747,10 @@ def paged_prefill_inputs(dev, b, q_len, hist_cap, kv_dtype, seed=SEED):
     q = rn(b, 32, q_len, 128).bfloat16()
     ck, cv = rn(b, 8, q_len, 128).bfloat16(), rn(b, 8, q_len, 128).bfloat16()
     kp, vp = rn(8, n_pages, ps, 128), rn(8, n_pages, ps, 128)
-    if kv_dtype == "int8":
-        kp, vp = quantize(kp), quantize(vp)
-    else:
+    if kv_dtype == "bfloat16":
         kp, vp = kp.bfloat16(), vp.bfloat16()
+    else:
+        kp, vp = quantize_pages(kp, kv_dtype), quantize_pages(vp, kv_dtype)
     table = torch.randperm(n_pages - 1, generator=g, device=dev)[
         : b * pps].reshape(b, pps).int()
     return q, ck, cv, kp, vp, table
@@ -660,7 +763,6 @@ def check_paged_prefill(dev):
     import torch
 
     from tpu_flash_torch.ops.flash import paged_prefill as pp
-    from tpu_flash_torch.ops.quant import QuantizedTensor
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     # Scores have std ~1 here: softcap 5 bends the largest, sinks near
@@ -670,13 +772,16 @@ def check_paged_prefill(dev):
     slopes = torch.linspace(0.5, 0.004, 32, device=dev)
     rows = []
     # (case, b, q_len, hist_cap, pages, offsets, kwargs, control): the
-    # control is kwargs/offsets overrides, or "unscaled" (int8 pages
-    # without their scales).
+    # control is kwargs/offsets overrides, or "unscaled" (quantized pages
+    # without their scales). int4 and fp8 pages take the auto layout's
+    # 512 tokens (phase 4), the others phase 4's explicit 128.
     verify_lens = [1100 + 100 * i for i in range(8)]
     for name, b, q_len, hist_cap, kv, offsets, kw, control in [
         ("chunk_bf16", 4, 512, 1024, "bfloat16", [1024] * 4, {},
          dict(offsets=[0] * 4)),
         ("chunk_int8", 4, 512, 1024, "int8", [1024] * 4, {}, "unscaled"),
+        ("chunk_int4", 4, 512, 1024, "int4", [1024] * 4, {}, "unscaled"),
+        ("chunk_fp8", 4, 512, 1024, "fp8", [1024] * 4, {}, "unscaled"),
         ("mixed_offsets", 4, 512, 1536, "bfloat16", [0, 512, 1024, 1536],
          {}, dict(offsets=[1536] * 4)),
         ("verify", 8, 9, 2048, "bfloat16", verify_lens, {},
@@ -690,8 +795,9 @@ def check_paged_prefill(dev):
         ("alibi", 2, 512, 1024, "bfloat16", [1024] * 2, dict(alibi=slopes),
          dict(kw={})),
     ]:
+        ps = 512 if kv in ("int4", "fp8") else 128
         q, ck, cv, kp, vp, table = paged_prefill_inputs(dev, b, q_len,
-                                                        hist_cap, kv)
+                                                        hist_cap, kv, ps=ps)
 
         def run(offs=offsets, pages=(kp, vp), kw=kw):
             o = torch.tensor(offs, dtype=torch.int32, device=dev)
@@ -705,21 +811,15 @@ def check_paged_prefill(dev):
             ref = run()
             plain_ms = time_ms(run, 3)
             if control == "unscaled":
-                pages = tuple(QuantizedTensor(t.values,
-                                              torch.ones_like(t.scales),
-                                              "int8") for t in (kp, vp))
-                off = max_err(out, run(pages=pages))
+                off = max_err(out, run(pages=(unscaled(kp), unscaled(vp))))
             else:
                 off = max_err(out, run(
                     offs=control.get("offsets", offsets),
                     kw=control.get("kw", kw)))
-        # Per token and all 8 kv heads: d payload bytes (+ an f32 scale
-        # for int8 pages).
-        per_tok = 8 * (128 + 4 if kv == "int8" else 2 * 128)
         bound_ms, bound_by = prefill_bound(q, 8, offsets, kw.get("window"),
-                                           per_tok)
+                                           8 * SIDE_BYTES[kv])
         row = dict(case=name, batch=b, q_len=q_len, hist_cap=hist_cap,
-                   pages=kv, offsets=offsets,
+                   pages=kv, page_size=ps, offsets=offsets,
                    control=control if isinstance(control, str)
                    else {k_: str(v_) for k_, v_ in control.items()},
                    **agreement(out, ref, off), ms=time_ms(run, 10),
@@ -728,7 +828,12 @@ def check_paged_prefill(dev):
         rows.append(row)
         log("kernel_vs_plain", kernel="paged_prefill", **row)
     raise_if_failed("paged_prefill", rows)
-    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+    out = {"paged_prefill": dict(
+        rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))}
+    for r in rows:
+        if r["pages"] in ("int4", "fp8"):
+            out[f"paged_prefill:{r['pages']}"] = r
+    return out
 
 
 def ragged_mask(offsets, q_len, hist_cap, window, dev):
@@ -802,33 +907,80 @@ def check_ragged(dev):
     return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
-@contextlib.contextmanager
-def plain_versions():
-    """Route CUDA tensors through the plain PyTorch versions instead of
-    the kernels, for the reference runs on the card (the wrappers
-    themselves never do this)."""
+def kernel_entries():
+    """Each kernel's CUDA entry that the port's wrappers call, by kernel
+    name: (module, attribute, plain version of the same signature)."""
     from tpu_flash_torch.ops.decode import paged
     from tpu_flash_torch.ops.flash import (api, backward, forward,
                                            paged_prefill, ragged)
 
-    saved = (api.flash_fwd, api.flash_bwd, paged._paged_decode_cuda,
-             paged_prefill._paged_prefill_cuda, ragged._ragged_prefill_cuda)
-    api.flash_fwd = forward.flash_fwd_plain
-    api.flash_bwd = backward.flash_bwd_plain
-    paged._paged_decode_cuda = paged.paged_decode_plain
-    paged_prefill._paged_prefill_cuda = paged_prefill.paged_prefill_plain
-    ragged._ragged_prefill_cuda = ragged.ragged_prefill_plain
+    return {
+        "flash_fwd": (api, "flash_fwd", forward.flash_fwd_plain),
+        "flash_bwd": (api, "flash_bwd", backward.flash_bwd_plain),
+        "paged_decode": (paged, "_paged_decode_cuda",
+                         paged.paged_decode_plain),
+        "paged_prefill": (paged_prefill, "_paged_prefill_cuda",
+                          paged_prefill.paged_prefill_plain),
+        "ragged_prefill": (ragged, "_ragged_prefill_cuda",
+                           ragged.ragged_prefill_plain),
+    }
+
+
+@contextlib.contextmanager
+def swapped_entries(make):
+    """Replace each kernel entry by ``make(name, kernel, plain)`` while
+    the block runs."""
+    entries = kernel_entries()
+    saved = {n: getattr(m, a) for n, (m, a, _) in entries.items()}
     try:
+        for n, (m, a, plain) in entries.items():
+            setattr(m, a, make(n, saved[n], plain))
         yield
     finally:
-        (api.flash_fwd, api.flash_bwd, paged._paged_decode_cuda,
-         paged_prefill._paged_prefill_cuda,
-         ragged._ragged_prefill_cuda) = saved
+        for n, (m, a, _) in entries.items():
+            setattr(m, a, saved[n])
+
+
+def plain_versions(names=None):
+    """Route CUDA tensors through the plain PyTorch versions instead of
+    the kernels (those in ``names``, or all), for the reference runs on
+    the card (the wrappers themselves never do this)."""
+    return swapped_entries(
+        lambda n, kernel, plain: plain if names is None or n in names
+        else kernel)
+
+
+def shadowed(stats):
+    """Each kernel call also runs its plain version on the same inputs;
+    ``stats[kernel]`` counts the calls, those whose outputs differ at
+    all, the largest |kernel - plain| and the largest ratio of an
+    output's error to its case_bar."""
+    def make(name, kernel, plain):
+        def call(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            ref = plain(*args, **kwargs)
+            pairs = [(o, r) for o, r in zip(
+                out if isinstance(out, tuple) else (out,),
+                ref if isinstance(ref, tuple) else (ref,)) if o is not None]
+            st = stats.setdefault(name, dict(calls=0, differing=0,
+                                             max_abs_err=0.0, max_of_bar=0.0))
+            errs = [max_err(o, r) for o, r in pairs]
+            st["calls"] += 1
+            st["differing"] += any(e != 0.0 for e in errs)
+            st["max_abs_err"] = max([st["max_abs_err"], *errs])
+            st["max_of_bar"] = max([st["max_of_bar"], *(
+                e and e / case_bar(r) for e, (_, r) in zip(errs, pairs))])
+            return out
+        return call
+    return swapped_entries(make)
 
 
 # -- phase 4: the main path at full width -------------------------------------
 
 MAIN_TIERS = (("int8", 128), ("bfloat16", 0))  # (kv_dtype, recent_window)
+# Served with no layout fields: the engine resolves the auto layout
+# (512-token pages, a 128-token ring at max_seq_len 2048).
+AUTO_TIERS = ("int4", "fp8", "int4g32", "k8v4")
 
 
 def main_path_model(dev):
@@ -854,15 +1006,17 @@ def main_path_engine(model, params, kv_dtype, ring, prompts, **config):
     """The main path's engine at its default routing (``config`` overrides
     EngineConfig fields), warmed up by one short request so that
     CUDA/cuBLAS initialisation and allocator growth stay out of timed
-    runs."""
+    runs. ``ring`` None leaves the cache layout to the engine's auto
+    policy; otherwise 128-token pages and that ring."""
     from tpu_flash_torch.core.config import CacheConfig, EngineConfig
     from tpu_flash_torch.engine import InferenceEngine
 
+    layout = {} if ring is None else dict(
+        page_size=128, num_pages=161, max_pages_per_seq=16,
+        recent_window=ring)
     cfg = EngineConfig(
         max_batch_size=8, max_seq_len=2048, prefill_chunk=512,
-        cache=CacheConfig(page_size=128, num_pages=161, max_pages_per_seq=16,
-                          kv_dtype=kv_dtype, recent_window=ring),
-        **config,
+        cache=CacheConfig(kv_dtype=kv_dtype, **layout), **config,
     )
     eng = InferenceEngine(model, params, cfg)
     eng.submit(prompts[0][:64], 2)
@@ -917,8 +1071,13 @@ def serve_main(model, params, kv_dtype, ring, prompts, new_tokens, *,
     prefill_s = sum(m.route_seconds.get(r, 0.0) for r in PREFILL_ROUTES)
     decode_s = sum(m.route_seconds.get(r, 0.0) for r in DECODE_ROUTES)
     decode_tok = sum(m.route_tokens.get(r, 0) for r in DECODE_ROUTES)
+    cache = eng.config.cache
     rec = dict(
-        kv_dtype=kv_dtype, recent_window=ring,
+        kv_dtype=kv_dtype, recent_window=cache.recent_window,
+        layout="auto" if ring is None else "explicit",
+        cache=dict(page_size=cache.page_size, num_pages=cache.num_pages,
+                   max_pages_per_seq=cache.max_pages_per_seq,
+                   recent_window=cache.recent_window),
         config={k: str(v) for k, v in config.items()},
         requests=len(prompts), prompt_tokens=m.prefill_tokens,
         new_tokens_each=new_tokens, wall_s=wall, prefill_s=prefill_s,
@@ -964,7 +1123,7 @@ LOGITS_REL_TOL = 0.05
 
 
 def require_launches(rec, kernels):
-    missing = [k for k in kernels if not rec["launches"][k]]
+    missing = [k for k in kernels if not rec["launches"].get(k)]
     if missing:
         raise AssertionError(f"{missing} never launched: {rec}")
 
@@ -990,8 +1149,9 @@ def speculation_prompts(model, params, vocab_size):
 
 
 def check_main_path(dev):
-    """Phase 4: the default routing on both tiers, both tiers again with
-    paged_prefill=False (gathered history, the ragged kernel), and a
+    """Phase 4: the default routing on the int8 and bf16 tiers, both
+    again with paged_prefill=False (gathered history, the ragged kernel),
+    the int4, fp8, int4g32 and k8v4 tiers at the auto layout, and a
     speculative run."""
     import torch
 
@@ -1014,6 +1174,7 @@ def check_main_path(dev):
         runs = [(kv, ring, {}) for kv, ring in MAIN_TIERS]
         runs += [(kv, ring, dict(paged_prefill=False))
                  for kv, ring in MAIN_TIERS]
+        runs += [(kv, None, {}) for kv in AUTO_TIERS]
         for kv_dtype, ring, config in runs:
             rec, _ = serve_main(model, params, kv_dtype, ring, prompts, 32,
                                 **config)
@@ -1026,9 +1187,15 @@ def check_main_path(dev):
                 )
             if rec["routes"]["fused"] < 1:
                 raise AssertionError(f"no fused step: {rec}")
-            gathered = config.get("paged_prefill") is False
+            # int4g32 and k8v4 always gather their history, as in JAX.
+            gathered = (config.get("paged_prefill") is False
+                        or kv_dtype in ("int4g32", "k8v4"))
             require_launches(rec, ["flash_fwd", "paged_decode"] + (
                 ["ragged_prefill"] if gathered else ["paged_prefill"]))
+            if kv_dtype in AUTO_TIERS:
+                require_launches(rec, [
+                    f"paged_decode:{decode_tag(kv_dtype, {})}"] + (
+                    [] if gathered else [f"paged_prefill:{kv_dtype}"]))
             if gathered and rec["launches"]["paged_prefill"]:
                 raise AssertionError(f"paged history with paging off: {rec}")
             recs.append(rec)
@@ -1054,10 +1221,45 @@ TRAINED_PROMPTS = [
     b"import numpy as np\n\n",
 ]
 # The kernel engine must give the plain-version engine's greedy tokens
-# exactly: both take the same roundings, the prompts and weights are
-# fixed, and every chip run so far matched at 1.000. A flip would be a
-# finding to look into (with its logit margin), not noise to allow for.
+# exactly, on every tier: the decode kernel computes its plain version's
+# arithmetic bit for bit (order-free f64 sums), and the other kernels
+# differ from theirs only in f32 summation order. A flip is a finding to
+# look into (its first position and logit margin are printed), not noise
+# to allow for.
 TRAINED_MATCH_MIN = 1.0
+
+
+def first_flips(model, params, prompts, got, want, lp_got, lp_want):
+    """Where each request's kernel-run tokens first leave the plain run's:
+    the position, both tokens and both runs' log-probs of them, the
+    largest log-prob gap over the tokens before it, and the top two
+    tokens and their logit margin there of a cache-free forward on the
+    plain versions over the shared prefix."""
+    import torch
+
+    flips = []
+    for p, g_, w, lg, lw in zip(prompts, got, want, lp_got, lp_want):
+        n = next((i for i, (a, b) in enumerate(zip(g_, w)) if a != b), None)
+        if n is None:
+            continue
+        with torch.no_grad(), plain_versions():
+            logits = model.forward(params, torch.tensor(
+                [p + w[:n]], device=model.device))[0, -1].float()
+        top = logits.topk(2)
+        flips.append(dict(
+            position=n, of=len(w), kernel_token=g_[n], plain_token=w[n],
+            kernel_logprob=lg[n], plain_logprob=lw[n],
+            max_logprob_gap_before=max(
+                (abs(a - b) for a, b in zip(lg[:n], lw[:n])), default=0.0),
+            plain_top2=top.indices.tolist(),
+            plain_top2_margin=float(top.values[0] - top.values[1])))
+    return flips
+
+
+def token_match(got, want) -> float:
+    """Share of positions where two runs' greedy tokens agree."""
+    same = sum(a == b for g_, w in zip(got, want) for a, b in zip(g_, w))
+    return same / sum(len(w) for w in want)
 
 
 # The staggered two-request scenario of tests/test_torch_engine_routes.py:
@@ -1069,24 +1271,41 @@ STAGGERED = (list(b"for i in range(10):\n    print(i)\nfor i in range(10):\n"
 
 def check_trained(dev):
     """Phase 5: the trained checkpoint at the engine's defaults, kernels
-    against plain versions token for token, speculation proposing."""
+    against plain versions token for token on every cache tier,
+    speculation proposing; each tier's greedy match against the bf16
+    cache's tokens is printed (quality, not gated)."""
     from tpu_flash_torch.checkpoint import load_hf_dir
     from tpu_flash_torch.core.config import CacheConfig, EngineConfig
     from tpu_flash_torch.engine import InferenceEngine
 
-    model, params = load_hf_dir(
-        os.path.join(REPO, "checkpoints", "tiny-byte-llama"),
-        dtype="bfloat16", device=dev,
-    )
-    results = []
-    # (kv dtype, ring, staggered, paged_prefill): TRAINED_PROMPTS arrive
-    # together, 32 tokens each; the staggered scenario takes 12 tokens
-    # each. paged_prefill=False gathers int8 history (the ring overlaid)
-    # and runs the ragged kernel and the gathered verify.
-    for kv_dtype, ring, staggered, paged in (
-            ("bfloat16", 0, False, "auto"), ("int8", 0, False, "auto"),
-            ("int8", 32, True, "auto"), ("int8", 0, False, False),
-            ("int8", 32, True, False)):
+    ckpt = os.path.join(REPO, "checkpoints", "tiny-byte-llama")
+    models = {dt: load_hf_dir(ckpt, dtype=dt, device=dev)
+              for dt in ("bfloat16", "float32")}
+    results, failed = [], []
+    # (kv dtype, ring, staggered, paged_prefill, model dtype):
+    # TRAINED_PROMPTS arrive together, 32 tokens each; the staggered
+    # scenario takes 12 tokens each. paged_prefill=False gathers int8
+    # history (the ring overlaid) and runs the ragged kernel and the
+    # gathered verify. The quantized tiers also run with a 32-token ring,
+    # so decode reads their pages for all but the last 32 positions (the
+    # auto 128-token ring would cover every context here); their match
+    # against the bf16 cache is read at that ring. float32 pages serve
+    # the bf16 model (as CacheConfig allows) and the model loaded in f32.
+    for kv_dtype, ring, staggered, paged, mdt in (
+            ("bfloat16", 0, False, "auto", "bfloat16"),
+            ("int8", 0, False, "auto", "bfloat16"),
+            ("int8", 32, False, "auto", "bfloat16"),
+            ("int8", 32, True, "auto", "bfloat16"),
+            ("int8", 0, False, False, "bfloat16"),
+            ("int8", 32, True, False, "bfloat16"),
+            ("float32", 0, False, "auto", "bfloat16"),
+            ("float32", 0, False, "auto", "float32"),
+            ("int4", 32, False, "auto", "bfloat16"),
+            ("int4g32", 32, False, "auto", "bfloat16"),
+            ("k8v4", 32, False, "auto", "bfloat16"),
+            ("fp8", 32, False, "auto", "bfloat16"),
+            ("int4", 32, True, "auto", "bfloat16"),
+            ("fp8", 32, True, "auto", "bfloat16")):
         cfg = EngineConfig(
             max_batch_size=2 if staggered else 4, max_seq_len=128,
             prefill_chunk=32, paged_prefill=paged,
@@ -1094,6 +1313,8 @@ def check_trained(dev):
                               max_pages_per_seq=4, kv_dtype=kv_dtype,
                               recent_window=ring),
         )
+
+        model, params = models[mdt]
 
         def serve():
             eng = InferenceEngine(model, params, cfg)
@@ -1105,27 +1326,56 @@ def check_trained(dev):
                 ids = [eng.submit(list(p), 32) for p in TRAINED_PROMPTS]
             out = eng.run()
             eng.close()
-            return ([out[i] for i in ids], eng.metrics.route_counts(),
-                    eng.speculation_stats())
+            return ([out[i] for i in ids], [eng.logprobs[i] for i in ids],
+                    eng.metrics.route_counts(), eng.speculation_stats())
 
-        got, routes, spec = serve()
+        shadow = {}
+        with shadowed(shadow):
+            got, lp_got, routes, spec = serve()
         with plain_versions():
-            want, _, _ = serve()
-        same = sum(a == b for g_, w in zip(got, want) for a, b in zip(g_, w))
-        total = sum(len(w) for w in want)
-        match = same / total
+            want, lp_want, _, _ = serve()
+        match = token_match(got, want)
+        if not results:
+            bf16_tokens = got
         rec = dict(kv_dtype=kv_dtype, recent_window=ring,
-                   staggered=staggered, paged_prefill=str(paged), match=match,
-                   min_match=TRAINED_MATCH_MIN, routes=routes,
-                   speculation=spec,
+                   staggered=staggered, paged_prefill=str(paged),
+                   model_dtype=mdt, match=match,
+                   min_match=TRAINED_MATCH_MIN,
+                   max_logprob_gap=max(
+                       abs(a - b) for lg, lw in zip(lp_got, lp_want)
+                       for a, b in zip(lg, lw)),
+                   match_vs_bf16_cache=(
+                       None if staggered or mdt != "bfloat16"
+                       else token_match(got, bf16_tokens)),
+                   routes=routes, speculation=spec, shadow=shadow,
                    text=[bytes(t).decode("utf-8", "replace") for t in got])
+        name = f"{kv_dtype} ring {ring} paged {paged} model {mdt}"
+        if match < TRAINED_MATCH_MIN:
+            prompts = ([STAGGERED[0], STAGGERED[1]] if staggered
+                       else [list(p) for p in TRAINED_PROMPTS])
+            rec["first_flips"] = first_flips(model, params, prompts, got,
+                                             want, lp_got, lp_want)
+            # Which kernel the flips come from: the kernel run again with
+            # that one kernel on its plain version, against the plain run.
+            only = {}
+            for k in shadow:
+                with plain_versions([k]):
+                    only[k] = token_match(serve()[0], want)
+            rec["match_with_only_plain"] = only
+            failed.append(f"{name}: {match}")
+        # At the engine's own inputs every kernel call holds its plain
+        # version's output within the phase-3 bar, and decode to the bit.
+        if (shadow.get("paged_decode", {}).get("differing")
+                or any(v["max_of_bar"] > 1.0 for v in shadow.values())):
+            failed.append(f"{name}: kernel call off its plain version "
+                          f"{shadow}")
         log("trained_model", **rec)
-        if not match >= TRAINED_MATCH_MIN:
-            raise AssertionError(f"trained-model greedy match {match}")
         if staggered and not all(routes[k] for k in (
                 "prefill_group", "prefill_ragged", "fused", "speculative")):
             raise AssertionError(f"a route was not reached: {routes}")
         results.append(rec)
+    if failed:
+        raise AssertionError(f"trained-model greedy match: {failed}")
     if not sum(r["speculation"]["proposed"] for r in results):
         raise AssertionError("no draft was proposed on the trained model")
     return results
@@ -1382,23 +1632,28 @@ def main() -> int:
     log("build", seconds=secs, wall_s=time.perf_counter() - t0,
         ptxas=[ln.strip() for k in build.KERNELS.values()
                for ln in k.build_log.splitlines() if "Used" in ln])
+    if "--trained-only" in sys.argv[1:]:
+        check_trained(dev)  # phase 5 alone, to look into a greedy flip
+        return 0
     summary = {"flash_fwd": check_flash(dev),
                **check_flash_bwd(dev),
-               "paged_decode": check_decode(dev),
-               "paged_prefill": check_paged_prefill(dev),
+               **check_decode(dev),
+               **check_paged_prefill(dev),
                "ragged_prefill": check_ragged(dev)}
     main_runs = check_main_path(dev)
     check_trained(dev)
     main_runs.append(check_training(dev))
     check_trained_training(dev)
+    # One row per kernel, and one per page tier of the two kernels that
+    # serve several ("<kernel>:<tier>", launched under that tag).
     kernels = []
-    for name, k in build.KERNELS.items():
-        s = summary[name]
+    for name, s in summary.items():
+        k = build.KERNELS[name.split(":")[0]]
         kernels.append(dict(
             name=name, route="cuda",
             source=os.path.relpath(str(k.source), REPO),
             replaces=k.replaces,
-            launches=sum(r["launches"][name] for r in main_runs),
+            launches=sum(r["launches"].get(name, 0) for r in main_runs),
             max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],

@@ -203,8 +203,8 @@ def test_int8_quantization_byte_identical(dtype):
     tv, ts = t_quantize_rows(tx, "int8")
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_quantize(tx, "int4")
+    with pytest.raises(ValueError, match="unsupported"):
+        t_quantize(tx, "int3")
 
 
 def _imports(path: pathlib.Path):

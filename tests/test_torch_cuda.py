@@ -8,9 +8,10 @@ card. Marked ``cuda``: each test skips unless a CUDA device is present
 machine need not have.)
 
 Both sides produce bf16 (or f32) from the same roundings and differ only
-in f32 summation order. The flash forward and paged decode cases hold
-bars of 2e-2 for bf16 outputs (one bf16 ulp at magnitude < 2), 1e-4 for
-f32. The paged and ragged prefill cases take each case's bar from its own
+in f32 summation order. The flash forward cases hold bars of 2e-2 for
+bf16 outputs (one bf16 ulp at magnitude < 2), 1e-4 for f32. Paged decode
+has no summation order (exact products summed in f64, rounded once, on
+both sides), so its cases hold the plain version's output bit for bit. The paged and ragged prefill cases take each case's bar from its own
 reference (``_case_bar``, the bar of chip_smoke.py's phase 3): 2 bf16
 ulps of max |ref| for bf16 outputs -- a flipped output rounding is one
 ulp, a flipped bf16 P element moves an output by a small part of one --
@@ -89,8 +90,33 @@ def test_flash_fwd_kernel_matches_plain(dev, dtype, kw, sq, skv):
     assert (out.float() - ref.float()).abs().max() <= TOL[dtype]
 
 
-@pytest.mark.parametrize("tier", ["float32", "bfloat16", "int8-mxu",
-                                  "int8-exact"])
+DECODE_TIERS = {  # name: (K tier, V tier, paged_attention options)
+    "float32": ("float32", "float32", {}),
+    "bfloat16": ("bfloat16", "bfloat16", {}),
+    "int8-mxu": ("int8", "int8", dict(int8_mxu=True)),
+    "int8-exact": ("int8", "int8", dict(int8_mxu=False)),
+    "int4-mxu": ("int4", "int4", dict(int8_mxu=True)),
+    "int4-exact": ("int4", "int4", dict(int8_mxu=False)),
+    "int4g32": ("int4g32", "int4g32", {}),
+    "k8v4-mxu": ("int8", "int4", dict(int8_mxu=True)),
+    "k8v4-exact": ("int8", "int4", dict(int8_mxu=False)),
+    "fp8-native": ("fp8", "fp8", dict(fp8_native=True)),
+    "fp8-exact": ("fp8", "fp8", dict(fp8_native=False)),
+}
+
+
+def _decode_pages(kp, vp, tier):
+    from tpu_flash_torch.ops.quant import quantize_pages
+
+    k_t, v_t, opts = DECODE_TIERS[tier]
+    pages = []
+    for x, t in ((kp, k_t), (vp, v_t)):
+        pages.append(x.to(getattr(torch, t)) if t in ("float32", "bfloat16")
+                     else quantize_pages(x, t))
+    return pages[0], pages[1], opts
+
+
+@pytest.mark.parametrize("tier", list(DECODE_TIERS))
 @pytest.mark.parametrize(
     "opts",
     [dict(), dict(pages_per_compute_block=2, window=20),
@@ -100,7 +126,6 @@ def test_flash_fwd_kernel_matches_plain(dev, dtype, kw, sq, skv):
 )
 def test_paged_decode_kernel_matches_plain(dev, tier, opts):
     from tpu_flash_torch.ops.decode import paged
-    from tpu_flash_torch.ops.quant import quantize
 
     g = torch.Generator(device=dev).manual_seed(1)
     b, hq, hkv, ps, pps, n_pages = 3, 8, 2, 16, 8, 40
@@ -108,12 +133,9 @@ def test_paged_decode_kernel_matches_plain(dev, tier, opts):
     table = torch.randperm(n_pages, generator=g, device=dev)[
         : b * pps].reshape(b, pps).int()
     kp, vp = _rn(g, hkv, n_pages, ps, 128), _rn(g, hkv, n_pages, ps, 128)
-    if tier.startswith("int8"):
-        kp, vp = quantize(kp), quantize(vp)
-    else:
-        kp, vp = kp.to(getattr(torch, tier)), vp.to(getattr(torch, tier))
+    kp, vp, tier_opts = _decode_pages(kp, vp, tier)
     q = _rn(g, b, hq, 128, dtype=torch.bfloat16)
-    kw = dict(opts, int8_mxu=tier != "int8-exact")
+    kw = dict(opts, **tier_opts)
     if kw.pop("sinks", False):
         kw["sinks"] = _rn(g, hq)
     if kw.pop("alibi", False):
@@ -126,24 +148,15 @@ def test_paged_decode_kernel_matches_plain(dev, tier, opts):
     out = paged.paged_attention(q, kp, vp, lengths, table, **kw)
     torch.cuda.synchronize()
     assert paged.build.PAGED_DECODE.launches == before + 1
-    args = dict(kw)
-    tier_id = {"float32": paged.TIER_F32, "bfloat16": paged.TIER_BF16,
-               "int8-mxu": paged.TIER_INT8_MXU,
-               "int8-exact": paged.TIER_INT8}[tier]
-    quant = tier.startswith("int8")
-    ref = paged.paged_decode_plain(
-        q, kp.values if quant else kp, vp.values if quant else vp,
-        kp.scales[..., 0] if quant else None,
-        vp.scales[..., 0] if quant else None, lengths, table,
-        tier=tier_id, sm_scale=128 ** -0.5,
-        pages_per_compute_block=args.pop("pages_per_compute_block", pps),
-        **{k: v for k, v in args.items() if k != "int8_mxu"},
-    )
-    if kw.get("return_state"):
-        for a, r in zip(out[1:], ref[1:]):
-            assert (a - r).abs().max() <= 1e-3
-        out, ref = out[0], ref[0]
-    assert (out.float() - ref.float()).abs().max() <= TOL[torch.bfloat16]
+    saved = paged._paged_decode_cuda
+    paged._paged_decode_cuda = paged.paged_decode_plain
+    try:
+        ref = paged.paged_attention(q, kp, vp, lengths, table, **kw)
+    finally:
+        paged._paged_decode_cuda = saved
+    state = kw.get("return_state")
+    for a, r in zip(out if state else (out,), ref if state else (ref,)):
+        assert torch.equal(a, r)
 
 
 def test_cuda_tensor_never_takes_the_plain_path(dev):
@@ -154,6 +167,17 @@ def test_cuda_tensor_never_takes_the_plain_path(dev):
     q = torch.zeros(1, 2, 8, 64, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, q)
+    # A tier pair the decode kernel is not built for raises too.
+    from tpu_flash_torch.ops.decode import paged_attention
+    from tpu_flash_torch.ops.quant import quantize_pages
+
+    pages = torch.randn(2, 4, 16, 128, device=dev)
+    qd = torch.zeros(1, 8, 128, device=dev)
+    with pytest.raises(ValueError, match="no int4_mxu K / int8_mxu V"):
+        paged_attention(qd, quantize_pages(pages, "int4"),
+                        quantize_pages(pages, "int8"),
+                        torch.ones(1, dtype=torch.int32, device=dev),
+                        torch.zeros(1, 4, dtype=torch.int32, device=dev))
 
 
 def _prefill_inputs(g, dtype, q_len, offsets, pps=16, ps=16, n_pages=80):
@@ -179,7 +203,8 @@ def _control(kw, offs):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8", "int4",
+                                   "fp8"])
 @pytest.mark.parametrize(
     "case",
     [dict(q_len=300, offsets=(0, 64, 250), pages_per_compute_block=4),
@@ -190,15 +215,15 @@ def _control(kw, offs):
 )
 def test_paged_prefill_kernel_matches_plain(dev, dtype, pages, case):
     from tpu_flash_torch.ops.flash import paged_prefill as pp
-    from tpu_flash_torch.ops.quant import quantize
+    from tpu_flash_torch.ops.quant import quantize_pages
 
     g = torch.Generator(device=dev).manual_seed(2)
     kw = dict(case)
     q, ck, cv, table, offs = _prefill_inputs(g, dtype, kw.pop("q_len"),
                                              kw.pop("offsets"))
     kp, vp = _rn(g, 2, 80, 16, 128), _rn(g, 2, 80, 16, 128)
-    if pages == "int8":
-        kp, vp = quantize(kp), quantize(vp)
+    if pages in ("int8", "int4", "fp8"):
+        kp, vp = quantize_pages(kp, pages), quantize_pages(vp, pages)
     else:
         kp, vp = kp.to(getattr(torch, pages)), vp.to(getattr(torch, pages))
     if kw.pop("sinks", False):

@@ -176,6 +176,9 @@ def test_validation_errors():
         t_paged(q, s["tk"], s["tv"], lens, table, return_state=True,
                 sinks=torch.zeros(HQ))
     int4 = TQT(torch.zeros((HKV, NP, PS // 2, D), dtype=torch.int8),
-               torch.ones((HKV, NP, PS, 1)), "int4")
-    with pytest.raises(NotImplementedError, match="K4 tiers"):
-        t_paged(q, int4, int4, lens, table)
+               torch.ones((HKV, NP, PS, 1)), "int4", "tokens")
+    with pytest.raises(ValueError, match="tokens/page"):
+        t_paged(q, int4, quantize(torch.zeros(HKV, NP, PS // 2, D)), lens,
+                table)
+    with pytest.raises(ValueError, match="token-packed"):
+        t_paged(q, int4._replace(packing="lanes"), int4, lens, table)

@@ -242,16 +242,15 @@ def test_greedy_engine_is_token_exact_vs_jax(trained, kv_dtype, ring):
 
 
 def test_engine_refuses_what_the_slice_does_not_port(trained):
-    """Still refused: an unresolved cache layout, optimistic admission,
-    n > 1 and int4 pages in paged prefill. Paged prefill, fused mixed
-    steps and speculation (k = 8 by default) construct and step."""
-    from tpu_flash_torch.ops.flash import paged_prefill_attention
-    from tpu_flash_torch.ops.quant import QuantizedTensor
-
+    """Still refused: optimistic admission and n > 1. An unresolved
+    cache layout now resolves (tests/test_torch_engine_tiers.py holds it
+    to JAX's). Paged prefill, fused mixed steps and speculation (k = 8 by
+    default) construct and step."""
     _, _, tm, tp = trained
     resolved = CacheConfig(**LAYOUT, recent_window=0)
-    with pytest.raises(ValueError, match="unresolved"):
-        InferenceEngine(tm, tp, EngineConfig(cache=CacheConfig()))
+    auto = InferenceEngine(tm, tp, EngineConfig(max_seq_len=256,
+                                                cache=CacheConfig()))
+    assert auto.config.cache.resolved
     with pytest.raises(NotImplementedError, match="preemption"):
         InferenceEngine(tm, tp, EngineConfig(cache=resolved,
                                              admission="optimistic"))
@@ -260,14 +259,6 @@ def test_engine_refuses_what_the_slice_does_not_port(trained):
         eng.submit([1, 2, 3], 4, n=2)
     assert eng.cancel(eng.submit([1, 2, 3], 4))
     assert not eng.scheduler.has_work()
-    x = torch.zeros(1, 4, 8, 128)
-    int4 = QuantizedTensor(torch.zeros(2, 12, 32, 64, dtype=torch.int8),
-                           torch.ones(2, 12, 32, 1), "int4")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        paged_prefill_attention(x, x[:, :2], x[:, :2], int4, int4,
-                                torch.zeros(1, dtype=torch.int32),
-                                torch.zeros(1, 4, dtype=torch.int32),
-                                hist_cap=32)
     eng = InferenceEngine(tm, tp, EngineConfig(
         cache=resolved, paged_prefill=True, fused_mixed_step=True,
         **{k: v for k, v in ENGINE.items()

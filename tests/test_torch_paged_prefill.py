@@ -190,11 +190,19 @@ def test_paged_prefill_matches_oracle(case):
 
 
 def test_paged_prefill_refuses_int4_pages():
+    """int4 pages must be token-packed; group-affine int4 (int4g32) and
+    mixed tiers never reach paged prefill (the engine gathers them)."""
     t, _ = _inputs(2, 8, 6, (8, 8, 8), "bfloat16")
-    int4 = TQT(t["kp"].to(torch.int8), torch.ones(HKV, NP, PS, 1), "int4")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        paged_prefill_attention(t["q"], t["ck"], t["cv"], int4, int4,
-                                t["offs"], t["table"], hist_cap=48)
+    lanes = TQT(t["kp"].to(torch.int8), torch.ones(HKV, NP, PS, 1), "int4")
+    group = TQT(t["kp"].to(torch.int8)[:, :, : PS // 2],
+                torch.ones(HKV, NP, 2, PS), "int4g32", "tokens")
+    int8 = TQT(t["kp"].to(torch.int8), torch.ones(HKV, NP, PS, 1), "int8")
+    for pages, msg in (((lanes, lanes), "token-packed"),
+                       ((group, group), "int4g32"),
+                       ((int8, lanes._replace(packing="tokens")), "one tier")):
+        with pytest.raises(ValueError, match=msg):
+            paged_prefill_attention(t["q"], t["ck"], t["cv"], *pages,
+                                    t["offs"], t["table"], hist_cap=48)
 
 
 def test_kernel_library_name_hashes_shared_headers(tmp_path, monkeypatch):

@@ -1,7 +1,8 @@
 """tpu_flash_torch: the PyTorch + CUDA port of ``tpu_flash``.
 
 The same serving slice as the JAX package -- a Llama-style model served
-through a paged bf16/f32/int8 KV cache by a continuous-batching engine --
+through a paged KV cache of any of its tiers (bf16, f32, int8, int4,
+int4g32, k8v4, fp8) by a continuous-batching engine --
 with every attention kernel on that path written by hand in CUDA C++ for
 Hopper (``csrc/``). Module names follow ``tpu_flash`` so each counterpart
 is easy to find. Entry points run on ``cuda`` unless the caller passes

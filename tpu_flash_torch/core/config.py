@@ -112,10 +112,9 @@ class AttentionConfig:
 class CacheConfig:
     """Paged KV-cache layout: page size, capacity, and quantization.
 
-    The fields are the JAX package's. ``None`` means "auto" there, where
-    a policy measured on the TPU fills it in; that policy is not ported
-    (its tables are TPU measurements), so the engine of this package
-    refuses an unresolved config and names the ROADMAP item.
+    The fields are the JAX package's. ``None`` means "auto": the engine
+    fills such fields in at construction with the JAX package's layout
+    policy (``tpu_flash_torch.utils.tuning.resolve_cache_config``).
 
     ``recent_window`` (quantized caches): the last W tokens of every slot
     are also kept in an exact bf16 ring; decode attends pages for
@@ -166,10 +165,8 @@ class CacheConfig:
     def max_context(self) -> int:
         if self.page_size is None or self.max_pages_per_seq is None:
             raise ValueError(
-                "CacheConfig has unresolved auto fields; set page_size, "
-                "num_pages, max_pages_per_seq and recent_window explicitly "
-                "(the auto layout policy is not ported yet: ROADMAP queue "
-                "1, item 9)"
+                "CacheConfig has unresolved auto fields (resolve them with "
+                "utils.tuning.resolve_cache_config)"
             )
         return self.page_size * self.max_pages_per_seq
 

@@ -17,9 +17,10 @@
 //   last block holding any of the row's q_offsets[b] tokens, then the
 //   chunk's own K/V in blocks of block_q rows, causally -- the TPU
 //   kernel's blocks in its order (prefill_tile.cuh says why that order
-//   and those widths fix the roundings). Pages are f32, bf16 or int8 with
-//   a per-token f32 scale (dequantized as value * scale in f32, rounded to
-//   the q dtype); masks: history j < q_offsets[b] (and inside the window),
+//   and those widths fix the roundings). Pages are f32, bf16, or int8,
+//   token-packed int4 or e4m3 with a per-token f32 scale (dequantized as
+//   value * scale in f32, rounded to the q dtype, bit for bit the engine's
+//   gather path); masks: history j < q_offsets[b] (and inside the window),
 //   chunk column <= row; softcap, ALiBi, sinks.
 //
 // What bounds it on this card: at a prefill chunk (q_len 512 over 1024
@@ -34,7 +35,8 @@
 // under-fill as paged_decode; split-K, wgmma and TMA are later work.
 //
 // Layout: q [b, hq, q_len, d]; chunk k/v [b, hkv, q_len, d] in q's dtype;
-// pages [hkv, num_pages, ps, d]; scales f32 [hkv, num_pages, ps];
+// pages [hkv, num_pages, ps, d] (int4: [hkv, num_pages, ps / 2, d]);
+// scales f32 [hkv, num_pages, ps];
 // q_offsets int32 [b]; tables int32 [b, pps]; o like q; all contiguous.
 
 #include "prefill_tile.cuh"
@@ -47,7 +49,7 @@ struct PagedParams {
   RowParams rp;
   const void* ck;  // chunk K [b, hkv, q_len, d]
   const void* cv;
-  const void* kp;  // pages [hkv, num_pages, ps, d]
+  const void* kp;  // pages [hkv, num_pages, ps (int4: ps / 2), d]
   const void* vp;
   const float* ks;  // scales [hkv, num_pages, ps] or nullptr
   const float* vs;
@@ -80,9 +82,12 @@ paged_prefill_kernel(PagedParams pp) {
 
   // History: pages of this row, kv column j = absolute position j.
   if (offs > 0) {
+    // Token rows of this head's pages (and scales); int4 bytes hold two.
     const long long head_rows = (long long)kvh * pp.num_pages * pp.ps;
-    const TK* kbase = static_cast<const TK*>(pp.kp) + head_rows * D;
-    const TK* vbase = static_cast<const TK*>(pp.vp) + head_rows * D;
+    const long long head_bytes_rows =
+        std::is_same<TK, Int4Tokens>::value ? head_rows / 2 : head_rows;
+    const TK* kbase = static_cast<const TK*>(pp.kp) + head_bytes_rows * D;
+    const TK* vbase = static_cast<const TK*>(pp.vp) + head_bytes_rows * D;
     const float* ksc = pp.ks != nullptr ? pp.ks + head_rows : nullptr;
     const float* vsc = pp.vs != nullptr ? pp.vs + head_rows : nullptr;
     const int* table = pp.tables + (long long)b * pp.pps;
@@ -160,6 +165,8 @@ int launch_pages(const PagedParams& pp, int page_dtype, int batch,
     case 0: return launch<TQ, float>(pp, batch, stream);
     case 1: return launch<TQ, __nv_bfloat16>(pp, batch, stream);
     case 2: return launch<TQ, int8_t>(pp, batch, stream);
+    case 3: return launch<TQ, Int4Tokens>(pp, batch, stream);
+    case 4: return launch<TQ, __nv_fp8_e4m3>(pp, batch, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -167,7 +174,8 @@ int launch_pages(const PagedParams& pp, int page_dtype, int batch,
 }  // namespace
 
 // q_dtype: 0 = float32, 1 = bfloat16 (q, chunk k/v and o share it).
-// page_dtype: 0 f32, 1 bf16, 2 int8 (k_scales/v_scales given).
+// page_dtype: 0 f32, 1 bf16; with k_scales/v_scales: 2 int8, 3 int4
+// (token-packed, page_size even), 4 fp8 (e4m3).
 // Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
 // for a configuration this build does not serve.
 extern "C" int paged_prefill(
@@ -181,7 +189,8 @@ extern "C" int paged_prefill(
     void* stream) {
   if (head_dim != D || hq % hkv != 0 || hq / hkv > BQ ||
       (q_dtype != 0 && q_dtype != 1) || block_tokens <= 0 || block_q <= 0 ||
-      q_len <= 0 || (page_dtype == 2) != (k_scales != nullptr)) {
+      q_len <= 0 || (page_dtype >= 2) != (k_scales != nullptr) ||
+      (page_dtype == 3 && page_size % 2 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   PagedParams pp;
@@ -198,6 +207,7 @@ extern "C" int paged_prefill(
   pp.rp.window = window;
   pp.rp.softcap = softcap;
   pp.rp.inv_softcap = inv_softcap;
+  pp.rp.page_size = page_size;
   pp.ck = chunk_k;
   pp.cv = chunk_v;
   pp.kp = k_pages;

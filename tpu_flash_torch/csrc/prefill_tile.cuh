@@ -21,17 +21,23 @@
 //
 // Loaders fetch K/V rows through a per-row source index (-1: a zero row),
 // so garbage history columns never reach a sum. Values are rounded to the
-// query dtype after dequantization (int8 * per-token scale in f32), as the
-// TPU kernel's `dequant` does; q is scaled in its own dtype; masked scores
-// take MASK_VALUE; ALiBi adds slope * (kv_pos - q_pos); sinks join the
-// denominator once at the end; a row with l == 0 divides by 1.
+// query dtype after dequantization (int8, int4 or e4m3 * per-token scale
+// in f32), as the TPU kernel's `dequant` does; token-packed int4 pages
+// hold token j of a page in the low nibble of byte row j and token
+// j + ps/2 in the high nibble, both sign-extended; q is scaled in its
+// own dtype; masked scores take MASK_VALUE; ALiBi adds slope * (kv_pos -
+// q_pos); sinks join the denominator once at the end; a row with l == 0
+// divides by 1.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace prefill {
 
@@ -53,6 +59,21 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+
+// One byte of token-packed int4 pages (two tokens' nibbles).
+struct Int4Tokens {
+  int8_t bits;
+};
+
+template <typename T>
+__device__ __forceinline__ float piece_elem(T x, bool) { return to_f(x); }
+__device__ __forceinline__ float piece_elem(Int4Tokens x, bool hi) {
+  const int b = x.bits;  // sign-extended byte
+  return (float)(hi ? (b >> 4) : ((int)((unsigned)b << 28) >> 28));
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -79,6 +100,7 @@ struct RowParams {
   float scale;         // sm_scale, already rounded to the q dtype
   int window;          // <= 0: none
   float softcap, inv_softcap;  // softcap <= 0: none
+  int page_size;       // tokens a page (read by int4 pages only)
 };
 
 // Shared memory of one block and the position of a row.
@@ -165,25 +187,36 @@ __device__ __forceinline__ void load_q(const RowParams& p, const Rows& rows,
 // Stage kv rows [t0, t0 + n) of a block: row t comes from source row
 // src(t) of kbase/vbase (times its scale where scales are given), rounded
 // to TQ; rows past n and rows with src -1 are zero. Rows are read in
-// 16-byte pieces (the wrappers pass 16-byte aligned tensors).
+// 16-byte pieces (the wrappers pass 16-byte aligned tensors). For int4
+// pages the source row is the token's (page * ps + offset), its scale's
+// index; its byte row is (page * ps/2 + offset % (ps/2)).
 template <typename TK>
-__device__ __forceinline__ void load_piece(const TK* row, int c0,
-                                           const float* scale, long long s,
-                                           float* out) {
+__device__ __forceinline__ void load_piece(const TK* base, long long s,
+                                           int c0, const float* scale,
+                                           int ps, float* out) {
   constexpr int CE = 16 / sizeof(TK);
+  const TK* row = base + s * D;
+  bool hi = false;
+  if constexpr (std::is_same<TK, Int4Tokens>::value) {
+    const int half = ps / 2, off = (int)(s % ps);
+    hi = off >= half;
+    row = base + ((s / ps) * half + off % half) * D;
+  }
   const uint4 raw = *reinterpret_cast<const uint4*>(row + c0);
   const TK* vals = reinterpret_cast<const TK*>(&raw);
   const float sc = scale != nullptr ? scale[s] : 1.f;
 #pragma unroll
-  for (int e = 0; e < CE; ++e)
-    out[e] = scale != nullptr ? to_f(vals[e]) * sc : to_f(vals[e]);
+  for (int e = 0; e < CE; ++e) {
+    const float x = piece_elem(vals[e], hi);
+    out[e] = scale != nullptr ? x * sc : x;
+  }
 }
 
 template <typename TQ, typename TK, typename Src>
 __device__ __forceinline__ void stage(const Smem& sm, int t0, int n,
                                       bool with_v, const TK* kbase,
                                       const TK* vbase, const float* kscale,
-                                      const float* vscale, Src src) {
+                                      const float* vscale, int ps, Src src) {
   constexpr int CE = 16 / sizeof(TK);  // elements per 16-byte piece
   constexpr int PIECES = D / CE;       // pieces per row
   const int tid = threadIdx.x;
@@ -194,8 +227,8 @@ __device__ __forceinline__ void stage(const Smem& sm, int t0, int n,
     const long long s = sm.row_src[r];
     float kx[CE], vx[CE];
     if (s >= 0) {
-      load_piece(kbase + s * D, c0, kscale, s, kx);
-      if (with_v) load_piece(vbase + s * D, c0, vscale, s, vx);
+      load_piece(kbase, s, c0, kscale, ps, kx);
+      if (with_v) load_piece(vbase, s, c0, vscale, ps, vx);
     } else {
 #pragma unroll
       for (int e = 0; e < CE; ++e) kx[e] = vx[e] = 0.f;
@@ -336,7 +369,8 @@ __device__ __forceinline__ void attend_block(const RowParams& p, const Smem& sm,
   for (int sb = 0; sb < nsub; ++sb) {
     const int t0 = blk0 + sb * BK, n = min(BK, blk0 + width - t0);
     if (!live(t0, t0 + n)) continue;
-    stage<TQ>(sm, t0, n, single, kbase, vbase, kscale, vscale, src);
+    stage<TQ>(sm, t0, n, single, kbase, vbase, kscale, vscale, p.page_size,
+              src);
     scores(p, sm, ri, t0, n, mask);
     block_max(sm);
   }
@@ -363,7 +397,8 @@ __device__ __forceinline__ void attend_block(const RowParams& p, const Smem& sm,
     const int t0 = blk0 + sb * BK, n = min(BK, blk0 + width - t0);
     if (!live(t0, t0 + n)) continue;
     if (!single) {
-      stage<TQ>(sm, t0, n, true, kbase, vbase, kscale, vscale, src);
+      stage<TQ>(sm, t0, n, true, kbase, vbase, kscale, vscale, p.page_size,
+                src);
       scores(p, sm, ri, t0, n, mask);
     }
     accumulate<TQ>(sm, acc);

@@ -146,6 +146,7 @@ extern "C" int ragged_prefill(
   rg.rp.window = window;
   rg.rp.softcap = softcap;
   rg.rp.inv_softcap = inv_softcap;
+  rg.rp.page_size = 0;
   rg.k = k;
   rg.v = v;
   rg.offsets = static_cast<const int*>(q_offsets);

@@ -35,6 +35,7 @@ for "cpu"); it mutates its cache and slot tensors in place.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -67,6 +68,7 @@ from tpu_flash_torch.ops.flash import (
     paged_prefill_attention,
 )
 from tpu_flash_torch.ops.quant import QuantizedTensor, dequantize
+from tpu_flash_torch.utils.tuning import resolve_cache_config
 
 
 def _pow2_bucket(n: int, lo: int = 8) -> int:
@@ -85,14 +87,13 @@ class InferenceEngine:
         seed: int = 0,
     ):
         cfg = model.config
+        # Auto (None) cache-layout fields resolve from the serving regime
+        # (kv_dtype, context, batch) by the JAX engine's policy.
         if not config.cache.resolved:
-            raise ValueError(
-                "CacheConfig has unresolved auto fields: set page_size, "
-                "num_pages, max_pages_per_seq and recent_window explicitly "
-                "(the auto layout policy, tpu_flash.utils.tuning."
-                "resolve_cache_config, is not ported: ROADMAP queue 1, "
-                "item 9)"
-            )
+            config = dataclasses.replace(config, cache=resolve_cache_config(
+                config.cache, max_seq_len=config.max_seq_len,
+                max_batch_size=config.max_batch_size,
+            ))
         if config.admission != "reserve":
             raise NotImplementedError(
                 "optimistic admission and preemption are not ported yet "
@@ -338,28 +339,26 @@ class InferenceEngine:
         dtype) of the cached tokens [start_page * ps, start_page * ps +
         hist_len) of a batch of sequences -- the bytes decode would read.
         """
-        cache = self.cache
         ps = self.config.cache.page_size
         n_pages = -(-hist_len // ps)
         pages = table_rows[:, start_page:start_page + n_pages].long()
         dtype = self.model.dtype
 
-        def gather(pages_arr, scales_arr):
-            vals = pages_arr[layer][:, pages]  # [hkv, B, np, ps, d]
-            if cache.quantized:
-                scales = scales_arr[layer][:, pages]  # [hkv, B, np, ps]
-                dense = dequantize(
-                    QuantizedTensor(vals, scales[..., None], cache.kv_dtype),
-                    dtype,
-                )
+        def gather(side):
+            # The layer's pages of each row, [hkv, B, np, rows, d], with
+            # their scales; per side, as k8v4 mixes tiers.
+            if isinstance(side, QuantizedTensor):
+                dense = dequantize(side._replace(
+                    values=side.values[:, pages],
+                    scales=side.scales[:, pages]), dtype)
             else:
-                dense = vals.to(dtype)
+                dense = side[:, pages].to(dtype)
             hkv, b, np_, ps_, d = dense.shape
             dense = dense.reshape(hkv, b, np_ * ps_, d)[:, :, :hist_len]
             return dense.transpose(0, 1)
 
-        return (gather(cache.k_pages, cache.k_scales),
-                gather(cache.v_pages, cache.v_scales))
+        k, v = self.cache.layer_view(layer)
+        return gather(k), gather(v)
 
     def _chunked_prefill_impl(self, hist_len: int, tokens, table_rows,
                               n_valids, slots):

@@ -11,7 +11,9 @@ rebuilds) and loaded with ``ctypes``. Nothing here runs at import time;
 on a machine without ``nvcc`` only the CPU plain versions work.
 
 Every kernel carries ``launches``, a plain integer its wrapper raises by
-one per launch, so a run can show which kernels its path went through.
+one per launch, so a run can show which kernels its path went through;
+a wrapper that serves several page tiers also counts each launch under
+its tier in ``launches_by_tag``.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ class CudaKernel:
         self.replaces = replaces  # the TPU kernel, file:line
         self.source = CSRC_DIR / f"{source or name}.cu"
         self.launches = 0
+        self.launches_by_tag: Dict[str, int] = {}
         self.build_seconds: Optional[float] = None
         self.build_log = ""
         self._lib = None
@@ -115,14 +118,17 @@ class CudaKernel:
             self._lib = lib
         return getattr(self._lib, self.symbol)
 
-    def launch(self, *args) -> None:
-        """Run the entry point; raise on a CUDA error; count the launch."""
+    def launch(self, *args, tag: Optional[str] = None) -> None:
+        """Run the entry point; raise on a CUDA error; count the launch
+        (and, with a ``tag``, count it under the tag too)."""
         rc = self.function()(*args)
         if rc != 0:
             raise RuntimeError(
                 f"{self.name} kernel launch failed: CUDA error {rc}"
             )
         self.launches += 1
+        if tag is not None:
+            self.launches_by_tag[tag] = self.launches_by_tag.get(tag, 0) + 1
 
 
 FLASH_FWD = CudaKernel(
@@ -143,7 +149,7 @@ FLASH_BWD_DQ = CudaKernel(
 )
 PAGED_DECODE = CudaKernel(
     "paged_decode", "paged_decode",
-    [P] * 14 + [I] * 11 + [F, I, F, F, P],
+    [P] * 14 + [I] * 12 + [F, I, F, F, P],
     replaces="tpu_flash/ops/decode/paged.py:122",
 )
 PAGED_PREFILL = CudaKernel(
@@ -178,10 +184,16 @@ def build_all() -> Dict[str, float]:
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.launches_by_tag = {}
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    """Launches of each kernel, and of each tagged launch as
+    ``"<kernel>:<tag>"``."""
+    out = {name: k.launches for name, k in KERNELS.items()}
+    for name, k in KERNELS.items():
+        out.update({f"{name}:{t}": n for t, n in k.launches_by_tag.items()})
+    return out
 
 
 def stream_handle(tensor) -> int:

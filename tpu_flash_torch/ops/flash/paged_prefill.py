@@ -8,15 +8,18 @@ tokens (per row, so one call serves same-stage and mixed-stage batches),
 and the chunk's own K/V come in dense. Both versions here take the TPU
 kernel's blocks in its order -- history blocks of ``pages_per_block *
 page_size`` tokens, then chunk blocks of ``block_q`` rows (``TileSizes``)
--- and its roundings: int8 pages dequantize as ``value * scale`` in f32
-rounded to q's dtype (f32 models over bf16 pages promote them), q is
+-- and its roundings: quantized pages (int8, token-packed int4 with
+sign-extended nibbles, e4m3) dequantize as ``value * scale`` in f32
+rounded to q's dtype, bit for bit the engine's gather path (f32 models
+over bf16 pages promote them), q is
 scaled in its own dtype, P is rounded to the value dtype after each
 block's running max, masked scores take ``DEFAULT_MASK_VALUE``, a row
 that sees nothing divides by 1, sinks join the denominator once.
 
 :func:`paged_prefill_attention` takes the plain version for CPU tensors
 only; a CUDA tensor launches the kernel (``csrc/paged_prefill.cu``) or
-raises. int4 and fp8 pages are ROADMAP queue 1, item 9.
+raises. int4g32 and k8v4 pages never reach it: the engine gathers their
+history, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -29,10 +32,14 @@ from tpu_flash_torch.core.config import TileSizes
 from tpu_flash_torch.core.reference import DEFAULT_MASK_VALUE
 from tpu_flash_torch.ops import build
 from tpu_flash_torch.ops.flash.forward import rounded_scale
-from tpu_flash_torch.ops.quant.quantize import QuantizedTensor
+from tpu_flash_torch.ops.quant.quantize import (
+    QuantizedTensor,
+    unpack_int4_tokens,
+)
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# Page payloads, numbered as csrc/paged_prefill.cu takes them.
+PAGE_KINDS = {"float32": 0, "bfloat16": 1, "int8": 2, "int4": 3, "fp8": 4}
 KERNEL_HEAD_DIM = 128
 KERNEL_MAX_Q_PER_KV = 64  # one block stacks q_per_kv heads in 64 rows
 TILES = TileSizes()
@@ -116,17 +123,21 @@ def paged_prefill_plain(
     softcap: Optional[float] = None,
     sinks: Optional[torch.Tensor] = None,
     alibi: Optional[torch.Tensor] = None,
+    page_kind: str = "bfloat16",
 ) -> torch.Tensor:
     """Plain PyTorch version of the ``paged_prefill`` kernel: pages
-    [hkv, P, ps, d]; scales [hkv, P, ps] (int8) or None. Every history
-    block some row needs is stepped for all rows: for a row it does not
-    reach, the block is wholly masked, which leaves its result bit-equal
+    [hkv, P, ps, d], or token-packed int4 [hkv, P, ps / 2, d]
+    (``page_kind`` "int4"); scales [hkv, P, ps] (quantized pages) or
+    None. Every history block some row needs is stepped for all rows:
+    for a row it does not reach, the block is wholly masked, which leaves
+    its result bit-equal
     (P is exactly 0 after a real block, and a masked block before the
     first real one is wiped by that block's alpha = 0)."""
     b, hq, q_len, d = q.shape
     hkv = chunk_k.shape[1]
     g = hq // hkv
-    ps = k_vals.shape[2]
+    packed = page_kind == "int4"
+    ps = k_vals.shape[2] * (2 if packed else 1)
     ppb = pages_per_block
     bk = ppb * ps
     dt, dev = q.dtype, q.device
@@ -137,9 +148,10 @@ def paged_prefill_plain(
     tables = page_tables.to(dev).long()
 
     def pages(vals, scales, pidx):
-        # [hkv, P, ps, d] pages of page ids [b, ppb] -> [b, hkv, bk, d],
+        # [hkv, P, rows, d] pages of page ids [b, ppb] -> [b, hkv, bk, d],
         # dequantized in f32 and rounded to q's dtype (the TPU `dequant`).
-        x = vals[:, pidx].float()
+        x = vals[:, pidx]
+        x = (unpack_int4_tokens(x) if packed else x).float()
         if scales is not None:
             x = x * scales[:, pidx][..., None]
         x = x.to(dt).float().transpose(0, 1)
@@ -203,8 +215,9 @@ def paged_prefill_attention(
       q: [B, hq, q_len, d] chunk queries.
       chunk_k, chunk_v: [B, hkv, q_len, d] the chunk's own K/V.
       k_pages / v_pages: one layer's pages [hkv, num_pages, ps, d] (bf16
-        or f32), or int8 ``QuantizedTensor`` with scales
-        [hkv, num_pages, ps, 1].
+        or f32), or int8 / fp8 ``QuantizedTensor`` with scales
+        [hkv, num_pages, ps, 1], or token-packed int4 (payload
+        [hkv, num_pages, ps / 2, d], the same scales).
       q_offsets: [B] per-row history length (<= hist_cap).
       page_tables: [B, pages_per_seq] int32.
       hist_cap: bound of the history sweep, a multiple of page_size.
@@ -226,15 +239,17 @@ def paged_prefill_attention(
     ):
         raise ValueError("K and V pages must both be quantized or both dense")
     k_scales = v_scales = None
+    kind = None
     if isinstance(k_pages, QuantizedTensor):
-        for qt in (k_pages, v_pages):
-            if qt.dtype_name in ("int4", "fp8"):
-                raise NotImplementedError(
-                    f"{qt.dtype_name} pages in paged prefill are not ported "
-                    "yet (ROADMAP queue 1, item 9: the other cache tiers)"
-                )
-            if qt.dtype_name != "int8":
-                raise ValueError(f"unsupported KV quant {qt.dtype_name!r}")
+        kind = k_pages.dtype_name
+        if kind not in ("int8", "int4", "fp8") or v_pages.dtype_name != kind:
+            raise ValueError(
+                f"unsupported KV quant {kind!r}/{v_pages.dtype_name!r} "
+                "(paged prefill takes int8, int4 or fp8 pages of one tier)"
+            )
+        if kind == "int4" and not (k_pages.packing == v_pages.packing
+                                   == "tokens"):
+            raise ValueError("int4 KV pages must be token-packed")
         k_vals, v_vals = k_pages.values, v_pages.values
         k_scales = k_pages.scales.squeeze(-1)
         v_scales = v_pages.scales.squeeze(-1)
@@ -247,7 +262,7 @@ def paged_prefill_attention(
             f"num_q_heads ({num_q_heads}) must be a multiple of "
             f"num_kv_heads ({num_kv_heads})"
         )
-    page_size = k_vals.shape[2]
+    page_size = k_vals.shape[2] * (2 if kind == "int4" else 1)
     pps = page_tables.shape[1]
     if hist_cap % page_size:
         raise ValueError(f"hist_cap {hist_cap} % page_size {page_size} != 0")
@@ -265,6 +280,7 @@ def paged_prefill_attention(
         window=None if window is None else int(window),
         softcap=None if softcap is None else float(softcap),
         sinks=sinks, alibi=alibi,
+        page_kind=kind or str(k_vals.dtype).removeprefix("torch."),
     )
     if q.device.type == "cpu":
         return paged_prefill_plain(
@@ -284,19 +300,21 @@ def paged_prefill_attention(
 def _paged_prefill_cuda(q, chunk_k, chunk_v, k_vals, v_vals, k_scales,
                         v_scales, q_offsets, page_tables, *, hist_cap,
                         sm_scale, block_q, pages_per_block, window, softcap,
-                        sinks, alibi):
+                        sinks, alibi, page_kind):
     b, hq, q_len, d = q.shape
-    hkv, num_pages, ps, _ = k_vals.shape
+    hkv, num_pages = k_vals.shape[:2]
+    ps = k_vals.shape[2] * (2 if page_kind == "int4" else 1)
     if q.dtype not in KERNEL_DTYPES or chunk_k.dtype != q.dtype or \
             chunk_v.dtype != q.dtype:
         raise ValueError(
             f"paged_prefill kernel takes f32 or bf16 q with chunk K/V of "
             f"the same dtype, got {q.dtype}/{chunk_k.dtype}/{chunk_v.dtype}"
         )
-    if k_vals.dtype not in PAGE_DTYPES or v_vals.dtype != k_vals.dtype:
+    if page_kind not in PAGE_KINDS or v_vals.dtype != k_vals.dtype:
         raise ValueError(
-            f"paged_prefill kernel takes f32, bf16 or int8 pages of one "
-            f"dtype, got {k_vals.dtype}/{v_vals.dtype}"
+            f"paged_prefill kernel takes f32, bf16, int8, int4 or fp8 "
+            f"pages of one dtype, got {page_kind} "
+            f"({k_vals.dtype}/{v_vals.dtype})"
         )
     if d != KERNEL_HEAD_DIM or hq // hkv > KERNEL_MAX_Q_PER_KV:
         raise ValueError(
@@ -327,12 +345,12 @@ def _paged_prefill_cuda(q, chunk_k, chunk_v, k_vals, v_vals, k_scales,
         build.ptr(k_vals), build.ptr(v_vals), build.ptr(k_scales),
         build.ptr(v_scales), build.ptr(q_offsets), build.ptr(page_tables),
         build.ptr(sinks), build.ptr(alibi), build.ptr(o),
-        KERNEL_DTYPES[q.dtype], PAGE_DTYPES[k_vals.dtype], b, hq, hkv,
+        KERNEL_DTYPES[q.dtype], PAGE_KINDS[page_kind], b, hq, hkv,
         q_len, num_pages, ps, page_tables.shape[1], pages_per_block * ps,
         block_q, d, rounded_scale(sm_scale, q.dtype),
         0 if window is None else window,
         0.0 if softcap is None else softcap,
         0.0 if softcap is None else float(1.0 / softcap),
-        build.stream_handle(q),
+        build.stream_handle(q), tag=page_kind,
     )
     return o
