@@ -16,7 +16,11 @@ network. Phases, one JSON line each:
      (dK/dV and dQ) at the training shape, decode over every page tier
      (bf16, int8, int4, int4g32, k8v4, fp8; int8_mxu and fp8_native on
      and off), paged prefill over bf16, int8, int4 and fp8 pages, ragged
-     prefill;
+     prefill; config 1's d 64 f32 row of the forward; the quantized-input
+     forward at config 4's geometry (int8, fp8 native and software at
+     8192 tokens in bf16 and f32 with a bar per row and a late-row
+     control; options and the int8 staircase at 2048); the row
+     quantizer byte for byte; the attention-weights kernel;
   4. main path: Llama-3-8B geometry at full width (all 32 layers, seeded
      random bf16 weights made on the card) served by the port's engine at
      its default routing (paged prefill, fused mixed steps, speculation
@@ -42,7 +46,14 @@ network. Phases, one JSON line each:
   7. the trained checkpoint: its loss over windows of the repo's own
      Markdown on the kernels and on the plain versions, then 10 AdamW
      steps on each path from the same weights and batches (one batch
-     packed with segment ids), step losses compared.
+     packed with segment ids), step losses compared;
+  8. bench: ``tpu_flash_torch.bench`` configs 1-4 in-process (flash
+     parity at d 64 and 128, prefill TFLOP/s, decode tok/s and the int8
+     quantization delta, int8 and fp8 QKV prefill at 8K through the
+     quantized-input kernel), then ``attention_weights`` on config 1's
+     shapes against the oracle's weights: targets met, rates finite and
+     positive, the quantized-input, row-quantizer and weights kernels
+     launched.
 
 Then the nvidia-smi line, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -53,6 +64,7 @@ exits non-zero and prints no result. Without CUDA it exits 2 at once.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import math
 import os
@@ -147,6 +159,27 @@ def agreement(out, ref, out_vs_control) -> dict:
                 tol=tol, control_err=out_vs_control, ok=ok)
 
 
+def row_bars(ref):
+    """case_bar's rule applied to each row (last axis) of ``ref`` at the
+    row's own max |ref|: a row of small outputs, such as a late causal
+    row that averages thousands of tokens, is held at its own scale and
+    not at that of row 0 (one token, |v| up to ~4)."""
+    import torch
+
+    top = ref.float().abs().amax(-1)
+    if ref.dtype == torch.bfloat16:
+        _, e = torch.frexp(top)  # top in [2^(e-1), 2^e): ulp 2^(e - 8)
+        ulp = torch.ldexp(torch.ones_like(top), e - 8)
+        return torch.where(top > 0, BF16_TOL_ULPS * ulp,
+                           torch.zeros_like(top))
+    return F32_TOL_REL * top
+
+
+def row_misses(out, ref, bars):
+    """Rows where ``out`` is off ``ref`` by more than the row's bar."""
+    return (out.float() - ref.float()).abs().amax(-1) > bars
+
+
 def raise_if_failed(kernel: str, rows) -> None:
     bad = [r["case"] for r in rows if not r["ok"]]
     if bad:
@@ -214,8 +247,20 @@ def live_pairs(b, sq, skv, kw):
 def flash_bound(q, k, kw):
     b, hq, sq, d = q.shape
     ops = 4.0 * hq * d * live_pairs(b, sq, k.shape[2], kw)
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-    return bound(nbytes, ops, "bfloat16")
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return bound(nbytes, ops, str(q.dtype).removeprefix("torch."))
+
+
+def config1_case(dev):
+    """BASELINE config 1's literal row at d 64 (b1 h1 s128 f32,
+    non-causal; the control is causal), as the bench's config 1 runs it."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn(1, 1, 128, 64, generator=g, device=dev)
+               for _ in range(3))
+    return ("config1_d64_f32", q, k, v, dict(causal=False),
+            dict(causal=True))
 
 
 def check_flash(dev):
@@ -223,9 +268,9 @@ def check_flash(dev):
 
     from tpu_flash_torch.ops.flash.forward import flash_fwd, flash_fwd_plain
 
-    scale = 128 ** -0.5
     rows = []
-    for name, q, k, v, kw, control in flash_cases(dev):
+    for name, q, k, v, kw, control in flash_cases(dev) + [config1_case(dev)]:
+        scale = q.shape[-1] ** -0.5
         out = flash_fwd(q, k, v, sm_scale=scale, **kw)
         torch.cuda.synchronize()
         ref = flash_fwd_plain(q, k, v, sm_scale=scale, **kw)
@@ -237,6 +282,7 @@ def check_flash(dev):
         )
         bound_ms, bound_by = flash_bound(q, k, kw)
         row = dict(case=name, shape=list(q.shape), kv_len=k.shape[2],
+                   dtype=str(q.dtype).removeprefix("torch."),
                    control={k_: str(v_) for k_, v_ in control.items()},
                    **agreement(out, ref, off), ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by)
@@ -245,18 +291,21 @@ def check_flash(dev):
         elif name == "chunk_q_offset":
             row["library_ms"] = sdpa_ms(q, k, v, mask=attention_mask(
                 q.shape[0], q.shape[2], k.shape[2], kw))
+        elif name == "config1_d64_f32":
+            row["library_ms"] = sdpa_ms(q, k, v, causal=False)
         rows.append(row)
         log("kernel_vs_plain", kernel="flash_fwd", **row)
     raise_if_failed("flash_fwd", rows)
     return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
-def sdpa_ms(q, k, v, mask=None):
-    """PyTorch's fused attention on the same inputs (causal, or under a
-    boolean ``mask``): a yardstick only, never called by the port."""
+def sdpa_ms(q, k, v, mask=None, causal=True):
+    """PyTorch's fused attention on the same inputs (causal or not, or
+    under a boolean ``mask``): a yardstick only, never called by the
+    port."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+    kw = dict(is_causal=causal) if mask is None else dict(attn_mask=mask)
     try:
         sdpa(q, k, v, enable_gqa=True, **kw)
     except TypeError:  # PyTorch without enable_gqa
@@ -907,12 +956,286 @@ def check_ragged(dev):
     return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
+# The quantized-input forward (K10) at BASELINE config 4's geometry: b 1,
+# 32 q / 8 kv heads, d 128, causal; each tier at 8192 tokens against its
+# plain version there (bf16 out as config 4 writes it, and f32 out), the
+# options at 2048. Every case's control drops its option (fp8 tiers: the
+# other tier). K10 is held with a bar per row (row_bars): a causal row
+# past a few thousand tokens has |out| near 0.8 sqrt(e / n), some 30x
+# under row 0's, so one bar from the whole output's max would sit above
+# the typical late value. The f32 cases at 8192 also hold a late-row
+# control: the plain version with the k scales of every column past the
+# middle raised by QUANT_LATE_SHIFT, an error of about 1% of each late
+# row's max |out| (rows before the middle are untouched); the bar must
+# catch it in at least QUANT_LATE_CAUGHT of the late rows.
+QUANT_SEQ = 8192
+QUANT_OPTION_SEQ = 2048
+QUANT_LATE_SHIFT = 1.01
+QUANT_LATE_CAUGHT = 0.9
+
+
+def quant_inputs(dev, dtype_name, s, seed=SEED):
+    import torch
+
+    from tpu_flash_torch.ops.flash import quantize_attention_inputs
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(1, 32, s, 128, generator=g, device=dev).bfloat16()
+    k = torch.randn(1, 8, s, 128, generator=g, device=dev).bfloat16()
+    v = torch.randn(1, 8, s, 128, generator=g, device=dev).bfloat16()
+    return q, k, v, quantize_attention_inputs(q, k, v, dtype_name)
+
+
+def quant_cases(dev):
+    """(name, dtype_name, seq, quant_fwd options, control options). The
+    first three cases write bf16 as config 4 does; the rest write f32,
+    whose bar (2^-12 of each row's max |ref|) separates the tiers and
+    routes sharply: kernel and plain version round P identically (exact
+    scores) and differ only in the order of f32 sums."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    sinks = (math.log(QUANT_OPTION_SEQ) + 1.0
+             + 0.5 * torch.randn(32, generator=g, device=dev))
+    slopes = torch.linspace(0.5, 0.004, 32, device=dev)
+    causal = dict(causal=True)
+    f32 = dict(out_dtype=torch.float32)
+    native, soft = dict(fp8_native=True), dict(fp8_native=False)
+    i8, f8 = "int8", "fp8"
+    big, opt = QUANT_SEQ, QUANT_OPTION_SEQ
+    return [
+        ("int8_causal", i8, big, causal, dict(causal=False)),
+        ("fp8_native_causal", f8, big, dict(causal=True, **native),
+         dict(causal=False, **native)),
+        ("fp8_software_causal", f8, big, dict(causal=True, **soft),
+         dict(causal=False, **soft)),
+        ("int8_causal_f32", i8, big, dict(causal=True, **f32),
+         dict(causal=False, **f32)),
+        ("fp8_native_causal_f32", f8, big, dict(causal=True, **native, **f32),
+         dict(causal=False, **native, **f32)),
+        ("fp8_software_causal_f32", f8, big,
+         dict(causal=True, **soft, **f32), dict(causal=False, **soft, **f32)),
+        ("fp8_native_f32", f8, opt, dict(causal=True, **native, **f32),
+         dict(causal=True, **soft, **f32)),
+        ("fp8_software_f32", f8, opt, dict(causal=True, **soft, **f32),
+         dict(causal=True, **native, **f32)),
+        ("fp8_native_sinks_alibi", f8, opt,
+         dict(causal=True, sinks=sinks, alibi=slopes, **native),
+         dict(causal=True, **native)),
+        ("int8_noncausal", i8, opt, dict(causal=False), causal),
+        ("int8_window", i8, opt, dict(causal=True, window=256), causal),
+        ("int8_softcap", i8, opt, dict(causal=True, softcap=5.0), causal),
+        ("int8_sinks", i8, opt, dict(causal=True, sinks=sinks), causal),
+        ("int8_alibi", i8, opt, dict(causal=True, alibi=slopes), causal),
+        ("int8_kv_tail", i8, opt, dict(causal=False, kv_len=opt - 100),
+         dict(causal=False)),
+        ("int8_onepass_f32", i8, opt, dict(causal=True, onepass=True, **f32),
+         dict(causal=True, **f32)),
+    ]
+
+
+def quant_bound(qi, kw):
+    """Least time of one K10 call: its payloads, scales and bf16 output
+    moved once, against QK^T at the int8/fp8 rate and P V at the rate of
+    the type it runs in (int8 on the staircase, e4m3 on the native tier,
+    bf16 otherwise) over this run's live pairs."""
+    import torch
+
+    b, hq, sq, d = qi.q_values.shape
+    skv = qi.k_values.shape[2]
+    pairs = hq * live_pairs(b, sq, skv, kw)
+    out_bytes = 4 if kw.get("out_dtype") == torch.float32 else 2
+    nbytes = (qi.q_values.numel() + 2 * qi.k_values.numel()
+              + 4 * (b * hq * sq + 2 * b * qi.k_values.shape[1] * skv)
+              + out_bytes * qi.q_values.numel())
+    pv_type = ("int8" if kw.get("onepass") else
+               "fp8" if kw.get("fp8_native") else "bfloat16")
+    t_ops = (2.0 * d * pairs / PEAK_OPS_PER_S["int8"]
+             + 2.0 * d * pairs / PEAK_OPS_PER_S[pv_type])
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_quant_fwd(dev):
+    """K10: each case's kernel output against its plain version on the
+    same inputs with a bar per row, its control outside the bar (and, at
+    8192 in f32, the late-row control caught); times at each case."""
+    import torch
+
+    from tpu_flash_torch.ops.flash import quantized as qz
+
+    rows = []
+    inputs = {}
+    for name, dtype_name, s, kw, control in quant_cases(dev):
+        key = (dtype_name, s)
+        if key not in inputs:
+            inputs.clear()
+            inputs[key] = quant_inputs(dev, dtype_name, s)[3]
+        qi = inputs[key]
+
+        def call(fn, opts, args=qi[:6]):
+            return fn(*args, dtype_name=dtype_name, sm_scale=SCALE,
+                      **{"out_dtype": torch.bfloat16, **opts})
+
+        out = call(qz.quant_fwd, kw)
+        torch.cuda.synchronize()
+        ref = call(qz.quant_fwd_plain, kw)
+        bars = row_bars(ref)
+        missed = int(row_misses(out, ref, bars).sum())
+        ctl_missed = int(row_misses(out, call(qz.quant_fwd_plain, control),
+                                    bars).sum())
+        late = {}
+        if s == QUANT_SEQ and ref.dtype == torch.float32:
+            k_scales = qi.k_scales.clone()
+            k_scales[..., s // 2:] *= QUANT_LATE_SHIFT
+            shifted = call(qz.quant_fwd_plain, kw,
+                           args=(*qi[:3], k_scales, *qi[4:6]))
+            rows_late = slice(s // 2, None)
+            caught = row_misses(out[:, :, rows_late], shifted[:, :, rows_late],
+                                bars[:, :, rows_late])
+            size = ((shifted - ref).abs().amax(-1)
+                    / ref.abs().amax(-1))[:, :, rows_late]
+            late = dict(late_caught=float(caught.float().mean()),
+                        late_shift_rel_median=float(size.median()),
+                        late_median_abs_ref=float(
+                            ref[:, :, rows_late].abs().median()),
+                        late_median_bar=float(bars[:, :, rows_late].median()))
+            del shifted
+        ok = (missed == 0 and ctl_missed > 0
+              and late.get("late_caught", 1.0) >= QUANT_LATE_CAUGHT)
+        big = s == QUANT_SEQ
+        ms = time_ms(lambda: call(qz.quant_fwd, kw), 3 if big else 5,
+                     warmup=1)
+        plain_ms = time_ms(lambda: call(qz.quant_fwd_plain, kw), 1,
+                           warmup=0)
+        bound_ms, bound_by = quant_bound(qi, kw)
+        row = dict(case=name, dtype=dtype_name, seq=s,
+                   out=str(out.dtype).removeprefix("torch."),
+                   control={k_: str(v_) for k_, v_ in control.items()},
+                   max_abs_err=max_err(out, ref),
+                   max_abs_ref=float(ref.float().abs().max()),
+                   max_err_over_row_bar=float(
+                       ((out.float() - ref.float()).abs().amax(-1)
+                        / bars.clamp_min(1e-30)).max()),
+                   median_abs_ref=float(ref.float().abs().median()),
+                   median_row_bar=float(bars.median()),
+                   rows_missed=missed, control_rows_missed=ctl_missed,
+                   **late, ok=ok, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        rows.append(row)
+        log("kernel_vs_plain", kernel="quant_fwd", **row)
+        del out, ref
+    raise_if_failed("quant_fwd", rows)
+    # The kernels line times int8 at config 4's shape, the first case. No
+    # one PyTorch call computes attention over quantized inputs with
+    # these roundings (SDPA on dequantized inputs is another function).
+    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms_by_case={r["case"]: r["ms"] for r in rows})
+
+
+def check_quantize_rows(dev):
+    """K11 at config 4's q (32 x 8192 rows of 128, bf16): byte for byte
+    against its plain version and against quantize_attention_inputs'
+    int8 q on the plain path."""
+    import torch
+
+    from tpu_flash_torch.ops.flash import quantize_attention_inputs
+    from tpu_flash_torch.ops.quant import quantize_pallas, quantize_rows_plain
+
+    q, k, v, _ = quant_inputs(dev, "int8", QUANT_SEQ)
+    got = quantize_pallas(q)
+    torch.cuda.synchronize()
+    vals, scales = quantize_rows_plain(q)
+    with plain_versions():
+        qi = quantize_attention_inputs(q, k, v, "int8")
+    same = (torch.equal(got.values, vals) and torch.equal(got.scales, scales)
+            and torch.equal(got.values, qi.q_values)
+            and torch.equal(got.scales, qi.q_scales[..., :1]))
+    err = max(max_err(got.values, vals), max_err(got.scales, scales))
+    ms = time_ms(lambda: quantize_pallas(q), 20)
+    plain_ms = time_ms(lambda: quantize_rows_plain(q), 5)
+    nbytes = q.numel() * (q.element_size() + 1) + 4 * q.numel() // 128
+    bound_ms, bound_by = bound(nbytes, 3.0 * q.numel(), "float32")
+    row = dict(case="config4_q", shape=list(q.shape), byte_identical=same,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None, ok=same)
+    log("kernel_vs_plain", kernel="quantize_rows", **row)
+    raise_if_failed("quantize_rows", [row])
+    return row
+
+
+WEIGHTS_SEQ = 2048
+
+
+def check_attn_weights(dev):
+    """K12 at b 1, 32 q / 8 kv heads, 2048 tokens, d 128, bf16: P from the
+    forward's lse, kernel against plain version; sinks rows sum below 1."""
+    import torch
+
+    from tpu_flash_torch.ops.flash import debug, flash_attention
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    s = WEIGHTS_SEQ
+    q = torch.randn(1, 32, s, 128, generator=g, device=dev).bfloat16()
+    k = torch.randn(1, 8, s, 128, generator=g, device=dev).bfloat16()
+    v = torch.randn(1, 8, s, 128, generator=g, device=dev).bfloat16()
+    sinks = math.log(s) + 1.0 + 0.5 * torch.randn(32, generator=g, device=dev)
+    slopes = torch.linspace(0.5, 0.004, 32, device=dev)
+    causal = dict(causal=True)
+    cases = [
+        ("causal", causal, {}, dict(causal=False)),
+        ("window_softcap", dict(causal=True, window=256, softcap=5.0), {},
+         causal),
+        ("alibi", dict(causal=True, alibi=slopes), {}, causal),
+        ("sinks", causal, dict(sinks=sinks), None),
+    ]
+    rows = []
+    for name, kw, fwd_only, control in cases:
+        _, lse = flash_attention(q, k, v, save_residuals=True, sm_scale=SCALE,
+                                 **kw, **fwd_only)
+
+        def call(fn, opts):
+            return fn(q, k, lse, sm_scale=SCALE, **opts)
+
+        out = call(debug.attention_weights_from_lse, kw)
+        torch.cuda.synchronize()
+        ref = call(debug.weights_plain, kw)
+        if control is None:  # without sinks the rows would sum to 1
+            _, lse0 = flash_attention(q, k, v, save_residuals=True,
+                                      sm_scale=SCALE, **kw)
+            off = max_err(out, debug.weights_plain(q, k, lse0,
+                                                   sm_scale=SCALE, **kw))
+        else:
+            off = max_err(out, call(debug.weights_plain, control))
+        row_sums = out.sum(-1)
+        ms = time_ms(lambda: call(debug.attention_weights_from_lse, kw), 10)
+        plain_ms = time_ms(lambda: call(debug.weights_plain, kw), 2)
+        nbytes = (4 * out.numel() + 2 * (q.numel() + k.numel())
+                  + 4 * lse.numel())
+        bound_ms, bound_by = bound(
+            nbytes, 2.0 * 128 * 32 * live_pairs(1, s, s, kw), "bfloat16")
+        row = dict(case=name, shape=list(out.shape),
+                   row_sum_max=float(row_sums.max()),
+                   row_sum_min=float(row_sums.min()),
+                   **agreement(out, ref, off), ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        if fwd_only and not row["row_sum_max"] < 1.0:
+            row["ok"] = False
+        rows.append(row)
+        log("kernel_vs_plain", kernel="attn_weights", **row)
+        del out, ref
+    raise_if_failed("attn_weights", rows)
+    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
 def kernel_entries():
     """Each kernel's CUDA entry that the port's wrappers call, by kernel
     name: (module, attribute, plain version of the same signature)."""
     from tpu_flash_torch.ops.decode import paged
-    from tpu_flash_torch.ops.flash import (api, backward, forward,
-                                           paged_prefill, ragged)
+    from tpu_flash_torch.ops.flash import (api, backward, debug, forward,
+                                           paged_prefill, quantized, ragged)
+    quantize = importlib.import_module("tpu_flash_torch.ops.quant.quantize")
 
     return {
         "flash_fwd": (api, "flash_fwd", forward.flash_fwd_plain),
@@ -923,6 +1246,11 @@ def kernel_entries():
                           paged_prefill.paged_prefill_plain),
         "ragged_prefill": (ragged, "_ragged_prefill_cuda",
                            ragged.ragged_prefill_plain),
+        "quant_fwd": (quantized, "_quant_fwd_cuda",
+                      quantized.quant_fwd_plain),
+        "quantize_rows": (quantize, "_quantize_rows_cuda",
+                          quantize.quantize_rows_plain),
+        "attn_weights": (debug, "_attn_weights_cuda", debug.weights_plain),
     }
 
 
@@ -1610,6 +1938,81 @@ def check_trained_training(dev):
     return rec
 
 
+# -- phase 8: the port's bench, BASELINE configs 1-4 ---------------------------
+
+# Calibration floor of the bench's differential timing (its --iters): the
+# windows still grow to 0.15 s, so this cuts only the floor, not coverage.
+BENCH_ITERS = 8
+RATE_METRICS = ("tflops", "tokens_per_s")
+
+
+def check_bench(dev):
+    """Phase 8: ``python -m tpu_flash_torch.bench --configs 1,2,3,4``
+    in-process on the card, every row logged; it fails unless config 1's
+    parity rows and config 3's int8 quantization-delta row pass their
+    targets, every rate is finite and positive, and config 4 launched the
+    quantized-input kernel (int8 and fp8) and the row quantizer. Then the
+    debug entry point, ``attention_weights``, on config 1's shapes: P
+    within DEBUG_WEIGHTS_TOL of the oracle's weights. Launch counts are
+    reset first, so they are this phase's alone."""
+    import torch
+
+    from tpu_flash_torch.bench.__main__ import run_configs
+    from tpu_flash_torch.ops import build
+
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = run_configs([1, 2, 3, 4], iters=BENCH_ITERS, device=dev)
+    weights = [debug_weights_row(dev, *shape) for shape in DEBUG_SHAPES]
+    torch.cuda.synchronize()
+    rec = dict(rows=len(rows), wall_s=time.perf_counter() - t0,
+               launches=build.launch_counts(), debug_weights=weights)
+    gpu = gpu_query()
+    for r in rows:
+        log("bench", gpu=gpu, **r)
+    log("bench_phase", **rec)
+    missed = [r["name"] for r in rows + weights
+              if "pass" in r and not r["pass"]]
+    bad = [r["name"] for r in rows if r["metric"] in RATE_METRICS
+           and not (math.isfinite(r["value"]) and r["value"] > 0)]
+    if missed or bad or len([r for r in rows if "pass" in r]) != 3:
+        raise AssertionError(
+            f"bench: rows off target {missed}, rates not finite and "
+            f"positive {bad}"
+        )
+    require_launches(rec, ["flash_fwd", "paged_decode", "quant_fwd",
+                           "quant_fwd:int8", "quant_fwd:fp8_native",
+                           "quantize_rows", "attn_weights"])
+    return rec
+
+
+# Config 1's two parity shapes (b, h, s, d, causal), in f32.
+DEBUG_SHAPES = ((1, 1, 128, 64, False), (2, 4, 384, 128, True))
+DEBUG_WEIGHTS_TOL = 1e-5  # f32 P <= 1: the two sum in different orders
+
+
+def debug_weights_row(dev, b, h, s, d, causal):
+    """The debug entry point as a user checking a config 1 parity row
+    would call it: ``attention_weights`` (the forward kernel's lse, then
+    the weights kernel) against the oracle's weights."""
+    import torch
+
+    from tpu_flash_torch.core.reference import reference_attention
+    from tpu_flash_torch.ops.flash import attention_weights
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device=dev)
+               for _ in range(3))
+    with torch.no_grad():
+        _, w = attention_weights(q, k, v, causal=causal)
+    _, want = reference_attention(q, k, v, causal=causal,
+                                  return_weights=True)
+    err = max_err(w, want)
+    return dict(name=f"attention_weights b{b} h{h} s{s} d{d} float32"
+                f"{' causal' if causal else ''}", max_abs_err=err,
+                target=DEBUG_WEIGHTS_TOL, **{"pass": err <= DEBUG_WEIGHTS_TOL})
+
+
 def main() -> int:
     import torch
 
@@ -1639,11 +2042,15 @@ def main() -> int:
                **check_flash_bwd(dev),
                **check_decode(dev),
                **check_paged_prefill(dev),
-               "ragged_prefill": check_ragged(dev)}
+               "ragged_prefill": check_ragged(dev),
+               "quant_fwd": check_quant_fwd(dev),
+               "quantize_rows": check_quantize_rows(dev),
+               "attn_weights": check_attn_weights(dev)}
     main_runs = check_main_path(dev)
     check_trained(dev)
     main_runs.append(check_training(dev))
     check_trained_training(dev)
+    main_runs.append(check_bench(dev))
     # One row per kernel, and one per page tier of the two kernels that
     # serve several ("<kernel>:<tier>", launched under that tag).
     kernels = []

@@ -164,7 +164,7 @@ def test_cuda_tensor_never_takes_the_plain_path(dev):
     the plain version."""
     from tpu_flash_torch.ops.flash import flash_attention
 
-    q = torch.zeros(1, 2, 8, 64, device=dev)
+    q = torch.zeros(1, 2, 8, 96, device=dev)  # the kernel serves 64 and 128
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, q)
     # A tier pair the decode kernel is not built for raises too.
@@ -430,3 +430,180 @@ def test_backward_kernels_never_take_the_plain_path(dev):
     lse = torch.zeros(1, 2, 8, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         flash_bwd(q, q, q, q, q, lse, causal=True, sm_scale=0.125)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [dict(causal=False), dict(causal=True),
+                                dict(causal=True, window=50, softcap=5.0)],
+                         ids=["noncausal", "causal", "window-softcap"])
+def test_flash_fwd_kernel_d64_matches_plain(dev, dtype, kw):
+    """The d 64 instance (BASELINE config 1's width), against the plain
+    version within the case's bar, a control (no options or causal)
+    outside it."""
+    from tpu_flash_torch.ops.flash.forward import flash_fwd, flash_fwd_plain
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = _rn(g, 2, 4, 200, 64, dtype=dtype)
+    k, v = _rn(g, 2, 2, 200, 64, dtype=dtype), _rn(g, 2, 2, 200, 64,
+                                                   dtype=dtype)
+    out = flash_fwd(q, k, v, sm_scale=0.125, **kw)
+    torch.cuda.synchronize()
+    control = dict(causal=not kw["causal"])
+    _check_with_control(out, flash_fwd_plain(q, k, v, sm_scale=0.125, **kw),
+                        flash_fwd_plain(q, k, v, sm_scale=0.125, **control))
+
+
+QUANT_CASES = {  # name: (dtype, seq, options, control options)
+    "int8-causal": ("int8", 512, dict(causal=True), dict(causal=False)),
+    "int8-noncausal-tail": ("int8", 384, dict(causal=False, kv_len=300),
+                            dict(causal=False)),
+    "fp8-native": ("fp8", 512, dict(causal=True, fp8_native=True,
+                                    out_dtype=torch.float32),
+                   dict(causal=True, fp8_native=False,
+                        out_dtype=torch.float32)),
+    "fp8-software": ("fp8", 512, dict(causal=True, fp8_native=False,
+                                      out_dtype=torch.float32),
+                     dict(causal=True, fp8_native=True,
+                          out_dtype=torch.float32)),
+    "int8-window-softcap-sinks-alibi": (
+        "int8", 512, dict(causal=True, window=100, softcap=5.0, sinks=True,
+                          alibi=True), dict(causal=True)),
+    "int8-onepass": ("int8", 1024, dict(causal=True, onepass=True,
+                                        out_dtype=torch.float32),
+                     dict(causal=True, out_dtype=torch.float32)),
+}
+
+
+@pytest.mark.parametrize("case", list(QUANT_CASES))
+def test_quant_fwd_kernel_matches_plain(dev, case):
+    """K10 against its plain version: scores are exact and P rounds the
+    same way on both sides, so only the f32 order of l and P V differs
+    (the bar); the control drops the case's option."""
+    from tpu_flash_torch.ops.flash import quantized as qz
+
+    dtype_name, s, kw, control = QUANT_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(8)
+    qi = qz.quantize_attention_inputs(
+        _rn(g, 1, 8, s, 128), _rn(g, 1, 2, s, 128), _rn(g, 1, 2, s, 128),
+        dtype_name)
+    kw = dict(kw)
+    if kw.pop("sinks", False):
+        kw["sinks"] = _rn(g, 8) + 4.0
+    if kw.pop("alibi", False):
+        kw["alibi"] = torch.linspace(0.3, 0.01, 8, device=dev)
+
+    def call(fn, opts):
+        return fn(*qi[:6], dtype_name=dtype_name, sm_scale=128 ** -0.5,
+                  **{"out_dtype": torch.bfloat16, **opts})
+
+    out = call(qz.quant_fwd, kw)
+    torch.cuda.synchronize()
+    _check_with_control(out, call(qz.quant_fwd_plain, kw),
+                        call(qz.quant_fwd_plain, control))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [128, 96])
+def test_quantize_rows_kernel_byte_identical(dev, dtype, d):
+    """K11 against its plain version byte for byte (a zero row included;
+    d 96 takes the kernel's strided loop)."""
+    from tpu_flash_torch.ops.quant import quantize_pallas, quantize_rows_plain
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = (3.0 * _rn(g, 2, 3, 256, d)).to(dtype)
+    x[0, 1, 7] = 0
+    got = quantize_pallas(x)
+    torch.cuda.synchronize()
+    vals, scales = quantize_rows_plain(x)
+    assert torch.equal(got.values, vals)
+    assert torch.equal(got.scales, scales)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize(
+    "kw,control",
+    [(dict(causal=True), dict(causal=False)),
+     (dict(causal=True, window=60, softcap=5.0), dict(causal=True)),
+     (dict(causal=True, alibi=True, q_offset=40, kv_len=250),
+      dict(causal=True, q_offset=40, kv_len=250))],
+    ids=["causal", "window-softcap", "alibi-offset-tail"],
+)
+def test_attn_weights_kernel_matches_plain(dev, dtype, d, kw, control):
+    """K12 against its plain version on the forward kernel's lse."""
+    from tpu_flash_torch.ops.flash import debug, flash_attention
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    q = _rn(g, 1, 8, 210, d, dtype=dtype)
+    k, v = _rn(g, 1, 2, 256, d, dtype=dtype), _rn(g, 1, 2, 256, d,
+                                                  dtype=dtype)
+    kw = dict(kw)
+    if kw.pop("alibi", False):
+        kw["alibi"] = torch.linspace(0.3, 0.01, 8, device=dev)
+    _, lse = flash_attention(q, k, v, save_residuals=True, **kw)
+    scale = d ** -0.5
+    out = debug.attention_weights_from_lse(q, k, lse, sm_scale=scale, **kw)
+    torch.cuda.synchronize()
+    _check_with_control(
+        out, debug.weights_plain(q, k, lse, sm_scale=scale, **kw),
+        debug.weights_plain(q, k, lse, sm_scale=scale, **control))
+
+
+def test_new_kernels_launch_and_never_take_the_plain_path(dev):
+    """flash_attention_quantized, quantize_pallas and attention_weights on
+    CUDA tensors launch their kernels (counts rise); what a kernel does
+    not serve raises instead of falling back."""
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.ops.flash import (attention_weights,
+                                           flash_attention_quantized,
+                                           quantize_attention_inputs)
+    from tpu_flash_torch.ops.quant import quantize_pallas
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = _rn(g, 1, 2, 128, 128)
+    before = build.launch_counts()
+    qi = quantize_attention_inputs(x, x, x, "int8")
+    flash_attention_quantized(qi, causal=True)
+    attention_weights(x, x, x, causal=True)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    assert after["quantize_rows"] == before["quantize_rows"] + 3
+    assert after["quant_fwd"] == before["quant_fwd"] + 1
+    assert after["attn_weights"] == before["attn_weights"] + 1
+    with pytest.raises(ValueError, match="head_dim"):
+        qi96 = quantize_attention_inputs(*(3 * [_rn(g, 1, 2, 128, 96)]))
+        flash_attention_quantized(qi96)
+    with pytest.raises(ValueError, match="f32, bf16 or f16"):
+        quantize_pallas(x.double())
+
+
+@pytest.mark.parametrize("tier", ["bfloat16", "int8-mxu"])
+def test_paged_decode_wide_block_matches_plain(dev, tier):
+    """An 8192-token kv block (8 pages of 1024, as the bench's 8K bf16
+    decode row) at 4 q heads per kv head: the score rows take g * bk
+    floats of shared memory, so the block fits; bit for bit with the
+    plain version. The same block at 8 q heads per kv head raises."""
+    from tpu_flash_torch.ops.decode import paged
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    b, hq, hkv, ps, pps = 2, 8, 2, 1024, 8
+    lengths = torch.tensor([8192, 5000], dtype=torch.int32, device=dev)
+    table = torch.arange(b * pps, dtype=torch.int32,
+                         device=dev).reshape(b, pps)
+    kp, vp = (_rn(g, hkv, b * pps, ps, 128) for _ in range(2))
+    kp, vp, tier_opts = _decode_pages(kp, vp, tier)
+    q = _rn(g, b, hq, 128)
+    kw = dict(tier_opts, pages_per_compute_block=8)
+    out = paged.paged_attention(q, kp, vp, lengths, table, **kw)
+    torch.cuda.synchronize()
+    saved = paged._paged_decode_cuda
+    paged._paged_decode_cuda = paged.paged_decode_plain
+    try:
+        ref = paged.paged_attention(q, kp, vp, lengths, table, **kw)
+    finally:
+        paged._paged_decode_cuda = saved
+    assert torch.equal(out, ref)
+    q8 = _rn(g, b, 2 * hq, 128)
+    with pytest.raises(ValueError, match="shared memory"):
+        paged.paged_attention(q8, kp, vp, lengths, table, **kw)

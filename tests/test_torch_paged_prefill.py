@@ -208,13 +208,15 @@ def test_paged_prefill_refuses_int4_pages():
 def test_kernel_library_name_hashes_shared_headers(tmp_path, monkeypatch):
     """Editing a shared ``*.cuh`` header renames every kernel library
     built from that directory, so the next build compiles afresh; the
-    six kernels are registered, the two prefill kernels on the shared
+    nine kernels are registered, the two prefill kernels on the shared
     header, the two backward kernels in one source and library."""
     from tpu_flash_torch.ops import build
 
     assert set(build.KERNELS) == {"flash_fwd", "paged_decode",
                                   "paged_prefill", "ragged_prefill",
-                                  "flash_bwd_dkv", "flash_bwd_dq"}
+                                  "flash_bwd_dkv", "flash_bwd_dq",
+                                  "quant_fwd", "quantize_rows",
+                                  "attn_weights"}
     dkv, dq = build.KERNELS["flash_bwd_dkv"], build.KERNELS["flash_bwd_dq"]
     assert dkv.source == dq.source and dkv.source.name == "flash_bwd.cu"
     assert dkv.library_path() == dq.library_path()

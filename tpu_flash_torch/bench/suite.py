@@ -1,0 +1,194 @@
+"""Benchmark harness: the port of ``tpu_flash/bench/suite.py`` for the
+parts that BASELINE configs 1-4 use.
+
+Timing is eager and differential (:func:`time_per_call`): n and then 2n
+calls between two ``torch.cuda.synchronize()``, n grown until one window
+lasts at least 0.15 s, the best of 4 repeats of each; the difference over
+n cancels the launch of the first call and the final synchronise. Eager
+PyTorch runs every call it is given, so no data-dependent chain is needed
+against common-subexpression elimination as under ``jit``. Inputs are
+seeded (``torch.Generator``) on the bench's device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import torch
+
+from tpu_flash_torch.ops.flash import flash_attention
+from tpu_flash_torch.utils.device import device_info
+
+
+def attention_flops(
+    batch: int, heads: int, q_len: int, kv_len: int, head_dim: int,
+    causal: bool,
+) -> float:
+    """Matmul FLOPs of one attention call (QK^T + PV, 2*M*N*K each)."""
+    full = 4.0 * batch * heads * q_len * kv_len * head_dim
+    return full / 2 if causal else full
+
+
+def attention_hbm_bytes(
+    batch, q_heads, kv_heads, q_len, kv_len, head_dim, itemsize
+) -> float:
+    q = batch * q_heads * q_len * head_dim
+    kv = 2 * batch * kv_heads * kv_len * head_dim
+    o = q
+    return (q + kv + o) * itemsize
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _wall(fn: Callable[[], None], n: int, device) -> float:
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    _sync(device)
+    return time.perf_counter() - t0
+
+
+def time_per_call(
+    fn: Callable[[], object],
+    *,
+    device="cuda",
+    inner: int = 16,
+    repeats: int = 4,
+    target_window: float = 0.15,
+    max_inner: int = 4096,
+) -> float:
+    """Seconds per call of ``fn`` by differential timing (module
+    docstring); ``inner`` is the calibration floor."""
+    fn()  # warm-up: builds and loads the kernels, allocator caches
+    n = max(inner, 1)
+    while n < max_inner:
+        w = _wall(fn, n, device)
+        if w >= target_window:
+            break
+        grow = max(2.0, target_window / max(w, 1e-6))
+        n = min(max_inner, max(n + 1, int(n * min(grow, 16.0))))
+    t1 = min(_wall(fn, n, device) for _ in range(repeats))
+    t2 = min(_wall(fn, 2 * n, device) for _ in range(repeats))
+    return max((t2 - t1) / n, 1e-9)
+
+
+@dataclasses.dataclass
+class BenchResult:
+    name: str
+    seconds: float
+    tflops: float
+    roofline_tflops: float
+    hbm_gbps: float
+
+    @property
+    def roofline_frac(self) -> float:
+        return self.tflops / self.roofline_tflops if self.roofline_tflops else 0.0
+
+
+def _randn(g: torch.Generator, shape, dtype, device) -> torch.Tensor:
+    return torch.randn(*shape, generator=g, device=device).to(dtype)
+
+
+def bench_flash_prefill(
+    batch: int = 1,
+    num_q_heads: int = 32,
+    num_kv_heads: int = 32,
+    seq: int = 2048,
+    head_dim: int = 128,
+    dtype=torch.bfloat16,
+    causal: bool = True,
+    iters: int = 20,
+    device="cuda",
+    seed: int = 0,
+) -> BenchResult:
+    """BASELINE config 2 by default: Llama-2-7B prefill shapes, through
+    the port's ``flash_attention``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = _randn(g, (batch, num_q_heads, seq, head_dim), dtype, device)
+    k = _randn(g, (batch, num_kv_heads, seq, head_dim), dtype, device)
+    v = _randn(g, (batch, num_kv_heads, seq, head_dim), dtype, device)
+    with torch.no_grad():
+        secs = time_per_call(
+            lambda: flash_attention(q, k, v, causal=causal), device=device,
+            inner=max(4, iters // 2),
+        )
+    flops = attention_flops(batch, num_q_heads, seq, seq, head_dim, causal)
+    bytes_ = attention_hbm_bytes(
+        batch, num_q_heads, num_kv_heads, seq, seq, head_dim,
+        q.element_size(),
+    )
+    roofline = device_info(device).roofline_attention_tflops(flops, bytes_)
+    return BenchResult(
+        name=f"flash_prefill b{batch} h{num_q_heads} s{seq} d{head_dim} "
+        f"{str(dtype).removeprefix('torch.')}{' causal' if causal else ''}",
+        seconds=secs,
+        tflops=flops / secs / 1e12,
+        roofline_tflops=roofline,
+        hbm_gbps=bytes_ / secs / 1e9,
+    )
+
+
+def bench_decode_tokens_per_s(
+    batch: int = 8,
+    num_q_heads: int = 32,
+    num_kv_heads: int = 8,
+    head_dim: int = 128,
+    context: int = 4096,
+    page_size: int = 128,
+    kv_quant: Optional[str] = "int8",
+    pages_per_compute_block: int = 8,
+    iters: int = 20,
+    fp_dtype=torch.float32,
+    device="cuda",
+    seed: int = 0,
+):
+    """BASELINE config 3 by default: Llama-3-8B GQA decode, int8 KV, 4K
+    context, through the port's ``paged_attention``. ``kv_quant`` is
+    int8 or None (configs 3-4 use no other tier); ``fp_dtype`` sets the
+    unquantized page payload. Returns (tokens_per_second,
+    seconds_per_step, hbm_gbps)."""
+    from tpu_flash_torch.ops.decode import paged_attention
+    from tpu_flash_torch.ops.quant import quantize_pages
+
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"bench_decode_tokens_per_s: kv_quant must be int8 "
+                         f"or None, got {kv_quant!r}")
+
+    pages_per_seq = context // page_size
+    num_pages = batch * pages_per_seq + 1
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (num_kv_heads, num_pages, page_size, head_dim)
+    k_pages = _randn(g, shape, torch.float32, device)
+    v_pages = _randn(g, shape, torch.float32, device)
+    if kv_quant:
+        k_pages = quantize_pages(k_pages, kv_quant)
+        v_pages = quantize_pages(v_pages, kv_quant)
+    else:
+        k_pages, v_pages = k_pages.to(fp_dtype), v_pages.to(fp_dtype)
+    page_indices = torch.arange(
+        batch * pages_per_seq, dtype=torch.int32, device=device
+    ).reshape(batch, pages_per_seq)
+    lengths = torch.full((batch,), context, dtype=torch.int32, device=device)
+    q = _randn(g, (batch, num_q_heads, head_dim), torch.float32, device)
+
+    def step():
+        return paged_attention(
+            q, k_pages, v_pages, lengths, page_indices,
+            pages_per_compute_block=pages_per_compute_block,
+        )
+
+    with torch.no_grad():
+        secs = time_per_call(step, device=device, inner=max(4, iters // 2))
+
+    payload_itemsize = (1 if kv_quant
+                        else torch.empty((), dtype=fp_dtype).element_size())
+    kv_bytes = 2 * batch * num_kv_heads * context * head_dim * payload_itemsize
+    if kv_quant:
+        kv_bytes += 2 * batch * num_kv_heads * context * 4  # scales
+    return batch / secs, secs, kv_bytes / secs / 1e9

@@ -27,6 +27,8 @@
 // CUDA-core f32 rate at best, far below the bound; wgmma, TMA and warp
 // specialisation are later work (ROADMAP queue 2).
 //
+// Head widths: d = 64 and d = 128, each its own template instance.
+//
 // Layout: q [b, hq, sq, d], k/v [b, hkv, skv, d], o like q, lse f32
 // [b, hq, sq]; all contiguous. GQA by index: q head h reads kv head
 // h / (hq / hkv). Every kernel launch runs on the caller's stream and
@@ -41,15 +43,16 @@ namespace {
 
 constexpr int BQ = 64;    // q rows per block
 constexpr int BK = 128;   // kv rows per online-softmax step
-constexpr int D = 128;    // head dim (the only one this build serves)
 constexpr int THREADS = 256;
-constexpr int QS = D + 4;   // padded row strides (floats), 16-byte aligned
-constexpr int KS = D + 4;
-constexpr int SS = BK + 4;
+constexpr int SS = BK + 4;  // padded row stride (floats), 16-byte aligned
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 
-constexpr size_t kSmemBytes =
-    sizeof(float) * (BQ * QS + BK * KS + BK * D + BQ * SS + 3 * BQ);
+// Shared memory of the head width D: Q and K rows padded to D + 4 floats.
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (BQ * (D + 4) + BK * (D + 4) + BK * D + BQ * SS +
+                          3 * BQ);
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -88,9 +91,11 @@ struct FwdParams {
   float softcap, inv_softcap;    // softcap <= 0: none
 };
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(FwdParams p) {
+  constexpr int QS = D + 4;  // padded row strides (floats)
+  constexpr int KS = D + 4;
   extern __shared__ float smem[];
   float* Qs = smem;                 // [BQ][QS] scaled q
   float* Ks = Qs + BQ * QS;         // [BK][KS]
@@ -299,21 +304,30 @@ flash_fwd_kernel(FwdParams p) {
   }
 }
 
-template <typename T>
+template <typename T, int D>
 int launch(const FwdParams& p, int batch, cudaStream_t stream) {
-  cudaFuncSetAttribute(flash_fwd_kernel<T>,
+  constexpr size_t smem = smem_bytes<D>();
+  cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kSmemBytes);
+                       (int)smem);
   dim3 grid((p.sq + BQ - 1) / BQ, p.hq, batch);
-  flash_fwd_kernel<T><<<grid, THREADS, kSmemBytes, stream>>>(p);
+  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_width(const FwdParams& p, int head_dim, int batch,
+                 cudaStream_t stream) {
+  return head_dim == 64 ? launch<T, 64>(p, batch, stream)
+                        : launch<T, 128>(p, batch, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).
-// Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
-// for a dtype or head_dim this build does not serve.
+// head_dim: 64 or 128. Returns cudaGetLastError() after the launch; 1
+// (cudaErrorInvalidValue) for a dtype or head_dim this build does not
+// serve.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, const void* sinks,
                          const void* alibi, const void* q_seg,
@@ -321,7 +335,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int hkv, int sq, int skv, int kv_len, int head_dim,
                          float scale, int causal, int q_offset, int window,
                          float softcap, float inv_softcap, void* stream) {
-  if (head_dim != D || (dtype != 0 && dtype != 1)) {
+  if ((head_dim != 64 && head_dim != 128) || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   FwdParams p;
@@ -346,6 +360,6 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   p.softcap = softcap;
   p.inv_softcap = inv_softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<float>(p, batch, s)
-                    : launch<__nv_bfloat16>(p, batch, s);
+  return dtype == 0 ? launch_width<float>(p, head_dim, batch, s)
+                    : launch_width<__nv_bfloat16>(p, head_dim, batch, s);
 }

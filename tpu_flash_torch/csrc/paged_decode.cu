@@ -261,7 +261,7 @@ paged_decode_kernel(DecodeParams p) {
   float* row_pscale = row_qscale + MAX_G;
   float* row_qsum = row_pscale + MAX_G;  // [G][NG] int4g32 K: sum(q'_g)
   float* row_z = row_qsum + MAX_G * NG;  // [G][NG] int4g32 V: sum(p z_g)
-  float* sc = row_z + MAX_G * NG;        // [G][sc_w] scores, then P
+  float* sc = row_z + MAX_G * NG;        // [G][sc_w] scores, then P (G rows)
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -632,16 +632,27 @@ paged_decode_kernel(DecodeParams p) {
   }
 }
 
-size_t smem_bytes(int bk, int ring_w) {
+// The score rows take g * max(bk, ring_w) floats: only the call's g rows
+// are read or written, so a block of 8192 tokens fits at g = 4.
+size_t smem_bytes(int bk, int ring_w, int g) {
   const int sc_w = bk > ring_w ? bk : ring_w;
   return sizeof(double) * (THREADS / D) * MAX_G * D +
          sizeof(float) * (3 * MAX_G * D + 5 * MAX_G + 2 * MAX_G * NG +
-                          (size_t)MAX_G * sc_w);
+                          (size_t)g * sc_w);
 }
+
+// Returned, before any launch, for a kv block whose shared memory exceeds
+// what the card gives one block (ops/build.py::ERR_SHARED_MEMORY).
+constexpr int kErrSharedMemory = -2;
 
 template <typename TQ, int KT, int VT>
 int launch(const DecodeParams& p, int batch, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.bk, p.ring_w);
+  const size_t smem = smem_bytes(p.bk, p.ring_w, p.g);
+  int dev = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (smem > (size_t)limit) return kErrSharedMemory;
   cudaFuncSetAttribute(paged_decode_kernel<TQ, KT, VT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
@@ -681,7 +692,8 @@ int launch_tiers(const DecodeParams& p, int k_tier, int v_tier, int batch,
 // 1 bf16, 2 int8 (exact dequant), 3 int8 (int8 q and P), 4 int4 (exact),
 // 5 int4 (int8 q and P), 6 int4g32, 7 fp8 (exact), 8 fp8 (e4m3 q and P).
 // Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
-// for a configuration this build does not serve.
+// for a configuration this build does not serve; kErrSharedMemory for a
+// kv block too wide for the card's shared memory.
 extern "C" int paged_decode(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scales, const void* v_scales, const void* lengths,

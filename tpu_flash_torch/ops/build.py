@@ -35,7 +35,11 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 ]
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# What an entry point returns, instead of a CUDA error, for a call whose
+# block needs more shared memory than the card gives one block (the
+# source checks its own layout against the card's limit).
+ERR_SHARED_MEMORY = -2
 
 
 def find_nvcc() -> str:
@@ -122,6 +126,12 @@ class CudaKernel:
         """Run the entry point; raise on a CUDA error; count the launch
         (and, with a ``tag``, count it under the tag too)."""
         rc = self.function()(*args)
+        if rc == ERR_SHARED_MEMORY:
+            raise ValueError(
+                f"{self.name} kernel: this call's block needs more shared "
+                "memory than the card gives one block; use a narrower kv "
+                "block (fewer pages per compute block)"
+            )
         if rc != 0:
             raise RuntimeError(
                 f"{self.name} kernel launch failed: CUDA error {rc}"
@@ -162,9 +172,27 @@ RAGGED_PREFILL = CudaKernel(
     [P] * 7 + [I] * 8 + [F, I, F, F, P],
     replaces="tpu_flash/ops/flash/ragged.py:56",
 )
+# K10: the tiled quantized-input forward and the int8 staircase, one
+# source (the staircase launches under the tag "onepass").
+QUANT_FWD = CudaKernel(
+    "quant_fwd", "quant_fwd",
+    [P] * 9 + [L] * 3 + [I] * 11 + [F] * 3 + [P],
+    replaces="tpu_flash/ops/flash/quantized.py:99",
+)
+QUANTIZE_ROWS = CudaKernel(
+    "quantize_rows", "quantize_rows",
+    [P] * 3 + [L, I, I, P],
+    replaces="tpu_flash/ops/quant/quantize.py:253",
+)
+ATTN_WEIGHTS = CudaKernel(
+    "attn_weights", "attn_weights",
+    [P] * 5 + [I] * 8 + [F] + [I] * 3 + [F, F, P],
+    replaces="tpu_flash/ops/flash/debug.py:40",
+)
 KERNELS: Dict[str, CudaKernel] = {
     k.name: k for k in (FLASH_FWD, PAGED_DECODE, PAGED_PREFILL,
-                        RAGGED_PREFILL, FLASH_BWD_DKV, FLASH_BWD_DQ)
+                        RAGGED_PREFILL, FLASH_BWD_DKV, FLASH_BWD_DQ,
+                        QUANT_FWD, QUANTIZE_ROWS, ATTN_WEIGHTS)
 }
 
 

@@ -33,11 +33,11 @@ import torch
 from tpu_flash_torch.ops import build
 from tpu_flash_torch.ops.flash.forward import (
     KERNEL_DTYPES,
-    KERNEL_HEAD_DIM,
     segment_ids_for_kernel,
 )
 
 BWD_BLOCK_KV = 64  # kv rows per tile of csrc/flash_bwd.cu
+KERNEL_HEAD_DIM = 128  # the only head width csrc/flash_bwd.cu serves
 
 
 def softmax_di(o: torch.Tensor, do: torch.Tensor,

@@ -27,7 +27,7 @@ from tpu_flash_torch.core.reference import DEFAULT_MASK_VALUE
 from tpu_flash_torch.ops import build
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIM = 128
+KERNEL_HEAD_DIMS = (64, 128)  # what csrc/flash_fwd.cu instantiates
 KERNEL_TILES = TileSizes()  # what csrc/flash_fwd.cu compiles
 
 
@@ -176,9 +176,9 @@ def _flash_fwd_cuda(q, k, v, *, causal, sm_scale, q_offset, kv_len,
         )
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if d != KERNEL_HEAD_DIM:
+    if d not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"flash_fwd kernel is built for head_dim {KERNEL_HEAD_DIM}, "
+            f"flash_fwd kernel is built for head_dim {KERNEL_HEAD_DIMS}, "
             f"got {d}"
         )
     for t in (k, v, sinks, alibi, q_seg, kv_seg):

@@ -20,6 +20,11 @@ are unsigned).
 Rounding is half to even (``torch.round``, as ``jnp.round``) and the e4m3
 cast rounds to nearest even as ``jnp.astype`` does, so payloads and
 scales are byte-identical to the JAX package's.
+
+:func:`quantize_pallas` is the int8 tier as one fused pass: on CUDA
+tensors the ``quantize_rows`` kernel (``csrc/quantize_rows.cu``, the
+counterpart of the Pallas ``_quant_kernel``), on CPU tensors its plain
+version :func:`quantize_rows_plain`.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from tpu_flash_torch.ops import build
 
 INT8_MAX = 127.0
 INT4_MAX = 7.0
@@ -221,3 +228,58 @@ def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     else:
         raise ValueError(f"unsupported quant dtype {qt.dtype_name!r}")
     return (vals * qt.scales).to(dtype)
+
+
+# What csrc/quantize_rows.cu reads (as f32).
+QUANTIZE_ROWS_DTYPES = {torch.float32: 0, torch.bfloat16: 1,
+                        torch.float16: 2}
+
+
+# The plain version of the quantize_rows kernel: the kernel computes the
+# int8 tier's arithmetic (IEEE divisions, half-to-even rounding).
+quantize_rows_plain = quantize_int8_rows
+
+
+def quantize_pallas(x: torch.Tensor, *, block_rows: int = 256
+                    ) -> QuantizedTensor:
+    """INT8 per-row quantization as one fused pass (the port of the JAX
+    ``quantize_pallas``): x [..., rows, d] in f32, bf16 or f16 to
+    ``QuantizedTensor(values int8, scales [..., rows, 1] f32, "int8")``.
+
+    ``block_rows`` keeps the JAX function's contract -- the flattened row
+    count must be a multiple of ``min(block_rows, rows)`` -- though the
+    kernel (one warp a row) does not need it. CPU tensors take
+    :func:`quantize_rows_plain`; CUDA tensors launch the kernel.
+    """
+    *lead, rows, d = x.shape
+    n = x.numel() // d if d else 0
+    block_rows = min(block_rows, n)
+    if block_rows <= 0 or n % block_rows:
+        raise ValueError(f"rows ({n}) must divide block_rows ({block_rows})")
+    if x.device.type == "cpu":
+        fn = quantize_rows_plain
+    elif x.device.type == "cuda":
+        fn = _quantize_rows_cuda
+    else:
+        raise ValueError(f"quantize_pallas: unsupported device {x.device}")
+    vals, scales = fn(x.reshape(n, d))
+    return QuantizedTensor(values=vals.reshape(*lead, rows, d),
+                           scales=scales.reshape(*lead, rows, 1),
+                           dtype_name="int8")
+
+
+def _quantize_rows_cuda(x2: torch.Tensor):
+    """The kernel over x2 [n, d]: (int8 [n, d], f32 scales [n, 1])."""
+    if x2.dtype not in QUANTIZE_ROWS_DTYPES:
+        raise ValueError(
+            f"quantize_rows kernel takes f32, bf16 or f16, got {x2.dtype}"
+        )
+    n, d = x2.shape
+    x2 = build.aligned(x2)
+    vals = torch.empty((n, d), dtype=torch.int8, device=x2.device)
+    scales = torch.empty((n, 1), dtype=torch.float32, device=x2.device)
+    build.QUANTIZE_ROWS.launch(
+        build.ptr(x2), build.ptr(vals), build.ptr(scales), n, d,
+        QUANTIZE_ROWS_DTYPES[x2.dtype], build.stream_handle(x2),
+    )
+    return vals, scales
