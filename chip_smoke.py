@@ -20,7 +20,13 @@ network. Phases, one JSON line each:
      forward at config 4's geometry (int8, fp8 native and software at
      8192 tokens in bf16 and f32 with a bar per row and a late-row
      control; options and the int8 staircase at 2048); the row
-     quantizer byte for byte; the attention-weights kernel;
+     quantizer byte for byte; the attention-weights kernel; every built
+     variant of the variant harness's kernel (K13) at its sweep's shape
+     with a bar per row and a late-row control;
+     and Gemma-2-9B's attention geometry (16 q / 8 kv heads, d 256, cap
+     50, a sliding layer's 4096-token window and a global layer) on the
+     forward, decode (every tier), paged and ragged prefill and the
+     backward, the backward also at d 64;
   4. main path: Llama-3-8B geometry at full width (all 32 layers, seeded
      random bf16 weights made on the card) served by the port's engine at
      its default routing (paged prefill, fused mixed steps, speculation
@@ -29,8 +35,10 @@ network. Phases, one JSON line each:
      (gathered history, the ragged kernel); the int4, fp8, int4g32 and
      k8v4 tiers with no layout fields (the engine's auto layout, printed);
      and 8 prompts of 1024 tokens built so that prompt lookup drafts,
-     served for 16 tokens through speculative verify. Launch counters
-     (per kernel and per page tier) reset before each run;
+     served for 16 tokens through speculative verify; then Gemma-2-9B at
+     full width (42 layers, head width 256, seeded random bf16 weights)
+     on the int8 + ring and bf16 caches. Launch counters (per kernel and
+     per page tier) reset before each run;
   5. trained model: checkpoints/tiny-byte-llama served at the engine's
      defaults on every cache tier, and a staggered two-request scenario
      that reaches every route (int8, int4, fp8); the int8 runs again with
@@ -47,13 +55,15 @@ network. Phases, one JSON line each:
      Markdown on the kernels and on the plain versions, then 10 AdamW
      steps on each path from the same weights and batches (one batch
      packed with segment ids), step losses compared;
-  8. bench: ``tpu_flash_torch.bench`` configs 1-4 in-process (flash
-     parity at d 64 and 128, prefill TFLOP/s, decode tok/s and the int8
-     quantization delta, int8 and fp8 QKV prefill at 8K through the
-     quantized-input kernel), then ``attention_weights`` on config 1's
-     shapes against the oracle's weights: targets met, rates finite and
-     positive, the quantized-input, row-quantizer and weights kernels
-     launched.
+  8. bench: ``tpu_flash_torch.bench`` configs 1-5, 7, 8 and 11
+     in-process (flash parity at d 64 and 128, prefill TFLOP/s, decode
+     tok/s and the int8 quantization delta, int8 and fp8 QKV prefill at
+     8K, 32K prefill and int4 decode, windowed decode and paged prefill
+     at 32K / 4K, the attention train step), ``attention_weights`` on
+     config 1's shapes against the oracle's weights, then the variant
+     sweep (``tpu_flash_torch.bench.experiments``): targets met, every
+     variant through the parity gate, rates finite and positive, each
+     config's kernels launched.
 
 Then the nvidia-smi line, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -64,6 +74,7 @@ exits non-zero and prints no result. Without CUDA it exits 2 at once.
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import json
 import math
@@ -575,11 +586,14 @@ def decode_inputs(dev, kv_dtype, ring, ps=128):
     return q, kp, vp, lengths, table, kw
 
 
-# Bytes one token of one kv head takes in the cache, per side: payload
-# (4-bit tiers half a byte an element) and scales (an f32 per token, or
-# int4g32's 2 * d/32 f32 (scale, zero) pairs).
-SIDE_BYTES = {"bfloat16": 2 * 128, "int8": 128 + 4, "int4": 64 + 4,
-              "int4g32": 64 + 8 * 4, "fp8": 128 + 4}
+def side_bytes(tier, d):
+    """Bytes one token of one kv head takes in the cache on one side at
+    head width d: payload (4-bit tiers half a byte an element) and scales
+    (an f32 per token, or int4g32's 2 * d/32 f32 (scale, zero) pairs)."""
+    return {"bfloat16": 2 * d, "int8": d + 4, "int4": d // 2 + 4,
+            "int4g32": d // 2 + 2 * (d // 32) * 4, "fp8": d + 4}[tier]
+
+
 # The operation type each tier's dots run in, for the bound.
 TIER_OPS = {"bfloat16": "bfloat16", "int8": "int8", "int4": "int8",
             "int4g32": "bfloat16", "k8v4": "int8", "fp8": "fp8"}
@@ -595,7 +609,7 @@ def decode_bound(q, lengths, kw, kv_dtype, hkv=8):
     attended = sum(min(int(n), window or int(n)) for n in lengths)
     page_tokens = sum(min(max(int(n) - w, 0), window or int(n))
                       for n in lengths)
-    per_tok = hkv * sum(SIDE_BYTES[t] for t in side_dtypes(kv_dtype))
+    per_tok = hkv * sum(side_bytes(t, d) for t in side_dtypes(kv_dtype))
     nbytes = (page_tokens * per_tok + 2 * b * w * hkv * d * 2
               + 2 * q.numel() * q.element_size() + 8 * b + 4 * b * 16)
     ops = 4.0 * hq * d * attended
@@ -866,7 +880,7 @@ def check_paged_prefill(dev):
                     offs=control.get("offsets", offsets),
                     kw=control.get("kw", kw)))
         bound_ms, bound_by = prefill_bound(q, 8, offsets, kw.get("window"),
-                                           8 * SIDE_BYTES[kv])
+                                           8 * side_bytes(kv, 128))
         row = dict(case=name, batch=b, q_len=q_len, hist_cap=hist_cap,
                    pages=kv, page_size=ps, offsets=offsets,
                    control=control if isinstance(control, str)
@@ -1229,6 +1243,445 @@ def check_attn_weights(dev):
     return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
+# -- phase 3: Gemma-2-9B's attention geometry (head width 256) --------------
+
+# GEMMA2_9B: 16 q / 8 kv heads, d 256, softcap 50, a 4096-token window on
+# every other layer (sliding), full attention on the rest (global); its
+# query scale 1/sqrt(256). Random q and k give scores of std 1 after the
+# scale, a tenth of a real model's: q is drawn at GEMMA_Q_STD so that the
+# cap of 50 bends the largest scores as it bends real logits (its control
+# drops the cap). A sliding case needs rows past 4096 tokens for the
+# window to bite (its control drops the window).
+GEMMA_HEADS = (16, 8)
+GEMMA_D = 256
+GEMMA_CAP = 50.0
+GEMMA_WINDOW = 4096
+GEMMA_Q_STD = 10.0
+GEMMA_SCALE = GEMMA_D ** -0.5
+
+
+def gemma_qkv(dev, b, sq, skv, seed, dtype="bfloat16"):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hq, hkv = GEMMA_HEADS
+    dt = getattr(torch, dtype)
+    q = (GEMMA_Q_STD * torch.randn(b, hq, sq, GEMMA_D, generator=g,
+                                   device=dev)).to(dt)
+    k, v = (torch.randn(b, hkv, skv, GEMMA_D, generator=g,
+                        device=dev).to(dt) for _ in range(2))
+    return q, k, v
+
+
+# (case, b, s, kwargs, control): a sliding layer past the window and a
+# global layer, each with the cap.
+GEMMA_FLASH_CASES = [
+    ("gemma2_sliding", 1, 8192,
+     dict(causal=True, softcap=GEMMA_CAP, window=GEMMA_WINDOW),
+     dict(causal=True, softcap=GEMMA_CAP)),
+    ("gemma2_global", 1, 8192, dict(causal=True, softcap=GEMMA_CAP),
+     dict(causal=True)),
+]
+
+
+def check_flash_d256(dev):
+    """K1 at Gemma-2-9B's geometry (a sliding and a global layer's
+    prefill over 8192 tokens), with SDPA's time without the cap (it has
+    no softcap) beside it."""
+    import torch
+
+    from tpu_flash_torch.ops.flash.forward import flash_fwd, flash_fwd_plain
+
+    rows = []
+    for name, b, sq, kw, control in GEMMA_FLASH_CASES:
+        q, k, v = gemma_qkv(dev, b, sq, sq, SEED + 20)
+        out = flash_fwd(q, k, v, sm_scale=GEMMA_SCALE, **kw)
+        torch.cuda.synchronize()
+        ref = flash_fwd_plain(q, k, v, sm_scale=GEMMA_SCALE, **kw)
+        off = max_err(out, flash_fwd_plain(q, k, v, sm_scale=GEMMA_SCALE,
+                                           **control))
+        bound_ms, bound_by = flash_bound(q, k, kw)
+        mask = None if "window" not in kw else attention_mask(
+            b, sq, sq, dict(causal=True, window=kw["window"]))
+        row = dict(case=name, shape=list(q.shape), kv_len=sq,
+                   options={x: str(y) for x, y in kw.items()},
+                   control={x: str(y) for x, y in control.items()},
+                   **agreement(out, ref, off),
+                   ms=time_ms(lambda: flash_fwd(q, k, v, sm_scale=GEMMA_SCALE,
+                                                **kw), 5),
+                   plain_ms=time_ms(lambda: flash_fwd_plain(
+                       q, k, v, sm_scale=GEMMA_SCALE, **kw), 2),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=sdpa_ms(q, k, v, mask=mask),
+                   library="SDPA without softcap")
+        rows.append(row)
+        log("kernel_vs_plain", kernel="flash_fwd", width=GEMMA_D, **row)
+        del out, ref
+    raise_if_failed("flash_fwd d256", rows)
+    return rows
+
+
+def gemma_decode_inputs(dev, kv_dtype, ring, ps, ctx):
+    """Gemma-2-9B decode: b 8, 16 q / 8 kv heads, d 256, ``ctx`` tokens
+    a row in ``ps``-token pages of a tier, q at GEMMA_Q_STD."""
+    import torch
+
+    from tpu_flash_torch.engine.cache import side_dtypes
+    from tpu_flash_torch.ops.quant import quantize_pages
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    (hq, hkv), d, b = GEMMA_HEADS, GEMMA_D, 8
+    pps = ctx // ps
+    n_pages = b * pps + 1
+    kp = torch.randn(hkv, n_pages, ps, d, generator=g, device=dev)
+    vp = torch.randn(hkv, n_pages, ps, d, generator=g, device=dev)
+    table = torch.randperm(n_pages - 1, generator=g, device=dev)[
+        : b * pps].reshape(b, pps).int()
+    lengths = torch.full((b,), ctx, dtype=torch.int32, device=dev)
+    q = (GEMMA_Q_STD * torch.randn(b, hq, d, generator=g,
+                                   device=dev)).bfloat16()
+    if kv_dtype == "bfloat16":
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    else:
+        k_t, v_t = side_dtypes(kv_dtype)
+        kp, vp = quantize_pages(kp, k_t), quantize_pages(vp, v_t)
+    kw = {}
+    if ring:
+        r = torch.randn(2, b, hkv, ring, d, generator=g, device=dev)
+        kw = dict(recent_k=r[0].bfloat16(), recent_v=r[1].bfloat16())
+    return q, kp, vp, lengths, table, kw
+
+
+# (case, tier, page size, ring, kwargs, control kwargs) at 8192 tokens:
+# the sliding layer on bf16 and int8 pages (a window takes no ring, as in
+# JAX), the global layer on every tier (each capped; with a 128-token
+# ring where phase 4 serves one).
+GEMMA_DECODE_CASES = [
+    ("gemma2_sliding_bf16", "bfloat16", 128, 0,
+     dict(softcap=GEMMA_CAP, window=GEMMA_WINDOW), dict(softcap=GEMMA_CAP)),
+    ("gemma2_sliding_int8", "int8", 128, 0,
+     dict(softcap=GEMMA_CAP, window=GEMMA_WINDOW), dict(softcap=GEMMA_CAP)),
+] + [
+    (f"gemma2_global_{tier}", tier, 128 if tier in ("bfloat16", "int8")
+     else 512, 128 if tier != "bfloat16" else 0, dict(softcap=GEMMA_CAP), {})
+    for tier in ("bfloat16", "int8", "int4", "int4g32", "k8v4", "fp8")
+]
+
+
+def check_decode_d256(dev):
+    """K4 at Gemma-2-9B's decode geometry on every tier: the kernel's
+    output bit for bit its plain version's (bar as phase 3's), the
+    control (without the window, or the cap) outside the bar."""
+    import torch
+
+    from tpu_flash_torch.ops.decode import paged as dp
+
+    rows = []
+    for name, kv_dtype, ps, ring, kw, control in GEMMA_DECODE_CASES:
+        q, kp, vp, lengths, table, rkw = gemma_decode_inputs(
+            dev, kv_dtype, ring, ps, 8192)
+
+        def run(opts=kw):
+            return dp.paged_attention(q, kp, vp, lengths, table,
+                                      sm_scale=GEMMA_SCALE, **opts, **rkw)
+
+        out = run()
+        torch.cuda.synchronize()
+        with plain_versions():
+            ref = run()
+            plain_ms = time_ms(run, 2)
+            off = max_err(out, run(control))
+        bound_ms, bound_by = decode_bound(q, lengths, dict(kw, **rkw),
+                                          kv_dtype, hkv=GEMMA_HEADS[1])
+        row = dict(case=name, tier=decode_tag(kv_dtype, kw), context=8192,
+                   page_size=ps, ring=ring,
+                   options={x: str(y) for x, y in kw.items()},
+                   control={x: str(y) for x, y in control.items()},
+                   **agreement(out, ref, off), bit_exact=torch.equal(out, ref),
+                   ms=time_ms(run, 20), plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        rows.append(row)
+        log("kernel_vs_plain", kernel="paged_decode", width=GEMMA_D, **row)
+    raise_if_failed("paged_decode d256", rows)
+    return rows
+
+
+def check_prefill_d256(dev):
+    """K5 and K6 at Gemma-2-9B's geometry: a 512-token chunk of a sliding
+    layer over 8192 tokens of history (bf16 pages), of a global layer
+    over 2048 (bf16 and int8 pages), and the ragged kernel's mixed-stage
+    step under the window and without it; each against its plain
+    version, the control without the window or the cap."""
+    import torch
+
+    from tpu_flash_torch.ops.flash import paged_prefill as pp
+    from tpu_flash_torch.ops.flash import ragged
+    from tpu_flash_torch.ops.quant import quantize_pages
+
+    rows = {"paged_prefill": [], "ragged_prefill": []}
+    hq, hkv = GEMMA_HEADS
+    for name, b, hist, offsets, kv, kw, control in [
+        ("gemma2_sliding_bf16", 2, 8192, [8192, 6000], "bfloat16",
+         dict(softcap=GEMMA_CAP, window=GEMMA_WINDOW),
+         dict(softcap=GEMMA_CAP)),
+        ("gemma2_global_bf16", 2, 2048, [2048, 1000], "bfloat16",
+         dict(softcap=GEMMA_CAP), {}),
+        ("gemma2_global_int8", 2, 2048, [2048, 1000], "int8",
+         dict(softcap=GEMMA_CAP), {}),
+    ]:
+        q, ck, cv = gemma_qkv(dev, b, 512, 512, SEED + 22)
+        g = torch.Generator(device=dev).manual_seed(SEED + 23)
+        ps = 128
+        pps = hist // ps
+        n_pages = b * pps + 1
+        kp, vp = (torch.randn(hkv, n_pages, ps, GEMMA_D, generator=g,
+                              device=dev) for _ in range(2))
+        kp, vp = ((kp.bfloat16(), vp.bfloat16()) if kv == "bfloat16" else
+                  (quantize_pages(kp, kv), quantize_pages(vp, kv)))
+        table = torch.randperm(n_pages - 1, generator=g, device=dev)[
+            : b * pps].reshape(b, pps).int()
+        offs = torch.tensor(offsets, dtype=torch.int32, device=dev)
+
+        def run(opts=kw):
+            return pp.paged_prefill_attention(
+                q, ck, cv, kp, vp, offs, table, hist_cap=hist,
+                sm_scale=GEMMA_SCALE, **opts)
+
+        out = run()
+        torch.cuda.synchronize()
+        with plain_versions():
+            ref = run()
+            plain_ms = time_ms(run, 2)
+            off = max_err(out, run(control))
+        bound_ms, bound_by = prefill_bound(
+            q, hkv, offsets, kw.get("window"), hkv * side_bytes(kv, GEMMA_D))
+        row = dict(case=name, batch=b, hist_cap=hist, offsets=offsets,
+                   pages=kv, options={x: str(y) for x, y in kw.items()},
+                   control={x: str(y) for x, y in control.items()},
+                   **agreement(out, ref, off), ms=time_ms(run, 5),
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=None)
+        rows["paged_prefill"].append(row)
+        log("kernel_vs_plain", kernel="paged_prefill", width=GEMMA_D, **row)
+        del out, ref
+    offsets = [0, 2000, 4000, 4608]
+    hist_cap = 4608
+    for name, kw, control in [
+        ("gemma2_sliding", dict(softcap=GEMMA_CAP, window=GEMMA_WINDOW),
+         dict(softcap=GEMMA_CAP)),
+        ("gemma2_global", dict(softcap=GEMMA_CAP), {}),
+    ]:
+        q, k, v = gemma_qkv(dev, 4, 512, hist_cap + 512, SEED + 24)
+        offs = torch.tensor(offsets, dtype=torch.int32, device=dev)
+
+        def run(opts=kw):
+            return ragged.flash_attention_ragged(
+                q, k, v, offs, hist_cap=hist_cap, sm_scale=GEMMA_SCALE,
+                **opts)
+
+        out = run()
+        torch.cuda.synchronize()
+        with plain_versions():
+            ref = run()
+            plain_ms = time_ms(run, 2)
+            off = max_err(out, run(control))
+        bound_ms, bound_by = prefill_bound(
+            q, hkv, offsets, kw.get("window"),
+            hkv * side_bytes("bfloat16", GEMMA_D))
+        mask = ragged_mask(offsets, 512, hist_cap, kw.get("window"), dev)
+        row = dict(case=name, batch=4, hist_cap=hist_cap, offsets=offsets,
+                   options={x: str(y) for x, y in kw.items()},
+                   control={x: str(y) for x, y in control.items()},
+                   **agreement(out, ref, off), ms=time_ms(run, 5),
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=sdpa_ms(q, k, v, mask=mask),
+                   library="SDPA without softcap")
+        rows["ragged_prefill"].append(row)
+        log("kernel_vs_plain", kernel="ragged_prefill", width=GEMMA_D, **row)
+        del out, ref
+    for kernel, rs in rows.items():
+        raise_if_failed(f"{kernel} d256", rs)
+    return rows
+
+
+def check_flash_bwd_widths(dev):
+    """K8/K9 at Gemma-2-9B's geometry (b 1 x 2048 under the cap, b 1 x
+    8192 under the window) and at d 64 (32 heads, b 1 x 2048): dq, dk, dv
+    of the two kernels against the plain version, the control without
+    the case's option; SDPA's backward timed without the cap."""
+    import torch
+
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.ops.flash import backward as bw
+    from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
+
+    rows = []
+    for name, heads, d, s, kw, control in [
+        ("gemma2_global", GEMMA_HEADS, GEMMA_D, 2048,
+         dict(causal=True, softcap=GEMMA_CAP), dict(causal=True)),
+        ("gemma2_sliding", GEMMA_HEADS, GEMMA_D, 8192,
+         dict(causal=True, softcap=GEMMA_CAP, window=GEMMA_WINDOW),
+         dict(causal=True, softcap=GEMMA_CAP)),
+        ("d64_causal", (32, 8), 64, 2048, dict(causal=True),
+         dict(causal=False)),
+    ]:
+        g = torch.Generator(device=dev).manual_seed(SEED + 25)
+        hq, hkv = heads
+        qstd = GEMMA_Q_STD if d == GEMMA_D else 1.0
+        q = (qstd * torch.randn(1, hq, s, d, generator=g,
+                                device=dev)).bfloat16()
+        k, v = (torch.randn(1, hkv, s, d, generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        do = torch.randn(1, hq, s, d, generator=g, device=dev).bfloat16()
+        scale = d ** -0.5
+
+        def residuals(opts):
+            o, lse = flash_fwd_plain(q, k, v, sm_scale=scale, save_lse=True,
+                                     **opts)
+            return (q, k, v, o, do, lse)
+
+        args = residuals(kw)
+        out = bw.flash_bwd(*args, sm_scale=scale, **kw)
+        torch.cuda.synchronize()
+        ref = bw.flash_bwd_plain(*args, sm_scale=scale, **kw)
+        off = bw.flash_bwd_plain(*residuals(control), sm_scale=scale,
+                                 **control)
+        grads = {n: agreement(a, r, max_err(a, c))
+                 for n, a, r, c in zip(("dq", "dk", "dv"), out, ref, off)}
+        del out, ref, off
+
+        def run():
+            return bw.flash_bwd(*args, sm_scale=scale, **kw)
+
+        ms = {"dkv": kernel_ms(build.FLASH_BWD_DKV, run, 3),
+              "dq": kernel_ms(build.FLASH_BWD_DQ, run, 3)}
+        bounds = {w: bwd_bound(q, k, kw, w) for w in ms}
+        lib_kw = {x: y for x, y in kw.items() if x != "softcap"}
+        whole = dict(ms=time_ms(run, 3), plain_ms=time_ms(
+            lambda: bw.flash_bwd_plain(*args, sm_scale=scale, **kw), 1),
+            library_ms=sdpa_bwd_ms(q, k, v, do, lib_kw),
+            library="SDPA backward without softcap")
+        row = dict(case=name, shape=list(q.shape), kv_heads=hkv,
+                   options={x: str(y) for x, y in kw.items()},
+                   control={x: str(y) for x, y in control.items()},
+                   **grads, ok=all(r_["ok"] for r_ in grads.values()),
+                   ms=ms, bound_ms={w: b_[0] for w, b_ in bounds.items()},
+                   bound_by={w: b_[1] for w, b_ in bounds.items()},
+                   whole=whole)
+        rows.append(row)
+        log("kernel_vs_plain", kernel="flash_bwd", width=d, **row)
+    raise_if_failed("flash_bwd d256/d64", rows)
+    return rows
+
+
+def check_widths(dev, summary):
+    """Every width case of phase 3; each kernel's summary row gains its
+    first d 256 case's numbers (``d256_*``; the backward's d 64 too)."""
+    widths = {"flash_fwd": check_flash_d256(dev),
+              "paged_decode": check_decode_d256(dev),
+              **check_prefill_d256(dev)}
+    bwd = check_flash_bwd_widths(dev)
+    for name, rows in widths.items():
+        r = rows[0]
+        summary[name].update(
+            d256_case=r["case"], d256_ms=r["ms"], d256_plain_ms=r["plain_ms"],
+            d256_bound_ms=r["bound_ms"], d256_library_ms=r["library_ms"],
+            d256_max_abs_err=max(x["max_abs_err"] for x in rows))
+    for which in ("dkv", "dq"):
+        for prefix, r in (("d256", bwd[0]), ("d64", bwd[2])):
+            summary[f"flash_bwd_{which}"].update({
+                f"{prefix}_case": r["case"], f"{prefix}_ms": r["ms"][which],
+                f"{prefix}_bound_ms": r["bound_ms"][which],
+                f"{prefix}_whole_ms": r["whole"]["ms"],
+                f"{prefix}_whole_plain_ms": r["whole"]["plain_ms"],
+                f"{prefix}_whole_library_ms": r["whole"]["library_ms"]})
+
+
+# -- phase 3: the variant harness's kernel (K13) -----------------------------
+
+VARIANT_SHAPE = (1, 32, 2048, 128)  # the sweep's b, h, s, d
+# K13 is held with a bar per row (row_bars), as K10 is: a causal row
+# past ~1000 tokens has |out| near sqrt(e / n) ~ 0.05, under the one bar
+# from the whole output's max (row 0, one token: 0.03 at max |ref| ~4).
+# The late-row control is the plain version on v raised by
+# VARIANT_LATE_SHIFT, which moves every output by 3% of its own value;
+# the row bars (2 bf16 ulps of the row's max, 0.8-1.6% of it) must catch
+# it in at least VARIANT_LATE_CAUGHT of the rows past s/2.
+VARIANT_LATE_SHIFT = 1.03
+VARIANT_LATE_CAUGHT = 0.9
+
+
+def check_variant(dev):
+    """K13 at the sweep's shape, every built variant (tile shape x mask
+    mode x exp2) against its plain version with a bar per row; the
+    control, causal attention with the diagonal one column off, must miss
+    some row's bar, and the late-row control most late rows' bars. SDPA's
+    causal time is the yardstick."""
+    import torch
+
+    from tpu_flash_torch.bench.experiments import variants
+    from tpu_flash_torch.core.reference import reference_gqa_attention
+    from tpu_flash_torch.ops.flash.variant import (variant_attention,
+                                                   variant_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+    q, k, v = (torch.randn(*VARIANT_SHAPE, generator=g, device=dev)
+               .bfloat16() for _ in range(3))
+    v_late = v * VARIANT_LATE_SHIFT
+    sm = VARIANT_SHAPE[3] ** -0.5
+    control = reference_gqa_attention(q, k, v, causal=True, q_offset=1)
+    b, h, s, d = VARIANT_SHAPE
+    late_rows = slice(s // 2, None)
+    bound_ms, bound_by = bound(2 * 4 * q.numel(),
+                               4.0 * h * d * live_pairs(b, s, s,
+                                                        dict(causal=True)),
+                               "bfloat16")
+    library_ms = sdpa_ms(q, k, v)
+    rows = []
+    for (bq, bkvm, bkv), mode, exp2 in variants():
+        kw = dict(sm_scale=sm, block_q=bq, block_kv_major=bkvm,
+                  block_kv=bkv, mask_mode=mode, use_exp2=exp2)
+        out = variant_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref = variant_attention_plain(q, k, v, **kw)
+        bars = row_bars(ref)
+        err_rows = (out.float() - ref.float()).abs().amax(-1)
+        missed = int((err_rows > bars).sum())
+        ctl_missed = int(row_misses(out, control, bars).sum())
+        late_off = (out.float() - variant_attention_plain(
+            q, k, v_late, **kw).float()).abs().amax(-1)[..., late_rows]
+        late_caught = float((late_off > bars[..., late_rows]).float().mean())
+        ok = (missed == 0 and ctl_missed > 0
+              and late_caught >= VARIANT_LATE_CAUGHT)
+        row = dict(case=f"{bq}/{bkvm}/{bkv} {mode}{' exp2' if exp2 else ''}",
+                   shape=list(VARIANT_SHAPE),
+                   max_abs_err=float(err_rows.max()),
+                   max_abs_ref=float(ref.float().abs().max()),
+                   max_err_over_row_bar=float(
+                       (err_rows / bars.clamp_min(1e-30)).max()),
+                   median_abs_ref=float(ref.float().abs().median()),
+                   median_row_bar=float(bars.median()),
+                   rows_missed=missed, control_rows_missed=ctl_missed,
+                   late_caught=late_caught,
+                   late_caught_by_case_bar=float(
+                       (late_off > case_bar(ref)).float().mean()),
+                   late_median_abs_ref=float(
+                       ref[..., late_rows, :].float().abs().median()),
+                   late_median_bar=float(bars[..., late_rows].median()),
+                   ok=ok,
+                   ms=time_ms(lambda: variant_attention(q, k, v, **kw), 10),
+                   plain_ms=time_ms(lambda: variant_attention_plain(
+                       q, k, v, **kw), 2),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms)
+        rows.append(row)
+        log("kernel_vs_plain", kernel="variant_fwd", **row)
+    raise_if_failed("variant_fwd", rows)
+    fastest = min(rows, key=lambda r: r["ms"])
+    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows),
+                fastest_case=fastest["case"], fastest_ms=fastest["ms"])
+
+
 def kernel_entries():
     """Each kernel's CUDA entry that the port's wrappers call, by kernel
     name: (module, attribute, plain version of the same signature)."""
@@ -1370,7 +1823,6 @@ def serve_main(model, params, kv_dtype, ring, prompts, new_tokens, *,
 
     from tpu_flash_torch.engine.metrics import EngineMetrics
     from tpu_flash_torch.ops import build
-    from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
 
     eng = main_path_engine(model, params, kv_dtype, ring, prompts, **config)
     first = {}
@@ -1392,6 +1844,7 @@ def serve_main(model, params, kv_dtype, ring, prompts, new_tokens, *,
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    del eng._chunked_prefill_impl  # the hook's cycle through the engine
     launches = build.launch_counts()
     out = [eng.outputs[i] for i in ids]
     if any(len(o) != new_tokens for o in out):
@@ -1419,15 +1872,11 @@ def serve_main(model, params, kv_dtype, ring, prompts, new_tokens, *,
     eng.close()
     if not check_logits:
         return rec, out
-    # First step's last-position logits against a forward through the
-    # plain versions on the card (same weights, same tokens).
-    with torch.no_grad():
-        ref = model.forward(
-            params, first["tokens"],
-            attention_fn=lambda q, k, v: flash_fwd_plain(
-                q, k, v, causal=True, sm_scale=q.shape[-1] ** -0.5
-            ),
-        )
+    # First step's last-position logits against the model's forward on
+    # the plain versions on the card (same weights, same tokens, each
+    # layer's own window, cap and query scale).
+    with torch.no_grad(), plain_versions():
+        ref = model.forward(params, first["tokens"])
     rows = torch.arange(ref.shape[0], device=ref.device)
     ref_last = ref[rows, first["n_valids"] - 1]
     err = float((first["last"] - ref_last).abs().max())
@@ -1536,7 +1985,57 @@ def check_main_path(dev):
             raise AssertionError(f"no speculative step: {rec}")
         require_launches(rec, ["paged_prefill"])
         recs.append(rec)
-    del params
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs
+
+
+# Gemma-2-9B at full width (GEMMA2_9B: hidden 3584, 16 q / 8 kv heads of
+# 256, ffn 14336, vocab 256000, 42 layers alternating a 4096-token window
+# and full attention, softcap 50; ~18.5 GB of seeded random bf16
+# weights), uncut, served as phase 4 serves Llama-3-8B on its two main
+# tiers (MAIN_TIERS): every kernel of the path at head width 256.
+
+
+def check_gemma_path(dev):
+    """Phase 4, Gemma-2-9B: 8 requests x 32 greedy tokens on an int8
+    cache with the ring and on a bf16 cache at the default routing; each
+    held as the Llama runs are (finite logits within LOGITS_REL_TOL of
+    the plain forward's, a fused step, every kernel launched)."""
+    import torch
+
+    from tpu_flash_torch.models import GEMMA2_9B, FlashTransformer
+
+    t0 = time.perf_counter()
+    model = FlashTransformer(GEMMA2_9B, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(
+        w.numel() for k, v in params.items()
+        for w in ([x for layer in v for x in layer.values()]
+                  if k == "layers" else [v]))
+    log("main_path_weights", model=GEMMA2_9B.name,
+        layers=GEMMA2_9B.num_layers, cut="none", params=n_params,
+        gbytes=n_params * 2 / 1e9, init_s=time.perf_counter() - t0)
+    prompts = main_path_prompts(GEMMA2_9B.vocab_size)
+    recs = []
+    with torch.no_grad():
+        for kv_dtype, ring in MAIN_TIERS:
+            rec, _ = serve_main(model, params, kv_dtype, ring, prompts, 32)
+            rec["model"] = GEMMA2_9B.name
+            log("main_path", gpu=gpu_query(), **rec)
+            if not (rec["finite"]
+                    and rec["first_logits_rel_err"] <= LOGITS_REL_TOL):
+                raise AssertionError(
+                    f"Gemma-2 first-step logits off the plain forward: {rec}")
+            if rec["routes"]["fused"] < 1:
+                raise AssertionError(f"no fused step: {rec}")
+            require_launches(rec, ["flash_fwd", "paged_decode",
+                                   "paged_prefill"])
+            recs.append(rec)
+    del params, model
+    gc.collect()
     torch.cuda.empty_cache()
     return recs
 
@@ -1938,51 +2437,63 @@ def check_trained_training(dev):
     return rec
 
 
-# -- phase 8: the port's bench, BASELINE configs 1-4 ---------------------------
+# -- phase 8: the port's bench and the variant sweep --------------------------
 
 # Calibration floor of the bench's differential timing (its --iters): the
 # windows still grow to 0.15 s, so this cuts only the floor, not coverage.
 BENCH_ITERS = 8
-RATE_METRICS = ("tflops", "tokens_per_s")
+RATE_METRICS = ("tflops", "tokens_per_s", "us_per_chunk", "train_tflops")
+BENCH_CONFIGS = [1, 2, 3, 4, 5, 7, 8, 11]
 
 
 def check_bench(dev):
-    """Phase 8: ``python -m tpu_flash_torch.bench --configs 1,2,3,4``
-    in-process on the card, every row logged; it fails unless config 1's
-    parity rows and config 3's int8 quantization-delta row pass their
-    targets, every rate is finite and positive, and config 4 launched the
-    quantized-input kernel (int8 and fp8) and the row quantizer. Then the
-    debug entry point, ``attention_weights``, on config 1's shapes: P
-    within DEBUG_WEIGHTS_TOL of the oracle's weights. Launch counts are
-    reset first, so they are this phase's alone."""
+    """Phase 8: ``python -m tpu_flash_torch.bench --configs
+    1,2,3,4,5,7,8,11`` in-process on the card, every row logged; it fails
+    unless config 1's parity rows and config 3's int8 quantization-delta
+    row pass their targets, every rate is finite and positive, and the
+    configs launched their kernels. Then the debug entry point,
+    ``attention_weights``, on config 1's shapes (P within
+    DEBUG_WEIGHTS_TOL of the oracle's weights), and the variant sweep
+    (``python -m tpu_flash_torch.bench.experiments``): every variant
+    through the parity gate and timed. Launch counts are reset first, so
+    they are this phase's alone."""
     import torch
 
+    from tpu_flash_torch.bench import experiments
     from tpu_flash_torch.bench.__main__ import run_configs
     from tpu_flash_torch.ops import build
 
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    rows = run_configs([1, 2, 3, 4], iters=BENCH_ITERS, device=dev)
+    rows = run_configs(BENCH_CONFIGS, iters=BENCH_ITERS, device=dev)
     weights = [debug_weights_row(dev, *shape) for shape in DEBUG_SHAPES]
+    sweep = experiments.sweep(device=dev, iters=BENCH_ITERS)
     torch.cuda.synchronize()
-    rec = dict(rows=len(rows), wall_s=time.perf_counter() - t0,
+    rec = dict(rows=len(rows), variants=len(sweep),
+               wall_s=time.perf_counter() - t0,
                launches=build.launch_counts(), debug_weights=weights)
     gpu = gpu_query()
     for r in rows:
         log("bench", gpu=gpu, **r)
+    for r in sweep:
+        log("variant_sweep", gpu=gpu, **r)
     log("bench_phase", **rec)
-    missed = [r["name"] for r in rows + weights
+    missed = [r["name"] for r in rows + weights + sweep
               if "pass" in r and not r["pass"]]
-    bad = [r["name"] for r in rows if r["metric"] in RATE_METRICS
+    bad = [r["name"] for r in rows + sweep
+           if r.get("metric") in RATE_METRICS + ("ms",)
            and not (math.isfinite(r["value"]) and r["value"] > 0)]
-    if missed or bad or len([r for r in rows if "pass" in r]) != 3:
+    if (missed or bad or len([r for r in rows if "pass" in r]) != 3
+            or not all("value" in r for r in sweep)):
         raise AssertionError(
             f"bench: rows off target {missed}, rates not finite and "
             f"positive {bad}"
         )
-    require_launches(rec, ["flash_fwd", "paged_decode", "quant_fwd",
-                           "quant_fwd:int8", "quant_fwd:fp8_native",
-                           "quantize_rows", "attn_weights"])
+    require_launches(rec, ["flash_fwd", "paged_decode", "paged_prefill",
+                           "paged_decode:int4_mxu", "flash_bwd_dkv",
+                           "flash_bwd_dq", "quant_fwd", "quant_fwd:int8",
+                           "quant_fwd:fp8_native", "quantize_rows",
+                           "attn_weights", "variant_fwd"])
     return rec
 
 
@@ -2045,8 +2556,11 @@ def main() -> int:
                "ragged_prefill": check_ragged(dev),
                "quant_fwd": check_quant_fwd(dev),
                "quantize_rows": check_quantize_rows(dev),
-               "attn_weights": check_attn_weights(dev)}
+               "attn_weights": check_attn_weights(dev),
+               "variant_fwd": check_variant(dev)}
+    check_widths(dev, summary)
     main_runs = check_main_path(dev)
+    main_runs += check_gemma_path(dev)
     check_trained(dev)
     main_runs.append(check_training(dev))
     check_trained_training(dev)
@@ -2064,7 +2578,8 @@ def main() -> int:
             max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
-            **{x: y for x, y in s.items() if x.startswith("whole_")},
+            **{x: y for x, y in s.items()
+               if x.startswith(("whole_", "d256_", "d64_", "fastest_"))},
         ))
     print(gpu_query(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -100,7 +100,7 @@ def test_time_per_call_measures_a_known_wait():
 
 
 @pytest.mark.parametrize("configs,message", [
-    ("5", "not ported yet"),
+    ("6", "not ported yet"),
     ("1,12", "item 16"),
     ("13", "unknown config"),
     ("x", "comma-separated"),

@@ -18,7 +18,11 @@ ulp, a flipped bf16 P element moves an output by a small part of one --
 and 2^-12 of max |ref| for f32 outputs, which keep no bf16 rounding here
 (f32 q promotes bf16 and int8 history to f32, and P rounds to f32). Each
 of those cases also holds a control: the kernel against the plain
-version without the case's offsets or options must miss the bar.
+version without the case's offsets or options must miss the bar. The
+variant kernel (K13) is held with a bar per row (``_row_bars``: the same
+rule at each row's own max |ref|), so a late causal row, whose outputs
+are far under row 0's, is held at its own scale; a late-row control
+must miss most late rows' bars.
 """
 
 import math
@@ -36,6 +40,15 @@ def _case_bar(ref):
     if ref.dtype == torch.bfloat16:
         return 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
     return 2.0 ** -12 * top
+
+
+def _row_bars(ref):
+    """_case_bar's rule for each row (last axis) at the row's own max
+    |ref| (bf16 outputs): a late causal row is held at its own scale,
+    not at row 0's."""
+    top = ref.float().abs().amax(-1)
+    return 2 * torch.ldexp(torch.ones_like(top),
+                           torch.frexp(top)[1] - 8)
 
 
 def _check_with_control(out, ref, control):
@@ -426,7 +439,8 @@ def test_backward_through_autograd_launches_the_kernels(dev):
 def test_backward_kernels_never_take_the_plain_path(dev):
     from tpu_flash_torch.ops.flash.backward import flash_bwd
 
-    q = torch.zeros(1, 2, 8, 64, device=dev)
+    # d 64, 128 and 256 are built; 96 is not.
+    q = torch.zeros(1, 2, 8, 96, device=dev)
     lse = torch.zeros(1, 2, 8, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         flash_bwd(q, q, q, q, q, lse, causal=True, sm_scale=0.125)
@@ -607,3 +621,207 @@ def test_paged_decode_wide_block_matches_plain(dev, tier):
     q8 = _rn(g, b, 2 * hq, 128)
     with pytest.raises(ValueError, match="shared memory"):
         paged.paged_attention(q8, kp, vp, lengths, table, **kw)
+
+
+# -- head width 256 (Gemma-2) and the backward at 64 ---------------------
+
+
+@pytest.mark.parametrize("kw", [
+    dict(causal=True, softcap=50.0, window=300),
+    dict(causal=True, q_offset=256, softcap=50.0),
+], ids=["sliding", "global-offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_kernel_d256_matches_plain(dev, dtype, kw):
+    from tpu_flash_torch.ops.flash.forward import flash_fwd, flash_fwd_plain
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    sq = 512 - kw.get("q_offset", 0)
+    q = _rn(g, 2, 4, sq, 256, dtype=dtype) * 4
+    k, v = (_rn(g, 2, 2, 512, 256, dtype=dtype) for _ in range(2))
+    args = dict(kw, sm_scale=256 ** -0.5)
+    out, lse = flash_fwd(q, k, v, save_lse=True, **args)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_fwd_plain(q, k, v, save_lse=True, **args)
+    control = flash_fwd_plain(q, k, v, sm_scale=256 ** -0.5, causal=True,
+                              q_offset=kw.get("q_offset", 0))
+    _check_with_control(out, ref, control)
+    assert (lse - ref_lse).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("tier", list(DECODE_TIERS))
+def test_paged_decode_kernel_d256_bit_exact(dev, tier):
+    """Every tier at d 256 (softcap with a window, and softcap with a
+    ring; JAX takes no ring with a window): bit for bit the plain
+    version's output."""
+    from tpu_flash_torch.ops.decode import paged
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    b, hq, hkv, ps, pps, n_pages = 3, 4, 2, 16, 8, 40
+    lengths = torch.tensor([128, 57, 20], dtype=torch.int32, device=dev)
+    table = torch.randperm(n_pages, generator=g, device=dev)[
+        : b * pps].reshape(b, pps).int()
+    kp, vp = (_rn(g, hkv, n_pages, ps, 256) for _ in range(2))
+    kp, vp, opts = _decode_pages(kp, vp, tier)
+    ring = [_rn(g, b, hkv, 16, 256, dtype=torch.bfloat16) for _ in range(2)]
+    q = _rn(g, b, hq, 256, dtype=torch.bfloat16) * 4
+    for kw in (dict(opts, softcap=30.0, window=70, pages_per_compute_block=2),
+               dict(opts, softcap=30.0, recent_k=ring[0], recent_v=ring[1])):
+        out = paged.paged_attention(q, kp, vp, lengths, table, **kw)
+        torch.cuda.synchronize()
+        saved = paged._paged_decode_cuda
+        paged._paged_decode_cuda = paged.paged_decode_plain
+        try:
+            ref = paged.paged_attention(q, kp, vp, lengths, table, **kw)
+        finally:
+            paged._paged_decode_cuda = saved
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("pages", ["bfloat16", "int8", "int4", "fp8"])
+def test_paged_prefill_kernel_d256_matches_plain(dev, pages):
+    from tpu_flash_torch.ops.flash import paged_prefill as pp
+    from tpu_flash_torch.ops.quant import quantize_pages
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    b, hq, hkv, q_len, ps, pps = 2, 4, 2, 64, 32, 8
+    n_pages = b * pps + 1
+    q = _rn(g, b, hq, q_len, 256, dtype=torch.bfloat16) * 4
+    ck, cv = (_rn(g, b, hkv, q_len, 256, dtype=torch.bfloat16)
+              for _ in range(2))
+    kp, vp = (_rn(g, hkv, n_pages, ps, 256) for _ in range(2))
+    if pages == "bfloat16":
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    else:
+        kp, vp = quantize_pages(kp, pages), quantize_pages(vp, pages)
+    table = torch.randperm(n_pages - 1, generator=g, device=dev)[
+        : b * pps].reshape(b, pps).int()
+    offs = torch.tensor([256, 100], dtype=torch.int32, device=dev)
+
+    def run(**kw):
+        return pp.paged_prefill_attention(q, ck, cv, kp, vp, offs, table,
+                                          hist_cap=256, **kw)
+
+    kw = dict(softcap=50.0, window=150, pages_per_compute_block=4)
+    out = run(**kw)
+    torch.cuda.synchronize()
+    saved = pp._paged_prefill_cuda
+    pp._paged_prefill_cuda = pp.paged_prefill_plain
+    try:
+        ref, control = run(**kw), run(pages_per_compute_block=4)
+    finally:
+        pp._paged_prefill_cuda = saved
+    _check_with_control(out, ref, control)
+
+
+def test_ragged_prefill_kernel_d256_matches_plain(dev):
+    from tpu_flash_torch.ops.flash import ragged
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    q = _rn(g, 3, 4, 64, 256, dtype=torch.bfloat16) * 4
+    k, v = (_rn(g, 3, 2, 256 + 64, 256, dtype=torch.bfloat16)
+            for _ in range(2))
+    offs = torch.tensor([0, 100, 256], dtype=torch.int32, device=dev)
+
+    def run(**kw):
+        return ragged.flash_attention_ragged(q, k, v, offs, hist_cap=256,
+                                             **kw)
+
+    out = run(softcap=50.0, window=120)
+    torch.cuda.synchronize()
+    saved = ragged._ragged_prefill_cuda
+    ragged._ragged_prefill_cuda = ragged.ragged_prefill_plain
+    try:
+        ref, control = run(softcap=50.0, window=120), run(softcap=50.0)
+    finally:
+        ragged._ragged_prefill_cuda = saved
+    _check_with_control(out, ref, control)
+
+
+@pytest.mark.parametrize("d,kw,ckw", [
+    (256, dict(causal=True, softcap=50.0, window=200), dict(causal=True)),
+    (64, dict(causal=True), dict(causal=False)),
+    (64, dict(causal=True, q_offset=100, kv_len=400), dict(causal=True)),
+], ids=["d256-softcap-window", "d64-causal", "d64-offset-tail"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_other_widths_match_plain(dev, dtype, d, kw, ckw):
+    from tpu_flash_torch.ops.flash import backward as bw
+    from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    sq = 512 - kw.get("q_offset", 0)
+    q = _rn(g, 2, 4, sq, d, dtype=dtype) * (4 if d == 256 else 1)
+    k, v = (_rn(g, 2, 2, 512, d, dtype=dtype) for _ in range(2))
+    do = _rn(g, 2, 4, sq, d, dtype=dtype)
+    scale = d ** -0.5
+
+    def args(opts):
+        o, lse = flash_fwd_plain(q, k, v, sm_scale=scale, save_lse=True,
+                                 **opts)
+        return (q, k, v, o, do, lse)
+
+    out = bw.flash_bwd(*args(kw), sm_scale=scale, **kw)
+    torch.cuda.synchronize()
+    ref = bw.flash_bwd_plain(*args(kw), sm_scale=scale, **kw)
+    control = bw.flash_bwd_plain(*args(ckw), sm_scale=scale, **ckw)
+    for a, r, c in zip(out, ref, control):
+        _check_with_control(a, r, c)
+
+
+# -- the variant harness's kernel (K13) ----------------------------------
+
+
+def _variants():
+    from tpu_flash_torch.ops.flash.variant import KERNEL_TILES
+
+    return [(t, m, e) for t in KERNEL_TILES for m in ("always", "diag")
+            for e in (False, True)]
+
+
+@pytest.mark.parametrize("blocks,mode,exp2", _variants())
+def test_variant_kernel_matches_plain(dev, blocks, mode, exp2):
+    """Every built variant at b 2, h 2, s 512: each row within 2 bf16 ulps
+    of the row's max |ref| of the plain version; a diagonal one column off
+    misses some row's bar, and the plain version on v raised 3% (every
+    output moved by 3% of its own value) misses 90% of the rows past
+    s/2."""
+    from tpu_flash_torch.core.reference import reference_gqa_attention
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.ops.flash.variant import (variant_attention,
+                                                   variant_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    q, k, v = (_rn(g, 2, 2, 512, 128, dtype=torch.bfloat16)
+               for _ in range(3))
+    kw = dict(sm_scale=128 ** -0.5, block_q=blocks[0],
+              block_kv_major=blocks[1], block_kv=blocks[2], mask_mode=mode,
+              use_exp2=exp2)
+    before = build.VARIANT_FWD.launches
+    out = variant_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert build.VARIANT_FWD.launches == before + 1
+    ref = variant_attention_plain(q, k, v, **kw)
+    bars = _row_bars(ref)
+
+    def off(other):
+        return (out.float() - other.float()).abs().amax(-1)
+
+    assert (off(ref) <= bars).all()
+    control = reference_gqa_attention(q, k, v, causal=True, q_offset=1)
+    assert (off(control) > bars).any()
+    late = off(variant_attention_plain(q, k, v * 1.03, **kw))[..., 256:]
+    assert (late > bars[..., 256:]).float().mean() >= 0.9
+
+
+def test_variant_kernel_refuses_what_it_does_not_build(dev):
+    from tpu_flash_torch.ops.flash.variant import variant_attention
+
+    x = torch.zeros(1, 1, 512, 128, dtype=torch.bfloat16, device=dev)
+    args = dict(sm_scale=1.0, block_q=256, block_kv_major=256, block_kv=256)
+    with pytest.raises(ValueError, match="block_q, block_kv_major"):
+        variant_attention(x, x, x, **args)
+    args.update(block_q=64, block_kv_major=64, block_kv=64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        variant_attention(x.float(), x.float(), x.float(), **args)
+    with pytest.raises(ValueError, match="head_dim"):
+        y = torch.zeros(1, 1, 512, 64, dtype=torch.bfloat16, device=dev)
+        variant_attention(y, y, y, **args)

@@ -208,7 +208,7 @@ def test_paged_prefill_refuses_int4_pages():
 def test_kernel_library_name_hashes_shared_headers(tmp_path, monkeypatch):
     """Editing a shared ``*.cuh`` header renames every kernel library
     built from that directory, so the next build compiles afresh; the
-    nine kernels are registered, the two prefill kernels on the shared
+    ten kernels are registered, the two prefill kernels on the shared
     header, the two backward kernels in one source and library."""
     from tpu_flash_torch.ops import build
 
@@ -216,7 +216,7 @@ def test_kernel_library_name_hashes_shared_headers(tmp_path, monkeypatch):
                                   "paged_prefill", "ragged_prefill",
                                   "flash_bwd_dkv", "flash_bwd_dq",
                                   "quant_fwd", "quantize_rows",
-                                  "attn_weights"}
+                                  "attn_weights", "variant_fwd"}
     dkv, dq = build.KERNELS["flash_bwd_dkv"], build.KERNELS["flash_bwd_dq"]
     assert dkv.source == dq.source and dkv.source.name == "flash_bwd.cu"
     assert dkv.library_path() == dq.library_path()

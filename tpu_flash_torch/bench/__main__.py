@@ -1,7 +1,8 @@
 """Benchmark CLI of the port: the counterpart of ``python -m tpu_flash.bench``
-for BASELINE configs 1-4, one JSON row per bench row on stdout.
+for its kernel-level configs (1-5, 7, 8, 11), one JSON row per bench row on
+stdout.
 
-    python -m tpu_flash_torch.bench --configs 1,2,3,4 [--iters N]
+    python -m tpu_flash_torch.bench --configs 1,2,3,4,5,7,8,11 [--iters N]
         [--json out.json] [--device cuda|cpu]
 
   1. parity vs exact oracle        (B=1 s=128 d=64 fp32, <=1e-2; a bf16
@@ -12,14 +13,25 @@ for BASELINE configs 1-4, one JSON row per bench row on stdout.
                                     int8 quantization delta row)
   4. int8 and fp8 QKV prefill at 8K ctx (the quantized-input kernel)
      + paged int8 and bf16 decode at 8K ctx
+  5. 32K context               (8-head 32K causal prefill TFLOP/s; int4
+                                decode b4 gqa4 at 32K, 1024-token pages)
+  7. windowed decode           (b8 gqa4, 32K context, 4K window, int8 and
+                                bf16 pages; speedup over full context)
+  8. windowed paged prefill    (a 512-token chunk over 32K of history,
+                                4K window, bf16 and int8 pages; speedup
+                                over the full-history sweep)
+  11. attention train step     (forward + the backward kernels through
+                                autograd, 3.5x forward FLOPs; 2K h32, 8K h8)
 
 Rows keep the JAX bench's names and metrics. Rates are the card's own
 against the card's data-sheet figures (``utils/device.py``). Config 2
 carries no measured-ceiling gate: the JAX bench's gate is a ceiling
-measured on a TPU, which says nothing about this card. Configs 5-12 are
-not ported yet (ROADMAP queue 1, item 16). On ``--device cpu`` the
-kernels' plain versions run: parity rows mean what they say, throughput
-rows time PyTorch's CPU kernels and carry ``"backend": "cpu"``.
+measured on a TPU, which says nothing about this card. The engine-level
+configs 6, 9, 10 and 12 are not ported yet (ROADMAP queue 1, item 16).
+``SIZES`` holds the lengths of configs 5, 7, 8 and 11 (tests shrink
+them). On ``--device cpu`` the kernels' plain versions run: parity rows
+mean what they say, throughput rows time PyTorch's CPU kernels and carry
+``"backend": "cpu"``.
 """
 
 from __future__ import annotations
@@ -30,8 +42,15 @@ import sys
 
 import torch
 
-# Configs of the JAX bench that wait for the next slice of the port.
-NOT_PORTED = (5, 6, 7, 8, 9, 10, 11, 12)
+# Configs of the JAX bench that wait for a later slice of the port.
+NOT_PORTED = (6, 9, 10, 12)
+# Lengths of configs 5, 7, 8 and 11, the JAX bench's.
+SIZES = {
+    "long_ctx": 32768,    # config 5's prefill and decode, 7's, 8's history
+    "window": 4096,       # configs 7 and 8
+    "chunk": 512,         # config 8
+    "train": ((32, 2048), (8, 8192)),  # config 11: (heads, seq) rows
+}
 
 
 def _log(*a):
@@ -221,11 +240,118 @@ def config4_quantized(iters: int, device="cuda"):
     return rows
 
 
+def config5_longcontext(iters: int, device="cuda"):
+    """32K-context numbers: an 8-head causal prefill and int4 decode."""
+    from tpu_flash_torch.bench.suite import (
+        bench_decode_tokens_per_s,
+        bench_flash_prefill,
+    )
+
+    ctx = SIZES["long_ctx"]
+    res = bench_flash_prefill(batch=1, num_q_heads=8, num_kv_heads=8,
+                              seq=ctx, iters=max(4, iters // 4),
+                              device=device)
+    _log(f"  {res.name}: {res.tflops:.1f} TFLOP/s "
+         f"({100 * res.roofline_frac:.1f}% roofline)")
+    rows = [{"config": 5, "name": res.name, "metric": "tflops",
+             "value": res.tflops, "roofline_frac": res.roofline_frac}]
+    rows.append(decode_row(
+        5, f"int4-kv decode b4 gqa4 {ctx // 1024}K ps1024",
+        *bench_decode_tokens_per_s(batch=4, context=ctx, kv_quant="int4",
+                                   page_size=1024, iters=max(64, iters),
+                                   device=device)))
+    return rows
+
+
+def config7_windowed_decode(iters: int, device="cuda"):
+    """Sliding-window decode: 32K context, 4K window, the windowed tok/s
+    and its speedup over full-context decode on the same cache."""
+    from tpu_flash_torch.bench.suite import bench_decode_tokens_per_s
+
+    ctx, win = SIZES["long_ctx"], SIZES["window"]
+    rows = []
+    for kv_quant, fp_dtype, label in (("int8", None, "int8"),
+                                      (None, torch.bfloat16, "bf16")):
+        kwargs = dict(context=ctx, kv_quant=kv_quant, iters=max(64, iters),
+                      pages_per_compute_block=32 if kv_quant else 16,
+                      device=device)
+        if fp_dtype is not None:
+            kwargs["fp_dtype"] = fp_dtype
+        tps_w, secs_w, gbps_w = bench_decode_tokens_per_s(window=win,
+                                                          **kwargs)
+        tps_f, _, _ = bench_decode_tokens_per_s(**kwargs)
+        rows.append({
+            "config": 7,
+            "name": f"windowed decode b8 gqa4 {ctx // 1024}K ctx win{win} "
+                    f"{label}-kv",
+            "metric": "tokens_per_s",
+            "value": tps_w,
+            "step_ms": secs_w * 1e3,
+            "attended_hbm_gbps": gbps_w,
+            "full_ctx_tokens_per_s": tps_f,
+            "window_speedup": tps_w / tps_f if tps_f else None,
+        })
+        _log(f"  {rows[-1]['name']}: {tps_w:.0f} tok/s windowed vs "
+             f"{tps_f:.0f} full ({tps_w / tps_f:.2f}x)")
+    return rows
+
+
+def config8_windowed_prefill(iters: int, device="cuda"):
+    """A windowed 512-token prefill chunk over 32K of paged history: us a
+    chunk and the speedup over the full-history sweep on the same cache."""
+    from tpu_flash_torch.bench.suite import bench_paged_prefill_chunk
+
+    hist, win, chunk = SIZES["long_ctx"], SIZES["window"], SIZES["chunk"]
+    rows = []
+    for kv_quant, label in ((None, "bf16"), ("int8", "int8")):
+        kwargs = dict(hist=hist, chunk=chunk, kv_quant=kv_quant, iters=iters,
+                      device=device)
+        secs_w, gbps_w = bench_paged_prefill_chunk(window=win, **kwargs)
+        secs_f, _ = bench_paged_prefill_chunk(**kwargs)
+        rows.append({
+            "config": 8,
+            "name": f"windowed paged prefill chunk{chunk} "
+                    f"{hist // 1024}K hist win{win} {label}-kv",
+            "metric": "us_per_chunk",
+            "value": secs_w * 1e6,
+            "attended_hbm_gbps": gbps_w,
+            "full_hist_us_per_chunk": secs_f * 1e6,
+            "window_speedup": secs_f / secs_w if secs_w else None,
+        })
+        _log(f"  {rows[-1]['name']}: {secs_w * 1e6:.0f} us windowed vs "
+             f"{secs_f * 1e6:.0f} full ({secs_f / secs_w:.2f}x)")
+    return rows
+
+
+def config11_train(iters: int, device="cuda"):
+    """The attention training step (forward + the backward kernels through
+    the port's autograd function), 3.5x forward FLOPs."""
+    from tpu_flash_torch.bench.suite import bench_train_step
+
+    rows = []
+    for heads, seq in SIZES["train"]:
+        res = bench_train_step(num_q_heads=heads, num_kv_heads=heads,
+                               seq=seq, iters=max(4, iters // 4),
+                               device=device)
+        _log(f"  {res.name}: {res.tflops:.1f} TFLOP/s "
+             f"({100 * res.roofline_frac:.1f}% roofline), "
+             f"{res.seconds * 1e3:.2f} ms/step")
+        rows.append({"config": 11, "name": res.name,
+                     "metric": "train_tflops", "value": res.tflops,
+                     "roofline_frac": res.roofline_frac,
+                     "ms_per_step": res.seconds * 1e3})
+    return rows
+
+
 CONFIGS = {
     1: config1_parity,
     2: config2_prefill,
     3: config3_decode,
     4: config4_quantized,
+    5: config5_longcontext,
+    7: config7_windowed_decode,
+    8: config8_windowed_prefill,
+    11: config11_train,
 }
 
 
@@ -245,9 +371,9 @@ def run_configs(configs, iters: int = 32, device="cuda"):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Benchmarks of the PyTorch + CUDA port, BASELINE "
-                    "configs 1-4")
-    ap.add_argument("--configs", default="1,2,3,4")
+        description="Benchmarks of the PyTorch + CUDA port, the JAX "
+                    "bench's kernel-level configs")
+    ap.add_argument("--configs", default="1,2,3,4,5,7,8,11")
     ap.add_argument("--iters", type=int, default=32)
     ap.add_argument("--json", default=None, help="write rows as JSON")
     ap.add_argument("--device", default="cuda",

@@ -1,5 +1,5 @@
 """Benchmark harness: the port of ``tpu_flash/bench/suite.py`` for the
-parts that BASELINE configs 1-4 use.
+parts that the kernel-level configs (1-5, 7, 8 and 11) use.
 
 Timing is eager and differential (:func:`time_per_call`): n and then 2n
 calls between two ``torch.cuda.synchronize()``, n grown until one window
@@ -145,20 +145,19 @@ def bench_decode_tokens_per_s(
     pages_per_compute_block: int = 8,
     iters: int = 20,
     fp_dtype=torch.float32,
+    window: Optional[int] = None,
     device="cuda",
     seed: int = 0,
 ):
     """BASELINE config 3 by default: Llama-3-8B GQA decode, int8 KV, 4K
-    context, through the port's ``paged_attention``. ``kv_quant`` is
-    int8 or None (configs 3-4 use no other tier); ``fp_dtype`` sets the
-    unquantized page payload. Returns (tokens_per_second,
+    context, through the port's ``paged_attention``. ``kv_quant`` is a
+    page tier (int8, int4, ...) or None; ``fp_dtype`` sets the
+    unquantized page payload. ``window`` benches sliding-window decode:
+    the kernel starts its walk at the window's first block, and the GB/s
+    figure counts only attended bytes. Returns (tokens_per_second,
     seconds_per_step, hbm_gbps)."""
     from tpu_flash_torch.ops.decode import paged_attention
     from tpu_flash_torch.ops.quant import quantize_pages
-
-    if kv_quant not in (None, "int8"):
-        raise ValueError(f"bench_decode_tokens_per_s: kv_quant must be int8 "
-                         f"or None, got {kv_quant!r}")
 
     pages_per_seq = context // page_size
     num_pages = batch * pages_per_seq + 1
@@ -180,15 +179,134 @@ def bench_decode_tokens_per_s(
     def step():
         return paged_attention(
             q, k_pages, v_pages, lengths, page_indices,
-            pages_per_compute_block=pages_per_compute_block,
+            pages_per_compute_block=pages_per_compute_block, window=window,
         )
 
     with torch.no_grad():
         secs = time_per_call(step, device=device, inner=max(4, iters // 2))
-
-    payload_itemsize = (1 if kv_quant
-                        else torch.empty((), dtype=fp_dtype).element_size())
-    kv_bytes = 2 * batch * num_kv_heads * context * head_dim * payload_itemsize
-    if kv_quant:
-        kv_bytes += 2 * batch * num_kv_heads * context * 4  # scales
+    attended = min(window, context) if window else context
+    kv_bytes = kv_cache_bytes(batch * num_kv_heads * attended, head_dim,
+                              kv_quant, fp_dtype)
     return batch / secs, secs, kv_bytes / secs / 1e9
+
+
+def kv_cache_bytes(tokens: int, head_dim: int, kv_quant: Optional[str],
+                   fp_dtype=torch.bfloat16) -> float:
+    """Bytes of K and V for ``tokens`` (token, kv head) rows of a cache
+    tier: the payload (4-bit tiers half a byte an element) and the scales
+    (an f32 per token, or int4g32's (scale, zero) pair per 32-group)."""
+    from tpu_flash_torch.ops.quant.quantize import int4g32_num_groups
+
+    itemsize = (1 if kv_quant
+                else torch.empty((), dtype=fp_dtype).element_size())
+    kv_bytes = 2 * tokens * head_dim * itemsize
+    if kv_quant in ("int4", "int4g32"):
+        kv_bytes /= 2
+    if kv_quant == "int4g32":
+        kv_bytes += 2 * tokens * 2 * int4g32_num_groups(head_dim) * 4
+    elif kv_quant:
+        kv_bytes += 2 * tokens * 4
+    return kv_bytes
+
+
+def bench_paged_prefill_chunk(
+    batch: int = 1,
+    num_q_heads: int = 32,
+    num_kv_heads: int = 8,
+    head_dim: int = 128,
+    hist: int = 8192,
+    chunk: int = 512,
+    page_size: int = 128,
+    kv_quant: Optional[str] = None,
+    fp_dtype=torch.bfloat16,
+    window: Optional[int] = None,
+    iters: int = 32,
+    device="cuda",
+    seed: int = 0,
+):
+    """One engine prefill-chunk attention over the paged cache (the
+    paged-prefill kernel): a ``chunk``-token chunk over ``hist`` tokens of
+    history. ``window``: the kernel starts its history walk at the first
+    block the window reaches, so chunk cost should track the window, not
+    the history. Returns (seconds_per_chunk, attended_kv_gbps)."""
+    from tpu_flash_torch.ops.flash import paged_prefill_attention
+    from tpu_flash_torch.ops.quant import quantize_pages
+
+    pages_per_seq = hist // page_size
+    num_pages = batch * pages_per_seq + 1
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (num_kv_heads, num_pages, page_size, head_dim)
+    k_pages = _randn(g, shape, torch.float32, device)
+    v_pages = _randn(g, shape, torch.float32, device)
+    if kv_quant:
+        k_pages = quantize_pages(k_pages, kv_quant)
+        v_pages = quantize_pages(v_pages, kv_quant)
+    else:
+        k_pages, v_pages = k_pages.to(fp_dtype), v_pages.to(fp_dtype)
+    tables = torch.arange(
+        batch * pages_per_seq, dtype=torch.int32, device=device
+    ).reshape(batch, pages_per_seq)
+    q = _randn(g, (batch, num_q_heads, chunk, head_dim), fp_dtype, device)
+    ck = _randn(g, (batch, num_kv_heads, chunk, head_dim), fp_dtype, device)
+    cv = _randn(g, (batch, num_kv_heads, chunk, head_dim), fp_dtype, device)
+    offs = torch.full((batch,), hist, dtype=torch.int32, device=device)
+
+    def step():
+        return paged_prefill_attention(
+            q, ck, cv, k_pages, v_pages, offs, tables, hist_cap=hist,
+            window=window,
+        )
+
+    with torch.no_grad():
+        secs = time_per_call(step, device=device, inner=max(4, iters // 2))
+    attended = min(window, hist) if window else hist
+    kv_bytes = kv_cache_bytes(batch * num_kv_heads * attended, head_dim,
+                              kv_quant, fp_dtype)
+    return secs, kv_bytes / secs / 1e9
+
+
+def bench_train_step(
+    batch: int = 1,
+    num_q_heads: int = 32,
+    num_kv_heads: int = 32,
+    seq: int = 2048,
+    head_dim: int = 128,
+    dtype=torch.bfloat16,
+    causal: bool = True,
+    iters: int = 8,
+    device="cuda",
+    seed: int = 0,
+) -> BenchResult:
+    """Attention training throughput: the port's ``flash_attention``
+    forward and its autograd backward (the backward kernels' dQ, dK, dV)
+    of a scalar loss. Useful FLOPs = 3.5x the forward's (forward 2
+    matmuls; backward 5: score recompute, dP, dS K, dS^T Q, P^T dO),
+    causal halves both."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = _randn(g, (batch, num_q_heads, seq, head_dim), dtype, device)
+    k = _randn(g, (batch, num_kv_heads, seq, head_dim), dtype, device)
+    v = _randn(g, (batch, num_kv_heads, seq, head_dim), dtype, device)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+
+    def step():
+        with torch.enable_grad():
+            loss = flash_attention(q, k, v, causal=causal).float().sum()
+            return torch.autograd.grad(loss, (q, k, v))
+
+    seconds = time_per_call(step, device=device, inner=iters)
+    causal_frac = 0.5 if causal else 1.0
+    fwd_flops = 4 * batch * num_q_heads * seq * seq * head_dim * causal_frac
+    flops = 3.5 * fwd_flops
+    info = device_info(device)
+    roofline = info.peak_bf16_tflops if dtype == torch.bfloat16 else 0.0
+    bytes_moved = (2 * (q.numel() + k.numel() + v.numel())
+                   * q.element_size() * 2)
+    return BenchResult(
+        name=f"flash_train b{batch} h{num_q_heads} s{seq} d{head_dim} "
+        f"{str(dtype).removeprefix('torch.')}{' causal' if causal else ''}",
+        seconds=seconds,
+        tflops=flops / seconds / 1e12,
+        roofline_tflops=roofline,
+        hbm_gbps=bytes_moved / seconds / 1e9,
+    )

@@ -37,11 +37,19 @@
 // cores' 989 TFLOP/s (bf16). This first kernel is deliberately simple:
 // f32 FMAs on the CUDA cores from f32 tiles in shared memory (each
 // thread a 4 x 4 tile of S and dP and a 4 x 8 tile of each accumulator;
-// ~167 KB of shared memory in dK/dV, ~150 KB in dQ, one block per SM).
+// ~167 KB of shared memory in dK/dV, ~150 KB in dQ at d 128, one block
+// per SM).
 // It reaches the CUDA-core f32 rate at best, far below the bound; wgmma
 // tiles, TMA staging, and summing each GQA group inside the kernel (the
 // per-q-head dK/dV cost hq/hkv times their bytes) are later work
 // (ROADMAP item 17).
+//
+// Head widths: d = 64, 128 and 256, each its own template instance. At
+// 256 a 64 x 64 step's four f32 tiles of 260-float rows would need 301 KB
+// (dK/dV) and 284 KB (dQ), over the card's 227: dK/dV then steps 32 q rows
+// against its 64 kv rows (217 KB) and dQ 32 kv rows against its 64 q rows
+// (209 KB). The backward rounds nothing across a step (P comes from the
+// forward's lse), so the tiles change only the f32 summation order.
 //
 // Layout: q/o/dO [b, hq, sq, d], k/v [b, hkv, skv, d], lse/di f32
 // [b, hq, sq], dQ like q, dK/dV [b, hq, skv, d]; all contiguous. GQA by
@@ -55,18 +63,27 @@
 
 namespace {
 
-constexpr int BQ = 64;     // q rows per tile
-constexpr int BKV = 64;    // kv rows per tile
-constexpr int D = 128;     // head dim (the only one this build serves)
-constexpr int THREADS = 256;
-constexpr int DS = D + 4;  // padded row strides (floats), 16-byte aligned
-constexpr int PS = BKV + 4;
+constexpr int THREADS = 256;  // 16 x 16 threads over each score tile
 
-// dK/dV: K, V, Q, dO tiles, P and dS tiles, lse and di of the q tile.
-constexpr size_t kDkvSmem =
-    sizeof(float) * (4 * BQ * DS + 2 * BQ * PS + 2 * BQ);
-// dQ: Q, dO, K, V tiles, the dS tile, lse and di.
-constexpr size_t kDqSmem = sizeof(float) * (4 * BQ * DS + BQ * PS + 2 * BQ);
+// The tiles of head width D: the dK/dV block owns 64 kv rows and steps
+// DKV_BQ q rows; the dQ block owns 64 q rows and steps DQ_BKV kv rows.
+template <int D>
+struct Geo {
+  static constexpr int DKV_BQ = D > 128 ? 32 : 64;
+  static constexpr int DQ_BKV = D > 128 ? 32 : 64;
+  static constexpr int DS = D + 4;  // padded row stride (floats), 16-byte
+                                    // aligned
+  // dK/dV: K, V, Q, dO tiles, P and dS tiles, lse and di of the q tile.
+  static constexpr size_t dkv_smem =
+      sizeof(float) * (2 * 64 * DS + 2 * DKV_BQ * DS +
+                       2 * DKV_BQ * (64 + 4) + 2 * DKV_BQ);
+  // dQ: Q, dO, K, V tiles, the dS tile, lse and di.
+  static constexpr size_t dq_smem =
+      sizeof(float) * (2 * 64 * DS + 2 * DQ_BKV * DS + 64 * (DQ_BKV + 4) +
+                       2 * 64);
+  static_assert(dkv_smem <= 232448 && dq_smem <= 232448,
+                "over the card's 227 KB a block");
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -106,46 +123,50 @@ struct BwdParams {
   float softcap, inv_softcap;    // softcap <= 0: none
 };
 
-// Rows [r0, r0 + BQ) of a [rows, D] matrix into an f32 shared tile with
-// row stride DS; rows at or past `rows` load as zeros.
-template <typename T>
+// Rows [r0, r0 + R) of a [rows, D] matrix into an f32 shared tile with
+// row stride D + 4; rows at or past `rows` load as zeros.
+template <int D, int R, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
                                           int rows) {
-  for (int idx = threadIdx.x; idx < BQ * D; idx += THREADS) {
+  constexpr int DS = Geo<D>::DS;
+  for (int idx = threadIdx.x; idx < R * D; idx += THREADS) {
     const int r = idx / D, c = idx % D;
     dst[r * DS + c] =
         r0 + r < rows ? to_f(src[(long long)(r0 + r) * D + c]) : 0.f;
   }
 }
 
-// S = Qs Ks^T and dP = dOs Vs^T for the thread's 4 x 4 cells (q rows
-// ty*4+i, kv cols tx+16*j), then P and dS in place: s[i][j] becomes p,
-// dp[i][j] becomes the unrounded dS.
-template <typename T>
+// S = Qs Ks^T and dP = dOs Vs^T over an RQ x RK tile, the thread's cells
+// at q rows ty*(RQ/16)+i and kv cols tx+16*j, then P and dS in place:
+// s[i][j] becomes p, dp[i][j] becomes the unrounded dS.
+template <int D, int RQ, int RK>
 __device__ __forceinline__ void scores_and_ds(
     const BwdParams& p, int b, int h, int q0, int k0, const float* Qs,
     const float* Ks, const float* dOs, const float* Vs, const float* lse_s,
-    const float* di_s, float (&s)[4][4], float (&dp)[4][4]) {
+    const float* di_s, float (&s)[RQ / 16][RK / 16],
+    float (&dp)[RQ / 16][RK / 16]) {
+  constexpr int DS = Geo<D>::DS, RI = RQ / 16, RJ = RK / 16;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < RJ; ++j) s[i][j] = dp[i][j] = 0.f;
   for (int kk = 0; kk < D; kk += 4) {
-    float4 qv[4], dv[4];
+    float4 qv[RI], dv[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * DS + kk]);
-      dv[i] = *reinterpret_cast<const float4*>(&dOs[(ty * 4 + i) * DS + kk]);
+    for (int i = 0; i < RI; ++i) {
+      qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * RI + i) * DS + kk]);
+      dv[i] =
+          *reinterpret_cast<const float4*>(&dOs[(ty * RI + i) * DS + kk]);
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < RJ; ++j) {
       const float4 kv =
           *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * DS + kk]);
       const float4 vv =
           *reinterpret_cast<const float4*>(&Vs[(tx + 16 * j) * DS + kk]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         float a = s[i][j];
         a = fmaf(qv[i].x, kv.x, a);
         a = fmaf(qv[i].y, kv.y, a);
@@ -163,12 +184,12 @@ __device__ __forceinline__ void scores_and_ds(
   }
   const float slope = p.alibi != nullptr ? p.alibi[h] : 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int r = ty * RI + i;
     const int qi = q0 + r;
     const int qpos = qi + p.q_offset;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < RJ; ++j) {
       const int kpos = k0 + tx + 16 * j;
       float x = s[i][j] * p.scale;
       float dcap = 1.f;
@@ -196,11 +217,12 @@ __device__ __forceinline__ void scores_and_ds(
   }
 }
 
-// lse and di of q rows [q0, q0 + BQ) into shared memory (0 past sq).
+// lse and di of q rows [q0, q0 + R) into shared memory (0 past sq).
+template <int R>
 __device__ __forceinline__ void load_row_stats(const BwdParams& p, int b,
                                                int h, int q0, float* lse_s,
                                                float* di_s) {
-  if (threadIdx.x < BQ) {
+  if (threadIdx.x < R) {
     const int qi = q0 + threadIdx.x;
     const long long at = ((long long)b * p.hq + h) * p.sq + qi;
     lse_s[threadIdx.x] = qi < p.sq ? p.lse[at] : 0.f;
@@ -208,9 +230,11 @@ __device__ __forceinline__ void load_row_stats(const BwdParams& p, int b,
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(BwdParams p) {
+  constexpr int BKV = 64, BQ = Geo<D>::DKV_BQ, DS = Geo<D>::DS;
+  constexpr int PS = BKV + 4;
   extern __shared__ float smem[];
   float* Ks = smem;               // [BKV][DS]
   float* Vs = Ks + BKV * DS;      // [BKV][DS]
@@ -230,8 +254,8 @@ flash_bwd_dkv_kernel(BwdParams p) {
   const T* q = static_cast<const T*>(p.q) + qbase;
   const T* dout = static_cast<const T*>(p.dout) + qbase;
 
-  load_tile(Ks, static_cast<const T*>(p.k) + kbase, k0, p.kv_len);
-  load_tile(Vs, static_cast<const T*>(p.v) + kbase, k0, p.kv_len);
+  load_tile<D, BKV>(Ks, static_cast<const T*>(p.k) + kbase, k0, p.kv_len);
+  load_tile<D, BKV>(Vs, static_cast<const T*>(p.v) + kbase, k0, p.kv_len);
 
   // q tiles that can see this kv tile (none past the kv tail).
   const int n_qt = (p.sq + BQ - 1) / BQ;
@@ -254,19 +278,21 @@ flash_bwd_dkv_kernel(BwdParams p) {
   for (int qt = first; qt <= last; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();  // the previous step's readers are done
-    load_tile(Qs, q, q0, p.sq);
-    load_tile(dOs, dout, q0, p.sq);
-    load_row_stats(p, b, h, q0, lse_s, di_s);
+    load_tile<D, BQ>(Qs, q, q0, p.sq);
+    load_tile<D, BQ>(dOs, dout, q0, p.sq);
+    load_row_stats<BQ>(p, b, h, q0, lse_s, di_s);
     __syncthreads();
 
-    float s[4][4], ds[4][4];
-    scores_and_ds<T>(p, b, h, q0, k0, Qs, Ks, dOs, Vs, lse_s, di_s, s, ds);
+    constexpr int RI = BQ / 16, RJ = BKV / 16;
+    float s[RI][RJ], ds[RI][RJ];
+    scores_and_ds<D, BQ, BKV>(p, b, h, q0, k0, Qs, Ks, dOs, Vs, lse_s, di_s,
+                              s, ds);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Ps[(ty * 4 + i) * PS + tx + 16 * j] = s[i][j];
-        dSs[(ty * 4 + i) * PS + tx + 16 * j] = round_to<T>(ds[i][j]);
+      for (int j = 0; j < RJ; ++j) {
+        Ps[(ty * RI + i) * PS + tx + 16 * j] = s[i][j];
+        dSs[(ty * RI + i) * PS + tx + 16 * j] = round_to<T>(ds[i][j]);
       }
     __syncthreads();
 
@@ -307,9 +333,11 @@ flash_bwd_dkv_kernel(BwdParams p) {
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(BwdParams p) {
+  constexpr int BQ = 64, BKV = Geo<D>::DQ_BKV, DS = Geo<D>::DS;
+  constexpr int PS = BKV + 4;
   extern __shared__ float smem[];
   float* Qs = smem;               // [BQ][DS]
   float* dOs = Qs + BQ * DS;      // [BQ][DS]
@@ -328,9 +356,9 @@ flash_bwd_dq_kernel(BwdParams p) {
   const T* k = static_cast<const T*>(p.k) + kbase;
   const T* v = static_cast<const T*>(p.v) + kbase;
 
-  load_tile(Qs, static_cast<const T*>(p.q) + qbase, q0, p.sq);
-  load_tile(dOs, static_cast<const T*>(p.dout) + qbase, q0, p.sq);
-  load_row_stats(p, b, h, q0, lse_s, di_s);
+  load_tile<D, BQ>(Qs, static_cast<const T*>(p.q) + qbase, q0, p.sq);
+  load_tile<D, BQ>(dOs, static_cast<const T*>(p.dout) + qbase, q0, p.sq);
+  load_row_stats<BQ>(p, b, h, q0, lse_s, di_s);
 
   // kv tiles this q tile sees: the forward's active cells.
   const int q_first = q0 + p.q_offset;
@@ -354,16 +382,18 @@ flash_bwd_dq_kernel(BwdParams p) {
   for (int kt = first; kt <= last; ++kt) {
     const int k0 = kt * BKV;
     __syncthreads();
-    load_tile(Ks, k, k0, p.kv_len);
-    load_tile(Vs, v, k0, p.kv_len);
+    load_tile<D, BKV>(Ks, k, k0, p.kv_len);
+    load_tile<D, BKV>(Vs, v, k0, p.kv_len);
     __syncthreads();
 
-    float s[4][4], ds[4][4];
-    scores_and_ds<T>(p, b, h, q0, k0, Qs, Ks, dOs, Vs, lse_s, di_s, s, ds);
+    constexpr int RJ = BKV / 16;
+    float s[4][RJ], ds[4][RJ];
+    scores_and_ds<D, BQ, BKV>(p, b, h, q0, k0, Qs, Ks, dOs, Vs, lse_s, di_s,
+                              s, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < RJ; ++j)
         dSs[(ty * 4 + i) * PS + tx + 16 * j] = round_to<T>(ds[i][j]);
     __syncthreads();
 
@@ -435,24 +465,57 @@ BwdParams make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
-  cudaFuncSetAttribute(flash_bwd_dkv_kernel<T>,
+  constexpr size_t smem = Geo<D>::dkv_smem;
+  cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kDkvSmem);
-  dim3 grid((p.skv + BKV - 1) / BKV, p.hq, batch);
-  flash_bwd_dkv_kernel<T><<<grid, THREADS, kDkvSmem, stream>>>(p);
+                       (int)smem);
+  dim3 grid((p.skv + 63) / 64, p.hq, batch);
+  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
-  cudaFuncSetAttribute(flash_bwd_dq_kernel<T>,
+  constexpr size_t smem = Geo<D>::dq_smem;
+  cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kDqSmem);
-  dim3 grid((p.sq + BQ - 1) / BQ, p.hq, batch);
-  flash_bwd_dq_kernel<T><<<grid, THREADS, kDqSmem, stream>>>(p);
+                       (int)smem);
+  dim3 grid((p.sq + 63) / 64, p.hq, batch);
+  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// One of the two kernels at the call's dtype and head width.
+template <template <typename, int> class Launch>
+int dispatch(const BwdParams& p, int dtype, int head_dim, int batch,
+             cudaStream_t s) {
+  if (dtype == 0) {
+    if (head_dim == 64) return Launch<float, 64>::run(p, batch, s);
+    if (head_dim == 256) return Launch<float, 256>::run(p, batch, s);
+    return Launch<float, 128>::run(p, batch, s);
+  }
+  if (head_dim == 64) return Launch<__nv_bfloat16, 64>::run(p, batch, s);
+  if (head_dim == 256) return Launch<__nv_bfloat16, 256>::run(p, batch, s);
+  return Launch<__nv_bfloat16, 128>::run(p, batch, s);
+}
+template <typename T, int D>
+struct Dkv {
+  static int run(const BwdParams& p, int batch, cudaStream_t s) {
+    return launch_dkv<T, D>(p, batch, s);
+  }
+};
+template <typename T, int D>
+struct Dq {
+  static int run(const BwdParams& p, int batch, cudaStream_t s) {
+    return launch_dq<T, D>(p, batch, s);
+  }
+};
+
+bool served(int dtype, int head_dim) {
+  return (dtype == 0 || dtype == 1) &&
+         (head_dim == 64 || head_dim == 128 || head_dim == 256);
 }
 
 }  // namespace
@@ -460,8 +523,8 @@ int launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs share it).
 // flash_bwd_dkv writes dK to out1 and dV to out2; flash_bwd_dq writes dQ
 // to out1 (out2 unused). Each returns cudaGetLastError() after its launch;
-// 1 (cudaErrorInvalidValue) for a dtype or head_dim this build does not
-// serve.
+// 1 (cudaErrorInvalidValue) for a dtype or head_dim (64, 128, 256) this
+// build does not serve.
 #define FLASH_BWD_ARGS                                                      \
   const void *q, const void *k, const void *v, const void *dout,           \
       const void *lse, const void *di, void *out1, void *out2,              \
@@ -475,21 +538,13 @@ int launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
               softcap, inv_softcap)
 
 extern "C" int flash_bwd_dkv(FLASH_BWD_ARGS) {
-  if (head_dim != D || (dtype != 0 && dtype != 1)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const BwdParams p = FLASH_BWD_PARAMS;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_dkv<float>(p, batch, s)
-                    : launch_dkv<__nv_bfloat16>(p, batch, s);
+  if (!served(dtype, head_dim)) return (int)cudaErrorInvalidValue;
+  return dispatch<Dkv>(FLASH_BWD_PARAMS, dtype, head_dim, batch,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dq(FLASH_BWD_ARGS) {
-  if (head_dim != D || (dtype != 0 && dtype != 1)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const BwdParams p = FLASH_BWD_PARAMS;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_dq<float>(p, batch, s)
-                    : launch_dq<__nv_bfloat16>(p, batch, s);
+  if (!served(dtype, head_dim)) return (int)cudaErrorInvalidValue;
+  return dispatch<Dq>(FLASH_BWD_PARAMS, dtype, head_dim, batch,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -22,12 +22,18 @@
 // 2 * 64 FLOPs per K/V byte per q tile at d = 128), so the bound is the
 // tensor cores' 989 TFLOP/s (bf16). This first kernel is deliberately
 // simple: f32 FMAs on the CUDA cores from f32 tiles in shared memory (Q
-// 64 x 128, K and V 128 x 128, S 64 x 128; ~197 KB, one block per SM),
+// 64 x 128, K and V 128 x 128, S 64 x 128; ~199 KB, one block per SM),
 // each thread owning a 4 x 8 register tile of S and of O. It reaches the
 // CUDA-core f32 rate at best, far below the bound; wgmma, TMA and warp
 // specialisation are later work (ROADMAP queue 2).
 //
-// Head widths: d = 64 and d = 128, each its own template instance.
+// Head widths: d = 64, 128 and 256, each its own template instance. At d
+// 256 the 128-row K and V tiles would not fit beside Q (365 KB against the
+// card's 227), and a narrower kv step would round P after another running
+// max than the TPU walk's 128 columns. So the step stays 128 kv rows, and
+// K and V share one buffer staged 128 columns of d at a time: K's two
+// halves feed S in order (the same f32 sum as one pass), then V's halves
+// feed the two halves of O (~169 KB).
 //
 // Layout: q [b, hq, sq, d], k/v [b, hkv, skv, d], o like q, lse f32
 // [b, hq, sq]; all contiguous. GQA by index: q head h reads kv head
@@ -47,12 +53,21 @@ constexpr int THREADS = 256;
 constexpr int SS = BK + 4;  // padded row stride (floats), 16-byte aligned
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 
-// Shared memory of the head width D: Q and K rows padded to D + 4 floats.
+// The geometry of head width D: K/V staged DC columns at a time (all of
+// d up to 128; halves at 256, K and V then sharing one buffer).
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * (D + 4) + BK * (D + 4) + BK * D + BQ * SS +
-                          3 * BQ);
-}
+struct Geo {
+  static constexpr int DC = D > 128 ? 128 : D;
+  static constexpr int NC = D / DC;  // column chunks a row
+  static constexpr bool SHARED_KV = NC > 1;
+  static_assert(NC <= 2, "the kernel stages at most two column chunks");
+  static constexpr int QS = D + 4;   // padded row strides (floats)
+  static constexpr int KS = DC + 4;
+  static constexpr size_t smem_bytes =
+      sizeof(float) * (BQ * QS + BK * KS + (SHARED_KV ? 0 : BK * D) +
+                       BQ * SS + 3 * BQ);
+  static_assert(smem_bytes <= 232448, "over the card's 227 KB a block");
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -72,6 +87,80 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
+}
+
+// Rows [k0, k0 + BK) x columns [c0, c0 + DC) of a K or V matrix into a
+// shared tile of row stride DC + 4; rows at or past kv_len load as zeros.
+template <typename T, int D>
+__device__ __forceinline__ void stage_chunk(float* dst, const T* src, int k0,
+                                            int c0, int kv_len) {
+  constexpr int DC = Geo<D>::DC, KS = Geo<D>::KS;
+  for (int idx = threadIdx.x; idx < BK * DC; idx += THREADS) {
+    const int r = idx / DC, c = idx % DC;
+    dst[r * KS + c] = k0 + r < kv_len
+                          ? to_f(src[(long long)(k0 + r) * D + c0 + c])
+                          : 0.f;
+  }
+}
+
+// s += Qs[:, CH DC + (0..DC)] Ks^T for the thread's 4 x 8 cells (rows
+// ty*4+i, cols tx+16*j); Ks holds that column chunk of K.
+template <int D, int CH>
+__device__ __forceinline__ void scores_chunk(const float* Qs, const float* Ks,
+                                             float (&s)[4][BK / 16]) {
+  constexpr int DC = Geo<D>::DC, QS = Geo<D>::QS, KS = Geo<D>::KS;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  for (int kk = 0; kk < DC; kk += 4) {
+    float4 qv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      qv[i] = *reinterpret_cast<const float4*>(
+          &Qs[(ty * 4 + i) * QS + CH * DC + kk]);
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      const float4 kv =
+          *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * KS + kk]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float a = s[i][j];
+        a = fmaf(qv[i].x, kv.x, a);
+        a = fmaf(qv[i].y, kv.y, a);
+        a = fmaf(qv[i].z, kv.z, a);
+        a = fmaf(qv[i].w, kv.w, a);
+        s[i][j] = a;
+      }
+    }
+  }
+}
+
+// acc[:, CH DC / 16 + jj] += P V for the thread's rows ty*4+i and columns
+// tx + 16 jj of column chunk CH; Vs holds that chunk with row stride VS.
+template <int D, int CH, int VS>
+__device__ __forceinline__ void pv_chunk(const float* Ss, const float* Vs,
+                                         float (&acc)[4][D / 16]) {
+  constexpr int DC = Geo<D>::DC;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  for (int t = 0; t < BK; t += 4) {
+    float4 pv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(&Ss[(ty * 4 + i) * SS + t]);
+#pragma unroll
+    for (int jj = 0; jj < DC / 16; ++jj) {
+      const int c = tx + 16 * jj;
+      const float v0 = Vs[(t + 0) * VS + c], v1 = Vs[(t + 1) * VS + c];
+      const float v2 = Vs[(t + 2) * VS + c], v3 = Vs[(t + 3) * VS + c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float a = acc[i][CH * (DC / 16) + jj];
+        a = fmaf(pv[i].x, v0, a);
+        a = fmaf(pv[i].y, v1, a);
+        a = fmaf(pv[i].z, v2, a);
+        a = fmaf(pv[i].w, v3, a);
+        acc[i][CH * (DC / 16) + jj] = a;
+      }
+    }
+  }
 }
 
 struct FwdParams {
@@ -94,13 +183,14 @@ struct FwdParams {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(FwdParams p) {
-  constexpr int QS = D + 4;  // padded row strides (floats)
-  constexpr int KS = D + 4;
+  using G = Geo<D>;
+  constexpr int QS = G::QS, KS = G::KS, DC = G::DC;
   extern __shared__ float smem[];
   float* Qs = smem;                 // [BQ][QS] scaled q
-  float* Ks = Qs + BQ * QS;         // [BK][KS]
-  float* Vs = Ks + BK * KS;         // [BK][D]
-  float* Ss = Vs + BK * D;          // [BQ][SS] scores, then P
+  float* Ks = Qs + BQ * QS;         // [BK][KS] K columns [c DC, (c+1) DC)
+  // [BK][D] V, or (shared) [BK][KS] V columns [c DC, (c+1) DC) in Ks.
+  float* Vs = G::SHARED_KV ? Ks : Ks + BK * KS;
+  float* Ss = Vs + (G::SHARED_KV ? BK * KS : BK * D);  // [BQ][SS] S, then P
   float* row_m = Ss + BQ * SS;      // [BQ] running max
   float* row_l = row_m + BQ;        // [BQ] running sum
   float* row_alpha = row_l + BQ;    // [BQ] rescale of this step
@@ -154,18 +244,6 @@ flash_fwd_kernel(FwdParams p) {
 
   for (int tile = first_tile; tile <= last_tile; ++tile) {
     const int k0 = tile * BK;
-    __syncthreads();  // previous step's readers of Ks/Vs/Ss are done
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int r = idx / D, c = idx % D;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + r < p.kv_len) {
-        kx = to_f(k[(long long)(k0 + r) * D + c]);
-        vx = to_f(v[(long long)(k0 + r) * D + c]);
-      }
-      Ks[r * KS + c] = kx;
-      Vs[r * D + c] = vx;
-    }
-    __syncthreads();
 
     // S = Qs Ks^T: each thread a 4 x 8 tile (rows ty*4+i, cols tx+16*j).
     float s[4][BK / 16];
@@ -173,25 +251,30 @@ flash_fwd_kernel(FwdParams p) {
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < BK / 16; ++j) s[i][j] = 0.f;
-    for (int kk = 0; kk < D; kk += 4) {
-      float4 qv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * QS + kk]);
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * KS + kk]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float a = s[i][j];
-          a = fmaf(qv[i].x, kv.x, a);
-          a = fmaf(qv[i].y, kv.y, a);
-          a = fmaf(qv[i].z, kv.z, a);
-          a = fmaf(qv[i].w, kv.w, a);
-          s[i][j] = a;
+    if constexpr (!G::SHARED_KV) {
+      __syncthreads();  // previous step's readers of Ks/Vs/Ss are done
+      for (int idx = tid; idx < BK * D; idx += THREADS) {
+        const int r = idx / D, c = idx % D;
+        float kx = 0.f, vx = 0.f;
+        if (k0 + r < p.kv_len) {
+          kx = to_f(k[(long long)(k0 + r) * D + c]);
+          vx = to_f(v[(long long)(k0 + r) * D + c]);
         }
+        Ks[r * KS + c] = kx;
+        Vs[r * D + c] = vx;
       }
+      __syncthreads();
+      scores_chunk<D, 0>(Qs, Ks, s);
+    } else {
+      // K's column halves in order: the same f32 sum over d as one pass.
+      __syncthreads();
+      stage_chunk<T, D>(Ks, k, k0, 0, p.kv_len);
+      __syncthreads();
+      scores_chunk<D, 0>(Qs, Ks, s);
+      __syncthreads();
+      stage_chunk<T, D>(Ks, k, k0, DC, p.kv_len);
+      __syncthreads();
+      scores_chunk<D, 1>(Qs, Ks, s);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -246,33 +329,26 @@ flash_fwd_kernel(FwdParams p) {
     }
     __syncthreads();
 
-    // O = O * alpha + P V: each thread rows ty*4+i, cols tx+16*j.
+    // O = O * alpha + P V: each thread rows ty*4+i, cols tx+16*j; with a
+    // shared K/V buffer, V is staged here, one column chunk at a time.
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float a = row_alpha[ty * 4 + i];
 #pragma unroll
       for (int j = 0; j < D / 16; ++j) acc[i][j] *= a;
     }
-    for (int t = 0; t < BK; t += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&Ss[(ty * 4 + i) * SS + t]);
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        const int c = tx + 16 * j;
-        const float v0 = Vs[(t + 0) * D + c], v1 = Vs[(t + 1) * D + c];
-        const float v2 = Vs[(t + 2) * D + c], v3 = Vs[(t + 3) * D + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float a = acc[i][j];
-          a = fmaf(pv[i].x, v0, a);
-          a = fmaf(pv[i].y, v1, a);
-          a = fmaf(pv[i].z, v2, a);
-          a = fmaf(pv[i].w, v3, a);
-          acc[i][j] = a;
-        }
-      }
+    if constexpr (!G::SHARED_KV) {
+      pv_chunk<D, 0, D>(Ss, Vs, acc);
+    } else {
+      // V's column halves into the matching halves of O (the barrier
+      // after the softmax has seen every reader of K's second half).
+      stage_chunk<T, D>(Vs, v, k0, 0, p.kv_len);
+      __syncthreads();
+      pv_chunk<D, 0, KS>(Ss, Vs, acc);
+      __syncthreads();
+      stage_chunk<T, D>(Vs, v, k0, DC, p.kv_len);
+      __syncthreads();
+      pv_chunk<D, 1, KS>(Ss, Vs, acc);
     }
   }
   __syncthreads();
@@ -306,7 +382,7 @@ flash_fwd_kernel(FwdParams p) {
 
 template <typename T, int D>
 int launch(const FwdParams& p, int batch, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = Geo<D>::smem_bytes;
   cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
@@ -318,14 +394,15 @@ int launch(const FwdParams& p, int batch, cudaStream_t stream) {
 template <typename T>
 int launch_width(const FwdParams& p, int head_dim, int batch,
                  cudaStream_t stream) {
-  return head_dim == 64 ? launch<T, 64>(p, batch, stream)
-                        : launch<T, 128>(p, batch, stream);
+  if (head_dim == 64) return launch<T, 64>(p, batch, stream);
+  if (head_dim == 256) return launch<T, 256>(p, batch, stream);
+  return launch<T, 128>(p, batch, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).
-// head_dim: 64 or 128. Returns cudaGetLastError() after the launch; 1
+// head_dim: 64, 128 or 256. Returns cudaGetLastError() after the launch; 1
 // (cudaErrorInvalidValue) for a dtype or head_dim this build does not
 // serve.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
@@ -335,7 +412,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int hkv, int sq, int skv, int kv_len, int head_dim,
                          float scale, int causal, int q_offset, int window,
                          float softcap, float inv_softcap, void* stream) {
-  if ((head_dim != 64 && head_dim != 128) || (dtype != 0 && dtype != 1)) {
+  if ((head_dim != 64 && head_dim != 128 && head_dim != 256) ||
+      (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   FwdParams p;

@@ -29,7 +29,7 @@
 //     absmax / 448), dotted with the e4m3 pages (exact products), times
 //     the row scales;
 //   int4g32 (unsigned nibbles, per-token (scale, zero) for each of the
-//     4 channel groups of 32): score = sum over g = 0..3 in order of
+//     d / 32 channel groups of 32): score = sum over g in order of
 //     (bf16(q'_g) . k4_g) * s_g + sum(q'_g) * z_g; PV channel c of group
 //     g = bf16(p * s_g) . v4_c + sum(p * z_g).
 //   Rounding is half to even (rintf, and the e4m3 conversion's RNE), as
@@ -55,9 +55,13 @@
 // bandwidth. Splitting the kv walk over more blocks (split-K with a
 // merge) and tensor-core dots are later work.
 //
+// Head widths: d = 128 and d = 256, each its own template instance (at
+// 256 one thread a V column sums every token of a block, TG = 1).
+//
 // Layout: q/o [b, hq, d]; pages [hkv, num_pages, rows, d] with rows = ps
 // (ps / 2 for int4 and int4g32); scales f32 [hkv, num_pages, ps], or
-// [hkv, num_pages, 8, ps] for int4g32 (4 scale rows, then 4 zero rows);
+// [hkv, num_pages, 2 d / 32, ps] for int4g32 (d / 32 scale rows, then as
+// many zero rows);
 // lengths int32 [b]; page_indices int32 [b, pps]; ring [b, hkv, W, d]
 // bf16; m/l out f32 [b, hq]; all contiguous, pages 16-byte aligned.
 
@@ -71,8 +75,6 @@
 
 namespace {
 
-constexpr int D = 128;        // head dim (the only one this build serves)
-constexpr int NG = D / 32;    // int4g32 channel groups
 constexpr int THREADS = 256;  // 8 warps
 constexpr int MAX_G = 8;      // q heads per kv head
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
@@ -161,8 +163,9 @@ struct DecodeParams {
 };
 
 // One side's pages of one kv head: where token `pos` of a sequence lives.
-template <int T>
+template <int T, int D>
 struct Side {
+  static constexpr int NG = D / 32;  // int4g32 channel groups
   using S = typename Store<T>::type;
   const S* pages;      // this head's pages
   const float* scales;  // this head's scales (nullptr: none)
@@ -221,7 +224,7 @@ __device__ __forceinline__ double warp_sum(double x) {
 // Loads lane `sub`'s slice of one K row: elements (c * 8 + sub) * CE +
 // [0, CE) for chunks c, CE = 16 / sizeof(S) elements per 16-byte chunk,
 // so 8 lanes read one row's bytes contiguously.
-template <int T, typename S>
+template <int T, int D, typename S>
 __device__ __forceinline__ void load_row_slice(const S* row, int sub, bool hi,
                                                float* out) {
   constexpr int CE = 16 / sizeof(S);
@@ -241,10 +244,11 @@ __device__ __forceinline__ int slice_elem(int i, int sub) {
   return ((i / CE) * 8 + sub) * CE + i % CE;
 }
 
-template <typename TQ, int KT, int VT>
+template <typename TQ, int KT, int VT, int D>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(DecodeParams p) {
   using KS = typename Store<KT>::type;
+  constexpr int NG = D / 32;    // int4g32 channel groups
   constexpr int SLICE = D / 8;
   extern __shared__ double smem[];
   const int G = p.g;
@@ -267,8 +271,8 @@ paged_decode_kernel(DecodeParams p) {
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const TQ* q = static_cast<const TQ*>(p.q) + ((long long)b * p.hq + h * G) * D;
   const int* table = p.page_indices + (long long)b * p.pps;
-  const Side<KT> ks(p.k_pages, p.k_scales, table, h, p);
-  const Side<VT> vs(p.v_pages, p.v_scales, table, h, p);
+  const Side<KT, D> ks(p.k_pages, p.k_scales, table, h, p);
+  const Side<VT, D> vs(p.v_pages, p.v_scales, table, h, p);
 
   const int L = p.lengths[b];
   const int eff = p.ring_w > 0 ? max(L - p.ring_w, 1) : L;
@@ -455,16 +459,21 @@ paged_decode_kernel(DecodeParams p) {
       const KS* krow = ks.row(pos, hi);
       float kv[SLICE];
       if (live) {
-        load_row_slice<KT>(krow, sub, hi, kv);
+        load_row_slice<KT, D>(krow, sub, hi, kv);
       } else {
 #pragma unroll
         for (int i = 0; i < SLICE; ++i) kv[i] = 0.f;
       }
-      double dot[MAX_G];
+      // int4g32: a lane's slice is D / 128 pieces of 16 channels, piece c
+      // in group c * 4 + sub / 2, so a lane keeps one sum a piece (CG)
+      // and a lane pair sums one group; the others sum the whole row.
+      constexpr int CG = Tr<KT>::group ? D / 128 : 1;
+      double dot[CG][MAX_G];
       int idot[MAX_G];
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) {
-        dot[g] = 0.0;
+#pragma unroll
+        for (int c = 0; c < CG; ++c) dot[c][g] = 0.0;
         idot[g] = 0;
         if (g < G) {
 #pragma unroll
@@ -473,13 +482,12 @@ paged_decode_kernel(DecodeParams p) {
             if constexpr (Tr<KT>::mxu) {
               idot[g] += (int)qv * (int)kv[i];
             } else {
-              dot[g] = fma((double)qv, (double)kv[i], dot[g]);
+              double& d = dot[i * CG / SLICE][g];
+              d = fma((double)qv, (double)kv[i], d);
             }
           }
         }
       }
-      // int4g32: a lane's 16 channels lie in group sub / 2, so a lane
-      // pair sums one group; the others sum the whole row.
       constexpr int OFF0 = Tr<KT>::group ? 2 : 8;
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) {
@@ -488,7 +496,9 @@ paged_decode_kernel(DecodeParams p) {
           if constexpr (Tr<KT>::mxu) {
             idot[g] += __shfl_xor_sync(0xffffffffu, idot[g], o);
           } else {
-            dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], o);
+#pragma unroll
+            for (int c = 0; c < CG; ++c)
+              dot[c][g] += __shfl_xor_sync(0xffffffffu, dot[c][g], o);
           }
         }
       }
@@ -499,7 +509,8 @@ paged_decode_kernel(DecodeParams p) {
         for (int g = 0; g < MAX_G; ++g)
 #pragma unroll
           for (int gi = 0; gi < NG; ++gi)
-            gdot[g][gi] = __shfl_sync(0xffffffffu, dot[g], lane0 + 2 * gi);
+            gdot[g][gi] = __shfl_sync(0xffffffffu, dot[gi / 4][g],
+                                      lane0 + 2 * (gi % 4));
       }
       if (live && sub == 0) {
         float kscale = 1.f;
@@ -517,7 +528,7 @@ paged_decode_kernel(DecodeParams p) {
           if constexpr (Tr<KT>::mxu) {
             s = mul(mul((float)idot[g], row_qscale[g]), kscale);
           } else if constexpr (Tr<KT>::native8) {
-            s = mul(mul((float)dot[g], row_qscale[g]), kscale);
+            s = mul(mul((float)dot[0][g], row_qscale[g]), kscale);
           } else if constexpr (Tr<KT>::group) {
             s = 0.f;
 #pragma unroll
@@ -525,9 +536,9 @@ paged_decode_kernel(DecodeParams p) {
               s = add(add(s, mul((float)gdot[g][gi], gs[gi])),
                       mul(row_qsum[g * NG + gi], gz[gi]));
           } else if constexpr (Tr<KT>::token_scaled) {
-            s = mul((float)dot[g], kscale);
+            s = mul((float)dot[0][g], kscale);
           } else {
-            s = (float)dot[g];
+            s = (float)dot[0][g];
           }
           if (p.softcap > 0.f)
             s = mul(p.softcap, tanhf(mul(s, p.inv_softcap)));
@@ -569,7 +580,7 @@ paged_decode_kernel(DecodeParams p) {
       const bool live = j0 < W;
       float kv[SLICE];
       if (live) {
-        load_row_slice<kBF16>(rk + (long long)j0 * D, sub, false, kv);
+        load_row_slice<kBF16, D>(rk + (long long)j0 * D, sub, false, kv);
       } else {
 #pragma unroll
         for (int i = 0; i < SLICE; ++i) kv[i] = 0.f;
@@ -634,7 +645,9 @@ paged_decode_kernel(DecodeParams p) {
 
 // The score rows take g * max(bk, ring_w) floats: only the call's g rows
 // are read or written, so a block of 8192 tokens fits at g = 4.
+template <int D>
 size_t smem_bytes(int bk, int ring_w, int g) {
+  constexpr int NG = D / 32;
   const int sc_w = bk > ring_w ? bk : ring_w;
   return sizeof(double) * (THREADS / D) * MAX_G * D +
          sizeof(float) * (3 * MAX_G * D + 5 * MAX_G + 2 * MAX_G * NG +
@@ -645,45 +658,56 @@ size_t smem_bytes(int bk, int ring_w, int g) {
 // what the card gives one block (ops/build.py::ERR_SHARED_MEMORY).
 constexpr int kErrSharedMemory = -2;
 
-template <typename TQ, int KT, int VT>
+template <typename TQ, int KT, int VT, int D>
 int launch(const DecodeParams& p, int batch, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.bk, p.ring_w, p.g);
+  const size_t smem = smem_bytes<D>(p.bk, p.ring_w, p.g);
   int dev = 0, limit = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   if (smem > (size_t)limit) return kErrSharedMemory;
-  cudaFuncSetAttribute(paged_decode_kernel<TQ, KT, VT>,
+  cudaFuncSetAttribute(paged_decode_kernel<TQ, KT, VT, D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   dim3 grid(p.hkv, batch);
-  paged_decode_kernel<TQ, KT, VT><<<grid, THREADS, smem, stream>>>(p);
+  paged_decode_kernel<TQ, KT, VT, D><<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 // The (K tier, V tier) pairs this build serves: each tier with itself,
 // and k8v4's int8 K with int4 V (exact and mxu).
-template <typename TQ>
+template <typename TQ, int D>
 int launch_tiers(const DecodeParams& p, int k_tier, int v_tier, int batch,
                  cudaStream_t stream) {
   if (k_tier == kInt8 && v_tier == kInt4)
-    return launch<TQ, kInt8, kInt4>(p, batch, stream);
+    return launch<TQ, kInt8, kInt4, D>(p, batch, stream);
   if (k_tier == kInt8Mxu && v_tier == kInt4Mxu)
-    return launch<TQ, kInt8Mxu, kInt4Mxu>(p, batch, stream);
+    return launch<TQ, kInt8Mxu, kInt4Mxu, D>(p, batch, stream);
   if (k_tier != v_tier) return (int)cudaErrorInvalidValue;
   switch (k_tier) {
-    case kF32: return launch<TQ, kF32, kF32>(p, batch, stream);
-    case kBF16: return launch<TQ, kBF16, kBF16>(p, batch, stream);
-    case kInt8: return launch<TQ, kInt8, kInt8>(p, batch, stream);
-    case kInt8Mxu: return launch<TQ, kInt8Mxu, kInt8Mxu>(p, batch, stream);
-    case kInt4: return launch<TQ, kInt4, kInt4>(p, batch, stream);
-    case kInt4Mxu: return launch<TQ, kInt4Mxu, kInt4Mxu>(p, batch, stream);
-    case kInt4G32: return launch<TQ, kInt4G32, kInt4G32>(p, batch, stream);
-    case kFp8: return launch<TQ, kFp8, kFp8>(p, batch, stream);
+    case kF32: return launch<TQ, kF32, kF32, D>(p, batch, stream);
+    case kBF16: return launch<TQ, kBF16, kBF16, D>(p, batch, stream);
+    case kInt8: return launch<TQ, kInt8, kInt8, D>(p, batch, stream);
+    case kInt8Mxu:
+      return launch<TQ, kInt8Mxu, kInt8Mxu, D>(p, batch, stream);
+    case kInt4: return launch<TQ, kInt4, kInt4, D>(p, batch, stream);
+    case kInt4Mxu:
+      return launch<TQ, kInt4Mxu, kInt4Mxu, D>(p, batch, stream);
+    case kInt4G32:
+      return launch<TQ, kInt4G32, kInt4G32, D>(p, batch, stream);
+    case kFp8: return launch<TQ, kFp8, kFp8, D>(p, batch, stream);
     case kFp8Native:
-      return launch<TQ, kFp8Native, kFp8Native>(p, batch, stream);
+      return launch<TQ, kFp8Native, kFp8Native, D>(p, batch, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename TQ>
+int launch_width(const DecodeParams& p, int head_dim, int k_tier,
+                 int v_tier, int batch, cudaStream_t stream) {
+  return head_dim == 256
+             ? launch_tiers<TQ, 256>(p, k_tier, v_tier, batch, stream)
+             : launch_tiers<TQ, 128>(p, k_tier, v_tier, batch, stream);
 }
 
 }  // namespace
@@ -706,7 +730,8 @@ extern "C" int paged_decode(
   const bool packed = k_tier == kInt4 || k_tier == kInt4Mxu ||
                       k_tier == kInt4G32 || v_tier == kInt4 ||
                       v_tier == kInt4Mxu || v_tier == kInt4G32;
-  if (head_dim != D || hq % hkv != 0 || hq / hkv > MAX_G ||
+  if ((head_dim != 128 && head_dim != 256) || hq % hkv != 0 ||
+      hq / hkv > MAX_G ||
       (q_dtype != 0 && q_dtype != 1) || (packed && page_size % 2 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -738,7 +763,8 @@ extern "C" int paged_decode(
   p.softcap = softcap;
   p.inv_softcap = inv_softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return q_dtype == 0 ? launch_tiers<float>(p, k_tier, v_tier, batch, s)
-                      : launch_tiers<__nv_bfloat16>(p, k_tier, v_tier, batch,
-                                                    s);
+  return q_dtype == 0
+             ? launch_width<float>(p, head_dim, k_tier, v_tier, batch, s)
+             : launch_width<__nv_bfloat16>(p, head_dim, k_tier, v_tier,
+                                           batch, s);
 }

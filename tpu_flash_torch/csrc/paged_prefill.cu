@@ -30,9 +30,12 @@
 // shape (9 rows over ~2K history) it reads each history byte for 9 * 4
 // rows, under the ridge: HBM bounds it. This first kernel is simple: f32
 // FMAs on the CUDA cores from f32 tiles in shared memory, two passes over
-// blocks wider than one 128-row sub-tile (see prefill_tile.cuh). The
+// blocks wider than one sub-tile (128 rows; 64 at d 256, so every block
+// of a d 256 call takes two; see prefill_tile.cuh). The
 // verify grid is b * hkv blocks (64 at b 8, hkv 8) on 132 SMs, the same
 // under-fill as paged_decode; split-K, wgmma and TMA are later work.
+//
+// Head widths: d = 128 and d = 256, each its own template instance.
 //
 // Layout: q [b, hq, q_len, d]; chunk k/v [b, hkv, q_len, d] in q's dtype;
 // pages [hkv, num_pages, ps, d] (int4: [hkv, num_pages, ps / 2, d]);
@@ -58,12 +61,12 @@ struct PagedParams {
   int num_pages, ps, pps, bk, block_q;
 };
 
-template <typename TQ, typename TK>
+template <typename TQ, typename TK, int D>
 __global__ void __launch_bounds__(THREADS)
 paged_prefill_kernel(PagedParams pp) {
   extern __shared__ float smem[];
   const RowParams& p = pp.rp;
-  const Smem sm(smem);
+  const Smem<D> sm(smem);
   const int qt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const Rows rows{kvh, qt * p.qp, p.g, p.qp, p.q_len};
   const int p_lo = rows.q_first;
@@ -148,25 +151,35 @@ paged_prefill_kernel(PagedParams pp) {
   store_rows<TQ>(p, rows, sm, acc, b);
 }
 
-template <typename TQ, typename TK>
+template <typename TQ, typename TK, int D>
 int launch(const PagedParams& pp, int batch, cudaStream_t stream) {
-  cudaFuncSetAttribute(paged_prefill_kernel<TQ, TK>,
+  constexpr size_t smem = Geo<D>::smem_bytes;
+  cudaFuncSetAttribute(paged_prefill_kernel<TQ, TK, D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kSmemBytes);
+                       (int)smem);
   dim3 grid((pp.rp.q_len + pp.rp.qp - 1) / pp.rp.qp, pp.rp.hkv, batch);
-  paged_prefill_kernel<TQ, TK><<<grid, THREADS, kSmemBytes, stream>>>(pp);
+  paged_prefill_kernel<TQ, TK, D><<<grid, THREADS, smem, stream>>>(pp);
   return (int)cudaGetLastError();
 }
 
-template <typename TQ>
-int launch_pages(const PagedParams& pp, int page_dtype, int batch,
+template <typename TQ, typename TK>
+int launch_width(const PagedParams& pp, int head_dim, int batch,
                  cudaStream_t stream) {
+  return head_dim == 256 ? launch<TQ, TK, 256>(pp, batch, stream)
+                         : launch<TQ, TK, 128>(pp, batch, stream);
+}
+
+template <typename TQ>
+int launch_pages(const PagedParams& pp, int page_dtype, int head_dim,
+                 int batch, cudaStream_t stream) {
   switch (page_dtype) {
-    case 0: return launch<TQ, float>(pp, batch, stream);
-    case 1: return launch<TQ, __nv_bfloat16>(pp, batch, stream);
-    case 2: return launch<TQ, int8_t>(pp, batch, stream);
-    case 3: return launch<TQ, Int4Tokens>(pp, batch, stream);
-    case 4: return launch<TQ, __nv_fp8_e4m3>(pp, batch, stream);
+    case 0: return launch_width<TQ, float>(pp, head_dim, batch, stream);
+    case 1:
+      return launch_width<TQ, __nv_bfloat16>(pp, head_dim, batch, stream);
+    case 2: return launch_width<TQ, int8_t>(pp, head_dim, batch, stream);
+    case 3: return launch_width<TQ, Int4Tokens>(pp, head_dim, batch, stream);
+    case 4:
+      return launch_width<TQ, __nv_fp8_e4m3>(pp, head_dim, batch, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -187,7 +200,8 @@ extern "C" int paged_prefill(
     int page_size, int pages_per_seq, int block_tokens, int block_q,
     int head_dim, float scale, int window, float softcap, float inv_softcap,
     void* stream) {
-  if (head_dim != D || hq % hkv != 0 || hq / hkv > BQ ||
+  if ((head_dim != 128 && head_dim != 256) || hq % hkv != 0 ||
+      hq / hkv > BQ ||
       (q_dtype != 0 && q_dtype != 1) || block_tokens <= 0 || block_q <= 0 ||
       q_len <= 0 || (page_dtype >= 2) != (k_scales != nullptr) ||
       (page_dtype == 3 && page_size % 2 != 0)) {
@@ -222,6 +236,8 @@ extern "C" int paged_prefill(
   pp.bk = block_tokens;
   pp.block_q = block_q;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return q_dtype == 0 ? launch_pages<float>(pp, page_dtype, batch, s)
-                      : launch_pages<__nv_bfloat16>(pp, page_dtype, batch, s);
+  return q_dtype == 0
+             ? launch_pages<float>(pp, page_dtype, head_dim, batch, s)
+             : launch_pages<__nv_bfloat16>(pp, page_dtype, head_dim, batch,
+                                           s);
 }

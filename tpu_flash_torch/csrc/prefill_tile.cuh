@@ -5,8 +5,10 @@
 // q_per_kv query heads of that kv head stacked over `qp = BQ / q_per_kv`
 // chunk positions (GQA folding), so every K/V row a block reads serves all
 // of its heads. It walks kv *blocks* in the order the TPU kernel walks
-// them; a block is `width` kv columns, cut into sub-tiles of BK = 128 rows
-// staged in shared memory as f32.
+// them; a block is `width` kv columns, cut into sub-tiles of Geo<D>::BK
+// rows staged in shared memory as f32: 128 rows at head widths up to 128,
+// 64 at d 256 (Q, K and V rows of 256 floats: 128-row sub-tiles would
+// need 365 KB, 64-row ones take 218 KB of the card's 227).
 //
 // The TPU kernels take one online-softmax step per block: the running max
 // covers the whole block before P is rounded to the value dtype. A block
@@ -42,17 +44,23 @@
 namespace prefill {
 
 constexpr int BQ = 64;    // query rows per block (heads x positions)
-constexpr int BK = 128;   // kv rows per sub-tile
-constexpr int D = 128;    // head dim (the only one this build serves)
 constexpr int THREADS = 256;
-constexpr int QS = D + 4;  // padded row strides (floats), 16-byte aligned
-constexpr int KS = D + 4;
-constexpr int SS = BK + 4;
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 
-constexpr size_t kSmemBytes =
-    sizeof(float) * (BQ * QS + BK * KS + BK * D + BQ * SS + 4 * BQ) +
-    sizeof(long long) * BK;
+// The tile geometry of head width D (64, 128 or 256; the builds serve
+// 128 and 256).
+template <int D>
+struct Geo {
+  static constexpr int BK = D > 128 ? 64 : 128;  // kv rows per sub-tile
+  static constexpr int QS = D + 4;  // padded row strides (floats), 16-byte
+  static constexpr int KS = D + 4;  // aligned
+  static constexpr int SS = BK + 4;
+  static constexpr int CW = BK / 4;  // score columns per softmax thread
+  static constexpr size_t smem_bytes =
+      sizeof(float) * (BQ * QS + BK * KS + BK * D + BQ * SS + 4 * BQ) +
+      sizeof(long long) * BK;
+  static_assert(smem_bytes <= 232448, "over the card's 227 KB a block");
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -104,7 +112,9 @@ struct RowParams {
 };
 
 // Shared memory of one block and the position of a row.
+template <int D>
 struct Smem {
+  using G = Geo<D>;
   float* Qs;         // [BQ][QS] scaled q
   float* Ks;         // [BK][KS]
   float* Vs;         // [BK][D]
@@ -117,10 +127,10 @@ struct Smem {
 
   __device__ explicit Smem(float* base) {
     Qs = base;
-    Ks = Qs + BQ * QS;
-    Vs = Ks + BK * KS;
-    Ss = Vs + BK * D;
-    row_m = Ss + BQ * SS;
+    Ks = Qs + BQ * G::QS;
+    Vs = Ks + G::BK * G::KS;
+    Ss = Vs + G::BK * D;
+    row_m = Ss + BQ * G::SS;
     row_l = row_m + BQ;
     row_alpha = row_l + BQ;
     row_bmax = row_alpha + BQ;
@@ -162,9 +172,10 @@ __device__ __forceinline__ void row_infos(const RowParams& p, const Rows& rows,
   }
 }
 
-template <typename TQ>
+template <typename TQ, int D>
 __device__ __forceinline__ void load_q(const RowParams& p, const Rows& rows,
-                                       const Smem& sm, int b) {
+                                       const Smem<D>& sm, int b) {
+  constexpr int QS = Geo<D>::QS;
   const TQ* q = static_cast<const TQ*>(p.q);
   const int tid = threadIdx.x;
   for (int idx = tid; idx < BQ * D; idx += THREADS) {
@@ -190,7 +201,7 @@ __device__ __forceinline__ void load_q(const RowParams& p, const Rows& rows,
 // 16-byte pieces (the wrappers pass 16-byte aligned tensors). For int4
 // pages the source row is the token's (page * ps + offset), its scale's
 // index; its byte row is (page * ps/2 + offset % (ps/2)).
-template <typename TK>
+template <int D, typename TK>
 __device__ __forceinline__ void load_piece(const TK* base, long long s,
                                            int c0, const float* scale,
                                            int ps, float* out) {
@@ -212,11 +223,12 @@ __device__ __forceinline__ void load_piece(const TK* base, long long s,
   }
 }
 
-template <typename TQ, typename TK, typename Src>
-__device__ __forceinline__ void stage(const Smem& sm, int t0, int n,
+template <typename TQ, int D, typename TK, typename Src>
+__device__ __forceinline__ void stage(const Smem<D>& sm, int t0, int n,
                                       bool with_v, const TK* kbase,
                                       const TK* vbase, const float* kscale,
                                       const float* vscale, int ps, Src src) {
+  constexpr int BK = Geo<D>::BK, KS = Geo<D>::KS;
   constexpr int CE = 16 / sizeof(TK);  // elements per 16-byte piece
   constexpr int PIECES = D / CE;       // pieces per row
   const int tid = threadIdx.x;
@@ -227,8 +239,8 @@ __device__ __forceinline__ void stage(const Smem& sm, int t0, int n,
     const long long s = sm.row_src[r];
     float kx[CE], vx[CE];
     if (s >= 0) {
-      load_piece(kbase, s, c0, kscale, ps, kx);
-      if (with_v) load_piece(vbase, s, c0, vscale, ps, vx);
+      load_piece<D>(kbase, s, c0, kscale, ps, kx);
+      if (with_v) load_piece<D>(vbase, s, c0, vscale, ps, vx);
     } else {
 #pragma unroll
       for (int e = 0; e < CE; ++e) kx[e] = vx[e] = 0.f;
@@ -245,10 +257,12 @@ __device__ __forceinline__ void stage(const Smem& sm, int t0, int n,
 // S = Qs Ks^T for the staged rows, softcapped and masked into Ss; columns
 // past n are -inf (not part of the block). mask(row info, kv_col, s)
 // returns the score with ALiBi added, or MASK_VALUE.
-template <typename Mask>
-__device__ __forceinline__ void scores(const RowParams& p, const Smem& sm,
+template <int D, typename Mask>
+__device__ __forceinline__ void scores(const RowParams& p, const Smem<D>& sm,
                                        const RowInfo (&ri)[4], int t0, int n,
                                        Mask mask) {
+  constexpr int BK = Geo<D>::BK, QS = Geo<D>::QS, KS = Geo<D>::KS,
+                SS = Geo<D>::SS;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   float s[4][BK / 16];
 #pragma unroll
@@ -290,10 +304,12 @@ __device__ __forceinline__ void scores(const RowParams& p, const Smem& sm,
 }
 
 // Fold the staged scores' row max into row_bmax (4 threads per row).
-__device__ __forceinline__ void block_max(const Smem& sm) {
+template <int D>
+__device__ __forceinline__ void block_max(const Smem<D>& sm) {
+  constexpr int SS = Geo<D>::SS, CW = Geo<D>::CW;
   const int tid = threadIdx.x, r = tid / 4, part = tid % 4;
   float mc = -INFINITY;
-  for (int c = part * 32; c < part * 32 + 32; ++c)
+  for (int c = part * CW; c < part * CW + CW; ++c)
     mc = fmaxf(mc, sm.Ss[r * SS + c]);
   mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
   mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
@@ -302,15 +318,16 @@ __device__ __forceinline__ void block_max(const Smem& sm) {
 
 // P = exp(S - m) into Ss rounded to TQ (the value dtype), l += sum(P)
 // unrounded, then acc += P V.
-template <typename TQ>
-__device__ __forceinline__ void accumulate(const Smem& sm,
+template <typename TQ, int D>
+__device__ __forceinline__ void accumulate(const Smem<D>& sm,
                                            float (&acc)[4][D / 16]) {
+  constexpr int BK = Geo<D>::BK, SS = Geo<D>::SS, CW = Geo<D>::CW;
   const int tid = threadIdx.x;
   {
     const int r = tid / 4, part = tid % 4;
     const float m = sm.row_m[r];
     float lsum = 0.f;
-    for (int c = part * 32; c < part * 32 + 32; ++c) {
+    for (int c = part * CW; c < part * CW + CW; ++c) {
       const float pp = expf(sm.Ss[r * SS + c] - m);
       lsum += pp;
       sm.Ss[r * SS + c] = round_to<TQ>(pp);
@@ -346,14 +363,16 @@ __device__ __forceinline__ void accumulate(const Smem& sm,
 
 // One online-softmax step over the kv block [blk0, blk0 + width).
 // live(j0, j1): some column of [j0, j1) is visible to some row.
-template <typename TQ, typename TK, typename Src, typename Live,
+template <typename TQ, int D, typename TK, typename Src, typename Live,
           typename Mask>
-__device__ __forceinline__ void attend_block(const RowParams& p, const Smem& sm,
+__device__ __forceinline__ void attend_block(const RowParams& p,
+                             const Smem<D>& sm,
                              const RowInfo (&ri)[4],
                              float (&acc)[4][D / 16], int blk0, int width,
                              const TK* kbase, const TK* vbase,
                              const float* kscale, const float* vscale,
                              Src src, Live live, Mask mask) {
+  constexpr int BK = Geo<D>::BK;
   const int tid = threadIdx.x;
   const int nsub = (width + BK - 1) / BK;
   int n_live = 0;
@@ -407,9 +426,9 @@ __device__ __forceinline__ void attend_block(const RowParams& p, const Smem& sm,
 }
 
 // Deferred normalisation (the sink logit folded in once) and the store.
-template <typename TQ>
+template <typename TQ, int D>
 __device__ __forceinline__ void store_rows(const RowParams& p, const Rows& rows,
-                           const Smem& sm, const float (&acc)[4][D / 16],
+                           const Smem<D>& sm, const float (&acc)[4][D / 16],
                            int b) {
   __syncthreads();
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;

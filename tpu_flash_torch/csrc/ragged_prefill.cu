@@ -23,6 +23,9 @@
 // 989 TFLOP/s bf16); this first kernel runs f32 FMAs on the CUDA cores
 // (prefill_tile.cuh), far below that; wgmma and TMA are later work.
 //
+// Head widths: d = 128 and d = 256 (two passes over each 128-column tile
+// at 256, whose sub-tiles are 64 rows), each its own template instance.
+//
 // Layout: q [b, hq, q_len, d]; k/v [b, hkv, hist_cap + q_len, d] in q's
 // dtype; q_offsets int32 [b]; o like q; all contiguous.
 
@@ -40,12 +43,12 @@ struct RaggedParams {
   int hist_cap, block_kv;
 };
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 ragged_prefill_kernel(RaggedParams rg) {
   extern __shared__ float smem[];
   const RowParams& p = rg.rp;
-  const Smem sm(smem);
+  const Smem<D> sm(smem);
   const int qt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const Rows rows{kvh, qt * p.qp, p.g, p.qp, p.q_len};
   const int p_lo = rows.q_first;
@@ -106,14 +109,22 @@ ragged_prefill_kernel(RaggedParams rg) {
   store_rows<T>(p, rows, sm, acc, b);
 }
 
-template <typename T>
+template <typename T, int D>
 int launch(const RaggedParams& rg, int batch, cudaStream_t stream) {
-  cudaFuncSetAttribute(ragged_prefill_kernel<T>,
+  constexpr size_t smem = Geo<D>::smem_bytes;
+  cudaFuncSetAttribute(ragged_prefill_kernel<T, D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kSmemBytes);
+                       (int)smem);
   dim3 grid((rg.rp.q_len + rg.rp.qp - 1) / rg.rp.qp, rg.rp.hkv, batch);
-  ragged_prefill_kernel<T><<<grid, THREADS, kSmemBytes, stream>>>(rg);
+  ragged_prefill_kernel<T, D><<<grid, THREADS, smem, stream>>>(rg);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_width(const RaggedParams& rg, int head_dim, int batch,
+                 cudaStream_t stream) {
+  return head_dim == 256 ? launch<T, 256>(rg, batch, stream)
+                         : launch<T, 128>(rg, batch, stream);
 }
 
 }  // namespace
@@ -127,7 +138,8 @@ extern "C" int ragged_prefill(
     int hq, int hkv, int q_len, int hist_cap, int block_kv, int head_dim,
     float scale, int window, float softcap, float inv_softcap,
     void* stream) {
-  if (head_dim != D || hq % hkv != 0 || hq / hkv > BQ ||
+  if ((head_dim != 128 && head_dim != 256) || hq % hkv != 0 ||
+      hq / hkv > BQ ||
       (dtype != 0 && dtype != 1) || block_kv <= 0 || q_len <= 0 ||
       hist_cap < 0) {
     return (int)cudaErrorInvalidValue;
@@ -153,6 +165,6 @@ extern "C" int ragged_prefill(
   rg.hist_cap = hist_cap;
   rg.block_kv = block_kv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<float>(rg, batch, s)
-                    : launch<__nv_bfloat16>(rg, batch, s);
+  return dtype == 0 ? launch_width<float>(rg, head_dim, batch, s)
+                    : launch_width<__nv_bfloat16>(rg, head_dim, batch, s);
 }

@@ -189,10 +189,17 @@ ATTN_WEIGHTS = CudaKernel(
     [P] * 5 + [I] * 8 + [F] + [I] * 3 + [F, F, P],
     replaces="tpu_flash/ops/flash/debug.py:40",
 )
+# K13: the causal-forward variant harness's kernel (bench/experiments.py).
+VARIANT_FWD = CudaKernel(
+    "variant_fwd", "variant_fwd",
+    [P] * 4 + [I] * 4 + [F] + [I] * 5 + [P],
+    replaces="tpu_flash/bench/experiments.py:30",
+)
 KERNELS: Dict[str, CudaKernel] = {
     k.name: k for k in (FLASH_FWD, PAGED_DECODE, PAGED_PREFILL,
                         RAGGED_PREFILL, FLASH_BWD_DKV, FLASH_BWD_DQ,
-                        QUANT_FWD, QUANTIZE_ROWS, ATTN_WEIGHTS)
+                        QUANT_FWD, QUANTIZE_ROWS, ATTN_WEIGHTS,
+                        VARIANT_FWD)
 }
 
 

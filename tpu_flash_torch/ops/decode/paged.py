@@ -59,7 +59,9 @@ PACKED_TIERS = ("int4", "int4_mxu", "int4g32")
 MXU_TIERS = ("int8_mxu", "int4_mxu")
 EXACT_SCALED_TIERS = ("int8", "int4", "fp8")
 KERNEL_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIM = 128
+KERNEL_HEAD_DIMS = (128, 256)  # what csrc/paged_decode.cu instantiates
+# q heads a kv head the kernel's shared rows hold; no preset exceeds it
+# (the widest group, Qwen2-7B's, is 7).
 KERNEL_MAX_Q_PER_KV = 8
 
 
@@ -481,9 +483,9 @@ def _paged_decode_cuda(q, k_vals, v_vals, k_scales, v_scales, lengths,
         raise ValueError(
             f"paged_decode kernel has no {k_tier} K / {v_tier} V build"
         )
-    if d != KERNEL_HEAD_DIM or hq // hkv > KERNEL_MAX_Q_PER_KV:
+    if d not in KERNEL_HEAD_DIMS or hq // hkv > KERNEL_MAX_Q_PER_KV:
         raise ValueError(
-            f"paged_decode kernel is built for head_dim {KERNEL_HEAD_DIM} "
+            f"paged_decode kernel is built for head_dim {KERNEL_HEAD_DIMS} "
             f"and <= {KERNEL_MAX_Q_PER_KV} q heads per kv head; got "
             f"head_dim {d}, {hq // hkv}"
         )

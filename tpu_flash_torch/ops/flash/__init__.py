@@ -18,6 +18,10 @@ from tpu_flash_torch.ops.flash.ragged import (
     flash_attention_ragged,
     ragged_prefill_plain,
 )
+from tpu_flash_torch.ops.flash.variant import (
+    variant_attention,
+    variant_attention_plain,
+)
 
 __all__ = [
     "FlashAttentionFn", "QuantizedAttentionInputs",
@@ -26,5 +30,5 @@ __all__ = [
     "flash_attention_ragged", "flash_bwd", "flash_bwd_plain", "flash_fwd",
     "flash_fwd_plain", "paged_prefill_attention", "paged_prefill_plain",
     "quant_fwd_plain", "quantize_attention_inputs", "ragged_prefill_plain",
-    "weights_plain",
+    "variant_attention", "variant_attention_plain", "weights_plain",
 ]

@@ -37,7 +37,7 @@ from tpu_flash_torch.ops.flash.forward import (
 )
 
 BWD_BLOCK_KV = 64  # kv rows per tile of csrc/flash_bwd.cu
-KERNEL_HEAD_DIM = 128  # the only head width csrc/flash_bwd.cu serves
+KERNEL_HEAD_DIMS = (64, 128, 256)  # what csrc/flash_bwd.cu instantiates
 
 
 def softmax_di(o: torch.Tensor, do: torch.Tensor,
@@ -200,9 +200,9 @@ def _flash_bwd_cuda(q, k, v, o, do, lse, *, causal, sm_scale, q_offset,
         )
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if d != KERNEL_HEAD_DIM:
+    if d not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"flash_bwd kernels are built for head_dim {KERNEL_HEAD_DIM}, "
+            f"flash_bwd kernels are built for head_dim {KERNEL_HEAD_DIMS}, "
             f"got {d}"
         )
     for t in (k, v, o, do, lse, alibi, q_seg, kv_seg, dlse):

@@ -21,11 +21,10 @@ import torch
 from tpu_flash_torch.core.reference import DEFAULT_MASK_VALUE
 from tpu_flash_torch.ops import build
 from tpu_flash_torch.ops.flash.api import flash_attention
-from tpu_flash_torch.ops.flash.forward import (
-    KERNEL_DTYPES,
-    KERNEL_HEAD_DIMS,
-    rounded_scale,
-)
+from tpu_flash_torch.ops.flash.forward import KERNEL_DTYPES, rounded_scale
+
+# What csrc/attn_weights.cu instantiates (its own set, not the forward's).
+KERNEL_HEAD_DIMS = (64, 128)
 
 
 def weights_plain(q, k, lse, *, causal: bool, sm_scale: float,

@@ -27,7 +27,7 @@ from tpu_flash_torch.core.reference import DEFAULT_MASK_VALUE
 from tpu_flash_torch.ops import build
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (64, 128)  # what csrc/flash_fwd.cu instantiates
+KERNEL_HEAD_DIMS = (64, 128, 256)  # what csrc/flash_fwd.cu instantiates
 KERNEL_TILES = TileSizes()  # what csrc/flash_fwd.cu compiles
 
 

@@ -40,7 +40,7 @@ from tpu_flash_torch.ops.quant.quantize import (
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Page payloads, numbered as csrc/paged_prefill.cu takes them.
 PAGE_KINDS = {"float32": 0, "bfloat16": 1, "int8": 2, "int4": 3, "fp8": 4}
-KERNEL_HEAD_DIM = 128
+KERNEL_HEAD_DIMS = (128, 256)  # what csrc/paged_prefill.cu instantiates
 KERNEL_MAX_Q_PER_KV = 64  # one block stacks q_per_kv heads in 64 rows
 TILES = TileSizes()
 
@@ -316,9 +316,9 @@ def _paged_prefill_cuda(q, chunk_k, chunk_v, k_vals, v_vals, k_scales,
             f"pages of one dtype, got {page_kind} "
             f"({k_vals.dtype}/{v_vals.dtype})"
         )
-    if d != KERNEL_HEAD_DIM or hq // hkv > KERNEL_MAX_Q_PER_KV:
+    if d not in KERNEL_HEAD_DIMS or hq // hkv > KERNEL_MAX_Q_PER_KV:
         raise ValueError(
-            f"paged_prefill kernel is built for head_dim {KERNEL_HEAD_DIM} "
+            f"paged_prefill kernel is built for head_dim {KERNEL_HEAD_DIMS} "
             f"and <= {KERNEL_MAX_Q_PER_KV} q heads per kv head; got "
             f"head_dim {d}, {hq // hkv}"
         )

@@ -33,7 +33,7 @@ from tpu_flash_torch.ops import build
 from tpu_flash_torch.ops.flash.forward import rounded_scale
 from tpu_flash_torch.ops.flash.paged_prefill import (
     KERNEL_DTYPES,
-    KERNEL_HEAD_DIM,
+    KERNEL_HEAD_DIMS,
     KERNEL_MAX_Q_PER_KV,
     TILES,
     BlockSoftmax,
@@ -165,9 +165,9 @@ def _ragged_prefill_cuda(q, k, v, q_offsets, *, hist_cap, sm_scale,
             f"ragged_prefill kernel takes f32 or bf16 q/k/v of one dtype, "
             f"got {q.dtype}/{k.dtype}/{v.dtype}"
         )
-    if d != KERNEL_HEAD_DIM or hq // hkv > KERNEL_MAX_Q_PER_KV:
+    if d not in KERNEL_HEAD_DIMS or hq // hkv > KERNEL_MAX_Q_PER_KV:
         raise ValueError(
-            f"ragged_prefill kernel is built for head_dim {KERNEL_HEAD_DIM} "
+            f"ragged_prefill kernel is built for head_dim {KERNEL_HEAD_DIMS} "
             f"and <= {KERNEL_MAX_Q_PER_KV} q heads per kv head; got "
             f"head_dim {d}, {hq // hkv}"
         )
