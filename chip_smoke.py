@@ -9,7 +9,9 @@ network. Phases, one JSON line each:
 
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels from tpu_flash_torch/csrc (one nvcc per
-     source, all started together), with the build seconds;
+     source, all started together), with the build seconds; each
+     instance of the backward pair with its registers, spill bytes and
+     tensor-core instructions in its SASS (bf16 must have them, f32 not);
   3. kernels: each kernel against its plain PyTorch version on the card
      at the main path's shapes, with times, bounds and a library
      yardstick: the forward (segment ids included), the backward pair
@@ -26,7 +28,9 @@ network. Phases, one JSON line each:
      and Gemma-2-9B's attention geometry (16 q / 8 kv heads, d 256, cap
      50, a sliding layer's 4096-token window and a global layer) on the
      forward, decode (every tier), paged and ragged prefill and the
-     backward, the backward also at d 64;
+     backward, the backward also at d 64; decode at 16 q heads a kv head
+     (bf16 and int8 pages, bit for bit); the bf16 backward is held
+     against the plain version with its bf16 P in dV (``round_p``);
   4. main path: Llama-3-8B geometry at full width (all 32 layers, seeded
      random bf16 weights made on the card) served by the port's engine at
      its default routing (paged prefill, fused mixed steps, speculation
@@ -189,6 +193,71 @@ def row_bars(ref):
 def row_misses(out, ref, bars):
     """Rows where ``out`` is off ``ref`` by more than the row's bar."""
     return (out.float() - ref.float()).abs().amax(-1) > bars
+
+
+def bwd_row_bars(ref, grad):
+    """row_bars for one gradient of the backward (``grad``: "dq", "dk" or
+    "dv") and, as a mask, the rows held at the floor. bf16 dQ and dK rows
+    are held at least at BWD_ROW_FLOOR of the whole output's max |ref|:
+    where a q row puts P near 1 on one key, its dS = P (dP - di) is a
+    cancellation, and the tensor-core kernels' dP and the wrapper's di
+    leave f32 rounding noise there that the plain version leaves in
+    another order (~2^-21 of max |dQ| at d 128 in a row that sees one
+    key, where dS is 0 in exact arithmetic). dV = P^T dO subtracts
+    nothing, and the f32 kernels (CUDA cores) match the plain version's
+    noise, so those rows keep their own bars."""
+    import torch
+
+    own = row_bars(ref)
+    if grad == "dv" or ref.dtype != torch.bfloat16:
+        return own, torch.zeros_like(own, dtype=torch.bool)
+    bars = own.clamp_min(BWD_ROW_FLOOR * float(ref.float().abs().max()))
+    return bars, bars > own
+
+
+def row_agreement(out, ref, control, grad, late=None) -> dict:
+    """agreement's rule for each row (bwd_row_bars): every row of ``out``
+    within its bar of ``ref``; the control (None where the case has none)
+    off by more than the bar in some row; ``late``, a pair (shifted
+    reference, first late row), off by more than the bar in at least
+    BWD_LATE_CAUGHT of the rows from that row on that keep their own bar
+    (at most half of them may be held at the floor). Logs the medians
+    that say how far under the whole output's bar (``case_bar``) a
+    typical row sits."""
+    bars, at_floor = bwd_row_bars(ref, grad)
+    err_rows = (out.float() - ref.float()).abs().amax(-1)
+    missed = int((err_rows > bars).sum())
+    row = dict(max_abs_err=float(err_rows.max()),
+               max_abs_ref=float(ref.float().abs().max()),
+               case_bar=case_bar(ref),
+               max_err_over_row_bar=float(
+                   (err_rows / bars.clamp_min(1e-30)).max()),
+               median_abs_ref=float(ref.float().abs().median()),
+               median_row_bar=float(bars.median()),
+               rows_at_floor=float(at_floor.float().mean()),
+               rows_missed=missed)
+    ok = missed == 0
+    if control is not None:
+        row["control_rows_missed"] = int(row_misses(out, control,
+                                                    bars).sum())
+        ok = ok and row["control_rows_missed"] > 0
+    if late is not None:
+        shifted, first = late
+        off = (out.float() - shifted.float()).abs().amax(-1)[..., first:]
+        held = ~at_floor[..., first:]
+        row.update(
+            late_caught=float((off > bars[..., first:])[held].float()
+                              .mean()),
+            late_at_floor=float(1.0 - held.float().mean()),
+            late_caught_by_case_bar=float(
+                (off > row["case_bar"]).float().mean()),
+            late_median_abs_ref=float(
+                ref[..., first:, :].float().abs().median()),
+            late_median_bar=float(bars[..., first:].median()))
+        ok = (ok and row["late_caught"] >= BWD_LATE_CAUGHT
+              and row["late_at_floor"] <= 0.5)
+    row["ok"] = ok
+    return row
 
 
 def raise_if_failed(kernel: str, rows) -> None:
@@ -421,6 +490,49 @@ def bwd_bound(q, k, kw, which):
     return bound(nbytes, ops, str(q.dtype).removeprefix("torch."))
 
 
+# The backward is held with a bar per row (row_agreement): a row of dK or
+# dV is one kv position, a row of dQ one q position. Under a causal mask
+# max |dV| comes from kv row 0, which every q row sees, and sits over 100x
+# a typical late row, so one bar from the whole output's max could not
+# fail a kernel that was 20% off on late tiles. Each causal case with sq
+# = skv and no q offset or lse cotangent also holds a late-row control:
+# the plain version with dO of every q row past s/2 raised by
+# BWD_LATE_SHIFT. Rows past s/2 of dQ, dK and dV then grow by that
+# factor, up to the rounding of the raised dO (only those q rows reach
+# them), while earlier rows move less. The bar must catch it in at least
+# BWD_LATE_CAUGHT of the late rows that keep their own bar; a bf16 dQ or
+# dK row under 2^-9 of its output's max is held at a floor (below), and at
+# most half the late rows may be. With Gemma-2's peaked scores (q std 10)
+# many late dK rows are small: most q rows put P near 1 on one key, and a
+# kv row that no q row favours gets little. A row's bar is 0.8-1.6% of
+# its max |ref| (2 bf16 ulps), and a passing kernel may be off by a whole
+# bar (Gemma-2's capped rows are: P near 1 flips its bf16 rounding), so a
+# shift is sure to be seen only above twice the largest bar, 3.1%; 2^-4
+# is four times it.
+BWD_LATE_SHIFT = 1.0625
+BWD_LATE_CAUGHT = 0.9
+# A bf16 dQ or dK row's bar is at least BWD_ROW_FLOOR of its output's max
+# |ref| (bwd_row_bars). That moves only rows under 2^-9 of the max (a
+# row's own bar is at least 2^-7 of its max), where the f32 noise of a
+# cancelling dS (near 2^-21 of the max) can outweigh the row.
+BWD_ROW_FLOOR = 2.0 ** -16
+
+
+def bwd_late_control(kw, sq, skv):
+    """Whether a backward case can hold the late-row control: causal,
+    sq = skv, no q offset and no lse cotangent (which dO's shift does
+    not scale)."""
+    return (kw.get("causal", False) and sq == skv
+            and not kw.get("q_offset") and kw.get("dlse") is None)
+
+
+def late_do(do):
+    """dO with every q row past s/2 raised by BWD_LATE_SHIFT."""
+    out = do.clone()
+    out[..., do.shape[-2] // 2:, :] *= BWD_LATE_SHIFT
+    return out
+
+
 def flash_bwd_cases(dev):
     """(name, dtype, b, sq, skv, options, control options) at the training
     shape: hq 32 / hkv 8, d 128, s 2048; b 4 (the main path's) for the
@@ -457,11 +569,15 @@ def flash_bwd_cases(dev):
 
 def check_flash_bwd(dev):
     """K8/K9 at the training shape: dq, dk and dv (per q head) of the two
-    kernels against the plain version, each within its own bar, and the
-    control (the plain version without the case's option) outside it. o
-    and lse come from the plain forward for both sides. The sinks case
-    also holds the autograd path's dsinks (kernels) against the plain
-    path's."""
+    kernels against the plain version, each row within its own bar
+    (row_agreement), the control (the plain version without the case's
+    option) outside the bar in some row, and where bwd_late_control
+    allows, the late-row control outside it in most late rows. o
+    and lse come from the plain forward for both sides. bf16 cases hold
+    the plain version with ``round_p`` (the kernels' bf16 P in dV) and
+    log the error against the plain version without it (``vs_f32_p``).
+    The sinks case also holds the autograd path's dsinks (kernels)
+    against the plain path's."""
     import torch
 
     from tpu_flash_torch.ops import build
@@ -486,15 +602,26 @@ def check_flash_bwd(dev):
         args, bkw = residuals(q, k, v, do, kw)
         out = bw.flash_bwd(*args, sm_scale=SCALE, **bkw)
         torch.cuda.synchronize()
-        ref = bw.flash_bwd_plain(*args, sm_scale=SCALE, **bkw)
+        rp = dt == torch.bfloat16
+        ref = bw.flash_bwd_plain(*args, sm_scale=SCALE, round_p=rp, **bkw)
         cargs, ckw = residuals(q, k, v, do, control)
-        off = bw.flash_bwd_plain(*cargs, sm_scale=SCALE, **ckw)
+        off = bw.flash_bwd_plain(*cargs, sm_scale=SCALE, round_p=rp, **ckw)
+        exact = (bw.flash_bwd_plain(*args, sm_scale=SCALE, **bkw) if rp
+                 else ref)
+        shifted = ((None,) * 3 if not bwd_late_control(kw, sq, skv) else
+                   bw.flash_bwd_plain(*args[:4], late_do(do), *args[5:],
+                                      sm_scale=SCALE, round_p=rp, **bkw))
         grads = {}
-        for gname, a, r, c in zip(("dq", "dk", "dv"), out, ref, off):
+        for gname, a, r, c, e, sh in zip(("dq", "dk", "dv"), out, ref, off,
+                                         exact, shifted):
             # dV = P^T dO does not depend on an lse cotangent: no control.
             no_control = gname == "dv" and "dlse" in kw
-            grads[gname] = agreement(a, r, None if no_control
-                                     else max_err(a, c))
+            grads[gname] = row_agreement(
+                a, r, None if no_control else c, gname,
+                None if sh is None else (sh, sh.shape[-2] // 2))
+            if rp:
+                grads[gname]["vs_f32_p"] = max_err(a, e)
+        del ref, off, exact, shifted
         if "sinks" in kw:
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             sk = kw["sinks"].clone().requires_grad_()
@@ -517,12 +644,14 @@ def check_flash_bwd(dev):
         ms = {"dkv": kernel_ms(build.FLASH_BWD_DKV, run, 5),
               "dq": kernel_ms(build.FLASH_BWD_DQ, run, 5)}
         plain_ms = {w: time_ms(lambda w=w: bw.flash_bwd_plain(
-            *args, sm_scale=SCALE, part=w, **bkw), 2) for w in ms}
+            *args, sm_scale=SCALE, part=w, round_p=rp, **bkw), 2)
+            for w in ms}
         bounds = {w: bwd_bound(q, k, bkw, w) for w in ms}
         # The pair as flash_bwd launches it, its plain version and PyTorch's
         # fused-attention backward: three times of the whole backward.
         whole = dict(ms=time_ms(run, 5), plain_ms=time_ms(
-            lambda: bw.flash_bwd_plain(*args, sm_scale=SCALE, **bkw), 2),
+            lambda: bw.flash_bwd_plain(*args, sm_scale=SCALE, round_p=rp,
+                                       **bkw), 2),
             library_ms=sdpa_bwd_ms(q, k, v, do, kw))
         row = dict(case=name, dtype=str(dt).removeprefix("torch."),
                    shape=list(q.shape), kv_len=skv,
@@ -554,19 +683,20 @@ def check_flash_bwd(dev):
     return out
 
 
-def decode_inputs(dev, kv_dtype, ring, ps=128):
-    """The main path's decode shape: b 8, hq 32 / hkv 8, d 128, context
-    2048 in ``ps``-token pages (128 as phase 4's explicit bf16/int8
-    layout, 512 as the auto layout of the quantized tiers) out of 1 +
-    160 * 128 / ps. ``kv_dtype`` is a cache tier (k8v4: int8 K, int4
-    V)."""
+def decode_inputs(dev, kv_dtype, ring, ps=128, heads=(32, 8)):
+    """The main path's decode shape: b 8, hq 32 / hkv 8 (or ``heads``), d
+    128, context 2048 in ``ps``-token pages (128 as phase 4's explicit
+    bf16/int8 layout, 512 as the auto layout of the quantized tiers) out
+    of 1 + 160 * 128 / ps. ``kv_dtype`` is a cache tier (k8v4: int8 K,
+    int4 V)."""
     import torch
 
     from tpu_flash_torch.engine.cache import side_dtypes
     from tpu_flash_torch.ops.quant import quantize_pages
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    b, hq, hkv, d = 8, 32, 8, 128
+    b, d = 8, 128
+    hq, hkv = heads
     pps, n_pages = 2048 // ps, 1 + 160 * 128 // ps
     kp = torch.randn(hkv, n_pages, ps, d, generator=g, device=dev)
     vp = torch.randn(hkv, n_pages, ps, d, generator=g, device=dev)
@@ -762,6 +892,59 @@ def check_decode(dev):
         if r["page_size"] == 512 and r["tier"] in served:
             out.setdefault(f"paged_decode:{r['tier']}", r)
     return out
+
+
+# 16 q heads a kv head (64 / 4), twice what one launch holds: the wrapper
+# launches once per 8-head chunk of every group. (case, tier, options.)
+WIDE_GROUP = (64, 4)
+WIDE_GROUP_CASES = [
+    ("bf16_sinks_alibi", "bfloat16", dict(sinks=True, alibi=True)),
+    ("int8_mxu_ring128", "int8", dict(int8_mxu=True, ring=128)),
+]
+
+
+def check_decode_wide_group(dev):
+    """K4 at 16 q heads a kv head on bf16 and int8 pages: the output bit
+    for bit the plain version's (one call over all 64 heads), two
+    launches a call (one per chunk)."""
+    import torch
+
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.ops.decode import paged as dp
+
+    rows = []
+    for name, kv_dtype, opts in WIDE_GROUP_CASES:
+        kw = dict(opts)
+        q, kp, vp, lengths, table, ring = decode_inputs(
+            dev, kv_dtype, kw.pop("ring", 0), heads=WIDE_GROUP)
+        kw.update(ring)
+        hq = WIDE_GROUP[0]
+        g = torch.Generator(device=dev).manual_seed(SEED + 30)
+        if kw.pop("sinks", False):
+            kw["sinks"] = math.log(2048) + torch.randn(hq, generator=g,
+                                                       device=dev)
+        if kw.pop("alibi", False):
+            kw["alibi"] = torch.linspace(0.3, 0.001, hq, device=dev)
+
+        def kernel():
+            return dp.paged_attention(q, kp, vp, lengths, table, **kw)
+
+        before = build.PAGED_DECODE.launches
+        out = kernel()
+        torch.cuda.synchronize()
+        launches = build.PAGED_DECODE.launches - before
+        with plain_versions():
+            ref = kernel()
+        row = dict(case=name, heads=list(WIDE_GROUP),
+                   tier=decode_tag(kv_dtype, kw), launches=launches,
+                   max_abs_err=max_err(out, ref),
+                   bit_exact=bool(torch.equal(out, ref)),
+                   ms=time_ms(kernel, 20))
+        row["ok"] = row["bit_exact"] and launches == 2
+        rows.append(row)
+        log("kernel_vs_plain", kernel="paged_decode", **row)
+    raise_if_failed("paged_decode at 16 q heads a kv head", rows)
+    return rows
 
 
 def prefill_pairs(offsets, q_len, window=None):
@@ -1507,8 +1690,11 @@ def check_prefill_d256(dev):
 def check_flash_bwd_widths(dev):
     """K8/K9 at Gemma-2-9B's geometry (b 1 x 2048 under the cap, b 1 x
     8192 under the window) and at d 64 (32 heads, b 1 x 2048): dq, dk, dv
-    of the two kernels against the plain version, the control without
-    the case's option; SDPA's backward timed without the cap."""
+    of the two kernels against the plain version with ``round_p`` (bf16),
+    each row within its own bar (row_agreement), the control without the
+    case's option and the late-row control (every case is causal with sq
+    = skv) outside it, the error against the plain version without
+    ``round_p`` logged; SDPA's backward timed without the cap."""
     import torch
 
     from tpu_flash_torch.ops import build
@@ -1543,12 +1729,17 @@ def check_flash_bwd_widths(dev):
         args = residuals(kw)
         out = bw.flash_bwd(*args, sm_scale=scale, **kw)
         torch.cuda.synchronize()
-        ref = bw.flash_bwd_plain(*args, sm_scale=scale, **kw)
+        ref = bw.flash_bwd_plain(*args, sm_scale=scale, round_p=True, **kw)
         off = bw.flash_bwd_plain(*residuals(control), sm_scale=scale,
-                                 **control)
-        grads = {n: agreement(a, r, max_err(a, c))
-                 for n, a, r, c in zip(("dq", "dk", "dv"), out, ref, off)}
-        del out, ref, off
+                                 round_p=True, **control)
+        exact = bw.flash_bwd_plain(*args, sm_scale=scale, **kw)
+        shifted = bw.flash_bwd_plain(*args[:4], late_do(do), args[5],
+                                     sm_scale=scale, round_p=True, **kw)
+        grads = {n: dict(row_agreement(a, r, c, n, (sh, s // 2)),
+                         vs_f32_p=max_err(a, e))
+                 for n, a, r, c, e, sh in zip(("dq", "dk", "dv"), out, ref,
+                                              off, exact, shifted)}
+        del out, ref, off, exact, shifted
 
         def run():
             return bw.flash_bwd(*args, sm_scale=scale, **kw)
@@ -1558,7 +1749,8 @@ def check_flash_bwd_widths(dev):
         bounds = {w: bwd_bound(q, k, kw, w) for w in ms}
         lib_kw = {x: y for x, y in kw.items() if x != "softcap"}
         whole = dict(ms=time_ms(run, 3), plain_ms=time_ms(
-            lambda: bw.flash_bwd_plain(*args, sm_scale=scale, **kw), 1),
+            lambda: bw.flash_bwd_plain(*args, sm_scale=scale, round_p=True,
+                                       **kw), 1),
             library_ms=sdpa_bwd_ms(q, k, v, do, lib_kw),
             library="SDPA backward without softcap")
         row = dict(case=name, shape=list(q.shape), kv_heads=hkv,
@@ -2524,6 +2716,78 @@ def debug_weights_row(dev, b, h, s, d, causal):
                 target=DEBUG_WEIGHTS_TOL, **{"pass": err <= DEBUG_WEIGHTS_TOL})
 
 
+def bwd_instances():
+    """Each kernel function of the backward's built library: its
+    registers and spill bytes (nvcc's -Xptxas -v log) and its
+    tensor-core instructions (HMMA, HGMMA) in the SASS (cuobjdump). A
+    bf16 instance is one templated on its tiles (``DkvTiles``/``DqTiles``,
+    names that read the same mangled or not); the f32 instances are
+    templated on the element type. Raises without cuobjdump, if the
+    library does not hold one bf16 and one f32 instance of each kernel
+    at each head width, or if a bf16 instance has no tensor-core
+    instruction or an f32 one has any."""
+    import re
+    import shutil
+
+    from tpu_flash_torch.ops import build
+
+    k = build.FLASH_BWD_DKV
+    funcs, cur = {}, None
+    for ln in k.build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(m[1], {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur is not None:
+            cur.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m[1])
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        raise AssertionError("flash_bwd: no cuobjdump to read the SASS")
+    sass, cur = {}, None
+    dump = subprocess.run([tool, "-sass", str(k.library_path())],
+                          capture_output=True, text=True, check=True)
+    for ln in dump.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = sass.setdefault(m[1], dict(hmma=0, hgmma=0))
+        elif cur is not None:
+            cur["hmma"] += len(re.findall(r"\bHMMA\b", ln))
+            cur["hgmma"] += len(re.findall(r"\bHGMMA\b", ln))
+    names = sorted(n for n in set(funcs) | set(sass)
+                   if re.search(r"flash_bwd_d(kv|q)_kernel", n))
+    plain = names
+    if shutil.which("c++filt"):
+        plain = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    rows = []
+    for name, readable in zip(names, plain):
+        row = dict(function=readable.replace("(anonymous namespace)::", ""),
+                   kernel="dkv" if "flash_bwd_dkv_kernel" in name else "dq",
+                   dtype="bfloat16" if re.search(r"D(kv|q)Tiles", name)
+                   else "float32",
+                   **funcs.get(name, {}),
+                   **sass.get(name, dict(hmma=0, hgmma=0)))
+        row["tensor_cores"] = bool(row["hmma"] or row["hgmma"])
+        rows.append(row)
+    count = {(kn, dt): sum(r["kernel"] == kn and r["dtype"] == dt
+                           for r in rows)
+             for kn in ("dkv", "dq") for dt in ("bfloat16", "float32")}
+    wrong = [r["function"] for r in rows
+             if r["tensor_cores"] != (r["dtype"] == "bfloat16")]
+    if wrong or set(count.values()) != {3}:
+        raise AssertionError(
+            f"flash_bwd: bf16 instances without tensor-core instructions "
+            f"or f32 instances with them: {wrong}; instances of each "
+            f"kernel and dtype (3 widths each): {count}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2545,7 +2809,8 @@ def main() -> int:
     secs = build.build_all()
     log("build", seconds=secs, wall_s=time.perf_counter() - t0,
         ptxas=[ln.strip() for k in build.KERNELS.values()
-               for ln in k.build_log.splitlines() if "Used" in ln])
+               for ln in k.build_log.splitlines() if "Used" in ln],
+        flash_bwd_instances=bwd_instances())
     if "--trained-only" in sys.argv[1:]:
         check_trained(dev)  # phase 5 alone, to look into a greedy flip
         return 0
@@ -2559,6 +2824,7 @@ def main() -> int:
                "attn_weights": check_attn_weights(dev),
                "variant_fwd": check_variant(dev)}
     check_widths(dev, summary)
+    check_decode_wide_group(dev)
     main_runs = check_main_path(dev)
     main_runs += check_gemma_path(dev)
     check_trained(dev)

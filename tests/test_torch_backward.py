@@ -385,6 +385,84 @@ def test_plain_part_gives_one_kernels_outputs(name, part):
             assert a is None
 
 
+def _round_p_case(name, dtype):
+    """(args, kw) of the plain backward on a forward's own o and lse:
+    b 2, 4 q / 2 kv heads, 40 rows, d 16."""
+    q, k, v, do = (t.to(dtype) for t in _torch_inputs(12, 2, 4, 2, 40, 40,
+                                                      16))
+    fkw, kw = dict(causal=True), {}
+    if name == "everything":
+        seg = torch.from_numpy(_segments(2, 40, 2, 6))
+        fkw.update(window=20, softcap=4.0,
+                   alibi=torch.tensor([0.5, 0.3, 0.2, 0.1]),
+                   segment_ids=SegmentIds(seg, seg))
+        kw.update(q_seg=seg, kv_seg=seg, dlse=torch.randn(2, 4, 40))
+    o, lse = flash_attention(q, k, v, save_residuals=True, **fkw)
+    fkw.pop("segment_ids", None)
+    return (q, k, v, o, do, lse), dict(fkw, **kw, sm_scale=16 ** -0.5)
+
+
+@pytest.mark.parametrize("name", ["causal", "everything"])
+def test_round_p_moves_only_dv_within_p_rounding(name):
+    """``round_p=True`` (the bf16 kernels' bf16 P in the dV product)
+    leaves dQ and dK bit for bit (dS keeps the f32 P) and moves dV by at
+    most the rounding of P: round-to-nearest-even in bf16 moves each p by
+    at most 2^-8 p, so the f32 sum moves by at most 2^-8 sum_q p |dO|,
+    plus one bf16 ulp of the output where the final rounding flips."""
+    from tpu_flash_torch.ops.flash.backward import flash_bwd_plain
+
+    args, kw = _round_p_case(name, torch.bfloat16)
+    exact = flash_bwd_plain(*args, **kw)
+    rounded = flash_bwd_plain(*args, round_p=True, **kw)
+    for a, w in zip(rounded[:2], exact[:2]):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    q, k, _, _, do, lse = args
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    p, _ = recompute_p(
+        q.float().reshape(b, hkv, hq // hkv, sq, d), k.float(),
+        lse.reshape(b, hkv, hq // hkv, sq, 1), 0, causal=True,
+        sm_scale=kw["sm_scale"], window=kw.get("window"),
+        softcap=kw.get("softcap"), alibi=kw.get("alibi"),
+        q_seg=kw.get("q_seg"), kv_seg=kw.get("kv_seg"))
+    moved = 2.0 ** -8 * torch.einsum(
+        "bhgqk,bhgqd->bhgkd", p,
+        do.float().abs().reshape(b, hkv, hq // hkv, sq, d)).reshape(
+            b, hq, -1, d)
+    dv_r, dv_e = rounded[2].float(), exact[2].float()
+    top = torch.maximum(dv_r.abs(), dv_e.abs())
+    ulp = torch.ldexp(torch.ones_like(top), torch.frexp(top)[1] - 8)
+    assert bool(((dv_r - dv_e).abs() <= moved + ulp).all())
+    assert not torch.equal(dv_r, dv_e)  # the rounding does reach dV
+
+
+def test_round_p_changes_nothing_in_f32():
+    """P rounds to the input dtype: on f32 inputs round_p is a no-op."""
+    from tpu_flash_torch.ops.flash.backward import flash_bwd_plain
+
+    args, kw = _round_p_case("everything", torch.float32)
+    for a, w in zip(flash_bwd_plain(*args, round_p=True, **kw),
+                    flash_bwd_plain(*args, **kw)):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("part", ["dkv", "dq"])
+def test_round_p_keeps_part(part):
+    """``part`` with ``round_p``: the one kernel's outputs equal the whole
+    rounded backward's bit for bit, the other kernel's are None."""
+    from tpu_flash_torch.ops.flash.backward import flash_bwd_plain
+
+    args, kw = _round_p_case("everything", torch.bfloat16)
+    whole = flash_bwd_plain(*args, round_p=True, **kw)
+    got = flash_bwd_plain(*args, round_p=True, part=part, **kw)
+    keep = (0,) if part == "dq" else (1, 2)
+    for i, (a, w) in enumerate(zip(got, whole)):
+        if i in keep:
+            torch.testing.assert_close(a, w, rtol=0, atol=0)
+        else:
+            assert a is None
+
+
 def test_forward_without_grad_skips_autograd():
     """With no input requiring grad (or in no_grad), the forward kernel
     runs alone: no graph node, no saved residuals."""

@@ -19,10 +19,13 @@ and 2^-12 of max |ref| for f32 outputs, which keep no bf16 rounding here
 (f32 q promotes bf16 and int8 history to f32, and P rounds to f32). Each
 of those cases also holds a control: the kernel against the plain
 version without the case's offsets or options must miss the bar. The
-variant kernel (K13) is held with a bar per row (``_row_bars``: the same
-rule at each row's own max |ref|), so a late causal row, whose outputs
-are far under row 0's, is held at its own scale; a late-row control
-must miss most late rows' bars.
+bf16 backward kernels take P in bf16 for the dV product (tensor-core
+operands, as the TPU kernel's single bf16 MXU pass), so their bf16 cases
+hold the plain version with ``round_p=True``; f32 cases the default. The
+backward and the variant kernel (K13) are held with a bar per row
+(``_row_bars``: the same rule at each row's own max |ref|), so a late
+causal row, whose outputs are far under row 0's, is held at its own
+scale; a late-row control must miss most late rows' bars.
 """
 
 import math
@@ -44,11 +47,13 @@ def _case_bar(ref):
 
 def _row_bars(ref):
     """_case_bar's rule for each row (last axis) at the row's own max
-    |ref| (bf16 outputs): a late causal row is held at its own scale,
-    not at row 0's."""
+    |ref|: a late causal row is held at its own scale, not at row 0's.
+    A row of zeros gets a bar of 0."""
     top = ref.float().abs().amax(-1)
-    return 2 * torch.ldexp(torch.ones_like(top),
-                           torch.frexp(top)[1] - 8)
+    if ref.dtype != torch.bfloat16:
+        return 2.0 ** -12 * top
+    bars = 2 * torch.ldexp(torch.ones_like(top), torch.frexp(top)[1] - 8)
+    return torch.where(top > 0, bars, torch.zeros_like(top))
 
 
 def _check_with_control(out, ref, control):
@@ -56,6 +61,46 @@ def _check_with_control(out, ref, control):
     bar = _case_bar(ref)
     assert (out.float() - ref.float()).abs().max() <= bar
     assert (out.float() - control.float()).abs().max() > bar
+
+
+def _row_off(out, ref):
+    return (out.float() - ref.float()).abs().amax(-1)
+
+
+def _check_rows_with_control(out, ref, control, grad, late=None):
+    """Each row of out within its bar of ref (_row_bars); out off the
+    control (None: no control) by more than the bar in some row; and
+    ``late``, a pair (shifted reference, first late row), off by more
+    than the bar in at least 90% of the rows from that row on that keep
+    their own bar (at most half may not). A bf16 dQ or dK (``grad``)
+    row's bar is at least 2^-16 of max |ref|: where a q row puts P near 1
+    on one key, dS = P (dP - di) cancels to f32 noise (~2^-21 of max |dQ|
+    in a row that sees one key) that the tensor-core kernels and the
+    plain version sum in different orders. dV = P^T dO subtracts nothing
+    and the f32 kernels match the plain version's noise: no floor."""
+    own = _row_bars(ref)
+    floor = grad != "dv" and ref.dtype == torch.bfloat16
+    bars = own.clamp_min(2.0 ** -16 * float(ref.float().abs().max())) \
+        if floor else own
+    assert (_row_off(out, ref) <= bars).all()
+    if control is not None:
+        assert (_row_off(out, control) > bars).any()
+    if late is not None:
+        shifted, first = late
+        held = (bars == own)[..., first:]
+        assert held.float().mean() >= 0.5
+        caught = _row_off(out, shifted)[..., first:] > bars[..., first:]
+        assert caught[held].float().mean() >= 0.9
+
+
+def _late_do(do):
+    """dO with every q row past s/2 raised by 2^-4 of itself: rows past
+    s/2 of dQ, dK and dV of a causal backward with sq = skv grow as much
+    (only those q rows reach them), four times the largest bf16 row bar,
+    so a row is seen even where the kernel is off by a whole bar."""
+    out = do.clone()
+    out[..., do.shape[-2] // 2:, :] *= 1.0625
+    return out
 
 
 @pytest.fixture
@@ -170,6 +215,36 @@ def test_paged_decode_kernel_matches_plain(dev, tier, opts):
     state = kw.get("return_state")
     for a, r in zip(out if state else (out,), ref if state else (ref,)):
         assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("tier", ["bfloat16", "int8-mxu"])
+def test_paged_decode_wide_group_bit_exact(dev, tier):
+    """16 q heads a kv head (hq 64 / hkv 4), twice what one launch holds:
+    the wrapper launches once per 8-head chunk, and the output (sinks and
+    ALiBi per q head) is the plain version's bit for bit."""
+    from tpu_flash_torch.ops.decode import paged
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, hq, hkv, ps, pps, n_pages = 3, 64, 4, 16, 8, 40
+    lengths = torch.tensor([128, 57, 1], dtype=torch.int32, device=dev)
+    table = torch.randperm(n_pages, generator=g, device=dev)[
+        : b * pps].reshape(b, pps).int()
+    kp, vp = _rn(g, hkv, n_pages, ps, 128), _rn(g, hkv, n_pages, ps, 128)
+    kp, vp, kw = _decode_pages(kp, vp, tier)
+    q = _rn(g, b, hq, 128, dtype=torch.bfloat16)
+    kw = dict(kw, sinks=_rn(g, hq),
+              alibi=torch.linspace(0.3, 0.01, hq, device=dev))
+    before = paged.build.PAGED_DECODE.launches
+    out = paged.paged_attention(q, kp, vp, lengths, table, **kw)
+    torch.cuda.synchronize()
+    assert paged.build.PAGED_DECODE.launches == before + 2
+    saved = paged._paged_decode_cuda
+    paged._paged_decode_cuda = paged.paged_decode_plain
+    try:
+        ref = paged.paged_attention(q, kp, vp, lengths, table, **kw)
+    finally:
+        paged._paged_decode_cuda = saved
+    assert torch.equal(out, ref)
 
 
 def test_cuda_tensor_never_takes_the_plain_path(dev):
@@ -351,8 +426,11 @@ BWD_CASES = {
 @pytest.mark.parametrize("case", sorted(BWD_CASES))
 def test_flash_bwd_kernels_match_plain(dev, dtype, case):
     """dq, dk and dv of the two backward kernels against the plain
-    version, each within its own bar, and off the control (the plain
-    version without the case's option) by more than it."""
+    version, each row (one q or kv position) within its own bar, off the
+    control (the plain version without the case's option) by more than
+    the bar in some row, and, in the causal cases with sq = skv and no
+    lse cotangent, off the plain version on a dO raised 2^-4 past s/2 in
+    90% of the rows past s/2."""
     from tpu_flash_torch.ops.flash import backward as bw
     from tpu_flash_torch.ops.flash.forward import flash_fwd
 
@@ -375,15 +453,23 @@ def test_flash_bwd_kernels_match_plain(dev, dtype, case):
     torch.cuda.synchronize()
     assert (bw.build.FLASH_BWD_DKV.launches,
             bw.build.FLASH_BWD_DQ.launches) == (before[0] + 1, before[1] + 1)
-    ref = bw.flash_bwd_plain(*args, sm_scale=128 ** -0.5, dlse=dlse, **kw)
-    control = bw.flash_bwd_plain(*args, sm_scale=128 ** -0.5, **ckw)
-    for name, a, r, c in zip(("dq", "dk", "dv"), out, ref, control):
+    # The bf16 kernels take P in bf16 for the dV product (round_p).
+    rp = dtype == torch.bfloat16
+    ref = bw.flash_bwd_plain(*args, sm_scale=128 ** -0.5, dlse=dlse,
+                             round_p=rp, **kw)
+    control = bw.flash_bwd_plain(*args, sm_scale=128 ** -0.5, round_p=rp,
+                                 **ckw)
+    late = (None,) * 3
+    if kw.get("causal") and sq == skv and dlse is None:
+        late = bw.flash_bwd_plain(q, k, v, o, _late_do(do), lse,
+                                  sm_scale=128 ** -0.5, round_p=rp, **kw)
+    for name, a, r, c, sh in zip(("dq", "dk", "dv"), out, ref, control,
+                                 late):
         assert a.dtype == r.dtype and a.shape == r.shape
-        if case == "dlse" and name == "dv":
-            # dV = P^T dO does not depend on the lse cotangent.
-            assert (a.float() - r.float()).abs().max() <= _case_bar(r)
-            continue
-        _check_with_control(a, r, c)
+        # dV = P^T dO does not depend on the lse cotangent: no control.
+        _check_rows_with_control(
+            a, r, None if case == "dlse" and name == "dv" else c, name,
+            None if sh is None else (sh, sh.shape[-2] // 2))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -744,6 +830,9 @@ def test_ragged_prefill_kernel_d256_matches_plain(dev):
 ], ids=["d256-softcap-window", "d64-causal", "d64-offset-tail"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernels_other_widths_match_plain(dev, dtype, d, kw, ckw):
+    """As test_flash_bwd_kernels_match_plain at d 256 and 64: each row
+    within its bar, the control missed in some row, and where the case
+    has no q offset, the late control missed in 90% of the late rows."""
     from tpu_flash_torch.ops.flash import backward as bw
     from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
 
@@ -761,10 +850,19 @@ def test_flash_bwd_kernels_other_widths_match_plain(dev, dtype, d, kw, ckw):
 
     out = bw.flash_bwd(*args(kw), sm_scale=scale, **kw)
     torch.cuda.synchronize()
-    ref = bw.flash_bwd_plain(*args(kw), sm_scale=scale, **kw)
-    control = bw.flash_bwd_plain(*args(ckw), sm_scale=scale, **ckw)
-    for a, r, c in zip(out, ref, control):
-        _check_with_control(a, r, c)
+    rp = dtype == torch.bfloat16  # the bf16 kernels' bf16 P in dV
+    ref = bw.flash_bwd_plain(*args(kw), sm_scale=scale, round_p=rp, **kw)
+    control = bw.flash_bwd_plain(*args(ckw), sm_scale=scale, round_p=rp,
+                                 **ckw)
+    late = (None,) * 3
+    if not kw.get("q_offset"):  # causal with sq = skv
+        q_, k_, v_, o, do_, lse = args(kw)
+        late = bw.flash_bwd_plain(q_, k_, v_, o, _late_do(do_), lse,
+                                  sm_scale=scale, round_p=rp, **kw)
+    for name, a, r, c, sh in zip(("dq", "dk", "dv"), out, ref, control,
+                                 late):
+        _check_rows_with_control(
+            a, r, c, name, None if sh is None else (sh, sh.shape[-2] // 2))
 
 
 # -- the variant harness's kernel (K13) ----------------------------------

@@ -182,3 +182,53 @@ def test_validation_errors():
                 table)
     with pytest.raises(ValueError, match="token-packed"):
         t_paged(q, int4._replace(packing="lanes"), int4, lens, table)
+
+
+def test_wide_group_in_kernel_chunks_matches_jax(monkeypatch):
+    """16 q heads a kv head, twice what one decode kernel launch holds:
+    the route that splits the group into chunks (``in_q_head_chunks``,
+    run here on the plain version as the card runs it on the kernel)
+    against the JAX kernel, which pads the group instead. Sinks and ALiBi
+    are per q head and travel with their chunk."""
+    from tpu_flash_torch.ops.decode import paged
+
+    hq = 16 * HKV
+    s = _setup(15, "bfloat16")
+    s["q"] = s["rng"].standard_normal((B, hq, D), dtype=np.float32)
+    plain, calls = paged.paged_decode_plain, []
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape[1])
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(paged, "paged_decode_plain",
+                        lambda *a, **kw: paged.in_q_head_chunks(counted, *a,
+                                                                **kw))
+    j, t = _both(s, sinks=s["rng"].standard_normal(hq).astype(np.float32),
+                 alibi=np.linspace(0.5, 0.01, hq).astype(np.float32))
+    assert calls == [paged.KERNEL_MAX_Q_PER_KV * HKV] * 2
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j),
+                               **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("tier", ["bfloat16", "int8"])
+def test_wide_group_chunks_give_the_whole_calls_values(tier, monkeypatch):
+    """At 16 q heads a kv head, the chunked route's o, m and l equal the
+    one-call plain version's bit for bit: each q row's arithmetic is its
+    own (exact products summed in f64 on both sides)."""
+    from tpu_flash_torch.ops.decode import paged
+
+    hq = 16 * HKV
+    s = _setup(16, tier)
+    q = torch.from_numpy(
+        s["rng"].standard_normal((B, hq, D), dtype=np.float32)).bfloat16()
+    args = (q, s["tk"], s["tv"], torch.from_numpy(s["lens"]),
+            torch.from_numpy(s["table"]))
+    whole = t_paged(*args, return_state=True)
+    plain = paged.paged_decode_plain
+    monkeypatch.setattr(paged, "paged_decode_plain",
+                        lambda *a, **kw: paged.in_q_head_chunks(plain, *a,
+                                                                **kw))
+    chunked = t_paged(*args, return_state=True)
+    for a, b in zip(chunked, whole):
+        assert a.dtype == b.dtype and torch.equal(a, b)

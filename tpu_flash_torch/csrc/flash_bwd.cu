@@ -12,13 +12,13 @@
 //   diagonal, tiles outside a sliding window and the kv tail are never
 //   loaded.
 //
-//   flash_bwd_dkv: one block per (64-row kv tile, q head, batch). The K/V
-//     tile stays in shared memory; the block loops over the q tiles that
-//     can see it and sums dV += P^T dO and dK += round(dS)^T Q in
-//     registers. dK/dV are written per q head ([b, hq, skv, d]); the
-//     caller sums each GQA group.
-//   flash_bwd_dq: one block per (64-row q tile, q head, batch), looping
-//     over its live kv tiles: dQ += round(dS) K.
+//   flash_bwd_dkv: one block per (kv tile, q head, batch). The K/V tile
+//     stays in shared memory; the block loops over the q tiles that can
+//     see it and sums dV += P^T dO and dK += round(dS)^T Q in registers.
+//     dK/dV are written per q head ([b, hq, skv, d]); the caller sums each
+//     GQA group.
+//   flash_bwd_dq: one block per (q tile, q head, batch), looping over its
+//     live kv tiles: dQ += round(dS) K.
 //
 // Both recompute, per (q tile, kv tile):
 //   s = q k^T (f32, from the inputs' values) * sm_scale; softcap
@@ -30,31 +30,55 @@
 // Each block owns its outputs: no atomics, so the gradients are
 // deterministic.
 //
-// What bounds it on this card: the backward does 2.5x the forward's
-// matrix work at these shapes (dV, dP, dK besides the recomputed S, plus
-// S and dP again for dQ: 7 products of 2 d FLOPs per (q, kv) pair against
-// the forward's 2), so at training lengths it is FLOP-bound on the tensor
-// cores' 989 TFLOP/s (bf16). This first kernel is deliberately simple:
-// f32 FMAs on the CUDA cores from f32 tiles in shared memory (each
-// thread a 4 x 4 tile of S and dP and a 4 x 8 tile of each accumulator;
-// ~167 KB of shared memory in dK/dV, ~150 KB in dQ at d 128, one block
-// per SM).
-// It reaches the CUDA-core f32 rate at best, far below the bound; wgmma
-// tiles, TMA staging, and summing each GQA group inside the kernel (the
-// per-q-head dK/dV cost hq/hkv times their bytes) are later work
-// (ROADMAP item 17).
+// What bounds it on this card: the backward does 3.5x the forward's
+// matrix work (S and dP recomputed, dV, dK in one kernel; S, dP and dQ in
+// the other: 14 d FLOPs per live (q, kv) pair against the forward's 4 d),
+// so at training lengths it is bound by operations, on the tensor cores'
+// 989 TFLOP/s (bf16): at b 4 x 2048, 32 q heads of 128, its bytes (each
+// input read once, each output written once) take an eighth of that.
 //
-// Head widths: d = 64, 128 and 256, each its own template instance. At
-// 256 a 64 x 64 step's four f32 tiles of 260-float rows would need 301 KB
-// (dK/dV) and 284 KB (dQ), over the card's 227: dK/dV then steps 32 q rows
-// against its 64 kv rows (217 KB) and dQ 32 kv rows against its 64 q rows
-// (209 KB). The backward rounds nothing across a step (P comes from the
-// forward's lse), so the tiles change only the f32 summation order.
+// bf16 (the training path): tensor-core kernels (namespace tc). Operands
+// stay bf16 in shared memory, streamed by cp.async with the next tile in
+// flight; all seven products are mma.sync m16n8k16 (bf16 in, f32 sums)
+// with ldmatrix fragments. The dK/dV kernel computes S^T = K Q^T and
+// dP^T = V dO^T kv-major, so P^T and dS^T come out in the accumulator
+// layout, which is the A operand's: they are rounded to bf16 in registers
+// and go straight into dV += P^T dO and dK += dS^T Q. The dQ kernel does
+// the same with dS into dQ += dS K. Mask arithmetic runs only on steps that
+// cross the diagonal, the window's edge, a tail or segment ids.
+// One rounding is new against the CUDA-core kernels: P is bf16 in the dV
+// product. It is the TPU kernel's own: at bf16 inputs its dV dot runs at
+// Precision.DEFAULT, one bf16 pass of the MXU (backward.py:38-43,
+// :184-188). flash_bwd_plain(round_p=True) is its plain version.
+// Tiles (Tiles<D>, the fastest of a sweep of shapes): dK/dV owns 64 kv
+// rows at d 64 and 128 (a warp 16) and steps 32 q rows (4 warps, 70 KB of
+// shared memory at d 128); at d 256 it owns 32 kv rows and two warps share
+// each 16, each summing half of their dK/dV columns and recomputing their
+// S and dP (4 warps, 101 KB), so the sums stay in registers. dQ owns 64 q
+// rows and steps 32 kv rows (16 at d 256; 70 and 101 KB). Registers (127-
+// 242 a thread), not shared memory, cap the card at 8-12 warps an SM.
+// tools/torch_bwd_sweep.py times other shapes against these.
+//
+// f32: the first, CUDA-core kernels, kept for f32 inputs (TF32 products
+// would miss their 2^-12 bar): f32 FMAs from f32 tiles in shared memory
+// (each thread a 4 x 4 tile of S and dP and a 4 x 8 tile of each
+// accumulator; ~167 KB of shared memory in dK/dV, ~150 KB in dQ at d 128,
+// one block per SM). At d 256 a 64 x 64 step's four f32 tiles of
+// 260-float rows would need 301 KB (dK/dV) and 284 KB (dQ), over the
+// card's 227: dK/dV then steps 32 q rows against its 64 kv rows (217 KB)
+// and dQ 32 kv rows against its 64 q rows (209 KB). The backward rounds
+// nothing across a step (P comes from the forward's lse), so the tiles
+// change only the f32 summation order.
+//
+// Later work (ROADMAP item 17): wgmma with TMA and warp specialisation,
+// summing each GQA group inside the kernel (per-q-head dK/dV cost hq/hkv
+// times their bytes), tensor cores for f32.
 //
 // Layout: q/o/dO [b, hq, sq, d], k/v [b, hkv, skv, d], lse/di f32
-// [b, hq, sq], dQ like q, dK/dV [b, hq, skv, d]; all contiguous. GQA by
-// index: q head h reads kv head h / (hq / hkv). Each launch runs on the
-// caller's stream and returns cudaGetLastError().
+// [b, hq, sq], dQ like q, dK/dV [b, hq, skv, d]; all contiguous, bf16
+// rows 16-byte aligned. GQA by index: q head h reads kv head
+// h / (hq / hkv). Each launch runs on the caller's stream and returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,18 +110,11 @@ struct Geo {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
@@ -432,6 +449,524 @@ flash_bwd_dq_kernel(BwdParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernels (the design is in the note at the top).
+// Shared-memory rows are padded by 8 elements, so the eight 16-byte rows
+// an ldmatrix reads fall in eight different bank groups.
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+// dK/dV block: BKV kv rows, BQ q rows a step. A warp owns 16 kv rows and
+// DW = D / DSPLIT columns of their dK and dV; at DSPLIT 2 (d 256, whose
+// 16 x 256 dK and dV sums would not fit one thread's registers) two
+// warps share 16 kv rows and each recomputes their S^T and dP^T.
+template <int D_, int BKV_, int BQ_, int DSPLIT_>
+struct DkvTiles {
+  static constexpr int D = D_, BKV = BKV_, BQ = BQ_, DSPLIT = DSPLIT_;
+  static constexpr int WARPS = BKV / 16 * DSPLIT;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int LD = D + 8;  // row stride (elements)
+  static constexpr int DW = D / DSPLIT;
+  // K, V; Q and dO twice (double buffer); lse and di twice.
+  static constexpr size_t smem =
+      sizeof(bf16) * (2 * BKV + 4 * BQ) * LD + sizeof(float) * 4 * BQ;
+  static_assert(smem <= 232448, "over the card's 227 KB a block");
+};
+
+// dQ block: BQ q rows, BKV kv rows a step; a warp owns 16 q rows.
+template <int D_, int BQ_, int BKV_>
+struct DqTiles {
+  static constexpr int D = D_, BQ = BQ_, BKV = BKV_;
+  static constexpr int WARPS = BQ / 16;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int LD = D + 8;
+  // Q, dO; K and V twice (double buffer).
+  static constexpr size_t smem = sizeof(bf16) * (2 * BQ + 4 * BKV) * LD;
+  static_assert(smem <= 232448, "over the card's 227 KB a block");
+};
+
+// The tiles of each head width (see the note at the top of the file).
+template <int D>
+struct Tiles;
+template <>
+struct Tiles<64> {
+  using Dkv = DkvTiles<64, 64, 32, 1>;
+  using Dq = DqTiles<64, 64, 32>;
+};
+template <>
+struct Tiles<128> {
+  using Dkv = DkvTiles<128, 64, 32, 1>;
+  using Dq = DqTiles<128, 64, 32>;
+};
+template <>
+struct Tiles<256> {
+  using Dkv = DkvTiles<256, 32, 32, 2>;
+  using Dq = DqTiles<256, 64, 16>;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !ok (src is then
+// not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, each lane giving one row
+// address (lanes 8i..8i+7 the rows of matrix i); .trans transposes each.
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), d 16 x 8 f32.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded to nearest even into one bf16 pair (lo in the low half).
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __float22bfloat162_rn(make_float2(lo, hi));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A operand of the 16 x 16 slice c of a 16-row accumulator (its
+// n-tiles 2c and 2c + 1), each value rounded to bf16: an accumulator
+// tile's layout is the A fragment's.
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&x)[N][4],
+                                     int c) {
+  a[0] = pack(x[2 * c][0], x[2 * c][1]);
+  a[1] = pack(x[2 * c][2], x[2 * c][3]);
+  a[2] = pack(x[2 * c + 1][0], x[2 * c + 1][1]);
+  a[3] = pack(x[2 * c + 1][2], x[2 * c + 1][3]);
+}
+
+// Byte offsets of a lane's ldmatrix row address in a [rows][LD] tile:
+// A operand (or B stored k-major, with .trans) of the 16 x 16 block at
+// (r0, c0), and B stored n-major (two n-tiles: rows n0..n0+15, k c0..+15).
+template <int LD>
+__device__ __forceinline__ uint32_t a_off(int lane, int r0, int c0) {
+  return 2u * ((r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
+}
+template <int LD>
+__device__ __forceinline__ uint32_t b_off(int lane, int n0, int c0) {
+  return 2u * ((n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 +
+               ((lane >> 3) & 1) * 8);
+}
+
+// Rows [r0, r0 + R) of a [rows, D] bf16 matrix into a [R][LD] tile, rows
+// at or past `rows` as zeros.
+template <int D, int R, int NT, int LD>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
+                                          int rows) {
+  constexpr int CPR = D / 8;  // 16-byte pieces a row
+#pragma unroll
+  for (int i = threadIdx.x; i < R * CPR; i += NT) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const bool ok = r0 + r < rows;
+    cp_async16(dst + r * LD + c, ok ? src + (long long)(r0 + r) * D + c : src,
+               ok);
+  }
+}
+
+// Whether a (q tile, kv tile) step needs the masks: segment ids, a q or kv
+// tail, the causal diagonal or the window's edge crossing it. Other steps
+// skip the mask arithmetic.
+__device__ __forceinline__ bool needs_mask(const BwdParams& p, int q0, int bq,
+                                           int k0, int bkv) {
+  if (p.q_seg != nullptr || q0 + bq > p.sq || k0 + bkv > p.kv_len)
+    return true;
+  if (!p.causal) return false;
+  const int qlo = q0 + p.q_offset, qhi = qlo + bq - 1;
+  return k0 + bkv - 1 > qlo || (p.window > 0 && k0 <= qhi - p.window);
+}
+
+// One score's s (the raw q.k sum) -> p and dp -> rounded-later dS, the
+// CUDA-core kernels' arithmetic (scores_and_ds).
+__device__ __forceinline__ void p_and_ds(const BwdParams& p, int b, int qi,
+                                         int kpos, float lse, float di,
+                                         float slope, bool masked, float& s,
+                                         float& dp) {
+  const int qpos = qi + p.q_offset;
+  float x = s * p.scale;
+  float dcap = 1.f;
+  if (p.softcap > 0.f) {
+    const float t = tanhf(x * p.inv_softcap);
+    x = p.softcap * t;
+    dcap = 1.f - t * t;
+  }
+  if (p.alibi != nullptr) x += slope * (float)(kpos - qpos);
+  bool valid = true;
+  if (masked) {
+    valid = qi < p.sq && kpos < p.kv_len;
+    if (p.causal) {
+      valid = valid && kpos <= qpos;
+      if (p.window > 0) valid = valid && kpos > qpos - p.window;
+    }
+    if (valid && p.q_seg != nullptr) {
+      valid = p.q_seg[(long long)b * p.sq + qi] ==
+              p.kv_seg[(long long)b * p.skv + kpos];
+    }
+  }
+  const float pp = valid ? expf(x - lse) : 0.f;
+  float ds = pp * (dp - di);
+  if (p.softcap > 0.f) ds = ds * dcap;
+  s = pp;
+  dp = ds * p.scale;
+}
+
+// dK/dV: one block per (BKV kv rows, q head, batch), looping over the q
+// tiles that see them. Per step, kv-major: S^T = K Q^T and dP^T = V dO^T,
+// so P^T and dS^T land in the accumulator layout and go straight, rounded
+// to bf16, into dV += P^T dO and dK += dS^T Q (dO and Q read through
+// ldmatrix.trans).
+template <class G>
+__global__ void __launch_bounds__(G::THREADS)
+    flash_bwd_dkv_kernel(BwdParams p) {
+  constexpr int D = G::D, BKV = G::BKV, BQ = G::BQ, DSPLIT = G::DSPLIT;
+  constexpr int LD = G::LD, DW = G::DW, NT = G::THREADS;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);  // [BKV][LD]
+  bf16* Vs = Ks + BKV * LD;                  // [BKV][LD]
+  bf16* Qs = Vs + BKV * LD;                  // [2][BQ][LD]
+  bf16* dOs = Qs + 2 * BQ * LD;              // [2][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // [2][BQ]
+  float* di_s = lse_s + 2 * BQ;                                // [2][BQ]
+
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.hq / p.hkv);
+  const int k0 = kt * BKV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int wr = warp / DSPLIT * 16;  // the warp's kv rows in the tile
+  const int wc = warp % DSPLIT * DW;  // and its dK/dV columns
+  const long long qrow = ((long long)b * p.hq + h) * p.sq;
+  const bf16* q = static_cast<const bf16*>(p.q) + qrow * D;
+  const bf16* dout = static_cast<const bf16*>(p.dout) + qrow * D;
+  const float* lse = p.lse + qrow;
+  const float* di = p.di + qrow;
+  const long long kvbase = ((long long)b * p.hkv + hk) * p.skv * D;
+
+  load_rows<D, BKV, NT, LD>(Ks, static_cast<const bf16*>(p.k) + kvbase, k0,
+                            p.kv_len);
+  load_rows<D, BKV, NT, LD>(Vs, static_cast<const bf16*>(p.v) + kvbase, k0,
+                            p.kv_len);
+
+  // q tiles that can see this kv tile (none past the kv tail).
+  const int n_qt = (p.sq + BQ - 1) / BQ;
+  int first = 0, last = k0 < p.kv_len ? n_qt - 1 : -1;
+  if (p.causal) {
+    const int lo = k0 - p.q_offset;  // first q row at or past k0
+    first = lo > 0 ? lo / BQ : 0;
+    if (p.window > 0) {
+      const int hi = k0 + BKV - 1 + p.window - 1 - p.q_offset;
+      last = hi < 0 ? -1 : min(last, hi / BQ);
+    }
+  }
+
+  auto stage = [&](int qt, int buf) {
+    const int q0 = qt * BQ;
+    load_rows<D, BQ, NT, LD>(Qs + buf * BQ * LD, q, q0, p.sq);
+    load_rows<D, BQ, NT, LD>(dOs + buf * BQ * LD, dout, q0, p.sq);
+    for (int r = threadIdx.x; r < BQ; r += NT) {
+      const bool ok = q0 + r < p.sq;
+      cp_async4(lse_s + buf * BQ + r, ok ? lse + q0 + r : lse, ok);
+      cp_async4(di_s + buf * BQ + r, ok ? di + q0 + r : di, ok);
+    }
+  };
+  if (first <= last) stage(first, 0);
+  cp_async_commit();
+
+  float dk[DW / 8][4], dv[DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  const int kr0 = k0 + wr + gr;  // the thread's kv rows: kr0, kr0 + 8
+  const float slope = p.alibi != nullptr ? p.alibi[h] : 0.f;
+  const uint32_t ks = smem_addr(Ks), vs = smem_addr(Vs);
+
+  for (int qt = first; qt <= last; ++qt) {
+    const int buf = (qt - first) & 1;
+    if (qt < last) stage(qt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = qt * BQ;
+    const uint32_t qs = smem_addr(Qs + buf * BQ * LD);
+    const uint32_t os = smem_addr(dOs + buf * BQ * LD);
+    const float* lse_b = lse_s + buf * BQ;
+    const float* di_b = di_s + buf * BQ;
+
+    float s[BQ / 8][4], dp[BQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t ka[4], va[4];
+      ldsm(ka, ks + a_off<LD>(lane, wr, kk));
+      ldsm(va, vs + a_off<LD>(lane, wr, kk));
+#pragma unroll
+      for (int j = 0; j < BQ / 8; j += 2) {
+        uint32_t qb[4], ob[4];
+        ldsm(qb, qs + b_off<LD>(lane, j * 8, kk));
+        ldsm(ob, os + b_off<LD>(lane, j * 8, kk));
+        mma(s[j], ka, qb[0], qb[1]);
+        mma(s[j + 1], ka, qb[2], qb[3]);
+        mma(dp[j], va, ob[0], ob[1]);
+        mma(dp[j + 1], va, ob[2], ob[3]);
+      }
+    }
+
+    const bool masked = needs_mask(p, q0, BQ, k0, BKV);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = j * 8 + 2 * tq + (e & 1);
+        p_and_ds(p, b, q0 + ql, kr0 + (e >> 1) * 8, lse_b[ql], di_b[ql],
+                 slope, masked, s[j][e], dp[j][e]);
+      }
+
+#pragma unroll
+    for (int c = 0; c < BQ / 16; ++c) {
+      uint32_t pa[4], sa[4];
+      to_a(pa, s, c);   // P^T, rounded (the dV product's bf16 P)
+      to_a(sa, dp, c);  // dS^T, rounded
+#pragma unroll
+      for (int n = 0; n < DW; n += 16) {
+        uint32_t ob[4], qb[4];
+        ldsm_t(ob, os + a_off<LD>(lane, c * 16, wc + n));
+        ldsm_t(qb, qs + a_off<LD>(lane, c * 16, wc + n));
+        mma(dv[n / 8], pa, ob[0], ob[1]);
+        mma(dv[n / 8 + 1], pa, ob[2], ob[3]);
+        mma(dk[n / 8], sa, qb[0], qb[1]);
+        mma(dk[n / 8 + 1], sa, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();  // the next stage overwrites this step's buffers
+  }
+  cp_async_wait<0>();
+
+  const long long obase = ((long long)b * p.hq + h) * p.skv * D;
+  bf16* dk_out = static_cast<bf16*>(p.out1) + obase;
+  bf16* dv_out = static_cast<bf16*>(p.out2) + obase;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int kr = kr0 + 8 * half;
+    if (kr >= p.skv) continue;
+#pragma unroll
+    for (int n = 0; n < DW / 8; ++n) {
+      const long long at = (long long)kr * D + wc + n * 8 + 2 * tq;
+      *reinterpret_cast<uint32_t*>(dk_out + at) =
+          pack(dk[n][2 * half], dk[n][2 * half + 1]);
+      *reinterpret_cast<uint32_t*>(dv_out + at) =
+          pack(dv[n][2 * half], dv[n][2 * half + 1]);
+    }
+  }
+}
+
+// dQ: one block per (BQ q rows, q head, batch), looping over its live kv
+// tiles, the last q tiles (the most kv tiles under a causal mask) first.
+// Per step: S = Q K^T, dP = dO V^T, then dS, rounded to bf16 in registers,
+// goes straight into dQ += dS K (K read through ldmatrix.trans).
+template <class G>
+__global__ void __launch_bounds__(G::THREADS)
+    flash_bwd_dq_kernel(BwdParams p) {
+  constexpr int D = G::D, BQ = G::BQ, BKV = G::BKV;
+  constexpr int LD = G::LD, NT = G::THREADS;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);  // [BQ][LD]
+  bf16* dOs = Qs + BQ * LD;                  // [BQ][LD]
+  bf16* Ks = dOs + BQ * LD;                  // [2][BKV][LD]
+  bf16* Vs = Ks + 2 * BKV * LD;              // [2][BKV][LD]
+
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.hq / p.hkv);
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int wr = warp * 16;
+  const long long qrow = ((long long)b * p.hq + h) * p.sq;
+  const long long kvbase = ((long long)b * p.hkv + hk) * p.skv * D;
+  const bf16* k = static_cast<const bf16*>(p.k) + kvbase;
+  const bf16* v = static_cast<const bf16*>(p.v) + kvbase;
+
+  load_rows<D, BQ, NT, LD>(Qs, static_cast<const bf16*>(p.q) + qrow * D, q0,
+                           p.sq);
+  load_rows<D, BQ, NT, LD>(dOs, static_cast<const bf16*>(p.dout) + qrow * D,
+                           q0, p.sq);
+
+  // kv tiles this q tile sees: the forward's active cells.
+  const int q_first = q0 + p.q_offset;
+  const int q_last = min(q0 + BQ, p.sq) - 1 + p.q_offset;
+  int first = 0;
+  int last = (p.kv_len + BKV - 1) / BKV - 1;
+  if (p.causal) {
+    last = min(last, q_last / BKV);
+    if (p.window > 0) {
+      const int lo = q_first - p.window + 1;
+      first = lo > 0 ? lo / BKV : 0;
+    }
+  }
+
+  auto stage = [&](int kt, int buf) {
+    load_rows<D, BKV, NT, LD>(Ks + buf * BKV * LD, k, kt * BKV, p.kv_len);
+    load_rows<D, BKV, NT, LD>(Vs + buf * BKV * LD, v, kt * BKV, p.kv_len);
+  };
+  if (first <= last) stage(first, 0);
+  cp_async_commit();
+
+  // The thread's q rows qr0 and qr0 + 8, with their lse and di (0 past sq).
+  const int qr0 = q0 + wr + gr;
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = qr0 + 8 * half;
+    lse_r[half] = qi < p.sq ? p.lse[qrow + qi] : 0.f;
+    di_r[half] = qi < p.sq ? p.di[qrow + qi] : 0.f;
+  }
+  const float slope = p.alibi != nullptr ? p.alibi[h] : 0.f;
+  const uint32_t qs = smem_addr(Qs), os = smem_addr(dOs);
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int kt = first; kt <= last; ++kt) {
+    const int buf = (kt - first) & 1;
+    if (kt < last) stage(kt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = kt * BKV;
+    const uint32_t ks = smem_addr(Ks + buf * BKV * LD);
+    const uint32_t vs = smem_addr(Vs + buf * BKV * LD);
+
+    float s[BKV / 8][4], dp[BKV / 8][4];
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t qa[4], oa[4];
+      ldsm(qa, qs + a_off<LD>(lane, wr, kk));
+      ldsm(oa, os + a_off<LD>(lane, wr, kk));
+#pragma unroll
+      for (int j = 0; j < BKV / 8; j += 2) {
+        uint32_t kb[4], vb[4];
+        ldsm(kb, ks + b_off<LD>(lane, j * 8, kk));
+        ldsm(vb, vs + b_off<LD>(lane, j * 8, kk));
+        mma(s[j], qa, kb[0], kb[1]);
+        mma(s[j + 1], qa, kb[2], kb[3]);
+        mma(dp[j], oa, vb[0], vb[1]);
+        mma(dp[j + 1], oa, vb[2], vb[3]);
+      }
+    }
+
+    const bool masked = needs_mask(p, q0, BQ, k0, BKV);
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;
+        p_and_ds(p, b, qr0 + 8 * half, k0 + j * 8 + 2 * tq + (e & 1),
+                 lse_r[half], di_r[half], slope, masked, s[j][e], dp[j][e]);
+      }
+
+#pragma unroll
+    for (int c = 0; c < BKV / 16; ++c) {
+      uint32_t sa[4];
+      to_a(sa, dp, c);  // dS, rounded
+#pragma unroll
+      for (int n = 0; n < D; n += 16) {
+        uint32_t kb[4];
+        ldsm_t(kb, ks + a_off<LD>(lane, c * 16, n));
+        mma(dq[n / 8], sa, kb[0], kb[1]);
+        mma(dq[n / 8 + 1], sa, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  bf16* dq_out = static_cast<bf16*>(p.out1) + qrow * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = qr0 + 8 * half;
+    if (qi >= p.sq) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dq_out + (long long)qi * D + n * 8 +
+                                   2 * tq) =
+          pack(dq[n][2 * half], dq[n][2 * half + 1]);
+  }
+}
+
+template <int D>
+int launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
+  using G = typename Tiles<D>::Dkv;
+  cudaFuncSetAttribute(flash_bwd_dkv_kernel<G>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)G::smem);
+  dim3 grid((p.skv + G::BKV - 1) / G::BKV, p.hq, batch);
+  flash_bwd_dkv_kernel<G><<<grid, G::THREADS, G::smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
+  using G = typename Tiles<D>::Dq;
+  cudaFuncSetAttribute(flash_bwd_dq_kernel<G>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)G::smem);
+  dim3 grid((p.sq + G::BQ - 1) / G::BQ, p.hq, batch);
+  flash_bwd_dq_kernel<G><<<grid, G::THREADS, G::smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 BwdParams make_params(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* di,
                       void* out1, void* out2, const void* alibi,
@@ -487,32 +1022,6 @@ int launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// One of the two kernels at the call's dtype and head width.
-template <template <typename, int> class Launch>
-int dispatch(const BwdParams& p, int dtype, int head_dim, int batch,
-             cudaStream_t s) {
-  if (dtype == 0) {
-    if (head_dim == 64) return Launch<float, 64>::run(p, batch, s);
-    if (head_dim == 256) return Launch<float, 256>::run(p, batch, s);
-    return Launch<float, 128>::run(p, batch, s);
-  }
-  if (head_dim == 64) return Launch<__nv_bfloat16, 64>::run(p, batch, s);
-  if (head_dim == 256) return Launch<__nv_bfloat16, 256>::run(p, batch, s);
-  return Launch<__nv_bfloat16, 128>::run(p, batch, s);
-}
-template <typename T, int D>
-struct Dkv {
-  static int run(const BwdParams& p, int batch, cudaStream_t s) {
-    return launch_dkv<T, D>(p, batch, s);
-  }
-};
-template <typename T, int D>
-struct Dq {
-  static int run(const BwdParams& p, int batch, cudaStream_t s) {
-    return launch_dq<T, D>(p, batch, s);
-  }
-};
-
 bool served(int dtype, int head_dim) {
   return (dtype == 0 || dtype == 1) &&
          (head_dim == 64 || head_dim == 128 || head_dim == 256);
@@ -520,7 +1029,8 @@ bool served(int dtype, int head_dim) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs share it).
+// dtype: 0 = float32 (the CUDA-core kernels), 1 = bfloat16 (the
+// tensor-core kernels); q, k, v, dO and the outputs share it.
 // flash_bwd_dkv writes dK to out1 and dV to out2; flash_bwd_dq writes dQ
 // to out1 (out2 unused). Each returns cudaGetLastError() after its launch;
 // 1 (cudaErrorInvalidValue) for a dtype or head_dim (64, 128, 256) this
@@ -539,12 +1049,28 @@ bool served(int dtype, int head_dim) {
 
 extern "C" int flash_bwd_dkv(FLASH_BWD_ARGS) {
   if (!served(dtype, head_dim)) return (int)cudaErrorInvalidValue;
-  return dispatch<Dkv>(FLASH_BWD_PARAMS, dtype, head_dim, batch,
-                       static_cast<cudaStream_t>(stream));
+  const BwdParams p = FLASH_BWD_PARAMS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (head_dim == 64) return launch_dkv<float, 64>(p, batch, s);
+    if (head_dim == 256) return launch_dkv<float, 256>(p, batch, s);
+    return launch_dkv<float, 128>(p, batch, s);
+  }
+  if (head_dim == 64) return tc::launch_dkv<64>(p, batch, s);
+  if (head_dim == 256) return tc::launch_dkv<256>(p, batch, s);
+  return tc::launch_dkv<128>(p, batch, s);
 }
 
 extern "C" int flash_bwd_dq(FLASH_BWD_ARGS) {
   if (!served(dtype, head_dim)) return (int)cudaErrorInvalidValue;
-  return dispatch<Dq>(FLASH_BWD_PARAMS, dtype, head_dim, batch,
-                      static_cast<cudaStream_t>(stream));
+  const BwdParams p = FLASH_BWD_PARAMS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (head_dim == 64) return launch_dq<float, 64>(p, batch, s);
+    if (head_dim == 256) return launch_dq<float, 256>(p, batch, s);
+    return launch_dq<float, 128>(p, batch, s);
+  }
+  if (head_dim == 64) return tc::launch_dq<64>(p, batch, s);
+  if (head_dim == 256) return tc::launch_dq<256>(p, batch, s);
+  return tc::launch_dq<128>(p, batch, s);
 }

@@ -60,8 +60,8 @@ MXU_TIERS = ("int8_mxu", "int4_mxu")
 EXACT_SCALED_TIERS = ("int8", "int4", "fp8")
 KERNEL_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (128, 256)  # what csrc/paged_decode.cu instantiates
-# q heads a kv head the kernel's shared rows hold; no preset exceeds it
-# (the widest group, Qwen2-7B's, is 7).
+# q heads a kv head one kernel launch holds in its shared rows; a wider
+# group launches once per chunk of at most this many (in_q_head_chunks).
 KERNEL_MAX_Q_PER_KV = 8
 
 
@@ -470,12 +470,48 @@ def paged_attention(
     )
 
 
+def in_q_head_chunks(run, q, k_vals, *args, sinks=None, alibi=None,
+                     return_state=False, **kw):
+    """``run`` (a decode of ``paged_decode_plain``'s signature) on each
+    chunk of at most KERNEL_MAX_Q_PER_KV q heads of every kv head's group,
+    the results scattered back into one [b, hq, d] output (and [b, hq]
+    m, l). A q row's arithmetic does not depend on the other rows, so
+    the chunks give the whole call's values."""
+    hq, hkv = q.shape[1], k_vals.shape[0]
+    g = hq // hkv
+    heads = torch.arange(hq, device=q.device).reshape(hkv, g)
+    outs = None
+    for j0 in range(0, g, KERNEL_MAX_Q_PER_KV):
+        idx = heads[:, j0:j0 + KERNEL_MAX_Q_PER_KV].reshape(-1)
+        part = run(
+            q[:, idx].contiguous(), k_vals, *args,
+            sinks=None if sinks is None else sinks[idx].contiguous(),
+            alibi=None if alibi is None else alibi[idx].contiguous(),
+            return_state=return_state, **kw,
+        )
+        part = part if return_state else (part,)
+        if outs is None:
+            outs = [x.new_empty(x.shape[:1] + (hq,) + x.shape[2:])
+                    for x in part]
+        for o, x in zip(outs, part):
+            o[:, idx] = x
+    return tuple(outs) if return_state else outs[0]
+
+
 def _paged_decode_cuda(q, k_vals, v_vals, k_scales, v_scales, lengths,
                        page_indices, *, k_tier, v_tier, sm_scale,
                        pages_per_compute_block, window, softcap, sinks,
                        alibi, recent_k, recent_v, return_state):
     b, hq, d = q.shape
     hkv, num_pages = k_vals.shape[:2]
+    if hq // hkv > KERNEL_MAX_Q_PER_KV:
+        return in_q_head_chunks(
+            _paged_decode_cuda, q, k_vals, v_vals, k_scales, v_scales,
+            lengths, page_indices, k_tier=k_tier, v_tier=v_tier,
+            sm_scale=sm_scale,
+            pages_per_compute_block=pages_per_compute_block, window=window,
+            softcap=softcap, sinks=sinks, alibi=alibi, recent_k=recent_k,
+            recent_v=recent_v, return_state=return_state)
     ps = k_vals.shape[2] * (2 if k_tier in PACKED_TIERS else 1)
     if q.dtype not in KERNEL_Q_DTYPES:
         raise ValueError(f"paged_decode kernel takes f32/bf16 q, got {q.dtype}")
@@ -483,11 +519,10 @@ def _paged_decode_cuda(q, k_vals, v_vals, k_scales, v_scales, lengths,
         raise ValueError(
             f"paged_decode kernel has no {k_tier} K / {v_tier} V build"
         )
-    if d not in KERNEL_HEAD_DIMS or hq // hkv > KERNEL_MAX_Q_PER_KV:
+    if d not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"paged_decode kernel is built for head_dim {KERNEL_HEAD_DIMS} "
-            f"and <= {KERNEL_MAX_Q_PER_KV} q heads per kv head; got "
-            f"head_dim {d}, {hq // hkv}"
+            f"paged_decode kernel is built for head_dim {KERNEL_HEAD_DIMS}, "
+            f"got {d}"
         )
     tensors = [k_vals, v_vals, k_scales, v_scales, lengths, page_indices,
                recent_k, recent_v, sinks, alibi]

@@ -19,6 +19,12 @@ recomputed from the forward's lse, with the JAX kernel's arithmetic:
 * dk += round(ds)^T q and dq += round(ds) k, the rounding to the input
   dtype; sums in f32, cast to the input dtype at the end.
 
+The bf16 kernels also round P to bf16 for the dV product (tensor cores
+take bf16 operands), as the TPU kernel's single bf16 MXU pass does at
+``Precision.DEFAULT`` (``tpu_flash/ops/flash/backward.py:38-43,184-188``);
+interpret mode does not, so the plain version rounds it only when asked
+(``round_p=True``).
+
 dk/dv come back per q head ([b, hq, skv, d]); the caller sums each GQA
 group. :func:`flash_bwd` takes the plain version for CPU tensors only; a
 CUDA tensor launches the kernels or raises.
@@ -103,11 +109,13 @@ def flash_bwd_plain(
     kv_seg: Optional[torch.Tensor] = None,
     dlse: Optional[torch.Tensor] = None,
     part: Optional[str] = None,
+    round_p: bool = False,
 ):
     """Plain PyTorch version of the ``flash_bwd`` kernels (arguments as
     :func:`flash_bwd`), stepping their kv tiles. ``part`` "dkv" or "dq"
     gives the plain version of that kernel alone, with None for the other
-    kernel's outputs."""
+    kernel's outputs. ``round_p`` rounds P to the input dtype in the dV
+    product only (dS keeps the f32 P): the bf16 kernels' arithmetic."""
     if part not in (None, "dkv", "dq"):
         raise ValueError(f"flash_bwd_plain: part {part!r}")
     b, hq, sq, d = q.shape
@@ -139,7 +147,9 @@ def flash_bwd_plain(
         ds = ds * scale
         ds_r = ds.to(dt).float()
         if part != "dq":
-            dv[:, :, :, t0:t1] = torch.einsum("bhgqk,bhgqd->bhgkd", p, dof)
+            p_dv = p.to(dt).float() if round_p else p
+            dv[:, :, :, t0:t1] = torch.einsum("bhgqk,bhgqd->bhgkd", p_dv,
+                                              dof)
             dk[:, :, :, t0:t1] = torch.einsum("bhgqk,bhgqd->bhgkd", ds_r,
                                               qf)
         if part != "dkv":
@@ -208,7 +218,7 @@ def _flash_bwd_cuda(q, k, v, o, do, lse, *, causal, sm_scale, q_offset,
     for t in (k, v, o, do, lse, alibi, q_seg, kv_seg, dlse):
         if t is not None and t.device != q.device:
             raise ValueError("flash_bwd: all tensors must share q's device")
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    q, k, v, do = (build.aligned(t) for t in (q, k, v, do))
     lse = lse.float().contiguous()
     di = softmax_di(o, do, dlse).contiguous()
     alibi = None if alibi is None else alibi.float().contiguous()
