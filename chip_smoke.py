@@ -10,11 +10,16 @@ network. Phases, one JSON line each:
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels from tpu_flash_torch/csrc (one nvcc per
      source, all started together), with the build seconds; each
-     instance of the backward pair with its registers, spill bytes and
-     tensor-core instructions in its SASS (bf16 must have them, f32 not);
+     instance of the backward pair, the forward and the variant kernel
+     with its registers, spill bytes and tensor-core instructions in its
+     SASS (the bf16 tensor-core instances must have them, the f32 ones
+     and the forward's order-exact bf16 entry not);
   3. kernels: each kernel against its plain PyTorch version on the card
      at the main path's shapes, with times, bounds and a library
-     yardstick: the forward (segment ids included), the backward pair
+     yardstick: the forward on both entry points (bf16 on the tensor
+     cores; the order-exact CUDA-core entry the serving engine takes),
+     every case with a bar per row and a late-row control, tile-edge
+     cases and segment ids included, the backward pair
      (dK/dV and dQ) at the training shape, decode over every page tier
      (bf16, int8, int4, int4g32, k8v4, fp8; int8_mxu and fp8_native on
      and off), paged prefill over bf16, int8, int4 and fp8 pages, ragged
@@ -24,7 +29,8 @@ network. Phases, one JSON line each:
      control; options and the int8 staircase at 2048); the row
      quantizer byte for byte; the attention-weights kernel; every built
      variant of the variant harness's kernel (K13) at its sweep's shape
-     with a bar per row and a late-row control;
+     with a bar per row and a late-row control, exp2 timed against expf
+     in turns;
      and Gemma-2-9B's attention geometry (16 q / 8 kv heads, d 256, cap
      50, a sliding layer's 4096-token window and a global layer) on the
      forward, decode (every tier), paged and ragged prefill and the
@@ -83,6 +89,7 @@ import importlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -197,7 +204,8 @@ def row_misses(out, ref, bars):
 
 def bwd_row_bars(ref, grad):
     """row_bars for one gradient of the backward (``grad``: "dq", "dk" or
-    "dv") and, as a mask, the rows held at the floor. bf16 dQ and dK rows
+    "dv"; None for a forward output, held at its own bars) and, as a
+    mask, the rows held at the floor. bf16 dQ and dK rows
     are held at least at BWD_ROW_FLOOR of the whole output's max |ref|:
     where a q row puts P near 1 on one key, its dS = P (dP - di) is a
     cancellation, and the tensor-core kernels' dP and the wrapper's di
@@ -209,19 +217,21 @@ def bwd_row_bars(ref, grad):
     import torch
 
     own = row_bars(ref)
-    if grad == "dv" or ref.dtype != torch.bfloat16:
+    if grad in (None, "dv") or ref.dtype != torch.bfloat16:
         return own, torch.zeros_like(own, dtype=torch.bool)
     bars = own.clamp_min(BWD_ROW_FLOOR * float(ref.float().abs().max()))
     return bars, bars > own
 
 
-def row_agreement(out, ref, control, grad, late=None) -> dict:
+def row_agreement(out, ref, control, grad, late=None,
+                  late_caught=None) -> dict:
     """agreement's rule for each row (bwd_row_bars): every row of ``out``
     within its bar of ``ref``; the control (None where the case has none)
     off by more than the bar in some row; ``late``, a pair (shifted
     reference, first late row), off by more than the bar in at least
-    BWD_LATE_CAUGHT of the rows from that row on that keep their own bar
-    (at most half of them may be held at the floor). Logs the medians
+    ``late_caught`` (by default BWD_LATE_CAUGHT) of the rows from that row
+    on that keep their own bar (at most half of them may be held at the
+    floor). Logs the medians
     that say how far under the whole output's bar (``case_bar``) a
     typical row sits."""
     bars, at_floor = bwd_row_bars(ref, grad)
@@ -254,7 +264,7 @@ def row_agreement(out, ref, control, grad, late=None) -> dict:
             late_median_abs_ref=float(
                 ref[..., first:, :].float().abs().median()),
             late_median_bar=float(bars[..., first:].median()))
-        ok = (ok and row["late_caught"] >= BWD_LATE_CAUGHT
+        ok = (ok and row["late_caught"] >= (late_caught or BWD_LATE_CAUGHT)
               and row["late_at_floor"] <= 0.5)
     row["ok"] = ok
     return row
@@ -305,6 +315,16 @@ def flash_cases(dev):
         ("alibi", *qkv(2, 512, 512), dict(causal=True, alibi=slopes), causal),
         ("segments", *qkv(2, 512, 512),
          dict(causal=True, q_seg=seg, kv_seg=seg), causal),
+        # Edges inside a tile (128 q rows, 128-column steps): a q tail, an
+        # offset off the step (its control rounds it to the step), a kv
+        # tail mid-step, a window edge that crosses staged tiles.
+        ("tail_sq", *qkv(2, 500, 500), causal, dict(causal=False)),
+        ("offset_unaligned", *qkv(2, 500, 1500),
+         dict(causal=True, q_offset=1000), dict(causal=True, q_offset=1024)),
+        ("kv_tail_mid_step", *qkv(2, 512, 1024),
+         dict(causal=False, kv_len=1000), dict(causal=False)),
+        ("window_unaligned", *qkv(2, 512, 512), dict(causal=True, window=200),
+         causal),
     ]
 
 
@@ -343,40 +363,71 @@ def config1_case(dev):
             dict(causal=True))
 
 
+def flash_rows(q, k, v, out, scale, kw, control):
+    """K1's output against its plain version with a bar per row
+    (row_agreement, as K10, K13 and the backward): every row within its
+    bar, the plain version with the case's option dropped (``control``)
+    off some row's bar, and the plain version on v raised by
+    VARIANT_LATE_SHIFT (every output moves by 3% of itself) off the bars
+    of at least VARIANT_LATE_CAUGHT of the rows past sq / 2, so a fault
+    confined to late or diagonal tiles cannot hide under row 0's scale."""
+    from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
+
+    ref = flash_fwd_plain(q, k, v, sm_scale=scale, **kw)
+    ctl = flash_fwd_plain(q, k, v, sm_scale=scale, **control)
+    late = flash_fwd_plain(q, k, v * VARIANT_LATE_SHIFT, sm_scale=scale,
+                           **kw)
+    return row_agreement(out, ref, ctl, None, (late, q.shape[2] // 2),
+                         late_caught=VARIANT_LATE_CAUGHT)
+
+
+def flash_entries():
+    """K1's two entry points by kernel name: the tensor cores (bf16) and
+    the order-exact CUDA-core kernel the serving engine takes."""
+    from tpu_flash_torch.ops.flash.forward import flash_fwd, flash_fwd_exact
+
+    return {"flash_fwd": flash_fwd, "flash_fwd_exact": flash_fwd_exact}
+
+
 def check_flash(dev):
+    """Every K1 case on both entry points, each held per row
+    (flash_rows); one summary row a kernel."""
     import torch
 
-    from tpu_flash_torch.ops.flash.forward import flash_fwd, flash_fwd_plain
+    from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
 
-    rows = []
-    for name, q, k, v, kw, control in flash_cases(dev) + [config1_case(dev)]:
+    rows = {name: [] for name in flash_entries()}
+    for case, q, k, v, kw, control in flash_cases(dev) + [config1_case(dev)]:
         scale = q.shape[-1] ** -0.5
-        out = flash_fwd(q, k, v, sm_scale=scale, **kw)
-        torch.cuda.synchronize()
-        ref = flash_fwd_plain(q, k, v, sm_scale=scale, **kw)
-        off = max_err(out, flash_fwd_plain(q, k, v, sm_scale=scale,
-                                           **control))
-        ms = time_ms(lambda: flash_fwd(q, k, v, sm_scale=scale, **kw), 10)
         plain_ms = time_ms(
             lambda: flash_fwd_plain(q, k, v, sm_scale=scale, **kw), 3
         )
         bound_ms, bound_by = flash_bound(q, k, kw)
-        row = dict(case=name, shape=list(q.shape), kv_len=k.shape[2],
-                   dtype=str(q.dtype).removeprefix("torch."),
-                   control={k_: str(v_) for k_, v_ in control.items()},
-                   **agreement(out, ref, off), ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
-        if name == "prompt_causal":
-            row["library_ms"] = sdpa_ms(q, k, v)
-        elif name == "chunk_q_offset":
-            row["library_ms"] = sdpa_ms(q, k, v, mask=attention_mask(
+        library_ms = None
+        if case == "prompt_causal":
+            library_ms = sdpa_ms(q, k, v)
+        elif case == "chunk_q_offset":
+            library_ms = sdpa_ms(q, k, v, mask=attention_mask(
                 q.shape[0], q.shape[2], k.shape[2], kw))
-        elif name == "config1_d64_f32":
-            row["library_ms"] = sdpa_ms(q, k, v, causal=False)
-        rows.append(row)
-        log("kernel_vs_plain", kernel="flash_fwd", **row)
-    raise_if_failed("flash_fwd", rows)
-    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+        elif case == "config1_d64_f32":
+            library_ms = sdpa_ms(q, k, v, causal=False)
+        for name, fwd in flash_entries().items():
+            out = fwd(q, k, v, sm_scale=scale, **kw)
+            torch.cuda.synchronize()
+            held = flash_rows(q, k, v, out, scale, kw, control)
+            ms = time_ms(lambda: fwd(q, k, v, sm_scale=scale, **kw), 10)
+            row = dict(case=case, shape=list(q.shape), kv_len=k.shape[2],
+                       dtype=str(q.dtype).removeprefix("torch."),
+                       control={k_: str(v_) for k_, v_ in control.items()},
+                       **held, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=library_ms)
+            rows[name].append(row)
+            log("kernel_vs_plain", kernel=name, **row)
+    for name, rs in rows.items():
+        raise_if_failed(name, rs)
+    return {name: dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+            for name, rs in rows.items()}
 
 
 def sdpa_ms(q, k, v, mask=None, causal=True):
@@ -1469,38 +1520,39 @@ GEMMA_FLASH_CASES = [
 
 def check_flash_d256(dev):
     """K1 at Gemma-2-9B's geometry (a sliding and a global layer's
-    prefill over 8192 tokens), with SDPA's time without the cap (it has
-    no softcap) beside it."""
+    prefill over 8192 tokens) on both entry points, with SDPA's time
+    without the cap (it has no softcap) beside it."""
     import torch
 
-    from tpu_flash_torch.ops.flash.forward import flash_fwd, flash_fwd_plain
+    from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
 
-    rows = []
-    for name, b, sq, kw, control in GEMMA_FLASH_CASES:
+    rows = {name: [] for name in flash_entries()}
+    for case, b, sq, kw, control in GEMMA_FLASH_CASES:
         q, k, v = gemma_qkv(dev, b, sq, sq, SEED + 20)
-        out = flash_fwd(q, k, v, sm_scale=GEMMA_SCALE, **kw)
-        torch.cuda.synchronize()
-        ref = flash_fwd_plain(q, k, v, sm_scale=GEMMA_SCALE, **kw)
-        off = max_err(out, flash_fwd_plain(q, k, v, sm_scale=GEMMA_SCALE,
-                                           **control))
         bound_ms, bound_by = flash_bound(q, k, kw)
         mask = None if "window" not in kw else attention_mask(
             b, sq, sq, dict(causal=True, window=kw["window"]))
-        row = dict(case=name, shape=list(q.shape), kv_len=sq,
-                   options={x: str(y) for x, y in kw.items()},
-                   control={x: str(y) for x, y in control.items()},
-                   **agreement(out, ref, off),
-                   ms=time_ms(lambda: flash_fwd(q, k, v, sm_scale=GEMMA_SCALE,
-                                                **kw), 5),
-                   plain_ms=time_ms(lambda: flash_fwd_plain(
-                       q, k, v, sm_scale=GEMMA_SCALE, **kw), 2),
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=sdpa_ms(q, k, v, mask=mask),
-                   library="SDPA without softcap")
-        rows.append(row)
-        log("kernel_vs_plain", kernel="flash_fwd", width=GEMMA_D, **row)
-        del out, ref
-    raise_if_failed("flash_fwd d256", rows)
+        plain_ms = time_ms(lambda: flash_fwd_plain(
+            q, k, v, sm_scale=GEMMA_SCALE, **kw), 2)
+        library_ms = sdpa_ms(q, k, v, mask=mask)
+        for name, fwd in flash_entries().items():
+            out = fwd(q, k, v, sm_scale=GEMMA_SCALE, **kw)
+            torch.cuda.synchronize()
+            held = flash_rows(q, k, v, out, GEMMA_SCALE, kw, control)
+            row = dict(case=case, shape=list(q.shape), kv_len=sq,
+                       options={x: str(y) for x, y in kw.items()},
+                       control={x: str(y) for x, y in control.items()},
+                       **held,
+                       ms=time_ms(lambda: fwd(q, k, v, sm_scale=GEMMA_SCALE,
+                                              **kw), 5),
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms,
+                       library="SDPA without softcap")
+            rows[name].append(row)
+            log("kernel_vs_plain", kernel=name, width=GEMMA_D, **row)
+            del out
+    for name, rs in rows.items():
+        raise_if_failed(f"{name} d256", rs)
     return rows
 
 
@@ -1769,7 +1821,7 @@ def check_flash_bwd_widths(dev):
 def check_widths(dev, summary):
     """Every width case of phase 3; each kernel's summary row gains its
     first d 256 case's numbers (``d256_*``; the backward's d 64 too)."""
-    widths = {"flash_fwd": check_flash_d256(dev),
+    widths = {**check_flash_d256(dev),
               "paged_decode": check_decode_d256(dev),
               **check_prefill_d256(dev)}
     bwd = check_flash_bwd_widths(dev)
@@ -1869,9 +1921,48 @@ def check_variant(dev):
         rows.append(row)
         log("kernel_vs_plain", kernel="variant_fwd", **row)
     raise_if_failed("variant_fwd", rows)
+    turns = exp_in_turns(q, k, v, sm)
     fastest = min(rows, key=lambda r: r["ms"])
+    turn = next(t for t in turns
+                if t["case"] == fastest["case"].removesuffix(" exp2"))
     return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows),
-                fastest_case=fastest["case"], fastest_ms=fastest["ms"])
+                fastest_case=fastest["case"], fastest_ms=fastest["ms"],
+                fastest_exp2_over_expf=turn["exp2_over_expf"])
+
+
+EXP_ROUNDS = 4
+
+
+def exp_in_turns(q, k, v, sm):
+    """Each tile shape and mask mode of K13 with expf and with exp2, timed
+    in turns (expf, exp2, exp2, expf; EXP_ROUNDS rounds), so that neither
+    gains from its place in the order: each one's median and the median
+    of exp2's time over expf's, round by round."""
+    from tpu_flash_torch.ops.flash.variant import (KERNEL_TILES, MASK_MODES,
+                                                   variant_attention)
+
+    rows = []
+    for (bq, bkvm, bkv) in KERNEL_TILES:
+        for mode in MASK_MODES:
+            def run(exp2, bq=bq, bkvm=bkvm, bkv=bkv, mode=mode):
+                return variant_attention(
+                    q, k, v, sm_scale=sm, block_q=bq, block_kv_major=bkvm,
+                    block_kv=bkv, mask_mode=mode, use_exp2=exp2)
+
+            ms = {False: [], True: []}
+            for _ in range(EXP_ROUNDS):
+                for exp2 in (False, True, True, False):
+                    ms[exp2].append(time_ms(lambda: run(exp2), 10))
+            ratios = [(a + b) / (c + d) for a, b, c, d in zip(
+                ms[True][::2], ms[True][1::2], ms[False][::2],
+                ms[False][1::2])]
+            rows.append(dict(case=f"{bq}/{bkvm}/{bkv} {mode}",
+                             expf_ms=statistics.median(ms[False]),
+                             exp2_ms=statistics.median(ms[True]),
+                             exp2_over_expf=statistics.median(ratios),
+                             expf_all=ms[False], exp2_all=ms[True]))
+            log("variant_exp_in_turns", **rows[-1])
+    return rows
 
 
 def kernel_entries():
@@ -1884,6 +1975,7 @@ def kernel_entries():
 
     return {
         "flash_fwd": (api, "flash_fwd", forward.flash_fwd_plain),
+        "flash_fwd_exact": (api, "flash_fwd_exact", forward.flash_fwd_plain),
         "flash_bwd": (api, "flash_bwd", backward.flash_bwd_plain),
         "paged_decode": (paged, "_paged_decode_cuda",
                          paged.paged_decode_plain),
@@ -2159,7 +2251,7 @@ def check_main_path(dev):
             # int4g32 and k8v4 always gather their history, as in JAX.
             gathered = (config.get("paged_prefill") is False
                         or kv_dtype in ("int4g32", "k8v4"))
-            require_launches(rec, ["flash_fwd", "paged_decode"] + (
+            require_launches(rec, ["flash_fwd_exact", "paged_decode"] + (
                 ["ragged_prefill"] if gathered else ["paged_prefill"]))
             if kv_dtype in AUTO_TIERS:
                 require_launches(rec, [
@@ -2223,7 +2315,7 @@ def check_gemma_path(dev):
                     f"Gemma-2 first-step logits off the plain forward: {rec}")
             if rec["routes"]["fused"] < 1:
                 raise AssertionError(f"no fused step: {rec}")
-            require_launches(rec, ["flash_fwd", "paged_decode",
+            require_launches(rec, ["flash_fwd_exact", "paged_decode",
                                    "paged_prefill"])
             recs.append(rec)
     del params, model
@@ -2716,22 +2808,41 @@ def debug_weights_row(dev, b, h, s, d, causal):
                 target=DEBUG_WEIGHTS_TOL, **{"pass": err <= DEBUG_WEIGHTS_TOL})
 
 
-def bwd_instances():
-    """Each kernel function of the backward's built library: its
-    registers and spill bytes (nvcc's -Xptxas -v log) and its
-    tensor-core instructions (HMMA, HGMMA) in the SASS (cuobjdump). A
-    bf16 instance is one templated on its tiles (``DkvTiles``/``DqTiles``,
-    names that read the same mangled or not); the f32 instances are
-    templated on the element type. Raises without cuobjdump, if the
-    library does not hold one bf16 and one f32 instance of each kernel
-    at each head width, or if a bf16 instance has no tensor-core
-    instruction or an f32 one has any."""
+# Phase 2's libraries with tensor-core instances: (kernel attribute of
+# ops.build, the pattern of its kernel functions, the pattern of those
+# that must run on the tensor cores, the instances of each (kernel, on
+# the tensor cores) the source builds). A function's kernel is the
+# pattern's first group, or the library's name. Every other instance
+# must have no tensor-core instruction: the f32 kernels (TF32 would miss
+# their bar) and flash_fwd's order-exact bf16 entry.
+TC_LIBRARIES = {
+    "flash_bwd": ("FLASH_BWD_DKV", r"flash_bwd_(dkv|dq)_kernel",
+                  r"D(kv|q)Tiles",
+                  {(kn, tc): 3 for kn in ("dkv", "dq")
+                   for tc in (True, False)}),
+    "flash_fwd": ("FLASH_FWD", r"flash_fwd(?:_tc)?_kernel",
+                  r"flash_fwd_tc_kernel",
+                  {("flash_fwd", True): 3, ("flash_fwd", False): 6}),
+    "variant_fwd": ("VARIANT_FWD", r"variant_fwd_kernel",
+                    r"variant_fwd_kernel", {("variant_fwd", True): 20}),
+}
+
+
+def tc_instances(lib):
+    """Each kernel function of one of TC_LIBRARIES' built libraries: its
+    dtype, registers and spill bytes (nvcc's -Xptxas -v log) and its
+    tensor-core instructions (HMMA, HGMMA) in the SASS (cuobjdump;
+    c++filt for readable names only). Raises without cuobjdump, if the
+    library does not hold the instances it should, or if an instance
+    that must run on the tensor cores has no tensor-core instruction or
+    another has any."""
     import re
     import shutil
 
     from tpu_flash_torch.ops import build
 
-    k = build.FLASH_BWD_DKV
+    attr, func_re, tc_re, want = TC_LIBRARIES[lib]
+    k = getattr(build, attr)
     funcs, cur = {}, None
     for ln in k.build_log.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
@@ -2747,7 +2858,7 @@ def bwd_instances():
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(build.find_nvcc()), "cuobjdump")
     if not os.path.exists(tool):
-        raise AssertionError("flash_bwd: no cuobjdump to read the SASS")
+        raise AssertionError(f"{lib}: no cuobjdump to read the SASS")
     sass, cur = {}, None
     dump = subprocess.run([tool, "-sass", str(k.library_path())],
                           capture_output=True, text=True, check=True)
@@ -2758,8 +2869,7 @@ def bwd_instances():
         elif cur is not None:
             cur["hmma"] += len(re.findall(r"\bHMMA\b", ln))
             cur["hgmma"] += len(re.findall(r"\bHGMMA\b", ln))
-    names = sorted(n for n in set(funcs) | set(sass)
-                   if re.search(r"flash_bwd_d(kv|q)_kernel", n))
+    names = sorted(n for n in set(funcs) | set(sass) if re.search(func_re, n))
     plain = names
     if shutil.which("c++filt"):
         plain = subprocess.run(["c++filt"], input="\n".join(names),
@@ -2767,24 +2877,27 @@ def bwd_instances():
                                check=True).stdout.splitlines()
     rows = []
     for name, readable in zip(names, plain):
+        m = re.search(func_re, name)
+        tc = bool(re.search(tc_re, name))
         row = dict(function=readable.replace("(anonymous namespace)::", ""),
-                   kernel="dkv" if "flash_bwd_dkv_kernel" in name else "dq",
-                   dtype="bfloat16" if re.search(r"D(kv|q)Tiles", name)
+                   kernel=m[1] if m.lastindex else lib,
+                   dtype="bfloat16" if tc or "bfloat16" in name
                    else "float32",
+                   needs_tensor_cores=tc,
                    **funcs.get(name, {}),
                    **sass.get(name, dict(hmma=0, hgmma=0)))
         row["tensor_cores"] = bool(row["hmma"] or row["hgmma"])
         rows.append(row)
-    count = {(kn, dt): sum(r["kernel"] == kn and r["dtype"] == dt
-                           for r in rows)
-             for kn in ("dkv", "dq") for dt in ("bfloat16", "float32")}
+    count = {key: sum((r["kernel"], r["needs_tensor_cores"]) == key
+                      for r in rows) for key in want}
     wrong = [r["function"] for r in rows
-             if r["tensor_cores"] != (r["dtype"] == "bfloat16")]
-    if wrong or set(count.values()) != {3}:
+             if r["tensor_cores"] != r["needs_tensor_cores"]]
+    if wrong or count != want or len(rows) != sum(want.values()):
         raise AssertionError(
-            f"flash_bwd: bf16 instances without tensor-core instructions "
-            f"or f32 instances with them: {wrong}; instances of each "
-            f"kernel and dtype (3 widths each): {count}")
+            f"{lib}: instances without the tensor-core instructions they "
+            f"need or with ones they must not have: {wrong}; instances of "
+            f"each (kernel, on the tensor cores): {count}, built "
+            f"{len(rows)}, want {want}")
     return rows
 
 
@@ -2810,11 +2923,11 @@ def main() -> int:
     log("build", seconds=secs, wall_s=time.perf_counter() - t0,
         ptxas=[ln.strip() for k in build.KERNELS.values()
                for ln in k.build_log.splitlines() if "Used" in ln],
-        flash_bwd_instances=bwd_instances())
+        **{f"{lib}_instances": tc_instances(lib) for lib in TC_LIBRARIES})
     if "--trained-only" in sys.argv[1:]:
         check_trained(dev)  # phase 5 alone, to look into a greedy flip
         return 0
-    summary = {"flash_fwd": check_flash(dev),
+    summary = {**check_flash(dev),
                **check_flash_bwd(dev),
                **check_decode(dev),
                **check_paged_prefill(dev),

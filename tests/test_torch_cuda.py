@@ -123,9 +123,16 @@ def _rn(g, *shape, dtype=torch.float32):
         (dict(causal=False, kv_len=250), 70, 300),
         (dict(causal=True, window=77, softcap=5.0), 300, 300),
         (dict(causal=True, sinks=True, alibi=True, save_lse=True), 200, 200),
+        # Edges inside the bf16 kernel's tiles (128 q rows, 128-column
+        # steps): an offset off the step, a kv tail mid-step, a window
+        # edge crossing staged tiles.
+        (dict(causal=True, q_offset=1000), 500, 1500),
+        (dict(causal=False, kv_len=1000), 512, 1024),
+        (dict(causal=True, window=200), 512, 512),
     ],
     ids=["causal", "chunk", "noncausal-tail", "window-softcap",
-         "sinks-alibi-lse"],
+         "sinks-alibi-lse", "offset-unaligned", "kv-tail-mid-step",
+         "window-unaligned"],
 )
 def test_flash_fwd_kernel_matches_plain(dev, dtype, kw, sq, skv):
     from tpu_flash_torch.ops.flash.forward import flash_fwd, flash_fwd_plain
@@ -146,6 +153,27 @@ def test_flash_fwd_kernel_matches_plain(dev, dtype, kw, sq, skv):
         assert (out[1] - ref[1]).abs().max() <= 1e-4
         out, ref = out[0], ref[0]
     assert (out.float() - ref.float()).abs().max() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_fwd_exact_matches_plain(dev, dtype, d):
+    """The order-exact entry (the CUDA-core kernel the serving engine
+    takes) against the plain version within the case's bar, the
+    non-causal control outside it, at each width."""
+    from tpu_flash_torch.ops.flash.forward import (flash_fwd_exact,
+                                                   flash_fwd_plain)
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = _rn(g, 2, 4, 300, d, dtype=dtype)
+    k, v = _rn(g, 2, 2, 300, d, dtype=dtype), _rn(g, 2, 2, 300, d,
+                                                  dtype=dtype)
+    kw = dict(sm_scale=d ** -0.5, causal=True, window=200)
+    out = flash_fwd_exact(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _check_with_control(out, flash_fwd_plain(q, k, v, **kw),
+                        flash_fwd_plain(q, k, v, sm_scale=d ** -0.5,
+                                        causal=False))
 
 
 DECODE_TIERS = {  # name: (K tier, V tier, paged_attention options)
@@ -533,18 +561,23 @@ def test_backward_kernels_never_take_the_plain_path(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kw", [dict(causal=False), dict(causal=True),
-                                dict(causal=True, window=50, softcap=5.0)],
-                         ids=["noncausal", "causal", "window-softcap"])
-def test_flash_fwd_kernel_d64_matches_plain(dev, dtype, kw):
+@pytest.mark.parametrize("kw,sq,skv", [
+    (dict(causal=False), 200, 200), (dict(causal=True), 200, 200),
+    (dict(causal=True, window=50, softcap=5.0), 200, 200),
+    (dict(causal=True, q_offset=140), 200, 340),
+    (dict(causal=False, kv_len=150), 200, 200),
+    (dict(causal=True, window=150), 300, 300),
+], ids=["noncausal", "causal", "window-softcap", "offset-unaligned",
+        "kv-tail-mid-step", "window-unaligned"])
+def test_flash_fwd_kernel_d64_matches_plain(dev, dtype, kw, sq, skv):
     """The d 64 instance (BASELINE config 1's width), against the plain
     version within the case's bar, a control (no options or causal)
-    outside it."""
+    outside it; sq is never a multiple of the bf16 kernel's 128 q rows."""
     from tpu_flash_torch.ops.flash.forward import flash_fwd, flash_fwd_plain
 
     g = torch.Generator(device=dev).manual_seed(7)
-    q = _rn(g, 2, 4, 200, 64, dtype=dtype)
-    k, v = _rn(g, 2, 2, 200, 64, dtype=dtype), _rn(g, 2, 2, 200, 64,
+    q = _rn(g, 2, 4, sq, 64, dtype=dtype)
+    k, v = _rn(g, 2, 2, skv, 64, dtype=dtype), _rn(g, 2, 2, skv, 64,
                                                    dtype=dtype)
     out = flash_fwd(q, k, v, sm_scale=0.125, **kw)
     torch.cuda.synchronize()
@@ -715,7 +748,11 @@ def test_paged_decode_wide_block_matches_plain(dev, tier):
 @pytest.mark.parametrize("kw", [
     dict(causal=True, softcap=50.0, window=300),
     dict(causal=True, q_offset=256, softcap=50.0),
-], ids=["sliding", "global-offset"])
+    dict(causal=True, q_offset=100, softcap=50.0),
+    dict(causal=False, kv_len=450, softcap=50.0),
+    dict(causal=True, window=200),
+], ids=["sliding", "global-offset", "offset-unaligned", "kv-tail-mid-step",
+        "window-unaligned"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_fwd_kernel_d256_matches_plain(dev, dtype, kw):
     from tpu_flash_torch.ops.flash.forward import flash_fwd, flash_fwd_plain

@@ -120,3 +120,60 @@ def test_validation_errors():
         t_flash(tq, tk, tv, segment_ids=(torch.zeros(1, 7), torch.zeros(1, 8)))
     with pytest.raises(ValueError, match="kv segment ids must be"):
         t_flash(tq, tk, tv, segment_ids=(torch.zeros(1, 8), torch.zeros(2, 8)))
+
+
+def test_kernel_softmax_step_is_block_kv():
+    """csrc/flash_fwd.cu compiles its online-softmax step as
+    ``TileSizes.block_kv`` kv rows in both kernels (the f32 CUDA-core
+    kernel's ``BK``, and the step the bf16 tensor-core tiles stage and
+    take their running max over): the step fixes which running max each
+    P element is rounded after, which the plain version and the JAX walk
+    round it after."""
+    import re
+
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.ops.flash.forward import KERNEL_TILES
+
+    src = build.FLASH_FWD.source.read_text()
+    step = re.findall(r"constexpr int BK = (\d+);", src)
+    assert [int(n) for n in step] == [KERNEL_TILES.block_kv]
+    tiles = re.search(r"using TcTiles = tc::FwdTiles<([^;]*)>;", src)
+    assert tiles is not None
+    assert [a.strip() for a in tiles[1].split(",")][-1] == "BK"
+
+
+def test_order_exact_reaches_the_exact_entry(monkeypatch):
+    """``flash_attention(order_exact=True)`` and the model's
+    ``order_exact`` route through ``flash_fwd_exact`` (the CUDA-core
+    entry the serving engine takes; on CPU both entries are the plain
+    version)."""
+    from tpu_flash_torch.models import TINY_TEST, FlashTransformer
+    from tpu_flash_torch.ops.flash import api
+
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(kw.get("causal"))
+        return api.flash_fwd(*args, **kw)
+
+    monkeypatch.setattr(api, "flash_fwd_exact", spy)
+    _, _, (tq, tk, tv) = _inputs(5, 1, 4, 2, 16, 16, 32)
+    want = t_flash(tq, tk, tv, causal=True)
+    got = t_flash(tq, tk, tv, causal=True, order_exact=True)
+    assert calls == [True] and torch.equal(got, want)
+    model = FlashTransformer(TINY_TEST, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.arange(8)[None] % TINY_TEST.vocab_size
+    with torch.no_grad():
+        plain = model.forward(params, tokens)
+        exact = model.forward(params, tokens, order_exact=True)
+    assert len(calls) == 1 + TINY_TEST.num_layers
+    assert torch.equal(plain, exact)
+    # The serving engine's prefill takes the order-exact entry.
+    from tpu_flash_torch.core.config import EngineConfig
+    from tpu_flash_torch.engine import InferenceEngine
+
+    eng = InferenceEngine(model, params, EngineConfig(max_seq_len=64))
+    eng.submit([1, 2, 3, 4, 5], 1)
+    eng.run()
+    assert len(calls) == 1 + 2 * TINY_TEST.num_layers

@@ -208,18 +208,24 @@ def test_paged_prefill_refuses_int4_pages():
 def test_kernel_library_name_hashes_shared_headers(tmp_path, monkeypatch):
     """Editing a shared ``*.cuh`` header renames every kernel library
     built from that directory, so the next build compiles afresh; the
-    ten kernels are registered, the two prefill kernels on the shared
-    header, the two backward kernels in one source and library."""
+    eleven kernels are registered, the two prefill kernels on the shared
+    header, the two forward entries and the two backward kernels each in
+    one source and library."""
     from tpu_flash_torch.ops import build
 
-    assert set(build.KERNELS) == {"flash_fwd", "paged_decode",
-                                  "paged_prefill", "ragged_prefill",
-                                  "flash_bwd_dkv", "flash_bwd_dq",
-                                  "quant_fwd", "quantize_rows",
-                                  "attn_weights", "variant_fwd"}
-    dkv, dq = build.KERNELS["flash_bwd_dkv"], build.KERNELS["flash_bwd_dq"]
-    assert dkv.source == dq.source and dkv.source.name == "flash_bwd.cu"
-    assert dkv.library_path() == dq.library_path()
+    assert set(build.KERNELS) == {"flash_fwd", "flash_fwd_exact",
+                                  "paged_decode", "paged_prefill",
+                                  "ragged_prefill", "flash_bwd_dkv",
+                                  "flash_bwd_dq", "quant_fwd",
+                                  "quantize_rows", "attn_weights",
+                                  "variant_fwd"}
+    for first, second, source in (("flash_fwd", "flash_fwd_exact",
+                                   "flash_fwd.cu"),
+                                  ("flash_bwd_dkv", "flash_bwd_dq",
+                                   "flash_bwd.cu")):
+        a, b = build.KERNELS[first], build.KERNELS[second]
+        assert a.source == b.source and a.source.name == source
+        assert a.library_path() == b.library_path()
     for name in ("paged_prefill", "ragged_prefill"):
         src = build.KERNELS[name].source.read_text()
         assert '#include "prefill_tile.cuh"' in src

@@ -26,7 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 CLASSES = (
-    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
     ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet", "sm90_")),
     ("optimizer", ("multi_tensor_apply",)),

@@ -85,6 +85,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tc.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;  // 16 x 16 threads over each score tile
@@ -449,13 +451,12 @@ flash_bwd_dq_kernel(BwdParams p) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16: the tensor-core kernels (the design is in the note at the top).
-// Shared-memory rows are padded by 8 elements, so the eight 16-byte rows
-// an ldmatrix reads fall in eight different bank groups.
-namespace tc {
+}  // namespace
 
-using bf16 = __nv_bfloat16;
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernels (the design is in the note at the top),
+// on the primitives of tc.cuh.
+namespace tc {
 
 // dK/dV block: BKV kv rows, BQ q rows a step. A warp owns 16 kv rows and
 // DW = D / DSPLIT columns of their dK and dV; at DSPLIT 2 (d 256, whose
@@ -504,104 +505,6 @@ struct Tiles<256> {
   using Dkv = DkvTiles<256, 32, 32, 2>;
   using Dq = DqTiles<256, 64, 16>;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !ok (src is then
-// not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, each lane giving one row
-// address (lanes 8i..8i+7 the rows of matrix i); .trans transposes each.
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a b: a 16 x 16 (row), b 16 x 8 (col), d 16 x 8 f32.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 rounded to nearest even into one bf16 pair (lo in the low half).
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __float22bfloat162_rn(make_float2(lo, hi));
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The A operand of the 16 x 16 slice c of a 16-row accumulator (its
-// n-tiles 2c and 2c + 1), each value rounded to bf16: an accumulator
-// tile's layout is the A fragment's.
-template <int N>
-__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&x)[N][4],
-                                     int c) {
-  a[0] = pack(x[2 * c][0], x[2 * c][1]);
-  a[1] = pack(x[2 * c][2], x[2 * c][3]);
-  a[2] = pack(x[2 * c + 1][0], x[2 * c + 1][1]);
-  a[3] = pack(x[2 * c + 1][2], x[2 * c + 1][3]);
-}
-
-// Byte offsets of a lane's ldmatrix row address in a [rows][LD] tile:
-// A operand (or B stored k-major, with .trans) of the 16 x 16 block at
-// (r0, c0), and B stored n-major (two n-tiles: rows n0..n0+15, k c0..+15).
-template <int LD>
-__device__ __forceinline__ uint32_t a_off(int lane, int r0, int c0) {
-  return 2u * ((r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
-}
-template <int LD>
-__device__ __forceinline__ uint32_t b_off(int lane, int n0, int c0) {
-  return 2u * ((n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 +
-               ((lane >> 3) & 1) * 8);
-}
-
-// Rows [r0, r0 + R) of a [rows, D] bf16 matrix into a [R][LD] tile, rows
-// at or past `rows` as zeros.
-template <int D, int R, int NT, int LD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
-                                          int rows) {
-  constexpr int CPR = D / 8;  // 16-byte pieces a row
-#pragma unroll
-  for (int i = threadIdx.x; i < R * CPR; i += NT) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const bool ok = r0 + r < rows;
-    cp_async16(dst + r * LD + c, ok ? src + (long long)(r0 + r) * D + c : src,
-               ok);
-  }
-}
 
 // Whether a (q tile, kv tile) step needs the masks: segment ids, a q or kv
 // tail, the causal diagonal or the window's edge crossing it. Other steps
@@ -966,6 +869,8 @@ int launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
 }
 
 }  // namespace tc
+
+namespace {
 
 BwdParams make_params(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* di,

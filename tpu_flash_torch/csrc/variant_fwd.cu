@@ -6,16 +6,16 @@
 // standalone copy of the causal forward, parametrized so that variants can
 // be A/B'd on the card before a winner goes into the product kernel. One
 // template instance per variant:
-//   MASK_ALL  true: "always" (compare and select on every tile); false:
-//             "diag" (only kv stages that cross the diagonal are masked;
-//             a stage wholly below it takes every score as it is);
+//   MASK_ALL  true: "always" (compare and select on every step); false:
+//             "diag" (only a step that crosses a warp's diagonal is
+//             masked; a step wholly below it takes every score as it is);
 //   EXP2      exp2f with log2 e folded into the q scale (by the wrapper),
 //             against expf;
 //   BQ, BKM, BKV  the three block sizes. The TPU's are VMEM tiles of up to
-//             1024 rows; here they mean: BQ q rows per thread block, BKM
-//             kv rows staged in shared memory per stage (the TPU's
-//             block_kv_major), BKV kv rows per online-softmax step (the
-//             TPU's block_kv, which fixes where P is rounded).
+//             1024 rows; here they mean: BQ q rows per thread block (BQ /
+//             16 warps), BKM kv rows staged in shared memory per stage
+//             (the TPU's block_kv_major), BKV kv rows per online-softmax
+//             step (the TPU's block_kv, which fixes where P is rounded).
 //
 // Computes, per (batch, head, BQ-row q tile), the TPU kernel's arithmetic:
 // q' = bf16(q * scale) (the wrapper rounds the scale to bf16, as JAX
@@ -24,253 +24,89 @@
 // each BKV-row step: s = q' k^T in f32; masked scores MASK_VALUE; m_next =
 // max(m, rowmax s); alpha = exp(m - m_next); p = exp(s - m_next); l = l
 // alpha + sum p; acc = acc alpha + bf16(p) v in f32. Then o = bf16(acc *
-// (1 / l)) with l = 0 taken as 1. No lse.
+// (1 / l)) with l = 0 taken as 1. No lse. A step wholly above a warp's 16
+// rows is not computed: every p there is exactly 0 and alpha exactly 1.
 //
 // What bounds it on this card: operations. At the sweep's shape (b 1, h 32,
 // s 2048, d 128, causal) it does 34.4 GFLOP on 16.8 MB of q/k/v/o, some
 // 2000 FLOPs a byte against the ~295 ridge: the bound is the tensor cores'
-// 989 TFLOP/s (0.035 ms). This first kernel is deliberately simple: bf16
-// tiles in shared memory (exact, since q' and k/v are bf16 values), f32
-// FMAs on the CUDA cores, each thread a (BQ/16) x (BKV/16) tile of S and a
-// (BQ/16) x 8 tile of O. It reaches the CUDA-core f32 rate at best; mma /
-// wgmma variants are what this harness exists to A/B next.
+// 989 TFLOP/s (0.035 ms). The body is the product forward's
+// (fwd_tile.cuh): mma.sync m16n8k16 bf16 tiles from ldmatrix fragments,
+// K and V streamed by cp.async, S, the softmax and P in registers. wgmma
+// and TMA are later work.
 //
-// Layout: q/k/v/o [b, h, s, 128] bf16, contiguous, s a multiple of BQ and
-// BKM, BKM a multiple of BKV. Each launch runs on the caller's stream and
-// returns cudaGetLastError().
+// Layout: q/k/v/o [b, h, s, 128] bf16, contiguous and 16-byte aligned, s a
+// multiple of BQ and BKM, BKM a multiple of BKV. Each launch runs on the
+// caller's stream and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "fwd_tile.cuh"
+
 namespace {
 
 constexpr int D = 128;  // head width (the sweep's, the only one built)
-constexpr int THREADS = 256;
-constexpr int HS = D + 8;  // padded bf16 row stride, 16-byte aligned
-constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 
-template <int BQ, int BKM, int BKV>
-struct Geo {
-  static constexpr int SS = BKV + 4;        // score row stride (floats)
-  static constexpr int RI = BQ / 16;        // S and O rows a thread
-  static constexpr int RJ = BKV / 16;       // S columns a thread
-  static constexpr int TPR = THREADS / BQ;  // softmax threads a row
-  static constexpr size_t smem_bytes =
-      sizeof(__nv_bfloat16) * (BQ + 2 * BKM) * HS +
-      sizeof(float) * (BQ * SS + 3 * BQ);
-  static_assert(BKM % BKV == 0 && BKV % 16 == 0 && BQ % 16 == 0 &&
-                    (TPR == 2 || TPR == 4),
-                "unsupported tile shape");
-  static_assert(smem_bytes <= 232448, "over the card's 227 KB a block");
+using tc::bf16;
+
+// Causal with q_len = kv_len, for one warp's 16 rows from wq0.
+template <bool MASK_ALL, int BKV>
+struct CausalScore {
+  int wq0;
+  __device__ bool skip(int k0) const { return k0 > wq0 + 15; }
+  __device__ bool masked(int k0) const {
+    return MASK_ALL || k0 + BKV - 1 > wq0;
+  }
+  __device__ float operator()(float s, int row, int col, bool masked) const {
+    return masked && col > row ? tc::FWD_MASK_VALUE : s;
+  }
+  __device__ bool plain() const { return true; }
+  __device__ float unit(float s) const { return s; }
 };
 
-// Four bf16 values of shared memory (8-byte aligned) as floats.
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-template <bool EXP2>
-__device__ __forceinline__ float ex(float x) {
-  return EXP2 ? exp2f(x) : expf(x);
-}
-
 template <bool MASK_ALL, bool EXP2, int BQ, int BKM, int BKV>
-__global__ void __launch_bounds__(THREADS)
-variant_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, int heads, int seq,
-                   float scale) {
-  using G = Geo<BQ, BKM, BKV>;
-  constexpr int SS = G::SS, RI = G::RI, RJ = G::RJ, TPR = G::TPR;
-  constexpr int CPT = BKV / TPR;  // softmax columns a thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][HS]
-  __nv_bfloat16* Ks = Qs + BQ * HS;   // [BKM][HS]
-  __nv_bfloat16* Vs = Ks + BKM * HS;  // [BKM][HS]
-  float* Ss = reinterpret_cast<float*>(Vs + BKM * HS);  // [BQ][SS]
-  float* row_m = Ss + BQ * SS;
-  float* row_l = row_m + BQ;
-  float* row_alpha = row_l + BQ;
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+__global__ void __launch_bounds__(BQ * 2)
+    variant_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       int heads, int seq, float scale) {
+  using G = tc::FwdTiles<D, BQ, BKM, BKV>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // The heaviest (last) q tiles first, so the last wave is the lightest.
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * BQ;
   const long long base = ((long long)b * heads + h) * (long long)seq * D;
-  const __nv_bfloat16* qh = q + base;
-  const __nv_bfloat16* kh = k + base;
-  const __nv_bfloat16* vh = v + base;
-
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, c = idx % D;
-    const float x = __bfloat162float(qh[(long long)(q0 + r) * D + c]);
-    Qs[r * HS + c] = __float2bfloat16_rn(x * scale);
-  }
-  if (tid < BQ) {
-    row_m[tid] = -INFINITY;
-    row_l[tid] = 0.f;
-  }
-
-  float acc[RI][D / 16];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const CausalScore<MASK_ALL, BKV> score{q0 + warp * 16};
+  tc::FwdRows<D> r;
   // kv stages up to the one holding the tile's last row (the TPU's kv
   // index clamp; stages past it never run).
-  const int last_stage = (q0 + BQ - 1) / BKM;
-  for (int st = 0; st <= last_stage; ++st) {
-    const int kv0 = st * BKM;
-    // "diag": only a stage that reaches past the tile's first row masks.
-    const bool masked = MASK_ALL || q0 < kv0 + BKM;
-    __syncthreads();  // earlier readers of Ks/Vs/Ss are done
-    for (int idx = tid; idx < BKM * (D / 8); idx += THREADS) {
-      const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-      const long long at = (long long)(kv0 + r) * D + c;
-      *reinterpret_cast<uint4*>(&Ks[r * HS + c]) =
-          *reinterpret_cast<const uint4*>(&kh[at]);
-      *reinterpret_cast<uint4*>(&Vs[r * HS + c]) =
-          *reinterpret_cast<const uint4*>(&vh[at]);
-    }
-    __syncthreads();
-
-    for (int t0 = 0; t0 < BKM; t0 += BKV) {
-      // S = Q K^T: thread rows ty*RI+i, columns tx+16*j of this step.
-      float s[RI][RJ];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < RJ; ++j) s[i][j] = 0.f;
-      for (int kk = 0; kk < D; kk += 4) {
-        float4 qv[RI];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) qv[i] = load4(&Qs[(ty * RI + i) * HS + kk]);
-#pragma unroll
-        for (int j = 0; j < RJ; ++j) {
-          const float4 kv = load4(&Ks[(t0 + tx + 16 * j) * HS + kk]);
-#pragma unroll
-          for (int i = 0; i < RI; ++i) {
-            float a = s[i][j];
-            a = fmaf(qv[i].x, kv.x, a);
-            a = fmaf(qv[i].y, kv.y, a);
-            a = fmaf(qv[i].z, kv.z, a);
-            a = fmaf(qv[i].w, kv.w, a);
-            s[i][j] = a;
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const int r = ty * RI + i;
-#pragma unroll
-        for (int j = 0; j < RJ; ++j) {
-          const int c = tx + 16 * j;
-          float x = s[i][j];
-          if (masked && kv0 + t0 + c > q0 + r) x = MASK_VALUE;
-          Ss[r * SS + c] = x;
-        }
-      }
-      __syncthreads();
-
-      // Online softmax: TPR threads a row, CPT columns each.
-      {
-        const int r = tid / TPR, part = tid % TPR;
-        float mc = -INFINITY;
-        for (int c = part * CPT; c < part * CPT + CPT; ++c)
-          mc = fmaxf(mc, Ss[r * SS + c]);
-#pragma unroll
-        for (int o2 = 1; o2 < TPR; o2 <<= 1)
-          mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, o2));
-        const float m_prev = row_m[r];
-        const float m_next = fmaxf(m_prev, mc);
-        const float alpha = ex<EXP2>(m_prev - m_next);
-        float lsum = 0.f;
-        for (int c = part * CPT; c < part * CPT + CPT; ++c) {
-          const float pp = ex<EXP2>(Ss[r * SS + c] - m_next);
-          lsum += pp;
-          Ss[r * SS + c] = __bfloat162float(__float2bfloat16_rn(pp));
-        }
-#pragma unroll
-        for (int o2 = 1; o2 < TPR; o2 <<= 1)
-          lsum += __shfl_xor_sync(0xffffffffu, lsum, o2);
-        __syncwarp();
-        if (part == 0) {
-          row_l[r] = row_l[r] * alpha + lsum;
-          row_m[r] = m_next;
-          row_alpha[r] = alpha;
-        }
-      }
-      __syncthreads();
-
-      // O = O * alpha + P V: thread rows ty*RI+i, columns tx+16*j.
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float a = row_alpha[ty * RI + i];
-#pragma unroll
-        for (int j = 0; j < D / 16; ++j) acc[i][j] *= a;
-      }
-      for (int t = 0; t < BKV; t += 4) {
-        float4 pv[RI];
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-          pv[i] = *reinterpret_cast<const float4*>(&Ss[(ty * RI + i) * SS + t]);
-#pragma unroll
-        for (int j = 0; j < D / 16; ++j) {
-          const int c = tx + 16 * j;
-          const __nv_bfloat16* vc = &Vs[(t0 + t) * HS + c];
-          const float v0 = __bfloat162float(vc[0]);
-          const float v1 = __bfloat162float(vc[HS]);
-          const float v2 = __bfloat162float(vc[2 * HS]);
-          const float v3 = __bfloat162float(vc[3 * HS]);
-#pragma unroll
-          for (int i = 0; i < RI; ++i) {
-            float a = acc[i][j];
-            a = fmaf(pv[i].x, v0, a);
-            a = fmaf(pv[i].y, v1, a);
-            a = fmaf(pv[i].z, v2, a);
-            a = fmaf(pv[i].w, v3, a);
-            acc[i][j] = a;
-          }
-        }
-      }
-      __syncthreads();  // readers of Ss are done before the next step
-    }
-  }
+  tc::fwd_block<G, EXP2>(q + base, k + base, v + base, q0, seq, seq, scale,
+                         0, (q0 + BQ - 1) / BKM, score, r, smem);
 
   // Deferred normalisation: acc * (1 / l), l = 0 taken as 1.
-  __nv_bfloat16* oh = o + base;
+  const int row0 = q0 + warp * 16 + (lane >> 2);
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = ty * RI + i;
-    const float l = row_l[r];
-    const float l_inv = l == 0.f ? 1.f : 1.f / l;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      oh[(long long)(q0 + r) * D + tx + 16 * j] =
-          __float2bfloat16_rn(acc[i][j] * l_inv);
+  for (int half = 0; half < 2; ++half) {
+    const float l = r.l[half];
+    tc::fwd_store_row<D>(o + base + (long long)(row0 + 8 * half) * D, r, half,
+                         l == 0.f ? 1.f : 1.f / l);
   }
 }
 
 template <bool MASK_ALL, bool EXP2, int BQ, int BKM, int BKV>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int heads, int seq, float scale, cudaStream_t stream) {
-  constexpr size_t smem = Geo<BQ, BKM, BKV>::smem_bytes;
-  cudaFuncSetAttribute(variant_fwd_kernel<MASK_ALL, EXP2, BQ, BKM, BKV>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  using G = tc::FwdTiles<D, BQ, BKM, BKV>;
+  auto kernel = variant_fwd_kernel<MASK_ALL, EXP2, BQ, BKM, BKV>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)G::smem);
   dim3 grid(seq / BQ, heads, batch);
-  variant_fwd_kernel<MASK_ALL, EXP2, BQ, BKM, BKV>
-      <<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      heads, seq, scale);
+  kernel<<<grid, G::THREADS, G::smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), heads, seq, scale);
   return (int)cudaGetLastError();
 }
 

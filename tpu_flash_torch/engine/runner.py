@@ -437,9 +437,13 @@ class InferenceEngine:
                     hist_cap=hist_len, **self._attention_opts(li),
                 )
 
+        # Chunks that run the flash forward take its order-exact entry,
+        # whose sums run in the plain version's order, so that greedy
+        # tokens stay the plain version's (the tensor cores sum in an
+        # order of their own).
         logits = self.model.forward(
             self.params, tokens, q_offset=hist_keep, kv_hook=kv_hook,
-            positions=positions, attention_fn=attention_fn,
+            positions=positions, attention_fn=attention_fn, order_exact=True,
         )
         last = logits[torch.arange(b, device=dev), n_valids.long() - 1]
         return last, torch.isfinite(logits).all()

@@ -227,6 +227,7 @@ class FlashTransformer:
         positions: Optional[torch.Tensor] = None,
         attention_fn=None,
         segment_ids: Optional[torch.Tensor] = None,
+        order_exact: bool = False,
     ):
         """Causal forward over a token block; logits [b, s, vocab] f32.
 
@@ -237,7 +238,9 @@ class FlashTransformer:
         the causal flash call. ``segment_ids`` [b, s]: packed
         multi-document training -- attention is segment-masked and rope
         positions restart at each document (not with kv_hook or
-        attention_fn). With ``return_kv`` also the per-layer (k, v)."""
+        attention_fn). ``order_exact``: the flash call takes the forward
+        kernel's order-exact entry (``flash_attention``). With
+        ``return_kv`` also the per-layer (k, v)."""
         cfg = self.config
         seg_attn = None
         if segment_ids is not None:
@@ -270,7 +273,7 @@ class FlashTransformer:
                     q, k, v, causal=True, q_offset=q_offset,
                     window=cfg.layer_window(li), softcap=cfg.attn_softcap,
                     segment_ids=seg_attn, sinks=layer.get("sinks"),
-                    alibi=self.alibi_for(),
+                    alibi=self.alibi_for(), order_exact=order_exact,
                 )
             b, h, s, d = attn.shape
             attn = attn.transpose(1, 2).reshape(b, s, h * d)

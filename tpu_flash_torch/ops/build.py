@@ -7,7 +7,9 @@ with its own launch count). At first use the source is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/tpu_flash_torch/`` at the repository root (named by a hash of
 the source, every header and the flags, so an edited source or header
-rebuilds) and loaded with ``ctypes``. Nothing here runs at import time;
+rebuilds) and loaded with ``ctypes``. ``csrc/`` is on the include path,
+so a source elsewhere (a tool's harness under ``build/``) finds the
+headers too. Nothing here runs at import time;
 on a machine without ``nvcc`` only the CPU plain versions work.
 
 Every kernel carries ``launches``, a plain integer its wrapper raises by
@@ -76,7 +78,7 @@ class CudaKernel:
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
-        for header in sorted(self.source.parent.glob("*.cuh")):
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
             h.update(header.name.encode() + header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:16]}.so"
@@ -92,7 +94,8 @@ class CudaKernel:
         self._t0 = time.perf_counter()
         self._tmp = tmp
         return subprocess.Popen(
-            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+             str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
 
@@ -141,10 +144,16 @@ class CudaKernel:
             self.launches_by_tag[tag] = self.launches_by_tag.get(tag, 0) + 1
 
 
+_FLASH_FWD_ARGS = [P] * 9 + [I] * 8 + [F, I, I, I, F, F, P]
 FLASH_FWD = CudaKernel(
-    "flash_fwd", "flash_fwd",
-    [P] * 9 + [I] * 8 + [F, I, I, I, F, F, P],
+    "flash_fwd", "flash_fwd", _FLASH_FWD_ARGS,
     replaces="tpu_flash/ops/flash/forward.py:102",
+)
+# The same source's order-exact entry (the CUDA-core kernel in both
+# dtypes), which the serving engine takes.
+FLASH_FWD_EXACT = CudaKernel(
+    "flash_fwd_exact", "flash_fwd_exact", _FLASH_FWD_ARGS,
+    source="flash_fwd", replaces="tpu_flash/ops/flash/forward.py:102",
 )
 # The FA2 backward pair: one source, two entry points (K8; K9 is a TPU
 # geometry of the same two computations).
@@ -196,10 +205,10 @@ VARIANT_FWD = CudaKernel(
     replaces="tpu_flash/bench/experiments.py:30",
 )
 KERNELS: Dict[str, CudaKernel] = {
-    k.name: k for k in (FLASH_FWD, PAGED_DECODE, PAGED_PREFILL,
-                        RAGGED_PREFILL, FLASH_BWD_DKV, FLASH_BWD_DQ,
-                        QUANT_FWD, QUANTIZE_ROWS, ATTN_WEIGHTS,
-                        VARIANT_FWD)
+    k.name: k for k in (FLASH_FWD, FLASH_FWD_EXACT, PAGED_DECODE,
+                        PAGED_PREFILL, RAGGED_PREFILL, FLASH_BWD_DKV,
+                        FLASH_BWD_DQ, QUANT_FWD, QUANTIZE_ROWS,
+                        ATTN_WEIGHTS, VARIANT_FWD)
 }
 
 

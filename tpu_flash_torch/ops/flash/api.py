@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 
 from tpu_flash_torch.ops.flash.backward import flash_bwd, softmax_di
-from tpu_flash_torch.ops.flash.forward import flash_fwd
+from tpu_flash_torch.ops.flash.forward import flash_fwd, flash_fwd_exact
 
 
 def sink_grad(sinks: torch.Tensor, lse: torch.Tensor,
@@ -41,9 +41,11 @@ class FlashAttentionFn(torch.autograd.Function):
     through lse. ``opts`` holds the forward's non-tensor options."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sinks, alibi, q_seg, kv_seg, opts):
-        o, lse = flash_fwd(q, k, v, sinks=sinks, alibi=alibi, q_seg=q_seg,
-                           kv_seg=kv_seg, save_lse=True, **opts)
+    def forward(ctx, q, k, v, sinks, alibi, q_seg, kv_seg, opts,
+                order_exact=False):
+        fwd = flash_fwd_exact if order_exact else flash_fwd
+        o, lse = fwd(q, k, v, sinks=sinks, alibi=alibi, q_seg=q_seg,
+                     kv_seg=kv_seg, save_lse=True, **opts)
         ctx.save_for_backward(q, k, v, o, lse, sinks, alibi, q_seg, kv_seg)
         ctx.opts = opts
         ctx.set_materialize_grads(False)
@@ -67,7 +69,7 @@ class FlashAttentionFn(torch.autograd.Function):
         dsinks = None
         if sinks is not None and ctx.needs_input_grad[3]:
             dsinks = sink_grad(sinks, lse, softmax_di(o, do, dlse))
-        return dq, dk, dv, dsinks, None, None, None, None
+        return dq, dk, dv, dsinks, None, None, None, None, None
 
 
 def flash_attention(
@@ -85,6 +87,7 @@ def flash_attention(
     segment_ids=None,
     sinks: Optional[torch.Tensor] = None,
     alibi: Optional[torch.Tensor] = None,
+    order_exact: bool = False,
 ):
     """Multi-head / grouped-query flash attention forward.
 
@@ -109,6 +112,10 @@ def flash_attention(
       sinks: [num_q_heads] per-head sink logits in the denominator.
       alibi: [num_q_heads] ALiBi slopes (causal only), added after
         softcap: ``slope * (kv_pos - q_pos)``.
+      order_exact: on CUDA, the forward kernel's order-exact entry
+        (``flash_fwd_exact``: its sums run in the plain version's order;
+        the serving engine's choice) instead of the tensor cores. Not in
+        the JAX API.
 
     Returns o [batch, num_q_heads, q_len, head_dim] in q.dtype, or
     ``(o, lse)``; differentiable in q, k, v, sinks and (with
@@ -180,8 +187,9 @@ def flash_attention(
     grads = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (q, k, v, sinks))
     if not grads:
-        return flash_fwd(q, k, v, sinks=sinks, alibi=alibi, q_seg=q_seg,
-                         kv_seg=kv_seg, save_lse=save_residuals, **opts)
+        fwd = flash_fwd_exact if order_exact else flash_fwd
+        return fwd(q, k, v, sinks=sinks, alibi=alibi, q_seg=q_seg,
+                   kv_seg=kv_seg, save_lse=save_residuals, **opts)
     o, lse = FlashAttentionFn.apply(q, k, v, sinks, alibi, q_seg, kv_seg,
-                                    opts)
+                                    opts, order_exact)
     return (o, lse) if save_residuals else o

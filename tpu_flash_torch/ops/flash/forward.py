@@ -13,7 +13,9 @@ to summation order, and with the JAX kernel wherever it uses the same kv
 tile.
 
 :func:`flash_fwd` takes the plain version for CPU tensors only; a CUDA
-tensor launches the kernel (``csrc/flash_fwd.cu``) or raises.
+tensor launches the kernel (``csrc/flash_fwd.cu``) or raises: bf16 on
+the tensor cores, f32 on the CUDA cores. :func:`flash_fwd_exact` takes
+the source's order-exact entry, the CUDA-core kernel in both dtypes.
 """
 
 from __future__ import annotations
@@ -162,12 +164,25 @@ def flash_fwd(
         return flash_fwd_plain(q, k, v, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
-    return _flash_fwd_cuda(q, k, v, **kw)
+    return _flash_fwd_cuda(build.FLASH_FWD, q, k, v, **kw)
 
 
-def _flash_fwd_cuda(q, k, v, *, causal, sm_scale, q_offset, kv_len,
-                    window, softcap, sinks, alibi, q_seg, kv_seg,
-                    save_lse):
+def flash_fwd_exact(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    **kw):
+    """:func:`flash_fwd` (the same arguments and results) on the kernel's
+    order-exact entry: the CUDA-core kernel in both dtypes, whose sums run
+    one FMA at a time in the order of this module's plain version on the
+    card. The tensor cores sum inside each product in an order of their
+    own; the serving engine takes this entry so that its greedy tokens
+    stay the plain version's. CPU tensors take :func:`flash_fwd_plain`."""
+    if q.device.type != "cuda":
+        return flash_fwd(q, k, v, **kw)  # the plain version, or a refusal
+    return _flash_fwd_cuda(build.FLASH_FWD_EXACT, q, k, v, **kw)
+
+
+def _flash_fwd_cuda(kernel, q, k, v, *, causal, sm_scale, q_offset=0,
+                    kv_len=None, window=None, softcap=None, sinks=None,
+                    alibi=None, q_seg=None, kv_seg=None, save_lse=False):
     if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise ValueError(
@@ -184,7 +199,7 @@ def _flash_fwd_cuda(q, k, v, *, causal, sm_scale, q_offset, kv_len,
     for t in (k, v, sinks, alibi, q_seg, kv_seg):
         if t is not None and t.device != q.device:
             raise ValueError("flash_fwd: all tensors must share q's device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = build.aligned(q), build.aligned(k), build.aligned(v)
     sinks = None if sinks is None else sinks.float().contiguous()
     alibi = None if alibi is None else alibi.float().contiguous()
     q_seg, kv_seg = segment_ids_for_kernel(q_seg, kv_seg)
@@ -193,7 +208,7 @@ def _flash_fwd_cuda(q, k, v, *, causal, sm_scale, q_offset, kv_len,
         torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
         if save_lse else None
     )
-    build.FLASH_FWD.launch(
+    kernel.launch(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
         build.ptr(lse), build.ptr(sinks), build.ptr(alibi),
         build.ptr(q_seg), build.ptr(kv_seg),
