@@ -10,10 +10,12 @@ network. Phases, one JSON line each:
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels from tpu_flash_torch/csrc (one nvcc per
      source, all started together), with the build seconds; each
-     instance of the backward pair, the forward and the variant kernel
-     with its registers, spill bytes and tensor-core instructions in its
-     SASS (the bf16 tensor-core instances must have them, the f32 ones
-     and the forward's order-exact bf16 entry not);
+     instance of the backward pair, the forward, the variant kernel and
+     the two prefill kernels with its registers, spill bytes and
+     tensor-core instructions in its SASS (the bf16 tensor-core instances
+     must have them; the f32 ones, the forward's order-exact bf16 entry
+     and every prefill instance not); each prefill instance's shared
+     memory and blocks an SM (two at d 128);
   3. kernels: each kernel against its plain PyTorch version on the card
      at the main path's shapes, with times, bounds and a library
      yardstick: the forward on both entry points (bf16 on the tensor
@@ -22,8 +24,11 @@ network. Phases, one JSON line each:
      cases and segment ids included, the backward pair
      (dK/dV and dQ) at the training shape, decode over every page tier
      (bf16, int8, int4, int4g32, k8v4, fp8; int8_mxu and fp8_native on
-     and off), paged prefill over bf16, int8, int4 and fp8 pages, ragged
-     prefill; config 1's d 64 f32 row of the forward; the quantized-input
+     and off), paged prefill over bf16, int8, int4 and fp8 pages and
+     ragged prefill, both with a bar per row and a late-row control,
+     tile-edge cases and the count of output elements that differ from
+     the plain version at all; config 1's d 64 f32 row of the forward;
+     the quantized-input
      forward at config 4's geometry (int8, fp8 native and software at
      8192 tokens in bf16 and f32 with a bar per row and a late-row
      control; options and the int8 staircase at 2048); the row
@@ -502,11 +507,11 @@ def kernel_ms(kernel, fn, iters: int, warmup: int = 1) -> float:
     events = []
     launch = kernel.launch
 
-    def timed(*args):
+    def timed(*args, **kwargs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        launch(*args)
+        launch(*args, **kwargs)
         end.record()
         events.append((start, end))
 
@@ -1014,14 +1019,40 @@ def prefill_bound(q, hkv, offsets, window, kv_bytes_per_token):
     """Least time for a prefill chunk's attention: q, the chunk's K/V and
     o once, the history K/V some query of a row sees once (as stored,
     ``kv_bytes_per_token`` for all kv heads), and 4 d FLOPs per (q head,
-    query, key) pair."""
+    query, key) pair: (ms, bound by) at the tensor cores' bf16 rate, and
+    the ms at the CUDA cores' f32 rate, which bounds the order-exact
+    kernels (K5, K6: prefill_tile.cuh)."""
     b, hq, q_len, d = q.shape
     hist = sum(min(off, window - 1) if window else off for off in offsets)
     nbytes = (2 * q.numel() * q.element_size()
               + 2 * b * hkv * q_len * d * q.element_size()
               + 2 * hist * kv_bytes_per_token + 4 * b)
     ops = 4.0 * hq * d * prefill_pairs(offsets, q_len, window)
-    return bound(nbytes, ops, "bfloat16")
+    return (*bound(nbytes, ops, "bfloat16"),
+            bound(nbytes, ops, "float32")[0])
+
+
+def raised(v):
+    """A chunk's V or a layer's V pages with every value raised by
+    VARIANT_LATE_SHIFT (quantized pages through their scales): the
+    late-row control's V."""
+    if hasattr(v, "_replace"):
+        return v._replace(scales=v.scales * VARIANT_LATE_SHIFT)
+    return (v.float() * VARIANT_LATE_SHIFT).to(v.dtype)
+
+
+def prefill_rows(out, ref, control, late):
+    """K5 or K6 against its plain version with a bar per row
+    (row_agreement, as K1): every row within its bar, the control (the
+    plain version without the case's option or offsets) off some row's
+    bar, and ``late`` (the plain version on V raised by
+    VARIANT_LATE_SHIFT) off the bars of at least VARIANT_LATE_CAUGHT of
+    the rows past q_len / 2; with how many output elements differ from
+    the plain version by any bit."""
+    row = row_agreement(out, ref, control, None, (late, ref.shape[2] // 2),
+                        late_caught=VARIANT_LATE_CAUGHT)
+    row.update(differing=int((out != ref).sum()), elements=ref.numel())
+    return row
 
 
 def paged_prefill_inputs(dev, b, q_len, hist_cap, kv_dtype, seed=SEED,
@@ -1055,8 +1086,9 @@ def paged_prefill_inputs(dev, b, q_len, hist_cap, kv_dtype, seed=SEED,
 
 def check_paged_prefill(dev):
     """K5 at the main path's shapes: chunks at history 1024, mixed stages,
-    the verify shape and each option, each against its plain version and
-    a control that drops the case's option."""
+    the verify shape, each option and the tile's edges, each against its
+    plain version per row (prefill_rows), with a control that drops the
+    case's option and a late-row control."""
     import torch
 
     from tpu_flash_torch.ops.flash import paged_prefill as pp
@@ -1071,7 +1103,11 @@ def check_paged_prefill(dev):
     # (case, b, q_len, hist_cap, pages, offsets, kwargs, control): the
     # control is kwargs/offsets overrides, or "unscaled" (quantized pages
     # without their scales). int4 and fp8 pages take the auto layout's
-    # 512 tokens (phase 4), the others phase 4's explicit 128.
+    # 512 tokens (phase 4), the others phase 4's explicit 128. The tile's
+    # edges: offsets off its 64-row steps and 128-column windows (the
+    # control rounds them to a window), offset 0 beside offset hist_cap,
+    # length-1 rows (a fused step's decode rows), a window that ends
+    # inside a step.
     verify_lens = [1100 + 100 * i for i in range(8)]
     for name, b, q_len, hist_cap, kv, offsets, kw, control in [
         ("chunk_bf16", 4, 512, 1024, "bfloat16", [1024] * 4, {},
@@ -1091,12 +1127,20 @@ def check_paged_prefill(dev):
          dict(kw={})),
         ("alibi", 2, 512, 1024, "bfloat16", [1024] * 2, dict(alibi=slopes),
          dict(kw={})),
+        ("offsets_unaligned", 4, 512, 1536, "bfloat16",
+         [37, 700, 1100, 1535], {}, dict(offsets=[0, 640, 1024, 1536])),
+        ("offset_zero_and_cap", 2, 512, 2048, "int8", [0, 2048], {},
+         dict(offsets=[128, 1920])),
+        ("decode_rows", 8, 1, 2048, "bfloat16",
+         [1, 63, 64, 129, 700, 1500, 2047, 2048], {}, dict(offsets=[0] * 8)),
+        ("window_in_step", 3, 300, 1024, "int8", [0, 700, 1024],
+         dict(window=200), dict(kw={})),
     ]:
         ps = 512 if kv in ("int4", "fp8") else 128
         q, ck, cv, kp, vp, table = paged_prefill_inputs(dev, b, q_len,
                                                         hist_cap, kv, ps=ps)
 
-        def run(offs=offsets, pages=(kp, vp), kw=kw):
+        def run(offs=offsets, pages=(kp, vp), kw=kw, cv=cv):
             o = torch.tensor(offs, dtype=torch.int32, device=dev)
             return pp.paged_prefill_attention(
                 q, ck, cv, pages[0], pages[1], o, table, hist_cap=hist_cap,
@@ -1108,27 +1152,28 @@ def check_paged_prefill(dev):
             ref = run()
             plain_ms = time_ms(run, 3)
             if control == "unscaled":
-                off = max_err(out, run(pages=(unscaled(kp), unscaled(vp))))
+                ctl = run(pages=(unscaled(kp), unscaled(vp)))
             else:
-                off = max_err(out, run(
-                    offs=control.get("offsets", offsets),
-                    kw=control.get("kw", kw)))
-        bound_ms, bound_by = prefill_bound(q, 8, offsets, kw.get("window"),
-                                           8 * side_bytes(kv, 128))
+                ctl = run(offs=control.get("offsets", offsets),
+                          kw=control.get("kw", kw))
+            late = run(pages=(kp, raised(vp)), cv=raised(cv))
+        bound_ms, bound_by, fp32_ms = prefill_bound(
+            q, 8, offsets, kw.get("window"), 8 * side_bytes(kv, 128))
         row = dict(case=name, batch=b, q_len=q_len, hist_cap=hist_cap,
                    pages=kv, page_size=ps, offsets=offsets,
                    control=control if isinstance(control, str)
                    else {k_: str(v_) for k_, v_ in control.items()},
-                   **agreement(out, ref, off), ms=time_ms(run, 10),
+                   **prefill_rows(out, ref, ctl, late), ms=time_ms(run, 10),
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=None)
+                   fp32_bound_ms=fp32_ms, library_ms=None)
         rows.append(row)
         log("kernel_vs_plain", kernel="paged_prefill", **row)
+        del out, ref, ctl, late
     raise_if_failed("paged_prefill", rows)
     out = {"paged_prefill": dict(
         rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))}
     for r in rows:
-        if r["pages"] in ("int4", "fp8"):
+        if r["pages"] in ("int4", "fp8") and r["case"].startswith("chunk"):
             out[f"paged_prefill:{r['pages']}"] = r
     return out
 
@@ -1151,19 +1196,30 @@ def ragged_mask(offsets, q_len, hist_cap, window, dev):
 
 def check_ragged(dev):
     """K6 at the main path's fused-step shape: chunks of 512 at history
-    {0, 512, 1024, 1536} over [history padded to 1536 | chunk], and a
-    window case."""
+    {0, 512, 1024, 1536} over [history padded to 1536 | chunk], a window
+    case and the tile's edges (offsets off its steps and windows, offset
+    0 beside hist_cap, length-1 rows, a window ending inside a step),
+    each held per row (prefill_rows); SDPA on the same mask beside it."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from tpu_flash_torch.ops.flash import ragged
 
     rows = []
-    q_len, hist_cap = 512, 1536
-    for name, offsets, kw, control in [
-        ("mixed_offsets", [0, 512, 1024, 1536], {},
+    hist_cap = 1536
+    for name, q_len, offsets, kw, control in [
+        ("mixed_offsets", 512, [0, 512, 1024, 1536], {},
          dict(offsets=[1536] * 4)),
-        ("window", [0, 512, 1024, 1536], dict(window=256), dict(kw={})),
+        ("window", 512, [0, 512, 1024, 1536], dict(window=256),
+         dict(kw={})),
+        ("offsets_unaligned", 512, [37, 700, 1100, 1535], {},
+         dict(offsets=[0, 640, 1024, 1536])),
+        ("offset_zero_and_cap", 512, [0, 1536, 0, 1536], {},
+         dict(offsets=[128, 1408, 128, 1408])),
+        ("decode_rows", 1, [1, 700, 1535, 1536], {},
+         dict(offsets=[0] * 4)),
+        ("window_in_step", 512, [0, 300, 1000, 1536], dict(window=200),
+         dict(kw={})),
     ]:
         g = torch.Generator(device=dev).manual_seed(SEED + 2)
         b = len(offsets)
@@ -1171,7 +1227,7 @@ def check_ragged(dev):
         k, v = (torch.randn(b, 8, hist_cap + q_len, 128, generator=g,
                             device=dev).bfloat16() for _ in range(2))
 
-        def run(offs=offsets, kw=kw):
+        def run(offs=offsets, kw=kw, v=v):
             o = torch.tensor(offs, dtype=torch.int32, device=dev)
             return ragged.flash_attention_ragged(q, k, v, o,
                                                  hist_cap=hist_cap, **kw)
@@ -1181,25 +1237,31 @@ def check_ragged(dev):
         with plain_versions():
             ref = run()
             plain_ms = time_ms(run, 3)
-            off = max_err(out, run(offs=control.get("offsets", offsets),
-                                   kw=control.get("kw", kw)))
-        bound_ms, bound_by = prefill_bound(q, 8, offsets, kw.get("window"),
-                                           8 * 128 * 2)
-        mask = ragged_mask(offsets, q_len, hist_cap, kw.get("window"), dev)
-        try:
-            sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
-            library_ms = time_ms(
-                lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), 10)
-        except TypeError:  # PyTorch without enable_gqa
-            library_ms = None
+            ctl = run(offs=control.get("offsets", offsets),
+                      kw=control.get("kw", kw))
+            late = run(v=raised(v))
+        bound_ms, bound_by, fp32_ms = prefill_bound(
+            q, 8, offsets, kw.get("window"), 8 * 128 * 2)
+        library_ms = None
+        if q_len > 1:
+            mask = ragged_mask(offsets, q_len, hist_cap, kw.get("window"),
+                               dev)
+            try:
+                sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+                library_ms = time_ms(
+                    lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True),
+                    10)
+            except TypeError:  # PyTorch without enable_gqa
+                pass
         row = dict(case=name, batch=b, q_len=q_len, hist_cap=hist_cap,
                    offsets=offsets,
                    control={k_: str(v_) for k_, v_ in control.items()},
-                   **agreement(out, ref, off), ms=time_ms(run, 10),
+                   **prefill_rows(out, ref, ctl, late), ms=time_ms(run, 10),
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=library_ms)
+                   fp32_bound_ms=fp32_ms, library_ms=library_ms)
         rows.append(row)
         log("kernel_vs_plain", kernel="ragged_prefill", **row)
+        del out, ref, ctl, late
     raise_if_failed("ragged_prefill", rows)
     return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
 
@@ -1645,8 +1707,9 @@ def check_prefill_d256(dev):
     """K5 and K6 at Gemma-2-9B's geometry: a 512-token chunk of a sliding
     layer over 8192 tokens of history (bf16 pages), of a global layer
     over 2048 (bf16 and int8 pages), and the ragged kernel's mixed-stage
-    step under the window and without it; each against its plain
-    version, the control without the window or the cap."""
+    step under the window and without it; each held per row against its
+    plain version (prefill_rows), the control without the window or the
+    cap."""
     import torch
 
     from tpu_flash_torch.ops.flash import paged_prefill as pp
@@ -1677,7 +1740,7 @@ def check_prefill_d256(dev):
             : b * pps].reshape(b, pps).int()
         offs = torch.tensor(offsets, dtype=torch.int32, device=dev)
 
-        def run(opts=kw):
+        def run(opts=kw, vp=vp, cv=cv):
             return pp.paged_prefill_attention(
                 q, ck, cv, kp, vp, offs, table, hist_cap=hist,
                 sm_scale=GEMMA_SCALE, **opts)
@@ -1687,18 +1750,19 @@ def check_prefill_d256(dev):
         with plain_versions():
             ref = run()
             plain_ms = time_ms(run, 2)
-            off = max_err(out, run(control))
-        bound_ms, bound_by = prefill_bound(
+            ctl = run(control)
+            late = run(vp=raised(vp), cv=raised(cv))
+        bound_ms, bound_by, fp32_ms = prefill_bound(
             q, hkv, offsets, kw.get("window"), hkv * side_bytes(kv, GEMMA_D))
         row = dict(case=name, batch=b, hist_cap=hist, offsets=offsets,
                    pages=kv, options={x: str(y) for x, y in kw.items()},
                    control={x: str(y) for x, y in control.items()},
-                   **agreement(out, ref, off), ms=time_ms(run, 5),
+                   **prefill_rows(out, ref, ctl, late), ms=time_ms(run, 5),
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=None)
+                   fp32_bound_ms=fp32_ms, library_ms=None)
         rows["paged_prefill"].append(row)
         log("kernel_vs_plain", kernel="paged_prefill", width=GEMMA_D, **row)
-        del out, ref
+        del out, ref, ctl, late
     offsets = [0, 2000, 4000, 4608]
     hist_cap = 4608
     for name, kw, control in [
@@ -1709,7 +1773,7 @@ def check_prefill_d256(dev):
         q, k, v = gemma_qkv(dev, 4, 512, hist_cap + 512, SEED + 24)
         offs = torch.tensor(offsets, dtype=torch.int32, device=dev)
 
-        def run(opts=kw):
+        def run(opts=kw, v=v):
             return ragged.flash_attention_ragged(
                 q, k, v, offs, hist_cap=hist_cap, sm_scale=GEMMA_SCALE,
                 **opts)
@@ -1719,21 +1783,23 @@ def check_prefill_d256(dev):
         with plain_versions():
             ref = run()
             plain_ms = time_ms(run, 2)
-            off = max_err(out, run(control))
-        bound_ms, bound_by = prefill_bound(
+            ctl = run(control)
+            late = run(v=raised(v))
+        bound_ms, bound_by, fp32_ms = prefill_bound(
             q, hkv, offsets, kw.get("window"),
             hkv * side_bytes("bfloat16", GEMMA_D))
         mask = ragged_mask(offsets, 512, hist_cap, kw.get("window"), dev)
         row = dict(case=name, batch=4, hist_cap=hist_cap, offsets=offsets,
                    options={x: str(y) for x, y in kw.items()},
                    control={x: str(y) for x, y in control.items()},
-                   **agreement(out, ref, off), ms=time_ms(run, 5),
+                   **prefill_rows(out, ref, ctl, late), ms=time_ms(run, 5),
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   fp32_bound_ms=fp32_ms,
                    library_ms=sdpa_ms(q, k, v, mask=mask),
                    library="SDPA without softcap")
         rows["ragged_prefill"].append(row)
         log("kernel_vs_plain", kernel="ragged_prefill", width=GEMMA_D, **row)
-        del out, ref
+        del out, ref, ctl, late
     for kernel, rs in rows.items():
         raise_if_failed(f"{kernel} d256", rs)
     return rows
@@ -2040,6 +2106,31 @@ def shadowed(stats):
     return swapped_entries(make)
 
 
+@contextlib.contextmanager
+def scratch_peak():
+    """Yields a dict whose ``bytes`` becomes the largest score scratch
+    (prefill_tile.cuh: one slot for each thread block the card runs at
+    once) that a K5 or K6 call allocates while the block runs."""
+    from tpu_flash_torch.ops.flash import paged_prefill as pp
+    from tpu_flash_torch.ops.flash import ragged
+
+    seen = dict(bytes=0)
+    real = pp.tile_scratch
+
+    def spy(*args, **kwargs):
+        scratch, slots = real(*args, **kwargs)
+        if scratch is not None:
+            seen["bytes"] = max(seen["bytes"],
+                                scratch.numel() * scratch.element_size())
+        return scratch, slots
+
+    pp.tile_scratch = ragged.tile_scratch = spy
+    try:
+        yield seen
+    finally:
+        pp.tile_scratch = ragged.tile_scratch = real
+
+
 # -- phase 4: the main path at full width -------------------------------------
 
 MAIN_TIERS = (("int8", 128), ("bfloat16", 0))  # (kv_dtype, recent_window)
@@ -2125,7 +2216,8 @@ def serve_main(model, params, kv_dtype, ring, prompts, new_tokens, *,
     build.reset_launch_counts()
     ids = [eng.submit(p, new_tokens) for p in prompts]
     t0 = time.perf_counter()
-    eng.run()
+    with scratch_peak() as scratch:
+        eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     del eng._chunked_prefill_impl  # the hook's cycle through the engine
@@ -2152,6 +2244,7 @@ def serve_main(model, params, kv_dtype, ring, prompts, new_tokens, *,
         routes=m.route_counts(), speculation=eng.speculation_stats(),
         launches=launches,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        prefill_scratch_mib=scratch["bytes"] / 2**20,
     )
     eng.close()
     if not check_logits:
@@ -2825,7 +2918,49 @@ TC_LIBRARIES = {
                   {("flash_fwd", True): 3, ("flash_fwd", False): 6}),
     "variant_fwd": ("VARIANT_FWD", r"variant_fwd_kernel",
                     r"variant_fwd_kernel", {("variant_fwd", True): 20}),
+    # The order-exact prefill tile (prefill_tile.cuh): no instance of K5
+    # or K6 may hold a tensor-core instruction.
+    "paged_prefill": ("PAGED_PREFILL", r"paged_prefill_kernel", r"(?!)",
+                      {("paged_prefill", False): 30}),
+    "ragged_prefill": ("RAGGED_PREFILL", r"ragged_prefill_kernel", r"(?!)",
+                       {("ragged_prefill", False): 4}),
 }
+
+
+def prefill_occupancy():
+    """Shared memory and blocks an SM (the CUDA occupancy calculator on
+    the built kernels) of every instance of the order-exact prefill tile
+    that a call can take: K6 by dtype and head width, K5 by q dtype, page
+    dtype, head width and rows a block (16 for bf16 verify-sized calls).
+    Raises if an instance at d 128 fits fewer than two blocks an SM."""
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.ops.flash.paged_prefill import (
+        PAGE_KINDS,
+        tile_occupancy,
+    )
+
+    rows = []
+
+    def query(kernel, *args):
+        smem, blocks = tile_occupancy(kernel, args)
+        return dict(smem_bytes=smem, blocks_per_sm=blocks)
+
+    for dt, dname in enumerate(("float32", "bfloat16")):
+        for d in (128, 256):
+            rows.append(dict(kernel="ragged_prefill", q=dname, d=d, rows=64,
+                             **query(build.RAGGED_PREFILL, dt, d)))
+    for dt, dname in enumerate(("float32", "bfloat16")):
+        for kind, pk in PAGE_KINDS.items():
+            for d in (128, 256):
+                for r in (64, 16) if dname == "bfloat16" else (64,):
+                    rows.append(dict(kernel="paged_prefill", q=dname,
+                                     pages=kind, d=d, rows=r,
+                                     **query(build.PAGED_PREFILL, dt, pk, d,
+                                             r)))
+    thin = [r for r in rows if r["d"] == 128 and r["blocks_per_sm"] < 2]
+    if thin:
+        raise AssertionError(f"fewer than two blocks an SM at d 128: {thin}")
+    return rows
 
 
 def tc_instances(lib):
@@ -2923,7 +3058,8 @@ def main() -> int:
     log("build", seconds=secs, wall_s=time.perf_counter() - t0,
         ptxas=[ln.strip() for k in build.KERNELS.values()
                for ln in k.build_log.splitlines() if "Used" in ln],
-        **{f"{lib}_instances": tc_instances(lib) for lib in TC_LIBRARIES})
+        **{f"{lib}_instances": tc_instances(lib) for lib in TC_LIBRARIES},
+        prefill_occupancy=prefill_occupancy())
     if "--trained-only" in sys.argv[1:]:
         check_trained(dev)  # phase 5 alone, to look into a greedy flip
         return 0
@@ -2958,7 +3094,8 @@ def main() -> int:
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             **{x: y for x, y in s.items()
-               if x.startswith(("whole_", "d256_", "d64_", "fastest_"))},
+               if x.startswith(("whole_", "d256_", "d64_", "fastest_",
+                                "fp32_"))},
         ))
     print(gpu_query(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,7 +18,9 @@ ulp, a flipped bf16 P element moves an output by a small part of one --
 and 2^-12 of max |ref| for f32 outputs, which keep no bf16 rounding here
 (f32 q promotes bf16 and int8 history to f32, and P rounds to f32). Each
 of those cases also holds a control: the kernel against the plain
-version without the case's offsets or options must miss the bar. The
+version without the case's offsets or options must miss the bar. Their
+tile-edge cases (``TILE_EDGES``) hold each row at its own bar, as
+chip_smoke.py's phase 3 does, with a late-row control (V raised 3%). The
 bf16 backward kernels take P in bf16 for the dV product (tensor-core
 operands, as the TPU kernel's single bf16 MXU pass), so their bf16 cases
 hold the plain version with ``round_p=True``; f32 cases the default. The
@@ -406,6 +408,119 @@ def test_ragged_prefill_kernel_matches_plain(dev, dtype, case):
 
     ckw, coffs = _control(kw, offs)
     _check_with_control(out, plain(offs, **kw), plain(coffs, **ckw))
+
+
+# The order-exact prefill tile's edges (csrc/prefill_tile.cuh: 64-row
+# steps, 128-column windows at d 128 and 64 at d 256, score scratch for
+# blocks of several windows): name -> (head width, q_len, hist_cap,
+# offsets, options, control). The control is other offsets (rounded to a
+# window) or, for a case with options, the options it keeps.
+TILE_EDGES = {
+    "offsets-unaligned": (128, 200, 384, (37, 130, 250, 383), {},
+                          (0, 128, 256, 384)),
+    "offset-0-and-cap": (128, 200, 384, (0, 384, 0, 384), {},
+                         (128, 256, 128, 256)),
+    "length-1-rows": (128, 1, 384, (1, 129, 383, 384), {}, (0, 0, 0, 0)),
+    "window-in-step": (128, 200, 384, (0, 100, 300, 384), dict(window=70),
+                       {}),
+    "gemma-d256-softcap": (256, 64, 256, (0, 100, 256, 37),
+                           dict(softcap=50.0, window=120),
+                           dict(softcap=50.0)),
+}
+
+
+# Each edge in both dtypes; Gemma-2's geometry in bf16, which it serves.
+TILE_EDGE_PARAMS = [(c, dt) for c in TILE_EDGES
+                    for dt in (torch.float32, torch.bfloat16)
+                    if not (c.startswith("gemma") and dt == torch.float32)]
+
+
+def _tile_edge_case(g, name, dtype):
+    d, q_len, hist_cap, offsets, kw, control = TILE_EDGES[name]
+    qstd = 4.0 if d == 256 else 1.0
+    q = _rn(g, len(offsets), 8, q_len, d, dtype=dtype) * qstd
+    offs = torch.tensor(offsets, dtype=torch.int32, device=g.device)
+    if isinstance(control, dict):
+        ckw, coffs = control, offs
+    else:
+        ckw, coffs = kw, torch.tensor(control, dtype=torch.int32,
+                                      device=g.device)
+    return d, q, hist_cap, offs, kw, ckw, coffs
+
+
+def _raised(v):
+    """V raised by 3% (quantized pages through their scales): every
+    output row moves by 3% of itself, past its bar."""
+    if hasattr(v, "_replace"):
+        return v._replace(scales=v.scales * 1.03)
+    return (v.float() * 1.03).to(v.dtype)
+
+
+@pytest.mark.parametrize("case,dtype", TILE_EDGE_PARAMS)
+def test_ragged_prefill_tile_edges_match_plain(dev, case, dtype):
+    """K6 at the tile's edges, each row within its bar of the plain
+    version (_row_bars), the control off some row, the late-row control
+    (V raised 3%) off 90% of the rows past q_len / 2."""
+    from tpu_flash_torch.ops.flash import ragged
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    d, q, hist_cap, offs, kw, ckw, coffs = _tile_edge_case(g, case, dtype)
+    b, q_len = q.shape[0], q.shape[2]
+    k, v = (_rn(g, b, 2, hist_cap + q_len, d, dtype=dtype)
+            for _ in range(2))
+    out = ragged.flash_attention_ragged(q, k, v, offs, hist_cap=hist_cap,
+                                        **kw)
+    torch.cuda.synchronize()
+
+    def plain(offs, v=v, **kw):
+        return ragged.ragged_prefill_plain(
+            q, k, v, offs, hist_cap=hist_cap, sm_scale=d ** -0.5,
+            block_kv=ragged.TILES.ragged_block_kv, **kw)
+
+    _check_rows_with_control(out, plain(offs, **kw), plain(coffs, **ckw),
+                             None, late=(plain(offs, v=_raised(v), **kw),
+                                         q_len // 2))
+
+
+@pytest.mark.parametrize("pages", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("case,dtype", TILE_EDGE_PARAMS)
+def test_paged_prefill_tile_edges_match_plain(dev, case, dtype, pages):
+    """K5 at the tile's edges (32-token pages: a 384-token history block
+    spans three windows at d 128, a 200-row chunk block two), held as
+    test_ragged_prefill_tile_edges_match_plain holds K6."""
+    from tpu_flash_torch.ops.flash import paged_prefill as pp
+    from tpu_flash_torch.ops.quant import quantize_pages
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    d, q, hist_cap, offs, kw, ckw, coffs = _tile_edge_case(g, case, dtype)
+    b, q_len = q.shape[0], q.shape[2]
+    ps, pps = 32, hist_cap // 32
+    n_pages = b * pps + 1
+    ck, cv = (_rn(g, b, 2, q_len, d, dtype=dtype) for _ in range(2))
+    kp, vp = (_rn(g, 2, n_pages, ps, d) for _ in range(2))
+    if pages == "int8":
+        kp, vp = quantize_pages(kp, "int8"), quantize_pages(vp, "int8")
+    else:
+        kp, vp = kp.to(getattr(torch, pages)), vp.to(getattr(torch, pages))
+    table = torch.randperm(n_pages - 1, generator=g, device=dev)[
+        : b * pps].reshape(b, pps).int()
+    before = pp.build.PAGED_PREFILL.launches
+
+    def run(offs, vp=vp, cv=cv, **kw):
+        return pp.paged_prefill_attention(q, ck, cv, kp, vp, offs, table,
+                                          hist_cap=hist_cap, **kw)
+
+    out = run(offs, **kw)
+    torch.cuda.synchronize()
+    assert pp.build.PAGED_PREFILL.launches == before + 1
+    saved = pp._paged_prefill_cuda
+    pp._paged_prefill_cuda = pp.paged_prefill_plain
+    try:
+        ref, control = run(offs, **kw), run(coffs, **ckw)
+        late = run(offs, vp=_raised(vp), cv=_raised(cv), **kw)
+    finally:
+        pp._paged_prefill_cuda = saved
+    _check_rows_with_control(out, ref, control, None, late=(late, q_len // 2))
 
 
 def test_prefill_kernels_never_take_the_plain_path(dev):

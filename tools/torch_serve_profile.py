@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Where the port's serving time goes on one CUDA card.
 
-    python3 tools/torch_serve_profile.py
+    python3 tools/torch_serve_profile.py [--prefill-only]
 
 Serves the work of ``chip_smoke.py`` phase 4 with its own model, prompts
 and engines (Llama-3-8B geometry, 32 layers, seeded random bf16 weights;
 8 prompts of 100..1500 tokens) at the engine's default routing (paged
 prefill, fused mixed steps, speculation k 8) on an int8 cache with the
 128-token ring and on a bf16 cache, and traces two windows with
-``torch.profiler``:
+``torch.profiler`` (``--prefill-only``: the prefill windows alone):
 
   * prefill: the requests with max_new_tokens=1, so every step is a
     prefill dispatch (chunks past the first attend their history through
-    paged_prefill);
+    paged_prefill); then, on the int8 + ring cache with
+    paged_prefill=False, four prompts one step ahead of the other four,
+    so that chunks at mixed stages attend gathered history through
+    ragged_prefill in one dispatch;
   * decode: 32-token requests from the first step after every prompt is
     in the cache, so every step is a decode call (a burst, or a
     speculative verify where prompt lookup drafts). The window runs three
@@ -133,6 +136,9 @@ def main() -> int:
             wall, kernels = trace(eng.run)
             report("prefill", kv_dtype, wall, kernels,
                    sum(len(p) for p in prompts), eng.metrics.route_counts())
+            if "--prefill-only" in sys.argv[1:]:
+                eng.close()
+                continue
             # The decode window three times, the same greedy work each
             # time: untraced for its wall time, untraced with speculation
             # off, then traced for its kernels.
@@ -153,6 +159,24 @@ def main() -> int:
                    eng.metrics.decode_tokens, eng.metrics.route_counts(),
                    *untraced)
             eng.close()
+        kv_dtype, ring = MAIN_TIERS[0]
+        eng = main_path_engine(model, params, kv_dtype, ring, prompts,
+                               paged_prefill=False)
+        eng.metrics = EngineMetrics()
+
+        def staggered():
+            for p in prompts[:4]:
+                eng.submit(p, 1)
+            eng.step()
+            for p in prompts[4:]:
+                eng.submit(p, 1)
+            eng.run()
+
+        wall, kernels = trace(staggered)
+        report("prefill staggered, paged_prefill=False", kv_dtype, wall,
+               kernels, sum(len(p) for p in prompts),
+               eng.metrics.route_counts())
+        eng.close()
     return 0
 
 

@@ -7,10 +7,10 @@
 // pages into VMEM with double-buffered DMAs whose walk (cmap, cum, next,
 // slot parity) is precomputed outside it and rides in as scalar
 // prefetch; here each thread block loads its own offset and page-table
-// row and reads the page rows it needs straight from device memory.
+// row and stages the page rows it needs through its own ring.
 //
 // Computes, per (batch row b, kv head, block of chunk positions), for the
-// q_per_kv query heads of that kv head stacked in one 64-row tile (GQA
+// q_per_kv query heads of that kv head stacked in one tile of R rows (GQA
 // folding: a history row is read once per kv head, not per q head):
 //   history blocks of bk = pages_per_block * page_size tokens, from the
 //   first block a row of the tile can see under the sliding window to the
@@ -25,15 +25,17 @@
 //
 // What bounds it on this card: at a prefill chunk (q_len 512 over 1024
 // history tokens) the work is ~ 4 * q_len * kv * d FLOPs per q head
-// against each K/V byte read once per kv head, far above the ~295
-// FLOP/byte ridge: the tensor cores' 989 TFLOP/s bound it. At the verify
-// shape (9 rows over ~2K history) it reads each history byte for 9 * 4
-// rows, under the ridge: HBM bounds it. This first kernel is simple: f32
-// FMAs on the CUDA cores from f32 tiles in shared memory, two passes over
-// blocks wider than one sub-tile (128 rows; 64 at d 256, so every block
-// of a d 256 call takes two; see prefill_tile.cuh). The
-// verify grid is b * hkv blocks (64 at b 8, hkv 8) on 132 SMs, the same
-// under-fill as paged_decode; split-K, wgmma and TMA are later work.
+// against each K/V byte read once per kv head, far above the ridge; the
+// order contract (prefill_tile.cuh: the serving engine's greedy tokens are
+// held to the plain version's) keeps it on the CUDA cores, so their f32
+// rate (67 TFLOP/s) bounds it, not the tensor cores' 989. History blocks
+// span up to 16 windows (2048 tokens) and chunk blocks two (256 rows at 4
+// q heads a kv head): their scores go through a slot of the score
+// scratch in device memory, read back to form P, so S is computed once.
+// At the verify shape (9 rows over ~2K history) it reads each history byte for
+// 9 * 4 rows, under the ridge: HBM bounds it, and the 64-row grid is
+// b * hkv blocks (64 at b 8, hkv 8) on 132 SMs, so such calls take the
+// 16-row instance (ROWS_VERIFY: 192 blocks), which the wrapper picks.
 //
 // Head widths: d = 128 and d = 256, each its own template instance.
 //
@@ -61,27 +63,25 @@ struct PagedParams {
   int num_pages, ps, pps, bk, block_q;
 };
 
-template <typename TQ, typename TK, int D>
-__global__ void __launch_bounds__(THREADS)
+template <typename G, typename TK>
+__global__ void __launch_bounds__(THREADS, G::MIN_BLOCKS)
 paged_prefill_kernel(PagedParams pp) {
-  extern __shared__ float smem[];
+  using TQ = typename G::T;
+  constexpr int D = G::D;
+  extern __shared__ __align__(16) unsigned char smem[];
   const RowParams& p = pp.rp;
-  const Smem<D> sm(smem);
-  const int qt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const Smem<G, TQ> sm(smem);
+  // The latest (heaviest) chunk positions of a (row, kv head) first.
+  const int qt = gridDim.x - 1 - blockIdx.x, kvh = blockIdx.y;
+  const int b = blockIdx.z;
   const Rows rows{kvh, qt * p.qp, p.g, p.qp, p.q_len};
   const int p_lo = rows.q_first;
   const int p_hi = min(p_lo + p.qp, p.q_len) - 1;
   const int offs = pp.offsets[b];
   const int window = p.window;
-  load_q<TQ>(p, rows, sm, b);
-  RowInfo ri[4];
-  row_infos(p, rows, ri);
-
-  float acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+  Thread<G> st;
+  load_q<G, TQ, D>(p, rows, sm, st, b);
+  float* scratch = take_scratch<G>(p);
 
   // History: pages of this row, kv column j = absolute position j.
   if (offs > 0) {
@@ -103,6 +103,9 @@ paged_prefill_kernel(PagedParams pp) {
       if (j0 >= offs) return false;
       return window <= 0 || j1 - 1 > offs + p_lo - window;
     };
+    auto full = [&](int j0, int j1) {
+      return j1 <= offs && (window <= 0 || j0 > offs + p_hi - window);
+    };
     auto mask = [&](const RowInfo& row, int j, float x) {
       if (!row.active) return MASK_VALUE;
       const int i = row.pos;
@@ -118,8 +121,9 @@ paged_prefill_kernel(PagedParams pp) {
       first = min(lo / pp.bk, last);
     }
     for (int blk = first; blk < last; ++blk)
-      attend_block<TQ>(p, sm, ri, acc, blk * pp.bk, pp.bk, kbase, vbase,
-                       ksc, vsc, src, live, mask);
+      attend_block<G, TQ, D>(
+          p, sm, st, scratch, blk * pp.bk, pp.bk, kbase, vbase, ksc, vsc, src,
+          live, full, mask, blk + 1 < last ? (blk + 1) * pp.bk : -1);
   }
 
   // The chunk itself, causally: kv column c = chunk position c.
@@ -131,6 +135,9 @@ paged_prefill_kernel(PagedParams pp) {
     auto live = [&](int c0, int c1) {
       if (c0 > p_hi) return false;
       return window <= 0 || c1 - 1 > p_lo - window;
+    };
+    auto full = [&](int c0, int c1) {
+      return c1 - 1 <= p_lo && (window <= 0 || c0 > p_hi - window);
     };
     auto mask = [&](const RowInfo& row, int c, float x) {
       if (!row.active) return MASK_VALUE;
@@ -144,78 +151,132 @@ paged_prefill_kernel(PagedParams pp) {
     const int c_first =
         window > 0 ? max(p_lo - window + 1, 0) / pp.block_q : 0;
     for (int c = c_first; c <= c_last; ++c)
-      attend_block<TQ>(p, sm, ri, acc, c * pp.block_q, pp.block_q, kbase,
-                       vbase, (const float*)nullptr, (const float*)nullptr,
-                       src, live, mask);
+      attend_block<G, TQ, D>(
+          p, sm, st, scratch, c * pp.block_q, pp.block_q, kbase, vbase,
+          (const float*)nullptr, (const float*)nullptr, src, live, full, mask,
+          c < c_last ? (c + 1) * pp.block_q : -1);
   }
-  store_rows<TQ>(p, rows, sm, acc, b);
+  give_scratch<G>(p, scratch);
+  store_rows<G, TQ, D>(p, rows, sm, st, b);
 }
 
-template <typename TQ, typename TK, int D>
-int launch(const PagedParams& pp, int batch, cudaStream_t stream) {
-  constexpr size_t smem = Geo<D>::smem_bytes;
-  cudaFuncSetAttribute(paged_prefill_kernel<TQ, TK, D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+template <typename G, typename TK>
+int launch_tile(PagedParams pp, int batch, long long scratch_floats,
+                cudaStream_t stream) {
+  constexpr int R = G::WR * WARPS;
+  auto kernel = paged_prefill_kernel<G, TK>;
+  if (pp.rp.g > R) return (int)cudaErrorInvalidValue;
+  pp.rp.qp = R / pp.rp.g;
   dim3 grid((pp.rp.q_len + pp.rp.qp - 1) / pp.rp.qp, pp.rp.hkv, batch);
-  paged_prefill_kernel<TQ, TK, D><<<grid, THREADS, smem, stream>>>(pp);
+  const int rc = check_scratch<G>(
+      pp.rp, pp.bk > pp.block_q ? pp.bk : pp.block_q, scratch_floats);
+  if (rc != 0) return rc;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       G::SMEM);
+  kernel<<<grid, THREADS, G::SMEM, stream>>>(pp);
   return (int)cudaGetLastError();
 }
 
-template <typename TQ, typename TK>
-int launch_width(const PagedParams& pp, int head_dim, int batch,
-                 cudaStream_t stream) {
-  return head_dim == 256 ? launch<TQ, TK, 256>(pp, batch, stream)
-                         : launch<TQ, TK, 128>(pp, batch, stream);
-}
+// The product's instances: R rows a block, each dtype's default step.
+template <int R>
+struct Product {
+  template <typename TQ, typename TK, int D>
+  static int launch(const PagedParams& pp, int batch, long long sf,
+                    cudaStream_t s) {
+    return launch_tile<Geo<D, TQ, R>, TK>(pp, batch, sf, s);
+  }
+  template <typename TQ, typename TK, int D>
+  static int occupancy(int* smem_bytes, int* blocks_per_sm) {
+    using G = Geo<D, TQ, R>;
+    auto kernel = paged_prefill_kernel<G, TK>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         G::SMEM);
+    *smem_bytes = G::SMEM;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                  THREADS, G::SMEM);
+    return (int)cudaGetLastError();
+  }
+};
 
-template <typename TQ>
-int launch_pages(const PagedParams& pp, int page_dtype, int head_dim,
-                 int batch, cudaStream_t stream) {
+// One instance of P (Product<R>) by q dtype, page dtype and head width,
+// through `call` (a launch or an occupancy query).
+template <typename TQ, typename Call>
+int by_pages(int page_dtype, int head_dim, Call call) {
+  auto width = [&](auto tk) {
+    using TK = decltype(tk);
+    return head_dim == 256 ? call.template run<TQ, TK, 256>()
+                           : call.template run<TQ, TK, 128>();
+  };
   switch (page_dtype) {
-    case 0: return launch_width<TQ, float>(pp, head_dim, batch, stream);
-    case 1:
-      return launch_width<TQ, __nv_bfloat16>(pp, head_dim, batch, stream);
-    case 2: return launch_width<TQ, int8_t>(pp, head_dim, batch, stream);
-    case 3: return launch_width<TQ, Int4Tokens>(pp, head_dim, batch, stream);
-    case 4:
-      return launch_width<TQ, __nv_fp8_e4m3>(pp, head_dim, batch, stream);
+    case 0: return width(float{});
+    case 1: return width(__nv_bfloat16{});
+    case 2: return width(int8_t{});
+    case 3: return width(Int4Tokens{});
+    case 4: return width(__nv_fp8_e4m3{});
   }
   return (int)cudaErrorInvalidValue;
 }
 
+template <int R>
+struct LaunchCall {
+  const PagedParams& pp;
+  int batch;
+  long long sf;
+  cudaStream_t s;
+  template <typename TQ, typename TK, int D>
+  int run() const {
+    return Product<R>::template launch<TQ, TK, D>(pp, batch, sf, s);
+  }
+};
+
+template <int R>
+struct OccupancyCall {
+  int* smem;
+  int* blocks;
+  template <typename TQ, typename TK, int D>
+  int run() const {
+    return Product<R>::template occupancy<TQ, TK, D>(smem, blocks);
+  }
+};
+
 }  // namespace
 
-// q_dtype: 0 = float32, 1 = bfloat16 (q, chunk k/v and o share it).
-// page_dtype: 0 f32, 1 bf16; with k_scales/v_scales: 2 int8, 3 int4
-// (token-packed, page_size even), 4 fp8 (e4m3).
-// Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
-// for a configuration this build does not serve.
-extern "C" int paged_prefill(
-    const void* q, const void* chunk_k, const void* chunk_v,
-    const void* k_pages, const void* v_pages, const void* k_scales,
-    const void* v_scales, const void* q_offsets, const void* tables,
-    const void* sinks, const void* alibi, void* o, int q_dtype,
-    int page_dtype, int batch, int hq, int hkv, int q_len, int num_pages,
-    int page_size, int pages_per_seq, int block_tokens, int block_q,
-    int head_dim, float scale, int window, float softcap, float inv_softcap,
-    void* stream) {
+#define PAGED_PREFILL_ARGS                                                  \
+  const void *q, const void *chunk_k, const void *chunk_v,                  \
+      const void *k_pages, const void *v_pages, const void *k_scales,       \
+      const void *v_scales, const void *q_offsets, const void *tables,      \
+      const void *sinks, const void *alibi, void *o, void *scratch,         \
+      long long scratch_floats, int scratch_slots, int q_dtype,             \
+      int page_dtype, int batch, int hq, int hkv, int q_len,                \
+      int num_pages, int page_size, int pages_per_seq, int block_tokens,    \
+      int block_q, int head_dim, int rows, float scale, int window,         \
+      float softcap, float inv_softcap, void *stream
+#define PAGED_PREFILL_PARAMS                                                \
+  q, chunk_k, chunk_v, k_pages, v_pages, k_scales, v_scales, q_offsets,     \
+      tables, sinks, alibi, o, scratch, scratch_floats, scratch_slots,      \
+      q_dtype, page_dtype, batch, hq, hkv, q_len, num_pages, page_size,     \
+      pages_per_seq, block_tokens, block_q, head_dim, rows, scale, window,  \
+      softcap, inv_softcap, stream
+
+// A call's parameters, or cudaErrorInvalidValue for a configuration this
+// build does not serve.
+static int paged_params(PagedParams& pp, PAGED_PREFILL_ARGS) {
   if ((head_dim != 128 && head_dim != 256) || hq % hkv != 0 ||
-      hq / hkv > BQ ||
       (q_dtype != 0 && q_dtype != 1) || block_tokens <= 0 || block_q <= 0 ||
       q_len <= 0 || (page_dtype >= 2) != (k_scales != nullptr) ||
-      (page_dtype == 3 && page_size % 2 != 0)) {
+      (page_dtype == 3 && page_size % 2 != 0) ||
+      (rows != ROWS && (rows != ROWS_VERIFY || q_dtype != 1))) {
     return (int)cudaErrorInvalidValue;
   }
-  PagedParams pp;
   pp.rp.q = q;
   pp.rp.o = o;
   pp.rp.sinks = static_cast<const float*>(sinks);
   pp.rp.alibi = static_cast<const float*>(alibi);
+  pp.rp.scratch = static_cast<float*>(scratch);
+  pp.rp.slots = scratch_slots;
   pp.rp.hq = hq;
   pp.rp.hkv = hkv;
   pp.rp.g = hq / hkv;
-  pp.rp.qp = BQ / pp.rp.g;
   pp.rp.q_len = q_len;
   pp.rp.scale = scale;
   pp.rp.window = window;
@@ -235,9 +296,43 @@ extern "C" int paged_prefill(
   pp.pps = pages_per_seq;
   pp.bk = block_tokens;
   pp.block_q = block_q;
+  return 0;
+}
+
+// q_dtype: 0 = float32, 1 = bfloat16 (q, chunk k/v and o share it).
+// page_dtype: 0 f32, 1 bf16; with k_scales/v_scales: 2 int8, 3 int4
+// (token-packed, page_size even), 4 fp8 (e4m3). rows: query rows a block,
+// ROWS (64) or, for bf16 q, ROWS_VERIFY (16). scratch: scratch_floats f32
+// of device memory holding scratch_slots slots (prefill_tile.cuh,
+// take_scratch), as paged_prefill.py sizes it, or nullptr when no kv
+// block is wider than one window (128 columns; 64 at d 256).
+// Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
+// for a configuration this build does not serve.
+extern "C" int paged_prefill(PAGED_PREFILL_ARGS) {
+  PagedParams pp;
+  const int rc = paged_params(pp, PAGED_PREFILL_PARAMS);
+  if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return q_dtype == 0
-             ? launch_pages<float>(pp, page_dtype, head_dim, batch, s)
-             : launch_pages<__nv_bfloat16>(pp, page_dtype, head_dim, batch,
-                                           s);
+  if (rows == ROWS_VERIFY)
+    return by_pages<__nv_bfloat16>(page_dtype, head_dim,
+                                   LaunchCall<ROWS_VERIFY>{pp, batch,
+                                                           scratch_floats, s});
+  const LaunchCall<ROWS> call{pp, batch, scratch_floats, s};
+  return q_dtype == 0 ? by_pages<float>(page_dtype, head_dim, call)
+                      : by_pages<__nv_bfloat16>(page_dtype, head_dim, call);
+}
+
+// The shared memory and blocks an SM of the instance a call of these
+// dtypes, head width and rows takes.
+extern "C" int paged_prefill_occupancy(int q_dtype, int page_dtype,
+                                       int head_dim, int rows,
+                                       int* smem_bytes, int* blocks_per_sm) {
+  if (rows == ROWS_VERIFY && q_dtype == 1)
+    return by_pages<__nv_bfloat16>(
+        page_dtype, head_dim,
+        OccupancyCall<ROWS_VERIFY>{smem_bytes, blocks_per_sm});
+  if (rows != ROWS) return (int)cudaErrorInvalidValue;
+  const OccupancyCall<ROWS> call{smem_bytes, blocks_per_sm};
+  return q_dtype == 0 ? by_pages<float>(page_dtype, head_dim, call)
+                      : by_pages<__nv_bfloat16>(page_dtype, head_dim, call);
 }

@@ -125,6 +125,15 @@ class CudaKernel:
             self._lib = lib
         return getattr(self._lib, self.symbol)
 
+    def entry(self, name: str, argtypes: List):
+        """Another C entry point of the same library (a query, not a
+        kernel: it has no launch count)."""
+        self.function()
+        fn = getattr(self._lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
     def launch(self, *args, tag: Optional[str] = None) -> None:
         """Run the entry point; raise on a CUDA error; count the launch
         (and, with a ``tag``, count it under the tag too)."""
@@ -173,12 +182,12 @@ PAGED_DECODE = CudaKernel(
 )
 PAGED_PREFILL = CudaKernel(
     "paged_prefill", "paged_prefill",
-    [P] * 12 + [I] * 12 + [F, I, F, F, P],
+    [P] * 13 + [L] + [I] * 14 + [F, I, F, F, P],
     replaces="tpu_flash/ops/flash/paged_prefill.py:69",
 )
 RAGGED_PREFILL = CudaKernel(
     "ragged_prefill", "ragged_prefill",
-    [P] * 7 + [I] * 8 + [F, I, F, F, P],
+    [P] * 8 + [L] + [I] * 9 + [F, I, F, F, P],
     replaces="tpu_flash/ops/flash/ragged.py:56",
 )
 # K10: the tiled quantized-input forward and the int8 staircase, one

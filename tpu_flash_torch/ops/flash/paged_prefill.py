@@ -24,7 +24,9 @@ history, as the JAX engine does.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,6 +45,85 @@ PAGE_KINDS = {"float32": 0, "bfloat16": 1, "int8": 2, "int4": 3, "fp8": 4}
 KERNEL_HEAD_DIMS = (128, 256)  # what csrc/paged_prefill.cu instantiates
 KERNEL_MAX_Q_PER_KV = 64  # one block stacks q_per_kv heads in 64 rows
 TILES = TileSizes()
+# The order-exact tile's geometry (csrc/prefill_tile.cuh; a CPU test holds
+# the two equal): query rows a block, and kv columns a softmax window by
+# head width.
+TILE_ROWS = 64
+TILE_ROWS_VERIFY = 16
+TILE_WINDOW = {128: 128, 256: 64}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def tile_rows(q: torch.Tensor, num_kv_heads: int,
+              sms: Optional[int] = None) -> int:
+    """Query rows a block of the paged prefill kernel: TILE_ROWS_VERIFY
+    for a bf16 call whose TILE_ROWS grid would not give every SM a block
+    (the speculative verify: b 8 x 9 rows over 8 kv heads is 64 blocks),
+    else TILE_ROWS."""
+    b, hq, q_len, _ = q.shape
+    g = hq // num_kv_heads
+    if q.dtype != torch.bfloat16 or g > TILE_ROWS_VERIFY:
+        return TILE_ROWS
+    blocks = -(-q_len // (TILE_ROWS // g)) * num_kv_heads * b
+    if sms is None:
+        sms = _sm_count(q.device)
+    return TILE_ROWS_VERIFY if blocks < sms else TILE_ROWS
+
+
+def tile_occupancy(kernel: build.CudaKernel,
+                   args: Tuple[int, ...]) -> Tuple[int, int]:
+    """Shared memory and blocks an SM of one instance of a prefill tile
+    kernel: the library's ``<symbol>_occupancy`` query (the CUDA
+    occupancy calculator), which takes ``args``."""
+    query = kernel.entry(f"{kernel.symbol}_occupancy",
+                         [build.I] * len(args) + [build.P, build.P])
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = query(*args, ctypes.byref(smem), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(
+            f"{kernel.name} occupancy query {args}: CUDA error {rc}")
+    return smem.value, blocks.value
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(kernel: build.CudaKernel, args: Tuple[int, ...],
+                    device: torch.device) -> int:
+    """Thread blocks of one instance of a prefill tile kernel that the
+    card runs at once: its blocks an SM (tile_occupancy) times the
+    SMs."""
+    with torch.cuda.device(device):
+        _, blocks = tile_occupancy(kernel, args)
+    if blocks < 1:
+        raise RuntimeError(f"{kernel.name} {args}: no block fits an SM")
+    return blocks * _sm_count(device)
+
+
+def tile_scratch(q: torch.Tensor, num_kv_heads: int, rows: int,
+                 widest: int, resident: int
+                 ) -> Tuple[Optional[torch.Tensor], int]:
+    """The f32 score scratch of a launch whose widest kv block is
+    ``widest`` columns, and its slots; (None, 0) where every kv block
+    fits one window. A thread block whose kv block spans several windows
+    writes their scores to a slot and reads them back to form P. A slot
+    serves one running thread block at a time, so there are as many as
+    the card runs at once (``resident``), and no more than the grid has.
+    The slots' flag words come first (zero: free), padded to 16 bytes."""
+    b, hq, q_len, d = q.shape
+    window = TILE_WINDOW[d]
+    nwin = -(-widest // window)
+    if nwin <= 1:
+        return None, 0
+    qp = rows // (hq // num_kv_heads)
+    slots = min(-(-q_len // qp) * num_kv_heads * b, resident)
+    flags = -(-slots // 4) * 4
+    scratch = torch.empty(flags + slots * nwin * rows * window,
+                          dtype=torch.float32, device=q.device)
+    scratch[:flags].zero_()
+    return scratch, slots
 
 
 class BlockSoftmax:
@@ -340,14 +421,20 @@ def _paged_prefill_cuda(q, chunk_k, chunk_v, k_vals, v_vals, k_scales,
     sinks = None if sinks is None else sinks.float().contiguous()
     alibi = None if alibi is None else alibi.float().contiguous()
     o = torch.empty_like(q)
+    rows = tile_rows(q, hkv)
+    kinds = (KERNEL_DTYPES[q.dtype], PAGE_KINDS[page_kind], d, rows)
+    scratch, slots = tile_scratch(
+        q, hkv, rows, max(pages_per_block * ps, block_q),
+        resident_blocks(build.PAGED_PREFILL, kinds, q.device))
     build.PAGED_PREFILL.launch(
         build.ptr(q), build.ptr(chunk_k), build.ptr(chunk_v),
         build.ptr(k_vals), build.ptr(v_vals), build.ptr(k_scales),
         build.ptr(v_scales), build.ptr(q_offsets), build.ptr(page_tables),
-        build.ptr(sinks), build.ptr(alibi), build.ptr(o),
+        build.ptr(sinks), build.ptr(alibi), build.ptr(o), build.ptr(scratch),
+        0 if scratch is None else scratch.numel(), slots,
         KERNEL_DTYPES[q.dtype], PAGE_KINDS[page_kind], b, hq, hkv,
         q_len, num_pages, ps, page_tables.shape[1], pages_per_block * ps,
-        block_q, d, rounded_scale(sm_scale, q.dtype),
+        block_q, d, rows, rounded_scale(sm_scale, q.dtype),
         0 if window is None else window,
         0.0 if softcap is None else softcap,
         0.0 if softcap is None else float(1.0 / softcap),

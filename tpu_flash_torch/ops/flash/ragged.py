@@ -35,9 +35,12 @@ from tpu_flash_torch.ops.flash.paged_prefill import (
     KERNEL_DTYPES,
     KERNEL_HEAD_DIMS,
     KERNEL_MAX_Q_PER_KV,
+    TILE_ROWS,
     TILES,
     BlockSoftmax,
+    resident_blocks,
     scaled_queries,
+    tile_scratch,
 )
 
 
@@ -181,9 +184,14 @@ def _ragged_prefill_cuda(q, k, v, q_offsets, *, hist_cap, sm_scale,
     sinks = None if sinks is None else sinks.float().contiguous()
     alibi = None if alibi is None else alibi.float().contiguous()
     o = torch.empty_like(q)
+    scratch, slots = tile_scratch(
+        q, hkv, TILE_ROWS, block_kv,
+        resident_blocks(build.RAGGED_PREFILL, (KERNEL_DTYPES[q.dtype], d),
+                        q.device))
     build.RAGGED_PREFILL.launch(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(q_offsets),
-        build.ptr(sinks), build.ptr(alibi), build.ptr(o),
+        build.ptr(sinks), build.ptr(alibi), build.ptr(o), build.ptr(scratch),
+        0 if scratch is None else scratch.numel(), slots,
         KERNEL_DTYPES[q.dtype], b, hq, hkv, q_len, hist_cap, block_kv, d,
         rounded_scale(sm_scale, q.dtype),
         0 if window is None else window,
