@@ -15,7 +15,9 @@ network. Phases, one JSON line each:
      tensor-core instructions in its SASS (the bf16 tensor-core instances
      must have them; the f32 ones, the forward's order-exact bf16 entry
      and every prefill instance not); each prefill instance's shared
-     memory and blocks an SM (two at d 128);
+     memory and blocks an SM (two at d 128); each paged decode instance's
+     registers, spill bytes, shared memory, blocks an SM and clusters
+     the card holds at once;
   3. kernels: each kernel against its plain PyTorch version on the card
      at the main path's shapes, with times, bounds and a library
      yardstick: the forward on both entry points (bf16 on the tensor
@@ -24,8 +26,12 @@ network. Phases, one JSON line each:
      cases and segment ids included, the backward pair
      (dK/dV and dQ) at the training shape, decode over every page tier
      (bf16, int8, int4, int4g32, k8v4, fp8; int8_mxu and fp8_native on
-     and off), paged prefill over bf16, int8, int4 and fp8 pages and
-     ragged prefill, both with a bar per row and a late-row control,
+     and off; rows at ragged lengths, the ring over rows shorter than
+     it, four kv blocks, a window starting inside a page, (m, l) out),
+     each with the count of output elements that differ from the plain
+     version (0 required), paged prefill over bf16, int8, int4 and fp8
+     pages and ragged prefill, both with a bar per row and a late-row
+     control,
      tile-edge cases and the count of output elements that differ from
      the plain version at all; config 1's d 64 f32 row of the forward;
      the quantized-input
@@ -149,6 +155,48 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Bytes the device writes before each call device_ms times, five times
+# the H100's 50 MB L2 cache: each call then reads its inputs from device
+# memory, as a serving step's layer does.
+L2_FLUSH_BYTES = 256 << 20
+
+
+def device_ms(fn, iters: int, cold: bool = True) -> float:
+    """Mean device milliseconds per call of fn() with the host's enqueue
+    hidden, for calls whose kernels take less time than the host takes to
+    launch them (time_ms would time the host): each call is timed by CUDA
+    events of its own, and the device first spins (torch.cuda._sleep) for
+    twice the host's measured enqueue time at 2 GHz, so the events time
+    the device alone. ``cold``: before each call the device overwrites
+    L2_FLUSH_BYTES (outside the events); else the calls find what the
+    last one left in the L2 cache."""
+    import torch
+
+    flush = (torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold
+             else None)
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+
+    def calls():
+        for start, end in marks:
+            if flush is not None:
+                flush.zero_()
+            start.record()
+            fn()
+            end.record()
+
+    calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2 * host_s * 2e9))
+    calls()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in marks) / iters
+
+
 def bound(bytes_moved: float, ops: float, dtype: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
@@ -160,6 +208,14 @@ def max_err(a, b) -> float:
     if isinstance(a, tuple):
         return max(max_err(x, y) for x, y in zip(a, b))
     return float((a.float() - b.float()).abs().max())
+
+
+def differing(out, ref) -> int:
+    """Elements of ``out`` (a tensor or a tuple of them) that differ from
+    ``ref`` at all."""
+    if isinstance(out, tuple):
+        return sum(differing(x, y) for x, y in zip(out, ref))
+    return int((out != ref).sum())
 
 
 def case_bar(ref) -> float:
@@ -840,11 +896,17 @@ def unscaled(pages):
     return pages._replace(scales=torch.ones_like(pages.scales))
 
 
+# Per-row lengths of the ragged cases: a token, both sides of a page edge
+# and of the 128-token ring (rows at L <= 128 leave the pages no live
+# token), a window's worth, and both sides of the 2048-token table's end.
+RAGGED_LENGTHS = (1, 127, 128, 129, 700, 1500, 2047, 2048)
+
 # (case, kv dtype, page size, f32 q, kwargs, control). The control is the
 # kwargs with the case's option dropped, a plain function, or a page
 # transform that a kernel ignoring part of the tier's format would match
 # (on V only where K would swamp it). The 4-bit and fp8 cases take the
-# auto layout's 512-token pages and 128-token ring of phase 4.
+# auto layout's 512-token pages and 128-token ring of phase 4. "ragged":
+# the batch's rows at RAGGED_LENGTHS (its control: every row at 2048).
 DECODE_CASES = [
     ("bf16", "bfloat16", 128, False, {}, None),
     ("bf16_f32_q", "bfloat16", 128, True, dict(sm_scale=0.125),
@@ -871,6 +933,30 @@ DECODE_CASES = [
      dict(fp8_native=True, ring=128), dict(fp8_native=False, ring=128)),
     ("fp8_exact_ring128", "fp8", 512, False,
      dict(fp8_native=False, ring=128), ("v", unscaled)),
+    ("int8_mxu_ring128_ragged", "int8", 128, False,
+     dict(int8_mxu=True, ring=128, ragged=True), dict(int8_mxu=True,
+                                                      ring=128)),
+    ("bf16_ragged", "bfloat16", 128, False, dict(ragged=True), {}),
+    ("int4_mxu_ring128_ragged", "int4", 512, False,
+     dict(int8_mxu=True, ring=128, ragged=True), dict(int8_mxu=True,
+                                                      ring=128)),
+    ("int4g32_ring128_ragged", "int4g32", 512, False,
+     dict(ring=128, ragged=True), dict(ring=128)),
+    ("k8v4_mxu_ring128_ragged", "k8v4", 512, False,
+     dict(int8_mxu=True, ring=128, ragged=True), dict(int8_mxu=True,
+                                                      ring=128)),
+    ("fp8_native_ring128_ragged", "fp8", 512, False,
+     dict(fp8_native=True, ring=128, ragged=True), dict(fp8_native=True,
+                                                        ring=128)),
+    # Four kv blocks of 512 tokens (the recurrence runs across them), a
+    # window whose first token sits inside a page, (m, l) returned.
+    ("bf16_bk512_window900_state_ragged", "bfloat16", 128, False,
+     dict(pages_per_compute_block=4, window=900, return_state=True,
+          ragged=True), dict(pages_per_compute_block=4, return_state=True,
+                             ragged=True)),
+    ("int8_mxu_bk512_ragged", "int8", 128, False,
+     dict(int8_mxu=True, pages_per_compute_block=4, ragged=True),
+     dict(int8_mxu=True, pages_per_compute_block=4)),
 ]
 
 
@@ -900,20 +986,23 @@ def check_decode(dev):
     rows = []
     for name, kv_dtype, ps, f32_q, kw, control in DECODE_CASES:
         kw = dict(kw)
-        q, kp, vp, lengths, table, ring = decode_inputs(
+        q, kp, vp, full, table, ring = decode_inputs(
             dev, kv_dtype, kw.pop("ring", 0), ps
         )
+        ragged = torch.tensor(RAGGED_LENGTHS, dtype=torch.int32, device=dev)
+        lengths = ragged if kw.pop("ragged", False) else full
         if f32_q:
             q = q.float()
         kw.update(ring)
 
         def kernel(over=None, pages=(kp, vp)):
-            args = dict(kw)
+            args, lens = dict(kw), lengths
             if over is not None:
                 args = dict(over)
                 if args.pop("ring", 0):
                     args.update(ring)
-            return dp.paged_attention(q, *pages, lengths, table, **args)
+                lens = ragged if args.pop("ragged", False) else full
+            return dp.paged_attention(q, *pages, lens, table, **args)
 
         out = kernel()
         torch.cuda.synchronize()
@@ -931,12 +1020,18 @@ def check_decode(dev):
         ctl = (getattr(control, "__name__", control)
                if not isinstance(control, tuple)
                else f"{control[0]}:{control[1].__name__}")
+        o, o_ref = (out[0], ref[0]) if isinstance(out, tuple) else (out, ref)
         row = dict(case=name, tier=decode_tag(kv_dtype, kw), batch=q.shape[0],
-                   context=int(lengths[0]), page_size=ps,
-                   q_dtype=str(q.dtype).removeprefix("torch."),
-                   control=str(ctl), **agreement(out, ref, off),
-                   ms=time_ms(kernel, 50), plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                   context=int(lengths.max()), lengths=lengths.tolist(),
+                   page_size=ps, q_dtype=str(q.dtype).removeprefix("torch."),
+                   control=str(ctl), **agreement(o, o_ref, off),
+                   differing=differing(out, ref),
+                   ms=device_ms(kernel, 50),
+                   warm_ms=device_ms(kernel, 50, cold=False),
+                   call_ms=time_ms(kernel, 50),
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=None)
+        row["ok"] = row["ok"] and row["differing"] == 0
         rows.append(row)
         log("kernel_vs_plain", kernel="paged_decode", **row)
     raise_if_failed("paged_decode", rows)
@@ -995,7 +1090,7 @@ def check_decode_wide_group(dev):
                    tier=decode_tag(kv_dtype, kw), launches=launches,
                    max_abs_err=max_err(out, ref),
                    bit_exact=bool(torch.equal(out, ref)),
-                   ms=time_ms(kernel, 20))
+                   ms=device_ms(kernel, 20))
         row["ok"] = row["bit_exact"] and launches == 2
         rows.append(row)
         log("kernel_vs_plain", kernel="paged_decode", **row)
@@ -1694,9 +1789,10 @@ def check_decode_d256(dev):
                    page_size=ps, ring=ring,
                    options={x: str(y) for x, y in kw.items()},
                    control={x: str(y) for x, y in control.items()},
-                   **agreement(out, ref, off), bit_exact=torch.equal(out, ref),
-                   ms=time_ms(run, 20), plain_ms=plain_ms,
+                   **agreement(out, ref, off), differing=differing(out, ref),
+                   ms=device_ms(run, 20), plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        row["ok"] = row["ok"] and row["differing"] == 0
         rows.append(row)
         log("kernel_vs_plain", kernel="paged_decode", width=GEMMA_D, **row)
     raise_if_failed("paged_decode d256", rows)
@@ -2963,6 +3059,67 @@ def prefill_occupancy():
     return rows
 
 
+# Phase 2's shapes for K4's occupancy query, by head width: (q heads, kv
+# heads, tokens a page table holds = the kv block, ring) as phases 3 and 4
+# call it: Llama-3-8B at the serving layout, Gemma-2-9B at 8192 tokens.
+DECODE_SHAPES = {128: (32, 8, 2048, 128), 256: (16, 8, 4096, 128)}
+DECODE_INSTANCES = 44  # 2 q dtypes x 11 (K, V) tier pairs x 2 widths
+
+
+def decode_instances():
+    """Each instance of the paged decode kernel (K4): its registers and
+    spill bytes (nvcc's -Xptxas -v log), and at DECODE_SHAPES (batch 8)
+    with the slices the wrapper picks there its shared memory
+    a block, blocks an SM and clusters the card holds at once (the CUDA
+    occupancy calculator).
+    Raises if the library does not hold its 44 instances or one of them
+    fits no cluster."""
+    import re
+
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.ops.decode import paged as dp
+
+    import torch
+
+    names = {v: k for k, v in dp.TIERS.items()}
+    funcs, cur = {}, None
+    for ln in build.PAGED_DECODE.build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(m[1], {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur is not None:
+            cur.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m[1])
+    rows = []
+    for name, info in sorted(funcs.items()):
+        m = re.search(r"paged_decode_kernelI(f|13__nv_bfloat16)Li(\d+)ELi"
+                      r"(\d+)ELi(\d+)E", name)
+        if not m:
+            continue
+        q, kt, vt, d = int(m[1] != "f"), int(m[2]), int(m[3]), int(m[4])
+        hq, hkv, tokens, ring = DECODE_SHAPES[d]
+        slices = dp.launch_slices(
+            torch.empty(8, hq, d, device="cuda",
+                        dtype=(torch.float32, torch.bfloat16)[q]),
+            names[kt], names[vt], hkv, 128, tokens // 128, tokens, ring)
+        smem, blocks, clusters = dp.decode_occupancy(
+            q, kt, vt, hq, hkv, 128, tokens // 128, tokens, ring, d, slices,
+            8)
+        rows.append(dict(q=("float32", "bfloat16")[q], k_tier=names[kt],
+                         v_tier=names[vt], d=d, **info, slices=slices,
+                         smem_bytes=smem,
+                         blocks_per_sm=blocks, clusters=clusters))
+    if len(rows) != DECODE_INSTANCES or any(r["clusters"] < 1 for r in rows):
+        raise AssertionError(
+            f"paged_decode: {len(rows)} instances (want "
+            f"{DECODE_INSTANCES}), or one fits no cluster: {rows}")
+    return rows
+
+
 def tc_instances(lib):
     """Each kernel function of one of TC_LIBRARIES' built libraries: its
     dtype, registers and spill bytes (nvcc's -Xptxas -v log) and its
@@ -3059,7 +3216,8 @@ def main() -> int:
         ptxas=[ln.strip() for k in build.KERNELS.values()
                for ln in k.build_log.splitlines() if "Used" in ln],
         **{f"{lib}_instances": tc_instances(lib) for lib in TC_LIBRARIES},
-        prefill_occupancy=prefill_occupancy())
+        prefill_occupancy=prefill_occupancy(),
+        decode_instances=decode_instances())
     if "--trained-only" in sys.argv[1:]:
         check_trained(dev)  # phase 5 alone, to look into a greedy flip
         return 0
@@ -3095,7 +3253,7 @@ def main() -> int:
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             **{x: y for x, y in s.items()
                if x.startswith(("whole_", "d256_", "d64_", "fastest_",
-                                "fp32_"))},
+                                "fp32_", "call_", "warm_"))},
         ))
     print(gpu_query(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

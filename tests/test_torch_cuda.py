@@ -829,9 +829,10 @@ def test_new_kernels_launch_and_never_take_the_plain_path(dev):
 @pytest.mark.parametrize("tier", ["bfloat16", "int8-mxu"])
 def test_paged_decode_wide_block_matches_plain(dev, tier):
     """An 8192-token kv block (8 pages of 1024, as the bench's 8K bf16
-    decode row) at 4 q heads per kv head: the score rows take g * bk
-    floats of shared memory, so the block fits; bit for bit with the
-    plain version. The same block at 8 q heads per kv head raises."""
+    decode row) at 4 and at 8 q heads per kv head: a block's score rows
+    take g * bk / slices floats of shared memory, so the block fits; bit
+    for bit with the plain version. The same block on one slice at 8 q
+    heads per kv head raises."""
     from tpu_flash_torch.ops.decode import paged
 
     g = torch.Generator(device=dev).manual_seed(12)
@@ -853,8 +854,64 @@ def test_paged_decode_wide_block_matches_plain(dev, tier):
         paged._paged_decode_cuda = saved
     assert torch.equal(out, ref)
     q8 = _rn(g, b, 2 * hq, 128)
-    with pytest.raises(ValueError, match="shared memory"):
-        paged.paged_attention(q8, kp, vp, lengths, table, **kw)
+    out = paged.paged_attention(q8, kp, vp, lengths, table, **kw)
+    torch.cuda.synchronize()
+    paged._paged_decode_cuda = paged.paged_decode_plain
+    try:
+        ref = paged.paged_attention(q8, kp, vp, lengths, table, **kw)
+    finally:
+        paged._paged_decode_cuda = saved
+    assert torch.equal(out, ref)
+    saved = paged.SLICES
+    paged.SLICES = 1
+    try:
+        with pytest.raises(ValueError, match="shared memory"):
+            paged.paged_attention(q8, kp, vp, lengths, table, **kw)
+    finally:
+        paged.SLICES = saved
+
+
+@pytest.mark.parametrize("slices", [1, 3, 8])
+@pytest.mark.parametrize("tier", list(DECODE_TIERS))
+def test_paged_decode_split_bit_exact(dev, tier, slices):
+    """Ragged rows (a token, both sides of a page edge and of a 32-token
+    ring, the whole table) cut over 1 to 8 thread blocks a (batch row,
+    kv head): with the ring (rows at L <= 32 leave the pages no live
+    token), and with a window starting inside a page over four kv blocks
+    with (m, l) returned. Bit for bit the plain version's outputs."""
+    from tpu_flash_torch.ops.decode import paged
+
+    g = torch.Generator(device=dev).manual_seed(40)
+    b, hq, hkv, ps, pps = 8, 8, 2, 16, 16
+    n_pages = b * pps + 3
+    lengths = torch.tensor([1, 15, 16, 17, 100, 200, 255, 256],
+                           dtype=torch.int32, device=dev)
+    table = torch.randperm(n_pages, generator=g, device=dev)[
+        : b * pps].reshape(b, pps).int()
+    kp, vp = (_rn(g, hkv, n_pages, ps, 128) for _ in range(2))
+    kp, vp, opts = _decode_pages(kp, vp, tier)
+    q = _rn(g, b, hq, 128, dtype=torch.bfloat16)
+    ring = [_rn(g, b, hkv, 32, 128, dtype=torch.bfloat16) for _ in range(2)]
+    saved = paged.SLICES
+    for kw in (dict(opts, recent_k=ring[0], recent_v=ring[1]),
+               dict(opts, window=70, pages_per_compute_block=4,
+                    return_state=True, alibi=torch.linspace(
+                        0.3, 0.01, hq, device=dev))):
+        paged.SLICES = slices
+        try:
+            out = paged.paged_attention(q, kp, vp, lengths, table, **kw)
+            torch.cuda.synchronize()
+        finally:
+            paged.SLICES = saved
+        plain = paged._paged_decode_cuda
+        paged._paged_decode_cuda = paged.paged_decode_plain
+        try:
+            ref = paged.paged_attention(q, kp, vp, lengths, table, **kw)
+        finally:
+            paged._paged_decode_cuda = plain
+        for a, r in zip(out if isinstance(out, tuple) else (out,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            assert torch.equal(a, r)
 
 
 # -- head width 256 (Gemma-2) and the backward at 64 ---------------------

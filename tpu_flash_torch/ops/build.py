@@ -177,7 +177,7 @@ FLASH_BWD_DQ = CudaKernel(
 )
 PAGED_DECODE = CudaKernel(
     "paged_decode", "paged_decode",
-    [P] * 14 + [I] * 12 + [F, I, F, F, P],
+    [P] * 14 + [I] * 12 + [F, I, F, F, I, P],
     replaces="tpu_flash/ops/decode/paged.py:122",
 )
 PAGED_PREFILL = CudaKernel(

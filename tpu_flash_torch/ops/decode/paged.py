@@ -34,7 +34,9 @@ CUDA tensor launches the kernel (``csrc/paged_decode.cu``) or raises.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -63,6 +65,85 @@ KERNEL_HEAD_DIMS = (128, 256)  # what csrc/paged_decode.cu instantiates
 # q heads a kv head one kernel launch holds in its shared rows; a wider
 # group launches once per chunk of at most this many (in_q_head_chunks).
 KERNEL_MAX_Q_PER_KV = 8
+# The kernel splits each (batch row, kv head) over a cluster of `slices`
+# thread blocks, at most the portable cluster size. SLICES None:
+# decode_slices() picks; tests and tools/torch_decode_sweep.py set it to
+# run other splits.
+KERNEL_MAX_SLICES = 8
+SLICES: Optional[int] = None
+# Tokens a slice takes at most before the wrapper adds another.
+TOKENS_PER_SLICE = 256
+
+
+def decode_slices(tokens_per_seq: int, clusters_needed: int = 0,
+                  clusters_held: Optional[Callable[[int], int]] = None
+                  ) -> int:
+    """Thread blocks a (batch row, kv head) for a page table holding
+    ``tokens_per_seq`` tokens: one for each TOKENS_PER_SLICE, from 1 to
+    KERNEL_MAX_SLICES; and, where ``clusters_held(s)`` says how many
+    clusters of s blocks the card runs at once, the most for which all
+    ``clusters_needed`` (batch rows x kv heads) run in one wave (a second
+    wave costs a whole block's time again for a few clusters), as long as
+    the smaller split's blocks still fit the card (``clusters_held`` 0:
+    a block's share of a wide kv block is over its shared memory)."""
+    want = max(1, min(KERNEL_MAX_SLICES,
+                      -(-tokens_per_seq // TOKENS_PER_SLICE)))
+    if clusters_held is not None:
+        while (want > 1 and clusters_held(want) < clusters_needed
+               and clusters_held(want - 1) > 0):
+            want -= 1
+    return want
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters_held(device_index: int, args: Tuple[int, ...]) -> int:
+    # What the card holds at once does not depend on the grid: the query
+    # takes one batch row.
+    with torch.cuda.device(device_index):
+        return decode_occupancy(*args, 1)[2]
+
+
+def launch_slices(q: torch.Tensor, k_tier: str, v_tier: str, hkv: int,
+                  page_size: int, pages_per_seq: int, block_tokens: int,
+                  ring_w: int) -> int:
+    """The slices a call on ``q`` launches with: SLICES, or decode_slices
+    of its page table and of its kernel instance's cluster occupancy at
+    its shape (queried once a shape, planned once a batch)."""
+    b, hq, d = q.shape
+    return SLICES or _plan(
+        (KERNEL_Q_DTYPES[q.dtype], TIERS[k_tier], TIERS[v_tier], hq, hkv,
+         page_size, pages_per_seq, block_tokens, ring_w, d), b,
+        q.device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(shape, batch, device_index) -> int:
+    return decode_slices(
+        shape[5] * shape[6], batch * shape[4],
+        lambda s: _clusters_held(device_index, shape + (s,)))
+
+
+def decode_occupancy(q_dtype: int, k_tier: int, v_tier: int, hq: int,
+                     hkv: int, page_size: int, pages_per_seq: int,
+                     block_tokens: int, ring_w: int, head_dim: int,
+                     slices: int, batch: int) -> Tuple[int, int, int]:
+    """(shared bytes a block, blocks an SM, clusters the card holds at
+    once) of the kernel instance a call of this shape launches: the
+    library's ``paged_decode_occupancy`` query (the CUDA occupancy
+    calculator); (0, 0, 0) where one block would need more shared
+    memory than the card gives it."""
+    args = (q_dtype, k_tier, v_tier, hq, hkv, page_size, pages_per_seq,
+            block_tokens, ring_w, head_dim, slices, batch)
+    query = build.PAGED_DECODE.entry("paged_decode_occupancy",
+                                     [build.I] * len(args) + [build.P])
+    out = (ctypes.c_int * 3)()
+    rc = query(*args, out)
+    if rc == build.ERR_SHARED_MEMORY:
+        return 0, 0, 0
+    if rc != 0:
+        raise RuntimeError(f"paged_decode occupancy query {args}: CUDA "
+                           f"error {rc}")
+    return out[0], out[1], out[2]
 
 
 def pages_per_block(page_size: int, pages_per_seq: int, small_payload: bool,
@@ -541,7 +622,11 @@ def _paged_decode_cuda(q, k_vals, v_vals, k_scales, v_scales, lengths,
     lengths = lengths.to(torch.int32).contiguous()
     page_indices = page_indices.to(torch.int32).contiguous()
     if recent_k is not None:
-        recent_k, recent_v = recent_k.contiguous(), recent_v.contiguous()
+        recent_k, recent_v = build.aligned(recent_k), build.aligned(recent_v)
+    pps = page_indices.shape[1]
+    bk = pages_per_compute_block * ps
+    ring_w = 0 if recent_k is None else recent_k.shape[2]
+    slices = launch_slices(q, k_tier, v_tier, hkv, ps, pps, bk, ring_w)
     sinks = None if sinks is None else sinks.float().contiguous()
     alibi = None if alibi is None else alibi.float().contiguous()
     o = torch.empty_like(q)
@@ -556,12 +641,11 @@ def _paged_decode_cuda(q, k_vals, v_vals, k_scales, v_scales, lengths,
         build.ptr(sinks), build.ptr(alibi), build.ptr(o), build.ptr(m_out),
         build.ptr(l_out),
         KERNEL_Q_DTYPES[q.dtype], TIERS[k_tier], TIERS[v_tier], b, hq, hkv,
-        num_pages, ps, page_indices.shape[1], pages_per_compute_block * ps,
-        0 if recent_k is None else recent_k.shape[2], d,
+        num_pages, ps, pps, bk, ring_w, d,
         sm_scale, 0 if window is None else window,
         0.0 if softcap is None else softcap,
         0.0 if softcap is None else float(1.0 / softcap),
-        build.stream_handle(q),
+        slices, build.stream_handle(q),
         tag=k_tier if k_tier == v_tier else f"{k_tier}/{v_tier}",
     )
     if return_state:
