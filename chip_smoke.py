@@ -13,17 +13,20 @@ network. Phases, one JSON line each:
      instance of the backward pair, the forward, the variant kernel and
      the two prefill kernels with its registers, spill bytes and
      tensor-core instructions in its SASS (the bf16 tensor-core instances
-     must have them; the f32 ones, the forward's order-exact bf16 entry
-     and every prefill instance not); each prefill instance's shared
-     memory and blocks an SM (two at d 128); each paged decode instance's
+     must have them; the f32 ones, the forward's order-exact instances
+     and every prefill instance not); each instance of the order-exact
+     prefill tile (K5, K6 and the forward's) with its shared memory and
+     blocks an SM (two at d 128); each paged decode instance's
      registers, spill bytes, shared memory, blocks an SM and clusters
      the card holds at once;
   3. kernels: each kernel against its plain PyTorch version on the card
      at the main path's shapes, with times, bounds and a library
      yardstick: the forward on both entry points (bf16 on the tensor
-     cores; the order-exact CUDA-core entry the serving engine takes),
-     every case with a bar per row and a late-row control, tile-edge
-     cases and segment ids included, the backward pair
+     cores; the order-exact entry the serving engine takes, on the
+     prefill tile, as f32 is), every case in bf16 and f32 with a bar per
+     row, a late-row control and the count of output elements that
+     differ from the plain version, tile-edge cases and segment ids
+     included, the backward pair
      (dK/dV and dQ) at the training shape, decode over every page tier
      (bf16, int8, int4, int4g32, k8v4, fp8; int8_mxu and fp8_native on
      and off; rows at ragged lengths, the ring over rows shorter than
@@ -43,11 +46,12 @@ network. Phases, one JSON line each:
      with a bar per row and a late-row control, exp2 timed against expf
      in turns;
      and Gemma-2-9B's attention geometry (16 q / 8 kv heads, d 256, cap
-     50, a sliding layer's 4096-token window and a global layer) on the
-     forward, decode (every tier), paged and ragged prefill and the
-     backward, the backward also at d 64; decode at 16 q heads a kv head
-     (bf16 and int8 pages, bit for bit); the bf16 backward is held
-     against the plain version with its bf16 P in dV (``round_p``);
+     50, a sliding layer's 4096-token window and a global layer; a
+     512-token first chunk) on the forward, decode (every tier), paged
+     and ragged prefill and the backward, the backward also at d 64;
+     decode at 16 q heads a kv head (bf16 and int8 pages, bit for bit);
+     the bf16 backward is held against the plain version with its bf16
+     P in dV (``round_p``);
   4. main path: Llama-3-8B geometry at full width (all 32 layers, seeded
      random bf16 weights made on the card) served by the port's engine at
      its default routing (paged prefill, fused mixed steps, speculation
@@ -343,17 +347,18 @@ def raise_if_failed(kernel: str, rows) -> None:
 # -- phase 3: each kernel against its plain version --------------------------
 
 
-def flash_cases(dev):
+def flash_cases(dev, dtype="bfloat16"):
     """(name, q, k, v, kwargs, control kwargs) at the main path's prefill
-    shapes: hq 32, hkv 8, d 128, bf16. The control drops the case's
-    option."""
+    shapes: hq 32, hkv 8, d 128, in ``dtype`` (the same draws in either).
+    The control drops the case's option."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(SEED)
+    dt = getattr(torch, dtype)
 
     def qkv(b, sq, skv):
         def rn(*s):
-            return torch.randn(*s, generator=g, device=dev).bfloat16()
+            return torch.randn(*s, generator=g, device=dev).to(dt)
 
         return rn(b, 32, sq, 128), rn(b, 8, skv, 128), rn(b, 8, skv, 128)
 
@@ -412,6 +417,15 @@ def flash_bound(q, k, kw):
     return bound(nbytes, ops, str(q.dtype).removeprefix("torch."))
 
 
+def flash_fp32_bound(q, k, kw) -> float:
+    """The same work at the CUDA cores' f32 rate, the order-exact
+    kernel's own bound (ms)."""
+    return bound(q.element_size() * (2 * q.numel() + 2 * k.numel()),
+                 4.0 * q.shape[1] * q.shape[3] * live_pairs(
+                     q.shape[0], q.shape[2], k.shape[2], kw),
+                 "float32")[0]
+
+
 def config1_case(dev):
     """BASELINE config 1's literal row at d 64 (b1 h1 s128 f32,
     non-causal; the control is causal), as the bench's config 1 runs it."""
@@ -438,27 +452,32 @@ def flash_rows(q, k, v, out, scale, kw, control):
     ctl = flash_fwd_plain(q, k, v, sm_scale=scale, **control)
     late = flash_fwd_plain(q, k, v * VARIANT_LATE_SHIFT, sm_scale=scale,
                            **kw)
-    return row_agreement(out, ref, ctl, None, (late, q.shape[2] // 2),
-                         late_caught=VARIANT_LATE_CAUGHT)
+    return dict(row_agreement(out, ref, ctl, None, (late, q.shape[2] // 2),
+                              late_caught=VARIANT_LATE_CAUGHT),
+                differ_plain=differing(out, ref), elements=out.numel())
 
 
 def flash_entries():
-    """K1's two entry points by kernel name: the tensor cores (bf16) and
-    the order-exact CUDA-core kernel the serving engine takes."""
+    """K1's two entry points by kernel name: the tensor cores (bf16; f32
+    takes the order-exact kernel) and the order-exact kernel the serving
+    engine takes."""
     from tpu_flash_torch.ops.flash.forward import flash_fwd, flash_fwd_exact
 
     return {"flash_fwd": flash_fwd, "flash_fwd_exact": flash_fwd_exact}
 
 
 def check_flash(dev):
-    """Every K1 case on both entry points, each held per row
-    (flash_rows); one summary row a kernel."""
+    """Every K1 case in bf16 and f32 on both entry points, each held per
+    row (flash_rows) with the count of elements off the plain version,
+    and of lse elements; one summary row a kernel."""
     import torch
 
     from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
 
     rows = {name: [] for name in flash_entries()}
-    for case, q, k, v, kw, control in flash_cases(dev) + [config1_case(dev)]:
+    for case, q, k, v, kw, control in (flash_cases(dev)
+                                       + flash_cases(dev, "float32")
+                                       + [config1_case(dev)]):
         scale = q.shape[-1] ** -0.5
         plain_ms = time_ms(
             lambda: flash_fwd_plain(q, k, v, sm_scale=scale, **kw), 3
@@ -472,16 +491,24 @@ def check_flash(dev):
                 q.shape[0], q.shape[2], k.shape[2], kw))
         elif case == "config1_d64_f32":
             library_ms = sdpa_ms(q, k, v, causal=False)
+        _, ref_lse = flash_fwd_plain(q, k, v, sm_scale=scale, save_lse=True,
+                                     **kw)
         for name, fwd in flash_entries().items():
             out = fwd(q, k, v, sm_scale=scale, **kw)
             torch.cuda.synchronize()
             held = flash_rows(q, k, v, out, scale, kw, control)
+            # lse = m + log(l): equal where the kernel's row max and sum
+            # are the plain version's bit for bit.
+            held["lse_differ_plain"] = differing(
+                fwd(q, k, v, sm_scale=scale, save_lse=True, **kw)[1],
+                ref_lse)
             ms = time_ms(lambda: fwd(q, k, v, sm_scale=scale, **kw), 10)
             row = dict(case=case, shape=list(q.shape), kv_len=k.shape[2],
                        dtype=str(q.dtype).removeprefix("torch."),
                        control={k_: str(v_) for k_, v_ in control.items()},
                        **held, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
+                       fp32_bound_ms=flash_fp32_bound(q, k, kw),
                        library_ms=library_ms)
             rows[name].append(row)
             log("kernel_vs_plain", kernel=name, **row)
@@ -1665,20 +1692,25 @@ def gemma_qkv(dev, b, sq, skv, seed, dtype="bfloat16"):
 
 
 # (case, b, s, kwargs, control): a sliding layer past the window and a
-# global layer, each with the cap.
+# global layer, each with the cap; a sliding layer's 512-token first
+# chunk at b 4 (the serving engine's prefill; its control drops the cap).
 GEMMA_FLASH_CASES = [
     ("gemma2_sliding", 1, 8192,
      dict(causal=True, softcap=GEMMA_CAP, window=GEMMA_WINDOW),
      dict(causal=True, softcap=GEMMA_CAP)),
     ("gemma2_global", 1, 8192, dict(causal=True, softcap=GEMMA_CAP),
      dict(causal=True)),
+    ("gemma2_first_chunk", 4, 512,
+     dict(causal=True, softcap=GEMMA_CAP, window=GEMMA_WINDOW),
+     dict(causal=True, window=GEMMA_WINDOW)),
 ]
 
 
 def check_flash_d256(dev):
     """K1 at Gemma-2-9B's geometry (a sliding and a global layer's
-    prefill over 8192 tokens) on both entry points, with SDPA's time
-    without the cap (it has no softcap) beside it."""
+    prefill over 8192 tokens, a first chunk of 512) on both entry points,
+    with SDPA's time without the cap (it has no softcap) and the f32
+    CUDA-core bound beside it."""
     import torch
 
     from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
@@ -1687,7 +1719,7 @@ def check_flash_d256(dev):
     for case, b, sq, kw, control in GEMMA_FLASH_CASES:
         q, k, v = gemma_qkv(dev, b, sq, sq, SEED + 20)
         bound_ms, bound_by = flash_bound(q, k, kw)
-        mask = None if "window" not in kw else attention_mask(
+        mask = None if kw.get("window", sq) >= sq else attention_mask(
             b, sq, sq, dict(causal=True, window=kw["window"]))
         plain_ms = time_ms(lambda: flash_fwd_plain(
             q, k, v, sm_scale=GEMMA_SCALE, **kw), 2)
@@ -1703,7 +1735,9 @@ def check_flash_d256(dev):
                        ms=time_ms(lambda: fwd(q, k, v, sm_scale=GEMMA_SCALE,
                                               **kw), 5),
                        plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=library_ms,
+                       bound_by=bound_by,
+                       fp32_bound_ms=flash_fp32_bound(q, k, kw),
+                       library_ms=library_ms,
                        library="SDPA without softcap")
             rows[name].append(row)
             log("kernel_vs_plain", kernel=name, width=GEMMA_D, **row)
@@ -2206,7 +2240,9 @@ def shadowed(stats):
 def scratch_peak():
     """Yields a dict whose ``bytes`` becomes the largest score scratch
     (prefill_tile.cuh: one slot for each thread block the card runs at
-    once) that a K5 or K6 call allocates while the block runs."""
+    once) that a K5, K6 or order-exact forward call allocates while the
+    block runs (the forward sizes its scratch through paged_prefill's
+    tile_scratch)."""
     from tpu_flash_torch.ops.flash import paged_prefill as pp
     from tpu_flash_torch.ops.flash import ragged
 
@@ -3003,15 +3039,17 @@ def debug_weights_row(dev, b, h, s, d, causal):
 # the tensor cores) the source builds). A function's kernel is the
 # pattern's first group, or the library's name. Every other instance
 # must have no tensor-core instruction: the f32 kernels (TF32 would miss
-# their bar) and flash_fwd's order-exact bf16 entry.
+# their bar) and flash_fwd's order-exact instances (the prefill tile over
+# dense K/V: d 64, 128 and 256 in f32 and bf16, bf16 also at 16 rows a
+# block), which flash_fwd_exact and f32 flash_fwd launch.
 TC_LIBRARIES = {
     "flash_bwd": ("FLASH_BWD_DKV", r"flash_bwd_(dkv|dq)_kernel",
                   r"D(kv|q)Tiles",
                   {(kn, tc): 3 for kn in ("dkv", "dq")
                    for tc in (True, False)}),
-    "flash_fwd": ("FLASH_FWD", r"flash_fwd(?:_tc)?_kernel",
+    "flash_fwd": ("FLASH_FWD", r"flash_fwd(?:_tc|_dense)?_kernel",
                   r"flash_fwd_tc_kernel",
-                  {("flash_fwd", True): 3, ("flash_fwd", False): 6}),
+                  {("flash_fwd", True): 3, ("flash_fwd", False): 9}),
     "variant_fwd": ("VARIANT_FWD", r"variant_fwd_kernel",
                     r"variant_fwd_kernel", {("variant_fwd", True): 20}),
     # The order-exact prefill tile (prefill_tile.cuh): no instance of K5
@@ -3027,8 +3065,10 @@ def prefill_occupancy():
     """Shared memory and blocks an SM (the CUDA occupancy calculator on
     the built kernels) of every instance of the order-exact prefill tile
     that a call can take: K6 by dtype and head width, K5 by q dtype, page
-    dtype, head width and rows a block (16 for bf16 verify-sized calls).
-    Raises if an instance at d 128 fits fewer than two blocks an SM."""
+    dtype, head width and rows a block (16 for bf16 verify-sized calls),
+    the forward's dense instances by dtype, head width and rows a block.
+    Raises if an instance at d <= 128 fits fewer than two blocks an
+    SM."""
     from tpu_flash_torch.ops import build
     from tpu_flash_torch.ops.flash.paged_prefill import (
         PAGE_KINDS,
@@ -3053,9 +3093,16 @@ def prefill_occupancy():
                                      pages=kind, d=d, rows=r,
                                      **query(build.PAGED_PREFILL, dt, pk, d,
                                              r)))
-    thin = [r for r in rows if r["d"] == 128 and r["blocks_per_sm"] < 2]
+    for dt, dname in enumerate(("float32", "bfloat16")):
+        for d in (64, 128, 256):
+            for r in (64, 16) if dname == "bfloat16" else (64,):
+                rows.append(dict(kernel="flash_fwd_exact", q=dname, d=d,
+                                 rows=r, **query(build.FLASH_FWD_EXACT, dt,
+                                                 d, r)))
+    thin = [r for r in rows if r["d"] <= 128 and r["blocks_per_sm"] < 2]
     if thin:
-        raise AssertionError(f"fewer than two blocks an SM at d 128: {thin}")
+        raise AssertionError(
+            f"fewer than two blocks an SM at d <= 128: {thin}")
     return rows
 
 

@@ -124,11 +124,11 @@ def test_validation_errors():
 
 def test_kernel_softmax_step_is_block_kv():
     """csrc/flash_fwd.cu compiles its online-softmax step as
-    ``TileSizes.block_kv`` kv rows in both kernels (the f32 CUDA-core
-    kernel's ``BK``, and the step the bf16 tensor-core tiles stage and
-    take their running max over): the step fixes which running max each
-    P element is rounded after, which the plain version and the JAX walk
-    round it after."""
+    ``TileSizes.block_kv`` kv rows in both kernels (``BK``: the kv block
+    the order-exact kernel walks the prefill tile over, and the step the
+    bf16 tensor-core tiles stage and take their running max over): the
+    step fixes which running max each P element is rounded after, which
+    the plain version and the JAX walk round it after."""
     import re
 
     from tpu_flash_torch.ops import build

@@ -208,9 +208,9 @@ def test_paged_prefill_refuses_int4_pages():
 def test_kernel_library_name_hashes_shared_headers(tmp_path, monkeypatch):
     """Editing a shared ``*.cuh`` header renames every kernel library
     built from that directory, so the next build compiles afresh; the
-    eleven kernels are registered, the two prefill kernels on the shared
-    header, the two forward entries and the two backward kernels each in
-    one source and library."""
+    eleven kernels are registered, the two prefill kernels and the
+    forward on the shared tile header, the two forward entries and the
+    two backward kernels each in one source and library."""
     from tpu_flash_torch.ops import build
 
     assert set(build.KERNELS) == {"flash_fwd", "flash_fwd_exact",
@@ -226,7 +226,7 @@ def test_kernel_library_name_hashes_shared_headers(tmp_path, monkeypatch):
         a, b = build.KERNELS[first], build.KERNELS[second]
         assert a.source == b.source and a.source.name == source
         assert a.library_path() == b.library_path()
-    for name in ("paged_prefill", "ragged_prefill"):
+    for name in ("paged_prefill", "ragged_prefill", "flash_fwd"):
         src = build.KERNELS[name].source.read_text()
         assert '#include "prefill_tile.cuh"' in src
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)

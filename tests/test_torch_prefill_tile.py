@@ -1,6 +1,7 @@
 """The order-exact prefill tile (``csrc/prefill_tile.cuh``, shared by the
-``paged_prefill`` (K5) and ``ragged_prefill`` (K6) CUDA kernels), read
-from its source on the CPU: torch only, no JAX and no card.
+``paged_prefill`` (K5) and ``ragged_prefill`` (K6) CUDA kernels and the
+forward's order-exact kernel, ``flash_fwd_exact`` and ``flash_fwd`` in
+f32), read from its source on the CPU: torch only, no JAX and no card.
 
 A block of the tile holds a window of f32 scores and stages K/V steps in
 a ring, and forms P = exp(S - m) only after a TPU block's whole running
@@ -22,6 +23,7 @@ from tpu_flash_torch.core.config import (
     TileSizes,
 )
 from tpu_flash_torch.ops import build
+from tpu_flash_torch.ops.flash import forward as fw
 from tpu_flash_torch.ops.flash import paged_prefill as pp
 
 HEADER = build.CSRC_DIR / "prefill_tile.cuh"
@@ -151,3 +153,103 @@ def test_short_bf16_calls_take_the_verify_rows():
     assert pp.tile_rows(verify.float(), 8, sms=132) == pp.TILE_ROWS
     wide = torch.zeros(1, 32, 9, 128, dtype=torch.bfloat16)
     assert pp.tile_rows(wide, 1, sms=132) == pp.TILE_ROWS
+
+
+# -- the forward's dense instances (csrc/flash_fwd.cu) -----------------------
+
+DENSE = [(d, qb) for d in (64, 128, 256) for qb in (4, 2)]
+
+
+def _geo(c, d, qb, rows):
+    """Geo<d, TQ, rows>'s lane split and per-lane shares by the header's
+    own rules (the LO expression read from the source)."""
+    src = HEADER.read_text()
+    cond, yes, no = re.search(
+        r"static constexpr int LO =\s*(.*?) \? (\w+) : (\w+);", src,
+        re.S).groups()
+    names = dict(c, D=d, QB=qb)
+    narrow = not eval(" ".join(cond.split()).replace("/", "//"),
+                      {"__builtins__": {}}, names)
+    lo = c[no] if narrow else c[yes]
+    wr = rows // (c["THREADS"] // 32)
+    return dict(lo=lo, wr=wr, rt=wr * c["SCORE_LANES"] // 32,
+                ro=wr * lo // 32, co=d // lo,
+                bk=c["STEP_F32"] if qb == 4 else c["STEP"],
+                sw=c["WINDOW_D256"] if d > 128 else c["WINDOW"])
+
+
+def _dense_rows(c, qb):
+    """Rows a block the forward's instances take: 64, and 16 for bf16."""
+    return (c["ROWS"], c["ROWS_VERIFY"]) if qb == 2 else (c["ROWS"],)
+
+
+@pytest.mark.parametrize("d,qb", DENSE)
+def test_dense_instances_fit_the_card_and_their_lane_split(d, qb):
+    """Every instance the forward builds (d 64, 128, 256 in f32 and bf16,
+    bf16 also at 16 rows) fits a block's shared memory (two blocks an SM
+    up to d 128) and satisfies Geo's lane asserts: a lane's share of an
+    output row is a whole number of 8-byte loads, which at d 64 in bf16
+    needs the narrow output split (32 lanes would give 4 bytes)."""
+    c = _constants()
+    for rows in _dense_rows(c, qb):
+        g = _geo(c, d, qb, rows)
+        smem = _smem(c, d, qb, rows)
+        assert smem <= c["SMEM_BLOCK"], (rows, smem)
+        if d <= 128:
+            assert 2 * (smem + 1024) <= c["SMEM_SM"], (rows, smem)
+        assert g["rt"] >= 1 and g["ro"] >= 1 and g["wr"] <= 32, g
+        assert g["bk"] % c["SCORE_LANES"] == 0 and d % g["lo"] == 0, g
+        assert (g["co"] * qb) % 8 == 0, g
+        assert g["lo"] == (c["OUT_LANES_NARROW"] if (d, qb) == (64, 2)
+                           else c["OUT_LANES"])
+
+
+@pytest.mark.parametrize("d,qb", DENSE)
+def test_forward_block_is_whole_windows_and_steps(d, qb):
+    """The forward walks the plain version's kv blocks (``block_kv``
+    columns, flash_fwd.cu's BK): each is a whole number of the
+    instance's windows, each window of its steps. l sums a block in the
+    order of PyTorch's CUDA row sum (torch_row_sum): a block of
+    ``block_kv`` columns as 32 sums of 4 neighbours, which never straddle
+    a step."""
+    c = _constants()
+    src = build.FLASH_FWD.source.read_text()
+    bk = int(re.search(r"constexpr int BK = (\d+);", src)[1])
+    assert bk == TileSizes().block_kv == fw.KERNEL_TILES.block_kv
+    g = _geo(c, d, qb, c["ROWS"])
+    assert bk % g["sw"] == 0 and g["sw"] % g["bk"] == 0
+    assert bk // g["sw"] == (2 if d > 128 else 1)
+    # torch_row_sum: 32 partials of 4 columns, neighbours in a full block
+    # (inside one step), stride 32 in a narrower one.
+    rule = re.search(r"const int ct = width >= (\d+) \? (\d+) : 1, "
+                     r"ci = width >= \d+ \? 1 : (\d+);", HEADER.read_text())
+    full, neighbours, stride = map(int, rule.groups())
+    assert full == bk and 32 * neighbours == bk and 4 * stride == bk
+    assert g["bk"] % neighbours == 0
+
+
+@pytest.mark.parametrize("d,qb", DENSE)
+def test_exact_wrapper_sizes_rows_and_scratch(d, qb, monkeypatch):
+    """forward.tile_launch: a score scratch exactly where a kv step is
+    wider than the tile's window (d 256: two 64-column windows), with a
+    slot for each block the card runs at once; 16-row blocks for a short
+    bf16 call (b 1 x 9 rows over 8 kv heads: 8 blocks of 64 rows on 132
+    SMs), 64 for a chunk and for f32."""
+    monkeypatch.setattr(pp, "resident_blocks", lambda *a: 264)
+    dt = torch.bfloat16 if qb == 2 else torch.float32
+    chunk = torch.zeros(4, 32, 512, d, dtype=dt)
+    rows, scratch, slots = fw.tile_launch(chunk, 8, sms=132)
+    assert rows == pp.TILE_ROWS
+    if d <= 128:
+        assert scratch is None and slots == 0
+    else:  # 512 / 16 positions x 8 kv heads x b 4 = 1024 blocks, 264 slots
+        assert slots == 264 and scratch.dtype == torch.float32
+        assert scratch.numel() == 264 + 264 * 2 * pp.TILE_ROWS * 64
+        assert not scratch[:264].any()
+    short = torch.zeros(1, 32, 9, d, dtype=dt)
+    rows, scratch, slots = fw.tile_launch(short, 8, sms=132)
+    assert rows == (pp.TILE_ROWS_VERIFY if qb == 2 else pp.TILE_ROWS)
+    assert (scratch is None) == (d <= 128)
+    # A group wider than a block's rows splits into whole heads.
+    assert [fw.tile_heads(g, 64) for g in (1, 4, 64, 96, 128)] == [
+        1, 4, 64, 48, 64]

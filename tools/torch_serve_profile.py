@@ -42,7 +42,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 CLASSES = (
-    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
+    ("flash_fwd", ("flash_fwd_dense_kernel", "flash_fwd_tc_kernel")),
     ("paged_decode", ("paged_decode_kernel",)),
     ("paged_prefill", ("paged_prefill_kernel",)),
     ("ragged_prefill", ("ragged_prefill_kernel",)),

@@ -43,23 +43,35 @@
 // with no segment ids skips the compares; a step wholly above its
 // diagonal, below its window or past sq is not computed.
 //
-// The CUDA-core kernel: the first one, kept for f32 inputs (TF32
-// products would miss their 2^-12 bar) and, in both dtypes, behind a
-// second entry point, flash_fwd_exact, which the serving engine takes. It
-// sums S over d and P V over the kv rows one FMA at a time in index
-// order, the order of the plain version's f32 products on the card, so
-// its outputs rarely leave the plain version's by a bit (on the trained
-// checkpoint's serving runs, never); the tensor cores sum inside each mma
-// in an order of their own, and that checkpoint's greedy tokens sit on
-// one-ulp logit margins that notice (PERF.md, Findings). f32 FMAs from
-// f32 tiles in shared memory (Q 64 x d, K and V 128 x d, S 64 x 128;
-// ~199 KB at d 128, one block per SM), each thread owning a 4 x 8
-// register tile of S and of O. At d 256 the 128-row K and V tiles would
-// not fit beside Q (365 KB against the card's 227), so K and V share one
-// buffer staged 128 columns of d at a time: K's two halves feed S in
-// order (the same f32 sum as one pass), then V's halves feed the two
-// halves of O (~169 KB).
-//
+// The order-exact kernel, for f32 inputs (TF32 products would miss their
+// 2^-12 bar) and, in both dtypes, behind a second entry point,
+// flash_fwd_exact, which the serving engine takes: prefill_tile.cuh's
+// tile (the body of paged_prefill.cu and ragged_prefill.cu) over dense
+// K/V. It sums S over d and P V over the kv rows one FMA at a time in
+// index order, the order of the plain version's f32 products on the card,
+// so its outputs rarely leave the plain version's by a bit; the tensor
+// cores sum inside each mma in an order of their own, and the trained
+// checkpoint's greedy tokens sit on one-ulp logit margins that notice
+// (PERF.md, Findings). What bounds it: the CUDA cores' f32 FMA rate (67
+// TFLOP/s). What the design does about it (prefill_tile.cuh says more):
+// a block folds the q heads of one kv head over R / g positions (R = 64
+// rows; 16 for short bf16 calls whose 64-row grid leaves SMs idle), so
+// each K/V row it stages serves every head of the group; K and V come in
+// the q dtype by cp.async through a two-slot ring, the next step in flight
+// while this one computes; steps no row sees (above the diagonal, below
+// the window, past kv_len) are skipped, and steps every row fully sees
+// take no mask. The kv walk is the plain version's: blocks of BK columns
+// from column 0 (the last ending at kv_len), each one online-softmax step;
+// at d 256 a block is two of the tile's 64-column windows, whose scores go
+// through a slot of the score scratch (the wrapper allocates it). l sums
+// each block in the order of PyTorch's CUDA row sum (prefill_tile.cuh,
+// TORCH_L), so it is the plain version's l bit for bit. A row that sees
+// no key of a non-empty K/V (a window past kv_len)
+// attends every key with the mask value, as the plain version does: its
+// block then walks every column. Not detected from positions: a q segment
+// that no key carries (such a row averages only the keys its block
+// walks).
+
 // Layout: q [b, hq, sq, d], k/v [b, hkv, skv, d], o like q, lse f32
 // [b, hq, sq]; all contiguous (bf16 rows 16-byte aligned). GQA by index:
 // q head h reads kv head h / (hq / hkv). Every kernel launch runs on the
@@ -71,6 +83,7 @@
 #include <stdint.h>
 
 #include "fwd_tile.cuh"
+#include "prefill_tile.cuh"
 
 namespace {
 
@@ -111,337 +124,12 @@ __device__ __forceinline__ void kv_tiles(const FwdParams& p, int q0, int bq,
   }
 }
 
-// The final scale of a row's O and its lse, from its running max m and sum
-// l (with the sink logit folded in once).
+// The final scale of a row's O and its lse (prefill_tile.cuh's, which the
+// order-exact kernel stores too).
 __device__ __forceinline__ void finish_row(const FwdParams& p, int h, float m,
                                            float l, float& mult,
                                            float& lse) {
-  if (p.sinks != nullptr) {
-    const float sk = p.sinks[h];
-    const float m2 = fmaxf(m, sk);
-    const float scale_m = expf(m - m2);
-    const float l_tot = l * scale_m + expf(sk - m2);
-    mult = scale_m / l_tot;
-    lse = m2 + logf(l_tot);
-  } else {
-    mult = (l == 0.f) ? 1.f : 1.f / l;
-    lse = (m == -INFINITY) ? -INFINITY : m + logf(l);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The CUDA-core kernel: f32, and the order-exact bf16 entry.
-
-constexpr int BQ = 64;    // q rows per block
-constexpr int THREADS = 256;
-constexpr int SS = BK + 4;  // padded row stride (floats), 16-byte aligned
-
-// The geometry of head width D: K/V staged DC columns at a time (all of
-// d up to 128; halves at 256, K and V then sharing one buffer).
-template <int D>
-struct Geo {
-  static constexpr int DC = D > 128 ? 128 : D;
-  static constexpr int NC = D / DC;  // column chunks a row
-  static constexpr bool SHARED_KV = NC > 1;
-  static_assert(NC <= 2, "the kernel stages at most two column chunks");
-  static constexpr int QS = D + 4;   // padded row strides (floats)
-  static constexpr int KS = DC + 4;
-  static constexpr size_t smem_bytes =
-      sizeof(float) * (BQ * QS + BK * KS + (SHARED_KV ? 0 : BK * D) +
-                       BQ * SS + 3 * BQ);
-  static_assert(smem_bytes <= 232448, "over the card's 227 KB a block");
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Round an f32 value to T and back (identity for f32).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// Rows [k0, k0 + BK) x columns [c0, c0 + DC) of a K or V matrix into a
-// shared tile of row stride DC + 4; rows at or past kv_len load as zeros.
-template <typename T, int D>
-__device__ __forceinline__ void stage_chunk(float* dst, const T* src, int k0,
-                                            int c0, int kv_len) {
-  constexpr int DC = Geo<D>::DC, KS = Geo<D>::KS;
-  for (int idx = threadIdx.x; idx < BK * DC; idx += THREADS) {
-    const int r = idx / DC, c = idx % DC;
-    dst[r * KS + c] = k0 + r < kv_len
-                          ? to_f(src[(long long)(k0 + r) * D + c0 + c])
-                          : 0.f;
-  }
-}
-
-// s += Qs[:, CH DC + (0..DC)] Ks^T for the thread's 4 x 8 cells (rows
-// ty*4+i, cols tx+16*j); Ks holds that column chunk of K.
-template <int D, int CH>
-__device__ __forceinline__ void scores_chunk(const float* Qs, const float* Ks,
-                                             float (&s)[4][BK / 16]) {
-  constexpr int DC = Geo<D>::DC, QS = Geo<D>::QS, KS = Geo<D>::KS;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  for (int kk = 0; kk < DC; kk += 4) {
-    float4 qv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      qv[i] = *reinterpret_cast<const float4*>(
-          &Qs[(ty * 4 + i) * QS + CH * DC + kk]);
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const float4 kv =
-          *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * KS + kk]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float a = s[i][j];
-        a = fmaf(qv[i].x, kv.x, a);
-        a = fmaf(qv[i].y, kv.y, a);
-        a = fmaf(qv[i].z, kv.z, a);
-        a = fmaf(qv[i].w, kv.w, a);
-        s[i][j] = a;
-      }
-    }
-  }
-}
-
-// acc[:, CH DC / 16 + jj] += P V for the thread's rows ty*4+i and columns
-// tx + 16 jj of column chunk CH; Vs holds that chunk with row stride VS.
-template <int D, int CH, int VS>
-__device__ __forceinline__ void pv_chunk(const float* Ss, const float* Vs,
-                                         float (&acc)[4][D / 16]) {
-  constexpr int DC = Geo<D>::DC;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  for (int t = 0; t < BK; t += 4) {
-    float4 pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pv[i] = *reinterpret_cast<const float4*>(&Ss[(ty * 4 + i) * SS + t]);
-#pragma unroll
-    for (int jj = 0; jj < DC / 16; ++jj) {
-      const int c = tx + 16 * jj;
-      const float v0 = Vs[(t + 0) * VS + c], v1 = Vs[(t + 1) * VS + c];
-      const float v2 = Vs[(t + 2) * VS + c], v3 = Vs[(t + 3) * VS + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float a = acc[i][CH * (DC / 16) + jj];
-        a = fmaf(pv[i].x, v0, a);
-        a = fmaf(pv[i].y, v1, a);
-        a = fmaf(pv[i].z, v2, a);
-        a = fmaf(pv[i].w, v3, a);
-        acc[i][CH * (DC / 16) + jj] = a;
-      }
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(FwdParams p) {
-  using G = Geo<D>;
-  constexpr int QS = G::QS, KS = G::KS, DC = G::DC;
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [BQ][QS] scaled q
-  float* Ks = Qs + BQ * QS;         // [BK][KS] K columns [c DC, (c+1) DC)
-  // [BK][D] V, or (shared) [BK][KS] V columns [c DC, (c+1) DC) in Ks.
-  float* Vs = G::SHARED_KV ? Ks : Ks + BK * KS;
-  float* Ss = Vs + (G::SHARED_KV ? BK * KS : BK * D);  // [BQ][SS] S, then P
-  float* row_m = Ss + BQ * SS;      // [BQ] running max
-  float* row_l = row_m + BQ;        // [BQ] running sum
-  float* row_alpha = row_l + BQ;    // [BQ] rescale of this step
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.hq / p.hkv);
-  const int tid = threadIdx.x;
-  const int q0 = qt * BQ;
-  const T* q = static_cast<const T*>(p.q) +
-               ((long long)b * p.hq + h) * (long long)p.sq * D;
-  const T* k = static_cast<const T*>(p.k) +
-               ((long long)b * p.hkv + hk) * (long long)p.skv * D;
-  const T* v = static_cast<const T*>(p.v) +
-               ((long long)b * p.hkv + hk) * (long long)p.skv * D;
-
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, c = idx % D;
-    float x = 0.f;
-    if (q0 + r < p.sq) {
-      x = round_to<T>(to_f(q[(long long)(q0 + r) * D + c]) * p.scale);
-    }
-    Qs[r * QS + c] = x;
-  }
-  if (tid < BQ) {
-    row_m[tid] = -INFINITY;
-    row_l[tid] = 0.f;
-  }
-
-  int first_tile, last_tile;
-  kv_tiles(p, q0, BQ, first_tile, last_tile);
-
-  const int ty = tid / 16;  // rows ty*4 .. ty*4+3
-  const int tx = tid % 16;  // cols tx + 16*j
-  float acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-
-  const float slope = p.alibi != nullptr ? p.alibi[h] : 0.f;
-
-  for (int tile = first_tile; tile <= last_tile; ++tile) {
-    const int k0 = tile * BK;
-
-    // S = Qs Ks^T: each thread a 4 x 8 tile (rows ty*4+i, cols tx+16*j).
-    float s[4][BK / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) s[i][j] = 0.f;
-    if constexpr (!G::SHARED_KV) {
-      __syncthreads();  // previous step's readers of Ks/Vs/Ss are done
-      for (int idx = tid; idx < BK * D; idx += THREADS) {
-        const int r = idx / D, c = idx % D;
-        float kx = 0.f, vx = 0.f;
-        if (k0 + r < p.kv_len) {
-          kx = to_f(k[(long long)(k0 + r) * D + c]);
-          vx = to_f(v[(long long)(k0 + r) * D + c]);
-        }
-        Ks[r * KS + c] = kx;
-        Vs[r * D + c] = vx;
-      }
-      __syncthreads();
-      scores_chunk<D, 0>(Qs, Ks, s);
-    } else {
-      // K's column halves in order: the same f32 sum over d as one pass.
-      __syncthreads();
-      stage_chunk<T, D>(Ks, k, k0, 0, p.kv_len);
-      __syncthreads();
-      scores_chunk<D, 0>(Qs, Ks, s);
-      __syncthreads();
-      stage_chunk<T, D>(Ks, k, k0, DC, p.kv_len);
-      __syncthreads();
-      scores_chunk<D, 1>(Qs, Ks, s);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const int qpos = q0 + r + p.q_offset;
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        const int c = tx + 16 * j;
-        const int kpos = k0 + c;
-        float x = s[i][j];
-        if (p.softcap > 0.f) x = p.softcap * tanhf(x * p.inv_softcap);
-        bool valid = kpos < p.kv_len;
-        if (p.causal) {
-          valid = valid && kpos <= qpos;
-          if (p.window > 0) valid = valid && kpos > qpos - p.window;
-          if (p.alibi != nullptr) x += slope * (float)(kpos - qpos);
-        }
-        if (valid && p.q_seg != nullptr && q0 + r < p.sq) {
-          valid = p.q_seg[(long long)b * p.sq + q0 + r] ==
-                  p.kv_seg[(long long)b * p.skv + kpos];
-        }
-        Ss[r * SS + c] = valid ? x : MASK_VALUE;
-      }
-    }
-    __syncthreads();
-
-    // Online softmax: 4 threads per row, 32 columns each.
-    {
-      const int r = tid / 4, part = tid % 4;
-      float mc = -INFINITY;
-      for (int c = part * 32; c < part * 32 + 32; ++c)
-        mc = fmaxf(mc, Ss[r * SS + c]);
-      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
-      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
-      const float m_prev = row_m[r];
-      const float m_next = fmaxf(m_prev, mc);
-      const float alpha = expf(m_prev - m_next);
-      float lsum = 0.f;
-      for (int c = part * 32; c < part * 32 + 32; ++c) {
-        const float pp = expf(Ss[r * SS + c] - m_next);
-        lsum += pp;
-        Ss[r * SS + c] = round_to<T>(pp);
-      }
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-      __syncwarp();
-      if (part == 0) {
-        row_l[r] = row_l[r] * alpha + lsum;
-        row_m[r] = m_next;
-        row_alpha[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // O = O * alpha + P V: each thread rows ty*4+i, cols tx+16*j; with a
-    // shared K/V buffer, V is staged here, one column chunk at a time.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = row_alpha[ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] *= a;
-    }
-    if constexpr (!G::SHARED_KV) {
-      pv_chunk<D, 0, D>(Ss, Vs, acc);
-    } else {
-      // V's column halves into the matching halves of O (the barrier
-      // after the softmax has seen every reader of K's second half).
-      stage_chunk<T, D>(Vs, v, k0, 0, p.kv_len);
-      __syncthreads();
-      pv_chunk<D, 0, KS>(Ss, Vs, acc);
-      __syncthreads();
-      stage_chunk<T, D>(Vs, v, k0, DC, p.kv_len);
-      __syncthreads();
-      pv_chunk<D, 1, KS>(Ss, Vs, acc);
-    }
-  }
-  __syncthreads();
-
-  // Deferred normalisation (with the sink logit folded in once).
-  T* o = static_cast<T*>(p.o) + ((long long)b * p.hq + h) * (long long)p.sq * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (q0 + r >= p.sq) continue;
-    float mult, lse;
-    finish_row(p, h, row_m[r], row_l[r], mult, lse);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      o[(long long)(q0 + r) * D + tx + 16 * j] = from_f<T>(acc[i][j] * mult);
-    if (p.lse != nullptr && tx == 0)
-      p.lse[((long long)b * p.hq + h) * p.sq + q0 + r] = lse;
-  }
-}
-
-template <typename T, int D>
-int launch_cuda_cores(const FwdParams& p, int batch, cudaStream_t stream) {
-  constexpr size_t smem = Geo<D>::smem_bytes;
-  cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((p.sq + BQ - 1) / BQ, p.hq, batch);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_cuda_cores(const FwdParams& p, int head_dim, int batch,
-                      cudaStream_t s) {
-  if (head_dim == 64) return launch_cuda_cores<T, 64>(p, batch, s);
-  if (head_dim == 256) return launch_cuda_cores<T, 256>(p, batch, s);
-  return launch_cuda_cores<T, 128>(p, batch, s);
+  prefill::finish_row(p.sinks, h, m, l, mult, lse);
 }
 
 // ---------------------------------------------------------------------------
@@ -587,15 +275,230 @@ FwdParams make_params(const void* q, const void* k, const void* v, void* o,
   return p;
 }
 
+// ---------------------------------------------------------------------------
+// The order-exact kernel: prefill_tile.cuh's tile over dense K/V.
+
+struct DenseParams {
+  prefill::RowParams rp;  // rp.g q heads a block over rp.qp positions
+  const void* k;
+  const void* v;
+  float* lse;
+  const int* q_seg;
+  const int* kv_seg;
+  int skv, kv_len, causal, q_offset;
+  int splits;   // blocks of rp.g heads a kv head's group takes
+  int qblocks;  // position blocks a (batch row, head block)
+};
+
+template <class G>
+__global__ void __launch_bounds__(prefill::THREADS, G::MIN_BLOCKS)
+    flash_fwd_dense_kernel(const __grid_constant__ DenseParams dp) {
+  using T = typename G::T;
+  using prefill::RowInfo;
+  constexpr int D = G::D;
+  extern __shared__ __align__(16) unsigned char dense_smem[];
+  const prefill::RowParams& p = dp.rp;
+  const prefill::Smem<G, T> sm(dense_smem);
+  // The latest (heaviest) causal position blocks of every batch row and
+  // head block first, so the last wave is the lightest. A head block is
+  // rp.g q heads, whose kv head is hb / splits.
+  const int hblocks = p.hkv * dp.splits;
+  const int per_qt = gridDim.x / dp.qblocks;
+  const int qt = dp.qblocks - 1 - (int)blockIdx.x / per_qt;
+  const int hb = (int)blockIdx.x % per_qt % hblocks;
+  const int b = (int)blockIdx.x % per_qt / hblocks;
+  const prefill::Rows rows{hb, qt * p.qp, p.g, p.qp, p.q_len};
+  const int kvh = hb / dp.splits;
+  const int qlo = rows.q_first + dp.q_offset;
+  const int qhi = min(rows.q_first + p.qp, p.q_len) - 1 + dp.q_offset;
+  const int kv_len = dp.kv_len, window = p.window;
+  const bool causal = dp.causal != 0, segs = dp.q_seg != nullptr;
+  // A row of the block that sees no key (below position 0, or its window
+  // past kv_len) takes every column at the mask value, as the plain
+  // version does: then every step is walked.
+  const bool blind =
+      kv_len > 0 && causal &&
+      (qlo < 0 || (window > 0 && qhi - window + 2 > kv_len));
+  const long long bh = (long long)b * p.hkv + kvh;
+  const T* kbase = static_cast<const T*>(dp.k) + bh * dp.skv * D;
+  const T* vbase = static_cast<const T*>(dp.v) + bh * dp.skv * D;
+  // The last block ends at kv_len, as the plain version's does (a step
+  // staged ahead for it may reach past: those rows load as zeros).
+  auto src = [&](int j) -> long long { return j < kv_len ? j : -1LL; };
+  auto live = [&](int j0, int j1) {
+    j1 = min(j1, kv_len);
+    if (j0 >= j1) return false;
+    if (!causal || blind) return true;
+    return j0 <= qhi && (window <= 0 || j1 - 1 > qlo - window);
+  };
+  auto full = [&](int j0, int j1) {
+    if (segs) return false;
+    if (!causal) return true;
+    return j1 - 1 <= qlo && (window <= 0 || j0 > qhi - window);
+  };
+  // The ALiBi bias is the plain version's product, then its sum (no
+  // contraction into an FMA).
+  auto mask = [&](const RowInfo& row, int j, float x) {
+    if (!row.active) return MASK_VALUE;
+    bool valid = true;
+    if (causal) {
+      const int qpos = row.pos + dp.q_offset;
+      valid = j <= qpos && (window <= 0 || j > qpos - window);
+      if (p.alibi != nullptr)
+        x = __fadd_rn(x, __fmul_rn(row.slope, (float)(j - qpos)));
+    }
+    if (valid && segs)
+      valid = dp.q_seg[(long long)b * p.q_len + row.pos] ==
+              dp.kv_seg[(long long)b * dp.skv + j];
+    return valid ? x : MASK_VALUE;
+  };
+  int first = 0, last = (kv_len + BK - 1) / BK - 1;
+  if (causal && !blind) {
+    last = min(last, qhi / BK);
+    if (window > 0) first = max(qlo - window + 1, 0) / BK;
+  }
+  // The first block's first K step (its window 0's first live step, as
+  // attend_block stages a next block's) loads into slot 0 while q does.
+  int ahead = -1;
+  for (int t0 = first * BK; first <= last && t0 < first * BK + G::SW;
+       t0 += G::BK) {
+    if (live(t0, t0 + G::BK)) {
+      prefill::stage<G, T, D>(sm.slot(0), kbase, (const float*)nullptr, 0,
+                              src, t0, G::BK);
+      ahead = first * BK;
+      break;
+    }
+  }
+  prefill::Thread<G> st;
+  prefill::load_q<G, T, D>(p, rows, sm, st, b);  // slot 0 next, none ahead
+  st.ahead = ahead;
+  float* scratch = prefill::take_scratch<G>(p);
+  for (int t = first; t <= last; ++t)
+    prefill::attend_block<G, T, D, true>(
+        p, sm, st, scratch, t * BK, min(BK, kv_len - t * BK), kbase, vbase,
+        (const float*)nullptr, (const float*)nullptr, src, live, full, mask,
+        t < last ? (t + 1) * BK : -1);
+  prefill::give_scratch<G>(p, scratch);
+  prefill::store_rows<G, T, D, true>(p, rows, sm, st, b, dp.lse);
+}
+
+// The q heads a block holds: the largest divisor of the group g that fits
+// R rows (the whole group where g <= R).
+inline int heads_per_block(int g, int rows) {
+  int h = g < rows ? g : rows;
+  while (g % h != 0) --h;
+  return h;
+}
+
+template <class G>
+int launch_dense(DenseParams dp, int batch, long long scratch_floats,
+                 cudaStream_t stream) {
+  constexpr int R = G::WR * prefill::WARPS;
+  const int g = dp.rp.hq / dp.rp.hkv;
+  dp.rp.g = heads_per_block(g, R);
+  dp.rp.qp = R / dp.rp.g;
+  dp.splits = g / dp.rp.g;
+  dp.qblocks = (dp.rp.q_len + dp.rp.qp - 1) / dp.rp.qp;
+  const int rc = prefill::check_scratch<G>(dp.rp, BK, scratch_floats);
+  if (rc != 0) return rc;
+  auto kernel = flash_fwd_dense_kernel<G>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       G::SMEM);
+  // One dimension: position blocks (slowest, heaviest first) x batch rows
+  // x head blocks.
+  const long long blocks =
+      (long long)dp.qblocks * batch * dp.rp.hkv * dp.splits;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, prefill::THREADS, G::SMEM, stream>>>(dp);
+  return (int)cudaGetLastError();
+}
+
+template <class G>
+int dense_occupancy(int* smem_bytes, int* blocks_per_sm) {
+  auto kernel = flash_fwd_dense_kernel<G>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       G::SMEM);
+  *smem_bytes = G::SMEM;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                prefill::THREADS, G::SMEM);
+  return (int)cudaGetLastError();
+}
+
+// Every dense instance a call can take (q dtype 0 f32, 1 bf16; 16 rows a
+// block for bf16 calls only), run through `call` (a launch or an
+// occupancy query); cudaErrorInvalidValue for any other.
+template <class Call>
+int dense_instance(int dtype, int head_dim, int rows, Call call) {
+  using bf16 = __nv_bfloat16;
+  using prefill::Geo;
+  constexpr int R = prefill::ROWS, RV = prefill::ROWS_VERIFY;
+  if (dtype == 1 && rows == RV) {
+    if (head_dim == 64) return call(Geo<64, bf16, RV>());
+    if (head_dim == 256) return call(Geo<256, bf16, RV>());
+    return call(Geo<128, bf16, RV>());
+  }
+  if (rows != R) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    if (head_dim == 64) return call(Geo<64, bf16, R>());
+    if (head_dim == 256) return call(Geo<256, bf16, R>());
+    return call(Geo<128, bf16, R>());
+  }
+  if (head_dim == 64) return call(Geo<64, float, R>());
+  if (head_dim == 256) return call(Geo<256, float, R>());
+  return call(Geo<128, float, R>());
+}
+
+DenseParams dense_params(const void* q, const void* k, const void* v,
+                         void* o, void* lse, const void* sinks,
+                         const void* alibi, const void* q_seg,
+                         const void* kv_seg, void* scratch, int scratch_slots,
+                         int hq, int hkv, int sq, int skv, int kv_len,
+                         float scale, int causal, int q_offset, int window,
+                         float softcap, float inv_softcap) {
+  DenseParams dp;
+  prefill::RowParams& rp = dp.rp;
+  rp.q = q;
+  rp.o = o;
+  rp.sinks = static_cast<const float*>(sinks);
+  // Window and ALiBi apply to causal calls only (as the plain version).
+  rp.alibi = causal ? static_cast<const float*>(alibi) : nullptr;
+  rp.scratch = static_cast<float*>(scratch);
+  rp.slots = scratch_slots;
+  rp.hq = hq;
+  rp.hkv = hkv;
+  rp.q_len = sq;
+  rp.scale = scale;
+  rp.window = causal ? window : 0;
+  rp.softcap = softcap;
+  rp.inv_softcap = inv_softcap;
+  rp.page_size = 0;
+  dp.k = k;
+  dp.v = v;
+  dp.lse = static_cast<float*>(lse);
+  dp.q_seg = static_cast<const int*>(q_seg);
+  dp.kv_seg = static_cast<const int*>(kv_seg);
+  dp.skv = skv;
+  dp.kv_len = kv_len;
+  dp.causal = causal;
+  dp.q_offset = q_offset;
+  return dp;
+}
+
 }  // namespace
 
 #define FLASH_FWD_ARGS                                                      \
   const void *q, const void *k, const void *v, void *o, void *lse,         \
       const void *sinks, const void *alibi, const void *q_seg,              \
-      const void *kv_seg, int dtype, int batch, int hq, int hkv, int sq,    \
-      int skv, int kv_len, int head_dim, float scale, int causal,           \
+      const void *kv_seg, void *scratch, long long scratch_floats,          \
+      int scratch_slots, int rows, int dtype, int batch, int hq, int hkv,   \
+      int sq, int skv, int kv_len, int head_dim, float scale, int causal,   \
       int q_offset, int window, float softcap, float inv_softcap,           \
       void *stream
+#define FLASH_FWD_NAMES                                                     \
+  q, k, v, o, lse, sinks, alibi, q_seg, kv_seg, scratch, scratch_floats,    \
+      scratch_slots, rows, dtype, batch, hq, hkv, sq, skv, kv_len,          \
+      head_dim, scale, causal, q_offset, window, softcap, inv_softcap,      \
+      stream
 #define FLASH_FWD_PARAMS                                                    \
   make_params(q, k, v, o, lse, sinks, alibi, q_seg, kv_seg, hq, hkv, sq,    \
               skv, kv_len, scale, causal, q_offset, window, softcap,        \
@@ -606,29 +509,54 @@ bool served(int dtype, int head_dim) {
          (head_dim == 64 || head_dim == 128 || head_dim == 256);
 }
 
-// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the
+// The order-exact kernel for one call of either entry.
+static int launch_exact(FLASH_FWD_ARGS) {
+  if (hq % hkv != 0 || kv_len < 0 || kv_len > skv)
+    return (int)cudaErrorInvalidValue;
+  const DenseParams dp = dense_params(
+      q, k, v, o, lse, sinks, alibi, q_seg, kv_seg, scratch, scratch_slots,
+      hq, hkv, sq, skv, kv_len, scale, causal, q_offset, window, softcap,
+      inv_softcap);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dense_instance(dtype, head_dim, rows, [&](auto geo) {
+    return launch_dense<decltype(geo)>(dp, batch, scratch_floats, s);
+  });
+}
+
+// dtype: 0 = float32 (the order-exact kernel), 1 = bfloat16 (the
 // tensor-core kernel); q, k, v and o share it. head_dim: 64, 128 or 256.
-// Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
-// for a dtype or head_dim this build does not serve.
+// scratch: scratch_floats f32 of device memory holding scratch_slots slots
+// (prefill_tile.cuh, take_scratch) for f32 at d 256, as forward.py sizes
+// it, else nullptr; rows: the order-exact kernel's rows a block (64, or
+// 16 for bf16). Returns cudaGetLastError() after the launch; 1
+// (cudaErrorInvalidValue) for a configuration this build does not serve.
 extern "C" int flash_fwd(FLASH_FWD_ARGS) {
   if (!served(dtype, head_dim)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_exact(FLASH_FWD_NAMES);
   const FwdParams p = FLASH_FWD_PARAMS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_cuda_cores<float>(p, head_dim, batch, s);
   if (head_dim == 64) return launch_bf16<TcTiles<64>, TC_EXP2>(p, batch, s);
   if (head_dim == 256)
     return launch_bf16<TcTiles<256>, TC_EXP2>(p, batch, s);
   return launch_bf16<TcTiles<128>, TC_EXP2>(p, batch, s);
 }
 
-// The order-exact forward: the CUDA-core kernel for both dtypes, whose
+// The order-exact forward: the order-exact kernel for both dtypes, whose
 // S and P V sums run in sequence over d and over the kv rows, the order
 // of the plain version's f32 products on the card (see the note at the
 // top). Same arguments and returns as flash_fwd.
 extern "C" int flash_fwd_exact(FLASH_FWD_ARGS) {
   if (!served(dtype, head_dim)) return (int)cudaErrorInvalidValue;
-  const FwdParams p = FLASH_FWD_PARAMS;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_cuda_cores<float>(p, head_dim, batch, s)
-                    : launch_cuda_cores<__nv_bfloat16>(p, head_dim, batch, s);
+  return launch_exact(FLASH_FWD_NAMES);
+}
+
+// The shared memory and blocks an SM of the order-exact instance a call
+// of this dtype (0 f32, 1 bf16), head width and rows a block takes.
+extern "C" int flash_fwd_exact_occupancy(int dtype, int head_dim, int rows,
+                                         int* smem_bytes,
+                                         int* blocks_per_sm) {
+  if (!served(dtype, head_dim)) return (int)cudaErrorInvalidValue;
+  return dense_instance(dtype, head_dim, rows, [&](auto geo) {
+    return dense_occupancy<decltype(geo)>(smem_bytes, blocks_per_sm);
+  });
 }

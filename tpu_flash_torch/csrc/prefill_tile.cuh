@@ -1,10 +1,12 @@
-// prefill_tile.cuh: the order-exact tile shared by paged_prefill.cu (K5)
-// and ragged_prefill.cu (K6), on Hopper's CUDA cores.
+// prefill_tile.cuh: the order-exact tile shared by paged_prefill.cu (K5),
+// ragged_prefill.cu (K6) and flash_fwd.cu's order-exact forward (dense
+// K/V: flash_fwd_exact, and flash_fwd in f32), on Hopper's CUDA cores.
 //
 // A thread block owns R query rows of one (batch row, kv head): the
 // q_per_kv query heads of that kv head stacked over `qp = R / q_per_kv`
 // chunk positions (GQA folding), so every K/V row a block reads serves all
-// of its heads. R is ROWS (64) for chunks and ROWS_VERIFY (16) for short
+// of its heads (the forward splits a group wider than R into blocks of
+// whole heads). R is ROWS (64) for chunks and ROWS_VERIFY (16) for short
 // calls whose 64-row grid would not fill the card (speculative verify: 9
 // rows over ~2K history); the wrapper picks.
 //
@@ -15,18 +17,21 @@
 // the block's kv rows in order. P = exp(S - m) is rounded to the value
 // dtype after the TPU block's whole running max, as the TPU kernels round
 // it; l sums the unrounded P per 128-column window (64 at d 256) in four
-// sequential runs combined as (r0 + r1) + (r2 + r3). No tensor-core
-// instruction is used: the tensor cores sum in an order of their own, and
-// the serving engine's greedy tokens are held to the plain version's.
+// sequential runs combined as (r0 + r1) + (r2 + r3). The forward (TORCH_L)
+// sums each kv block's P in the order of PyTorch's CUDA row sum, which
+// its plain version's `p.sum(-1)` takes (torch_row_sum), and so matches
+// that l bit for bit. No tensor-core instruction is used: the tensor
+// cores sum in an order of their own, and the serving engine's greedy
+// tokens are held to the plain version's.
 //
-// The walk. kv *blocks* come in the TPU kernel's order and widths (K6:
-// `block_kv` columns; K5: history blocks of pages_per_block * page_size
-// tokens, then chunk blocks of block_q rows). A block is cut into windows
-// of SW columns; a window no row of the block can see is skipped (its P is
-// exactly 0 after a real column, and a row whose whole block is masked is
-// wiped by the next block's alpha = 0). A window is cut into steps of BK
-// kv rows, staged in a ring of SLOTS shared-memory slots; a step no row
-// can see is skipped the same way.
+// The walk. kv *blocks* come in the TPU kernel's order and widths (K6 and
+// the forward: `block_kv` columns; K5: history blocks of pages_per_block *
+// page_size tokens, then chunk blocks of block_q rows). A block is cut
+// into windows of SW columns; a window no row of the block can see is
+// skipped (its P is exactly 0 after a real column, and a row whose whole
+// block is masked is wiped by the next block's alpha = 0). A window is cut
+// into steps of BK kv rows, staged in a ring of SLOTS shared-memory slots;
+// a step no row can see is skipped the same way.
 //
 // What bounds it: the CUDA cores' f32 FMA rate (67 TFLOP/s on the data
 // sheet). What the design does about it:
@@ -47,16 +52,17 @@
 //    a 16-byte piece of d for every row and column, then advances all
 //    RT x CS chains by one element each, so they interleave. The lane
 //    split (16 for scores, 32 for outputs) timed fastest against 16/16
-//    and 32/32 (PERF.md).
+//    and 32/32 (PERF.md); d 64 in bf16 takes 16 output lanes, so that a
+//    lane's share of a row stays 8 bytes (OUT_LANES_NARROW).
 //  - A block of one live window keeps S in shared memory. A block of
 //    several (K5's history blocks of up to 2048 tokens and chunk blocks of
-//    256 rows; every d 256 K6 block) writes each window's f32 S to a
-//    scratch slot in device memory during the max pass and reads it back
-//    to form P: 8 bytes of device-memory traffic a score against D FMAs.
-//    Restaging K and recomputing S instead costs 1.5x the score work and
-//    timed 25-40% slower (PERF.md). The wrapper sizes the scratch for the
-//    blocks the card runs at once, not for the grid: a block takes a free
-//    slot as it starts and frees it as it ends (take_scratch).
+//    256 rows; every d 256 K6 and forward block) writes each window's f32
+//    S to a scratch slot in device memory during the max pass and reads it
+//    back to form P: 8 bytes of device-memory traffic a score against D
+//    FMAs. Restaging K and recomputing S instead costs 1.5x the score work
+//    and timed 25-40% slower (PERF.md). The wrapper sizes the scratch for
+//    the blocks the card runs at once, not for the grid: a block takes a
+//    free slot as it starts and frees it as it ends (take_scratch).
 //  - Each row's running max stays in registers (warp shuffles); l sits in
 //    shared memory, written by the P pass's threads.
 //
@@ -65,7 +71,8 @@
 // hold token j of a page in the low nibble of byte row j and token
 // j + ps/2 in the high nibble, both sign-extended; masked scores take
 // MASK_VALUE; ALiBi adds slope * (kv_pos - q_pos); sinks join the
-// denominator once at the end; a row with l == 0 divides by 1.
+// denominator once at the end; a row with l == 0 divides by 1 (lse -inf,
+// where the forward asks for lse).
 
 #pragma once
 
@@ -93,6 +100,9 @@ constexpr int STEP_F32 = 32;      // the same, f32 q
 constexpr int SLOTS = 2;          // stages of the K/V ring
 constexpr int SCORE_LANES = 16;  // lanes sharing a row group of S (Geo)
 constexpr int OUT_LANES = 32;    // lanes sharing an output row group
+constexpr int OUT_LANES_NARROW = 16;  // the same where a lane's share of
+                                      // an output row would be under 8
+                                      // bytes (d 64 in bf16)
 constexpr int MAX_WINDOWS = 64;   // windows a kv block (live-mask bits)
 constexpr int SMEM_BLOCK = 232448;  // shared memory a block may use (227 KB)
 constexpr int SMEM_SM = 233472;     // an SM's, 1 KB of it reserved a block
@@ -121,7 +131,9 @@ struct Geo {
   static constexpr int QB = sizeof(TQ);
   static constexpr int SW = D > 128 ? WINDOW_D256 : WINDOW;
   static constexpr int BK = BK_;
-  static constexpr int LS = SCORE_LANES, LO = OUT_LANES;
+  static constexpr int LS = SCORE_LANES;
+  static constexpr int LO =
+      (D / OUT_LANES) * QB % 8 == 0 ? OUT_LANES : OUT_LANES_NARROW;
   static constexpr int KE = 16 / QB;       // q elements a 16-byte piece
   static constexpr int QS = D + 4;         // padded row strides: floats,
   static constexpr int SS = SW + 4;        // 16-byte aligned
@@ -446,15 +458,78 @@ __device__ __forceinline__ void scores(const RowParams& p,
   }
 }
 
+// torch_row_sum's tree for one of a thread's 8 partials (j): offsets 16
+// and 8 across the row's threads, then offset 4 into part 0's b[j % 4].
+__device__ __forceinline__ void tree_add(float (&b)[4], int j, float a) {
+  a = a + __shfl_xor_sync(0xffffffffu, a, 2);  // offset 16
+  a = a + __shfl_xor_sync(0xffffffffu, a, 1);  // offset 8
+  const int k = j & 3;
+  const float cur = k == 0 ? b[0] : k == 1 ? b[1] : k == 2 ? b[2] : b[3];
+  const float v = j < 4 ? a : cur + a;  // offset 4
+  if (k == 0) b[0] = v;
+  if (k == 1) b[1] = v;
+  if (k == 2) b[2] = v;
+  if (k == 3) b[3] = v;
+}
+
+// TORCH_L: row r's sum of the unrounded P of one kv block of `width`
+// columns (1 to 128) in the order of PyTorch's CUDA row sum (its
+// Reduce.cuh, checked on the card against torch 2.11): 32 partials, each
+// the sequential sum of 4 columns -- neighbours 4t..4t+3 where the row is
+// 128 wide (vectorised loads), else t, t+32, t+64, t+96 (narrower widths
+// take 2^floor(log2 width) strided partials; the extra zeros here are
+// exact) -- then a tree over the partials at halving offsets. P is
+// exp(S - m) again, from Ss (`scratch` nullptr: a block of one live
+// window) or from the block's scratch; columns of dead steps (bits of
+// `live`, one a step across the block) and past the block are 0. A row's
+// four threads (part 0..3) each take partials 8 part .. 8 part + 7; the
+// sum is part 0's.
+template <typename G, typename TQ>
+__device__ __forceinline__ float torch_row_sum(const Smem<G, TQ>& sm,
+                                               const float* scratch, int r,
+                                               int part, float m, int width,
+                                               unsigned live) {
+  constexpr int R = G::WR * WARPS, SW = G::SW;
+  const int ct = width >= 128 ? 4 : 1, ci = width >= 128 ? 1 : 32;
+  float b[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int j = 0; j < 8; ++j) {
+    const int t = 8 * part + j;
+    float a = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = t * ct + i * ci;
+      float x = 0.f;
+      if (c < width && (live >> (c / G::BK)) & 1u) {
+        const float sc = scratch != nullptr
+                             ? scratch[(long long)(c / SW) * R * SW +
+                                       r * SW + c % SW]
+                             : sm.Ss[r * G::SS + c % SW];
+        x = expf(sc - m);
+      }
+      a = i == 0 ? x : a + x;
+    }
+    tree_add(b, j, a);
+  }
+  return (b[0] + b[2]) + (b[1] + b[3]);
+}
+
 // P = exp(S - m) of a window's live steps (bits of `steps`) into Ss
 // rounded to TQ (the value dtype), l += sum(P) unrounded: four threads a
 // row, each a sequential run of CW columns (inside one step), combined
 // (r0 + r1) + (r2 + r3); a dead step's run adds its exact 0. S comes from
-// Ss (`from` nullptr) or from the block's scratch.
-template <typename G, typename TQ>
+// Ss (`from` nullptr) or from the block's scratch. TORCH_L: l takes the
+// whole kv block's sum in PyTorch's order once: a full block of one window
+// in the same pass (its threads' float4 chunks are the order's partials),
+// any other at its first live window (`first`), by torch_row_sum over
+// `width` columns of steps `live` (S from `scratch` where the block spans
+// windows), before P overwrites S.
+template <typename G, typename TQ, bool TORCH_L = false>
 __device__ __forceinline__ void softmax_p(const Smem<G, TQ>& sm,
                                           const float* from,
-                                          unsigned steps) {
+                                          unsigned steps, bool first,
+                                          const float* scratch, int width,
+                                          unsigned live) {
   constexpr int R = G::WR * WARPS;
   const int tid = threadIdx.x;
   if (tid >= 4 * R) return;
@@ -463,9 +538,39 @@ __device__ __forceinline__ void softmax_p(const Smem<G, TQ>& sm,
   const float* srow = from != nullptr ? from + r * G::SW : sm.Ss + r * G::SS;
   float* prow = sm.Ss + r * G::SS;
   const int c0 = part * G::CW;
-  const int c1 = (PREFILL_OMIT & 8) == 0 && (steps >> (c0 / G::BK)) & 1u
-                     ? c0 + G::CW
-                     : c0;
+  const bool on = (PREFILL_OMIT & 8) == 0 && (steps >> (c0 / G::BK)) & 1u;
+  if constexpr (TORCH_L) {
+    if constexpr (G::CW == 32) {
+      // A full block of one window: the thread's 8 float4 chunks are its
+      // partials t = 8 part + j in order, so P and l come in one pass.
+      if (width >= 128) {
+        float b[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float a = 0.f;
+          if (on) {
+            const int c = c0 + 4 * j;
+            const float4 x = *reinterpret_cast<const float4*>(srow + c);
+            const float p0 = expf(x.x - m), p1 = expf(x.y - m);
+            const float p2 = expf(x.z - m), p3 = expf(x.w - m);
+            a = ((p0 + p1) + p2) + p3;
+            *reinterpret_cast<float4*>(prow + c) =
+                make_float4(round_to<TQ>(p0), round_to<TQ>(p1),
+                            round_to<TQ>(p2), round_to<TQ>(p3));
+          }
+          tree_add(b, j, a);
+        }
+        if (part == 0) sm.row_l[r] += (b[0] + b[2]) + (b[1] + b[3]);
+        return;
+      }
+    }
+    if (first) {
+      const float l = torch_row_sum(sm, scratch, r, part, m, width, live);
+      if (part == 0) sm.row_l[r] += l;
+    }
+    __syncwarp();  // the row's S is read before P overwrites it
+  }
+  const int c1 = on ? c0 + G::CW : c0;
   float lsum = 0.f;
   for (int c = c0; c < c1; c += 4) {
     const float4 x = *reinterpret_cast<const float4*>(srow + c);
@@ -479,9 +584,11 @@ __device__ __forceinline__ void softmax_p(const Smem<G, TQ>& sm,
         make_float4(round_to<TQ>(p0), round_to<TQ>(p1), round_to<TQ>(p2),
                     round_to<TQ>(p3));
   }
-  lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-  lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-  if (part == 0) sm.row_l[r] += lsum;
+  if constexpr (!TORCH_L) {
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+    if (part == 0) sm.row_l[r] += lsum;
+  }
 }
 
 // acc += P V over one step: the slot's V rows against Ss columns
@@ -524,8 +631,9 @@ __device__ __forceinline__ void accumulate(const Smem<G, TQ>& sm,
 // The tiles it stages, in order, through the ring: the K steps of every
 // live window (pass 1: S and the block's row max), then per live window
 // its V steps (pass 2: P and P V). Each acquire waits for its tile and
-// starts the next into the other slot.
-template <typename G, typename TQ, int D, typename TK,
+// starts the next into the other slot. TORCH_L: l takes each block's sum
+// in PyTorch's row-sum order (softmax_p).
+template <typename G, typename TQ, int D, bool TORCH_L = false, typename TK,
           typename Src, typename Live, typename Full, typename Mask>
 __device__ __forceinline__ void attend_block(
     const RowParams& p, const Smem<G, TQ>& sm, Thread<G>& st,
@@ -663,11 +771,16 @@ __device__ __forceinline__ void attend_block(
   }
 
   // Pass 2: P of each live window with the block's max, then P V.
+  unsigned block_live = 0;  // TORCH_L: live steps across the block
+  if constexpr (TORCH_L)
+    for (int w = first; w >= 0; w = next_live(w))
+      block_live |= steps(w) << (w * (SW / BK));
   for (int w = first; w >= 0; w = next_live(w)) {
     const unsigned live_steps = steps(w);
     __syncthreads();  // S in Ss, row_m and row_l written; last P V done
-    softmax_p<G, TQ>(sm, multi ? scratch + (long long)w * R * SW : nullptr,
-                     live_steps);
+    softmax_p<G, TQ, TORCH_L>(
+        sm, multi ? scratch + (long long)w * R * SW : nullptr, live_steps,
+        w == first, multi ? scratch : nullptr, width, block_live);
     for (unsigned ms = live_steps; ms; ms &= ms - 1) {
       const int s = __ffs(ms) - 1;
       const TQ* v = acquire();
@@ -676,12 +789,38 @@ __device__ __forceinline__ void attend_block(
   }
 }
 
-// Deferred normalisation (the sink logit folded in once) and the store.
-template <typename G, typename TQ, int D>
+// The final scale of a row's O and its lse, from its running max m and sum
+// l (the sink logit of head h folded in once). TORCH_L: the sink's sum
+// l * scale_m + exp(sk - m2) in two roundings, as the plain version's two
+// torch ops (else nvcc contracts it into an FMA).
+template <bool TORCH_L = false>
+__device__ __forceinline__ void finish_row(const float* sinks, int h,
+                                           float m, float l, float& mult,
+                                           float& lse) {
+  if (sinks != nullptr) {
+    const float sk = sinks[h];
+    const float m2 = fmaxf(m, sk);
+    const float scale_m = expf(m - m2);
+    const float l_tot =
+        TORCH_L ? __fadd_rn(__fmul_rn(l, scale_m), expf(sk - m2))
+                : l * scale_m + expf(sk - m2);
+    mult = scale_m / l_tot;
+    lse = m2 + logf(l_tot);
+  } else {
+    mult = (l == 0.f) ? 1.f : 1.f / l;
+    lse = (m == -INFINITY) ? -INFINITY : m + logf(l);
+  }
+}
+
+// Deferred normalisation (the sink logit folded in once; TORCH_L as
+// finish_row) and the store; each row's lse into `lse` [b, hq, q_len]
+// where it is given.
+template <typename G, typename TQ, int D, bool TORCH_L = false>
 __device__ __forceinline__ void store_rows(const RowParams& p,
                                            const Rows& rows,
                                            const Smem<G, TQ>& sm,
-                                           const Thread<G>& st, int b) {
+                                           const Thread<G>& st, int b,
+                                           float* lse = nullptr) {
   __syncthreads();
   const int lane = threadIdx.x % 32, ol = lane % G::LO;
   const int orow = (lane / G::LO) * G::RO;  // in the warp
@@ -693,20 +832,13 @@ __device__ __forceinline__ void store_rows(const RowParams& p,
     const float l = sm.row_l[r];
     if (!rows.active(r)) continue;
     const int h = rows.kvh * rows.g + rows.head_in_group(r);
-    float mult;
-    if (p.sinks != nullptr) {
-      const float sk = p.sinks[h];
-      const float m2 = fmaxf(m, sk);
-      const float scale_m = expf(m - m2);
-      mult = scale_m / (l * scale_m + expf(sk - m2));
-    } else {
-      mult = (l == 0.f) ? 1.f : 1.f / l;
-    }
-    const long long off =
-        (((long long)b * p.hq + h) * p.q_len + rows.pos(r)) * D + ol * G::CO;
+    float mult, row_lse;
+    finish_row<TORCH_L>(p.sinks, h, m, l, mult, row_lse);
+    const long long row = ((long long)b * p.hq + h) * p.q_len + rows.pos(r);
 #pragma unroll
     for (int c = 0; c < G::CO; ++c)
-      o[off + c] = from_f<TQ>(st.acc[i][c] * mult);
+      o[row * D + ol * G::CO + c] = from_f<TQ>(st.acc[i][c] * mult);
+    if (lse != nullptr && ol == 0) lse[row] = row_lse;
   }
 }
 

@@ -153,13 +153,13 @@ class CudaKernel:
             self.launches_by_tag[tag] = self.launches_by_tag.get(tag, 0) + 1
 
 
-_FLASH_FWD_ARGS = [P] * 9 + [I] * 8 + [F, I, I, I, F, F, P]
+_FLASH_FWD_ARGS = [P] * 10 + [L] + [I] * 10 + [F, I, I, I, F, F, P]
 FLASH_FWD = CudaKernel(
     "flash_fwd", "flash_fwd", _FLASH_FWD_ARGS,
     replaces="tpu_flash/ops/flash/forward.py:102",
 )
-# The same source's order-exact entry (the CUDA-core kernel in both
-# dtypes), which the serving engine takes.
+# The same source's order-exact entry (the order-exact prefill tile over
+# dense K/V in both dtypes), which the serving engine takes.
 FLASH_FWD_EXACT = CudaKernel(
     "flash_fwd_exact", "flash_fwd_exact", _FLASH_FWD_ARGS,
     source="flash_fwd", replaces="tpu_flash/ops/flash/forward.py:102",

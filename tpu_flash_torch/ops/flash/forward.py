@@ -14,8 +14,10 @@ tile.
 
 :func:`flash_fwd` takes the plain version for CPU tensors only; a CUDA
 tensor launches the kernel (``csrc/flash_fwd.cu``) or raises: bf16 on
-the tensor cores, f32 on the CUDA cores. :func:`flash_fwd_exact` takes
-the source's order-exact entry, the CUDA-core kernel in both dtypes.
+the tensor cores, f32 on the order-exact kernel. :func:`flash_fwd_exact`
+takes the source's order-exact entry in both dtypes: the order-exact
+prefill tile (``csrc/prefill_tile.cuh``) over dense K/V on the CUDA
+cores, whose rows a block and score scratch :func:`tile_launch` sizes.
 """
 
 from __future__ import annotations
@@ -170,14 +172,46 @@ def flash_fwd(
 def flash_fwd_exact(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     **kw):
     """:func:`flash_fwd` (the same arguments and results) on the kernel's
-    order-exact entry: the CUDA-core kernel in both dtypes, whose sums run
-    one FMA at a time in the order of this module's plain version on the
-    card. The tensor cores sum inside each product in an order of their
-    own; the serving engine takes this entry so that its greedy tokens
-    stay the plain version's. CPU tensors take :func:`flash_fwd_plain`."""
+    order-exact entry: the order-exact prefill tile on the CUDA cores in
+    both dtypes, whose sums run one FMA at a time in the order of this
+    module's plain version on the card. The tensor cores sum inside each
+    product in an order of their own; the serving engine takes this entry
+    so that its greedy tokens stay the plain version's. CPU tensors take
+    :func:`flash_fwd_plain`."""
     if q.device.type != "cuda":
         return flash_fwd(q, k, v, **kw)  # the plain version, or a refusal
     return _flash_fwd_cuda(build.FLASH_FWD_EXACT, q, k, v, **kw)
+
+
+def tile_heads(group: int, rows: int) -> int:
+    """q heads a block of the order-exact kernel holds: the largest
+    divisor of the GQA group that fits its rows (the whole group where
+    it fits), each over ``rows // heads`` positions (flash_fwd.cu's
+    ``heads_per_block``)."""
+    return max(h for h in range(1, min(group, rows) + 1) if group % h == 0)
+
+
+def tile_launch(q: torch.Tensor, num_kv_heads: int,
+                sms: Optional[int] = None):
+    """(rows a block, score scratch, its slots) of an order-exact launch
+    over q: 16 rows for a bf16 call whose 64-row grid would leave SMs
+    idle (``paged_prefill.tile_rows``), else 64; a score scratch only
+    where a kv step (``block_kv`` columns) is wider than the tile's
+    window (d 256), with a slot for each block the card runs at once
+    (``paged_prefill.tile_scratch``), else (None, 0)."""
+    # paged_prefill imports this module: take it at call time.
+    from tpu_flash_torch.ops.flash import paged_prefill as pp
+
+    hq, d = q.shape[1], q.shape[-1]
+    rows = pp.tile_rows(q, num_kv_heads, sms)
+    if KERNEL_TILES.block_kv <= pp.TILE_WINDOW[256 if d > 128 else 128]:
+        return rows, None, 0
+    heads = tile_heads(hq // num_kv_heads, rows)
+    resident = pp.resident_blocks(build.FLASH_FWD_EXACT,
+                                  (KERNEL_DTYPES[q.dtype], d, rows), q.device)
+    scratch, slots = pp.tile_scratch(q, hq // heads, rows,
+                                     KERNEL_TILES.block_kv, resident)
+    return rows, scratch, slots
 
 
 def _flash_fwd_cuda(kernel, q, k, v, *, causal, sm_scale, q_offset=0,
@@ -199,6 +233,9 @@ def _flash_fwd_cuda(kernel, q, k, v, *, causal, sm_scale, q_offset=0,
     for t in (k, v, sinks, alibi, q_seg, kv_seg):
         if t is not None and t.device != q.device:
             raise ValueError("flash_fwd: all tensors must share q's device")
+    kv_len = skv if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= skv:
+        raise ValueError(f"flash_fwd: kv_len {kv_len} outside [0, {skv}]")
     q, k, v = build.aligned(q), build.aligned(k), build.aligned(v)
     sinks = None if sinks is None else sinks.float().contiguous()
     alibi = None if alibi is None else alibi.float().contiguous()
@@ -208,12 +245,15 @@ def _flash_fwd_cuda(kernel, q, k, v, *, causal, sm_scale, q_offset=0,
         torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
         if save_lse else None
     )
+    rows, scratch, slots = 0, None, 0  # the tensor cores take neither
+    if kernel is build.FLASH_FWD_EXACT or q.dtype == torch.float32:
+        rows, scratch, slots = tile_launch(q, hkv)
     kernel.launch(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
         build.ptr(lse), build.ptr(sinks), build.ptr(alibi),
-        build.ptr(q_seg), build.ptr(kv_seg),
-        KERNEL_DTYPES[q.dtype], b, hq, hkv, sq, skv,
-        skv if kv_len is None else int(kv_len), d,
+        build.ptr(q_seg), build.ptr(kv_seg), build.ptr(scratch),
+        0 if scratch is None else scratch.numel(), slots, rows,
+        KERNEL_DTYPES[q.dtype], b, hq, hkv, sq, skv, kv_len, d,
         rounded_scale(sm_scale, q.dtype), int(bool(causal)), int(q_offset),
         0 if window is None else int(window),
         0.0 if softcap is None else float(softcap),
