@@ -1404,26 +1404,34 @@ QUANT_SEQ = 8192
 QUANT_OPTION_SEQ = 2048
 QUANT_LATE_SHIFT = 1.01
 QUANT_LATE_CAUGHT = 0.9
+# (q heads, kv heads, head width, q's standard deviation) of K10's cases:
+# config 4's geometry, Gemma-2-9B's and d 64.
+QUANT_GEO = (32, 8, 128, 1.0)
 
 
-def quant_inputs(dev, dtype_name, s, seed=SEED):
+def quant_inputs(dev, dtype_name, s, seed=SEED, geo=QUANT_GEO):
     import torch
 
     from tpu_flash_torch.ops.flash import quantize_attention_inputs
 
+    hq, hkv, d, q_std = geo
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(1, 32, s, 128, generator=g, device=dev).bfloat16()
-    k = torch.randn(1, 8, s, 128, generator=g, device=dev).bfloat16()
-    v = torch.randn(1, 8, s, 128, generator=g, device=dev).bfloat16()
+    q = (q_std * torch.randn(1, hq, s, d, generator=g,
+                             device=dev)).bfloat16()
+    k = torch.randn(1, hkv, s, d, generator=g, device=dev).bfloat16()
+    v = torch.randn(1, hkv, s, d, generator=g, device=dev).bfloat16()
     return q, k, v, quantize_attention_inputs(q, k, v, dtype_name)
 
 
 def quant_cases(dev):
-    """(name, dtype_name, seq, quant_fwd options, control options). The
-    first three cases write bf16 as config 4 does; the rest write f32,
+    """(name, dtype_name, seq, quant_fwd options, control options[,
+    geometry]): QUANT_GEO unless a case names its own. The first three
+    cases write bf16 as config 4 does; the rest of config 4's write f32,
     whose bar (2^-12 of each row's max |ref|) separates the tiers and
     routes sharply: kernel and plain version round P identically (exact
-    scores) and differ only in the order of f32 sums."""
+    scores) and differ only in the order of f32 sums. The width cases:
+    Gemma-2-9B's d 256 (an int8 causal prefill, a sliding layer's
+    fp8 native prefill with its window and cap, the staircase) and d 64."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -1435,6 +1443,13 @@ def quant_cases(dev):
     native, soft = dict(fp8_native=True), dict(fp8_native=False)
     i8, f8 = "int8", "fp8"
     big, opt = QUANT_SEQ, QUANT_OPTION_SEQ
+    # q at GEMMA_Q_STD where the cap must bend scores; else at 1, where
+    # rows spread their weight and the late-row control can move them (at
+    # GEMMA_Q_STD most rows sit on one key, and the 1% k-scale shift puts
+    # fewer than QUANT_LATE_CAUGHT of the late rows past their bars).
+    gemma = (*GEMMA_HEADS, GEMMA_D, 1.0)
+    gemma_cap = (*GEMMA_HEADS, GEMMA_D, GEMMA_Q_STD)
+    narrow = (32, 8, 64, 1.0)
     return [
         ("int8_causal", i8, big, causal, dict(causal=False)),
         ("fp8_native_causal", f8, big, dict(causal=True, **native),
@@ -1463,6 +1478,17 @@ def quant_cases(dev):
          dict(causal=False)),
         ("int8_onepass_f32", i8, opt, dict(causal=True, onepass=True, **f32),
          dict(causal=True, **f32)),
+        ("d256_int8_causal_f32", i8, big, dict(causal=True, **f32),
+         dict(causal=False, **f32), gemma),
+        ("d256_fp8_native_sliding", f8, big,
+         dict(causal=True, window=GEMMA_WINDOW, softcap=GEMMA_CAP, **native),
+         dict(causal=True, **native), gemma_cap),
+        ("d256_int8_onepass_f32", i8, opt,
+         dict(causal=True, onepass=True, **f32), dict(causal=True, **f32),
+         gemma),
+        ("d64_int8_causal", i8, opt, causal, dict(causal=False), narrow),
+        ("d64_fp8_native_f32", f8, opt, dict(causal=True, **native, **f32),
+         dict(causal=True, **soft, **f32), narrow),
     ]
 
 
@@ -1499,15 +1525,17 @@ def check_quant_fwd(dev):
 
     rows = []
     inputs = {}
-    for name, dtype_name, s, kw, control in quant_cases(dev):
-        key = (dtype_name, s)
+    for name, dtype_name, s, kw, control, *geo in quant_cases(dev):
+        geo = geo[0] if geo else QUANT_GEO
+        key = (dtype_name, s, geo)
         if key not in inputs:
             inputs.clear()
-            inputs[key] = quant_inputs(dev, dtype_name, s)[3]
+            inputs[key] = quant_inputs(dev, dtype_name, s, geo=geo)[3]
         qi = inputs[key]
+        scale = geo[2] ** -0.5
 
         def call(fn, opts, args=qi[:6]):
-            return fn(*args, dtype_name=dtype_name, sm_scale=SCALE,
+            return fn(*args, dtype_name=dtype_name, sm_scale=scale,
                       **{"out_dtype": torch.bfloat16, **opts})
 
         out = call(qz.quant_fwd, kw)
@@ -1542,8 +1570,8 @@ def check_quant_fwd(dev):
         plain_ms = time_ms(lambda: call(qz.quant_fwd_plain, kw), 1,
                            warmup=0)
         bound_ms, bound_by = quant_bound(qi, kw)
-        row = dict(case=name, dtype=dtype_name, seq=s,
-                   out=str(out.dtype).removeprefix("torch."),
+        row = dict(case=name, dtype=dtype_name, seq=s, heads=list(geo[:2]),
+                   d=geo[2], out=str(out.dtype).removeprefix("torch."),
                    control={k_: str(v_) for k_, v_ in control.items()},
                    max_abs_err=max_err(out, ref),
                    max_abs_ref=float(ref.float().abs().max()),
@@ -1553,16 +1581,25 @@ def check_quant_fwd(dev):
                    median_abs_ref=float(ref.float().abs().median()),
                    median_row_bar=float(bars.median()),
                    rows_missed=missed, control_rows_missed=ctl_missed,
+                   differ_plain=differing(out, ref),
                    **late, ok=ok, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         rows.append(row)
         log("kernel_vs_plain", kernel="quant_fwd", **row)
         del out, ref
     raise_if_failed("quant_fwd", rows)
-    # The kernels line times int8 at config 4's shape, the first case. No
-    # one PyTorch call computes attention over quantized inputs with
-    # these roundings (SDPA on dequantized inputs is another function).
-    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows),
+    # The kernels line times int8 at config 4's shape, the first case, and
+    # carries the first d 256 and d 64 cases. No one PyTorch call
+    # computes attention over quantized inputs with these roundings (SDPA
+    # on dequantized inputs is another function).
+    widths = {}
+    for r in rows:
+        prefix = f"d{r['d']}_"
+        if r["d"] != QUANT_GEO[2] and prefix + "case" not in widths:
+            widths.update({prefix + x: r[x] for x in (
+                "case", "ms", "plain_ms", "bound_ms", "library_ms")})
+    return dict(rows[0], **widths,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms_by_case={r["case"]: r["ms"] for r in rows})
 
 
@@ -1602,7 +1639,9 @@ WEIGHTS_SEQ = 2048
 
 def check_attn_weights(dev):
     """K12 at b 1, 32 q / 8 kv heads, 2048 tokens, d 128, bf16: P from the
-    forward's lse, kernel against plain version; sinks rows sum below 1."""
+    forward's lse, kernel against plain version; sinks rows sum below 1.
+    Also at Gemma-2-9B's d 256 (16 / 8 heads, a sliding layer's window
+    and cap, q at GEMMA_Q_STD; its control drops both)."""
     import torch
 
     from tpu_flash_torch.ops.flash import debug, flash_attention
@@ -1615,29 +1654,33 @@ def check_attn_weights(dev):
     sinks = math.log(s) + 1.0 + 0.5 * torch.randn(32, generator=g, device=dev)
     slopes = torch.linspace(0.5, 0.004, 32, device=dev)
     causal = dict(causal=True)
+    qkv = (q, k, v, SCALE)
+    gemma = (*gemma_qkv(dev, 1, s, s, SEED + 8), GEMMA_SCALE)
     cases = [
-        ("causal", causal, {}, dict(causal=False)),
-        ("window_softcap", dict(causal=True, window=256, softcap=5.0), {},
-         causal),
-        ("alibi", dict(causal=True, alibi=slopes), {}, causal),
-        ("sinks", causal, dict(sinks=sinks), None),
+        ("causal", qkv, causal, {}, dict(causal=False)),
+        ("window_softcap", qkv, dict(causal=True, window=256, softcap=5.0),
+         {}, causal),
+        ("alibi", qkv, dict(causal=True, alibi=slopes), {}, causal),
+        ("sinks", qkv, causal, dict(sinks=sinks), None),
+        ("d256_sliding", gemma,
+         dict(causal=True, window=256, softcap=GEMMA_CAP), {}, causal),
     ]
     rows = []
-    for name, kw, fwd_only, control in cases:
-        _, lse = flash_attention(q, k, v, save_residuals=True, sm_scale=SCALE,
+    for name, (q, k, v, scale), kw, fwd_only, control in cases:
+        _, lse = flash_attention(q, k, v, save_residuals=True, sm_scale=scale,
                                  **kw, **fwd_only)
 
-        def call(fn, opts):
-            return fn(q, k, lse, sm_scale=SCALE, **opts)
+        def call(fn, opts, q=q, k=k, lse=lse, scale=scale):
+            return fn(q, k, lse, sm_scale=scale, **opts)
 
         out = call(debug.attention_weights_from_lse, kw)
         torch.cuda.synchronize()
         ref = call(debug.weights_plain, kw)
         if control is None:  # without sinks the rows would sum to 1
             _, lse0 = flash_attention(q, k, v, save_residuals=True,
-                                      sm_scale=SCALE, **kw)
+                                      sm_scale=scale, **kw)
             off = max_err(out, debug.weights_plain(q, k, lse0,
-                                                   sm_scale=SCALE, **kw))
+                                                   sm_scale=scale, **kw))
         else:
             off = max_err(out, call(debug.weights_plain, control))
         row_sums = out.sum(-1)
@@ -1646,8 +1689,9 @@ def check_attn_weights(dev):
         nbytes = (4 * out.numel() + 2 * (q.numel() + k.numel())
                   + 4 * lse.numel())
         bound_ms, bound_by = bound(
-            nbytes, 2.0 * 128 * 32 * live_pairs(1, s, s, kw), "bfloat16")
-        row = dict(case=name, shape=list(out.shape),
+            nbytes, 2.0 * q.shape[-1] * q.shape[1] * live_pairs(1, s, s, kw),
+            "bfloat16")
+        row = dict(case=name, shape=list(out.shape), d=q.shape[-1],
                    row_sum_max=float(row_sums.max()),
                    row_sum_min=float(row_sums.min()),
                    **agreement(out, ref, off), ms=ms, plain_ms=plain_ms,
@@ -1658,7 +1702,10 @@ def check_attn_weights(dev):
         log("kernel_vs_plain", kernel="attn_weights", **row)
         del out, ref
     raise_if_failed("attn_weights", rows)
-    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+    wide = rows[-1]
+    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows),
+                **{f"d256_{x}": wide[x] for x in (
+                    "case", "ms", "plain_ms", "bound_ms", "library_ms")})
 
 
 # -- phase 3: Gemma-2-9B's attention geometry (head width 256) --------------
@@ -3052,6 +3099,10 @@ TC_LIBRARIES = {
                   {("flash_fwd", True): 3, ("flash_fwd", False): 9}),
     "variant_fwd": ("VARIANT_FWD", r"variant_fwd_kernel",
                     r"variant_fwd_kernel", {("variant_fwd", True): 20}),
+    # K10: every instance on the tensor cores (quant_instances
+    # checks which instructions each mode needs).
+    "quant_fwd": ("QUANT_FWD", r"quant_(fwd|onepass)_kernel", r"quant_",
+                  {("fwd", True): 18, ("onepass", True): 6}),
     # The order-exact prefill tile (prefill_tile.cuh): no instance of K5
     # or K6 may hold a tensor-core instruction.
     "paged_prefill": ("PAGED_PREFILL", r"paged_prefill_kernel", r"(?!)",
@@ -3170,7 +3221,7 @@ def decode_instances():
 def tc_instances(lib):
     """Each kernel function of one of TC_LIBRARIES' built libraries: its
     dtype, registers and spill bytes (nvcc's -Xptxas -v log) and its
-    tensor-core instructions (HMMA, HGMMA) in the SASS (cuobjdump;
+    tensor-core instructions (HMMA, HGMMA, IMMA) in the SASS (cuobjdump;
     c++filt for readable names only). Raises without cuobjdump, if the
     library does not hold the instances it should, or if an instance
     that must run on the tensor cores has no tensor-core instruction or
@@ -3204,10 +3255,11 @@ def tc_instances(lib):
     for ln in dump.stdout.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            cur = sass.setdefault(m[1], dict(hmma=0, hgmma=0))
+            cur = sass.setdefault(m[1], dict(hmma=0, hgmma=0, imma=0))
         elif cur is not None:
             cur["hmma"] += len(re.findall(r"\bHMMA\b", ln))
             cur["hgmma"] += len(re.findall(r"\bHGMMA\b", ln))
+            cur["imma"] += len(re.findall(r"\bIMMA\b", ln))
     names = sorted(n for n in set(funcs) | set(sass) if re.search(func_re, n))
     plain = names
     if shutil.which("c++filt"):
@@ -3224,8 +3276,9 @@ def tc_instances(lib):
                    else "float32",
                    needs_tensor_cores=tc,
                    **funcs.get(name, {}),
-                   **sass.get(name, dict(hmma=0, hgmma=0)))
-        row["tensor_cores"] = bool(row["hmma"] or row["hgmma"])
+                   **sass.get(name, dict(hmma=0, hgmma=0, imma=0)))
+        row["tensor_cores"] = bool(row["hmma"] or row["hgmma"]
+                                   or row["imma"])
         rows.append(row)
     count = {key: sum((r["kernel"], r["needs_tensor_cores"]) == key
                       for r in rows) for key in want}
@@ -3237,6 +3290,50 @@ def tc_instances(lib):
             f"need or with ones they must not have: {wrong}; instances of "
             f"each (kernel, on the tensor cores): {count}, built "
             f"{len(rows)}, want {want}")
+    return rows
+
+
+QUANT_MODES = ("int8", "fp8", "fp8_native", "onepass")
+
+
+def quant_instances():
+    """Each K10 instance (csrc/quant_fwd.cu: d x mode x output dtype) with
+    its registers, spills and tensor-core instructions (tc_instances) and
+    its shared memory a block and blocks an SM (the CUDA occupancy
+    calculator). Raises unless every instance holds IMMA (int8 scores,
+    fp8 scores as exact int8 limb products, the staircase's P V) and
+    every tiled one HMMA (P V in bf16)."""
+    import re
+
+    import torch
+
+    from tpu_flash_torch.ops.flash.quantized import quant_occupancy
+
+    rows, bad = [], []
+    for r in tc_instances("quant_fwd"):
+        # c++filt's names, or the mangled ones where it is missing.
+        fn = r["function"]
+        m = (re.search(r"quant_fwd_kernel<(\d+), (\d), (\w+)>", fn)
+             or re.search(r"quant_fwd_kernelILi(\d+)ELi(\d)E(f|13__nv_bf)",
+                          fn))
+        if m:
+            d, mode, out = int(m[1]), QUANT_MODES[int(m[2])], m[3]
+        else:
+            m = (re.search(r"quant_onepass_kernel<(\d+), (\w+)>", fn)
+                 or re.search(r"quant_onepass_kernelILi(\d+)E(f|13__nv_bf)",
+                              fn))
+            d, mode, out = int(m[1]), "onepass", m[2]
+        out = "float32" if out in ("float", "f") else "bfloat16"
+        smem, blocks = quant_occupancy(mode, getattr(torch, out), d)
+        row = dict(r, d=d, mode=mode, out=out, smem_bytes=smem,
+                   blocks_per_sm=blocks,
+                   dtype="fp8" if mode.startswith("fp8") else "int8")
+        rows.append(row)
+        if not r["imma"] or (mode != "onepass" and not r["hmma"]):
+            bad.append(r["function"])
+    if bad:
+        raise AssertionError(f"quant_fwd: instances without the IMMA / HMMA "
+                             f"their mode needs: {bad}")
     return rows
 
 
@@ -3262,7 +3359,9 @@ def main() -> int:
     log("build", seconds=secs, wall_s=time.perf_counter() - t0,
         ptxas=[ln.strip() for k in build.KERNELS.values()
                for ln in k.build_log.splitlines() if "Used" in ln],
-        **{f"{lib}_instances": tc_instances(lib) for lib in TC_LIBRARIES},
+        **{f"{lib}_instances": (quant_instances() if lib == "quant_fwd"
+                                else tc_instances(lib))
+           for lib in TC_LIBRARIES},
         prefill_occupancy=prefill_occupancy(),
         decode_instances=decode_instances())
     if "--trained-only" in sys.argv[1:]:

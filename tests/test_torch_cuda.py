@@ -720,6 +720,32 @@ QUANT_CASES = {  # name: (dtype, seq, options, control options)
                                         out_dtype=torch.float32),
                      dict(causal=True, out_dtype=torch.float32)),
 }
+# The kernel's other head widths (d 128 unless named here).
+QUANT_CASES.update({
+    "int8-causal-d64": QUANT_CASES["int8-causal"],
+    "fp8-native-d64": QUANT_CASES["fp8-native"],
+    "int8-causal-d256": QUANT_CASES["int8-causal"],
+    "fp8-native-window-softcap-d256": (
+        "fp8", 512, dict(causal=True, fp8_native=True, window=100,
+                         softcap=5.0, out_dtype=torch.float32),
+        dict(causal=True, fp8_native=True, out_dtype=torch.float32)),
+    "fp8-software-d256": QUANT_CASES["fp8-software"],
+    "int8-onepass-d256": QUANT_CASES["int8-onepass"],
+})
+QUANT_WIDTHS = {name: int(name.rsplit("-d", 1)[1]) for name in QUANT_CASES
+                if name.rsplit("-d", 1)[-1].isdigit()}
+# Batches and head groups past (1, 8, 2): a group of 3 q heads, whose
+# blocks of 8 warps straddle heads and positions unevenly, and 4 / 4.
+QUANT_CASES.update({
+    "int8-window-gqa3-batch2": ("int8", 384, dict(causal=True, window=100),
+                                dict(causal=True)),
+    "fp8-native-mha-batch3": (
+        "fp8", 256, dict(causal=False, fp8_native=True,
+                         out_dtype=torch.float32),
+        dict(causal=True, fp8_native=True, out_dtype=torch.float32)),
+})
+QUANT_SHAPES = {"int8-window-gqa3-batch2": (2, 6, 2),
+                "fp8-native-mha-batch3": (3, 4, 4)}  # (b, q heads, kv heads)
 
 
 @pytest.mark.parametrize("case", list(QUANT_CASES))
@@ -730,18 +756,20 @@ def test_quant_fwd_kernel_matches_plain(dev, case):
     from tpu_flash_torch.ops.flash import quantized as qz
 
     dtype_name, s, kw, control = QUANT_CASES[case]
+    d = QUANT_WIDTHS.get(case, 128)
+    b, hq, hkv = QUANT_SHAPES.get(case, (1, 8, 2))
     g = torch.Generator(device=dev).manual_seed(8)
     qi = qz.quantize_attention_inputs(
-        _rn(g, 1, 8, s, 128), _rn(g, 1, 2, s, 128), _rn(g, 1, 2, s, 128),
+        _rn(g, b, hq, s, d), _rn(g, b, hkv, s, d), _rn(g, b, hkv, s, d),
         dtype_name)
     kw = dict(kw)
     if kw.pop("sinks", False):
-        kw["sinks"] = _rn(g, 8) + 4.0
+        kw["sinks"] = _rn(g, hq) + 4.0
     if kw.pop("alibi", False):
-        kw["alibi"] = torch.linspace(0.3, 0.01, 8, device=dev)
+        kw["alibi"] = torch.linspace(0.3, 0.01, hq, device=dev)
 
     def call(fn, opts):
-        return fn(*qi[:6], dtype_name=dtype_name, sm_scale=128 ** -0.5,
+        return fn(*qi[:6], dtype_name=dtype_name, sm_scale=d ** -0.5,
                   **{"out_dtype": torch.bfloat16, **opts})
 
     out = call(qz.quant_fwd, kw)
@@ -769,7 +797,7 @@ def test_quantize_rows_kernel_byte_identical(dev, dtype, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize(
     "kw,control",
     [(dict(causal=True), dict(causal=False)),
@@ -824,6 +852,30 @@ def test_new_kernels_launch_and_never_take_the_plain_path(dev):
         flash_attention_quantized(qi96)
     with pytest.raises(ValueError, match="f32, bf16 or f16"):
         quantize_pallas(x.double())
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_quantized_and_weights_launch_at_every_width(dev, d):
+    """flash_attention_quantized (int8 and fp8) and attention_weights on
+    CUDA tensors at each head width launch their kernels, once each."""
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.ops.flash import (attention_weights,
+                                           flash_attention_quantized,
+                                           quantize_attention_inputs)
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = _rn(g, 1, 4, 256, d)
+    kv = _rn(g, 1, 2, 256, d)
+    before = build.launch_counts()
+    for dtype_name in ("int8", "fp8"):
+        out = flash_attention_quantized(
+            quantize_attention_inputs(x, kv, kv, dtype_name), causal=True)
+        assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    attention_weights(x, kv, kv, causal=True)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    assert after["quant_fwd"] == before["quant_fwd"] + 2
+    assert after["attn_weights"] == before["attn_weights"] + 1
 
 
 @pytest.mark.parametrize("tier", ["bfloat16", "int8-mxu"])

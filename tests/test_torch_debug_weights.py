@@ -34,11 +34,11 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _inputs(seed, q_len=128, kv_len=128):
+def _inputs(seed, q_len=128, kv_len=128, d=D):
     rng = np.random.default_rng(seed)
-    return (rng.standard_normal((B, HQ, q_len, D), dtype=np.float32),
-            rng.standard_normal((B, HKV, kv_len, D), dtype=np.float32),
-            rng.standard_normal((B, HKV, kv_len, D), dtype=np.float32))
+    return (rng.standard_normal((B, HQ, q_len, d), dtype=np.float32),
+            rng.standard_normal((B, HKV, kv_len, d), dtype=np.float32),
+            rng.standard_normal((B, HKV, kv_len, d), dtype=np.float32))
 
 
 def _options(kw):
@@ -62,13 +62,17 @@ CASES = {  # name: (dtype, options, q_len, stored kv)
     "f32-sinks": ("float32", dict(causal=True, sinks=True), 128, 128),
     "bf16-offset-kv-tail": ("bfloat16", dict(causal=True, q_offset=64,
                                              kv_len=180), 128, 256),
+    # Gemma-2's head width (the kernel's d 256 instance): a sliding layer.
+    "f32-window-softcap-d256": ("float32", dict(causal=True, window=40,
+                                                softcap=50.0), 128, 128),
 }
+WIDTHS = {"f32-window-softcap-d256": 256}  # d 64 unless named here
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_weights_match_jax(case):
     dtype, kw, q_len, skv = CASES[case]
-    q, k, v = _inputs(0, q_len, skv)
+    q, k, v = _inputs(0, q_len, skv, WIDTHS.get(case, D))
     kw, arrays = _options(kw)
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     jo, jp = j_weights(

@@ -90,7 +90,7 @@ def _module_widths(module, name):
      "KERNEL_HEAD_DIMS"),
     ("attn_weights", "tpu_flash_torch.ops.flash.debug", "KERNEL_HEAD_DIMS"),
     ("variant_fwd", "tpu_flash_torch.ops.flash.variant", "KERNEL_HEAD_DIM"),
-    ("quant_fwd", "tpu_flash_torch.ops.flash.quantized", "KERNEL_HEAD_DIM"),
+    ("quant_fwd", "tpu_flash_torch.ops.flash.quantized", "KERNEL_HEAD_DIMS"),
 ])
 def test_wrapper_widths_are_what_the_source_builds(source, module, name):
     assert _module_widths(module, name) == _source_widths(source)
@@ -101,8 +101,10 @@ def test_serving_and_training_kernels_take_d256_and_the_backward_d64():
     for source in ("paged_decode", "paged_prefill", "ragged_prefill"):
         assert _source_widths(source) == {128, 256}
     assert _source_widths("flash_bwd") == {64, 128, 256}
-    # The weights kernel keeps its own set: the forward's grew past it.
-    assert 256 not in _source_widths("attn_weights")
+    # The weights kernel and the quantized-input forward serve the
+    # forward's widths.
+    assert _source_widths("attn_weights") == {64, 128, 256}
+    assert _source_widths("quant_fwd") == {64, 128, 256}
 
 
 # -- K1: the forward ------------------------------------------------------

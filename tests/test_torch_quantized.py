@@ -60,11 +60,11 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _qkv(seed, hq=HQ, hkv=HKV, s=S, skv=S):
+def _qkv(seed, hq=HQ, hkv=HKV, s=S, skv=S, d=D):
     rng = np.random.default_rng(seed)
-    return (rng.standard_normal((B, hq, s, D), dtype=np.float32),
-            rng.standard_normal((B, hkv, skv, D), dtype=np.float32),
-            rng.standard_normal((B, hkv, skv, D), dtype=np.float32))
+    return (rng.standard_normal((B, hq, s, d), dtype=np.float32),
+            rng.standard_normal((B, hkv, skv, d), dtype=np.float32),
+            rng.standard_normal((B, hkv, skv, d), dtype=np.float32))
 
 
 def _to_torch(x) -> torch.Tensor:
@@ -144,14 +144,23 @@ CASES = {  # name: (dtype, options, bar kind, control options)
                                "level", dict(causal=True,
                                                fp8_native=True)),
 }
+# The kernel's other head widths (d 128 elsewhere): int8 causal, and fp8
+# native with every option.
+WIDTHS = {}
+for _d in (64, 256):
+    CASES[f"int8-causal-d{_d}"] = CASES["int8-causal"]
+    CASES[f"fp8-native-all-options-d{_d}"] = CASES["fp8-native-all-options"]
+    WIDTHS.update({f"int8-causal-d{_d}": _d,
+                   f"fp8-native-all-options-d{_d}": _d})
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_quantized_plain_matches_jax_kernel(case):
-    """GQA (4 q / 2 kv heads), 256 tokens, f32 out; the JAX kernel's
-    rectangular grid (the triangular one has its own case)."""
+    """GQA (4 q / 2 kv heads), 256 tokens, f32 out, d 128 unless the case
+    names its width; the JAX kernel's rectangular grid (the triangular one
+    has its own case)."""
     dtype_name, opts, kind, control = CASES[case]
-    q, k, v = _qkv(1)
+    q, k, v = _qkv(1, d=WIDTHS.get(case, D))
     ji, ti = _both(q, k, v, dtype_name)
     opts, arrays = _arrays(opts)
     want = np.asarray(jq.flash_attention_quantized(

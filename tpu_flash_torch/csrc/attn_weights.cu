@@ -17,8 +17,10 @@
 // Design: Q (64 rows) and K (128 rows) tiles staged in shared memory as
 // f32, each thread computing a 4 x 8 score tile with f32 FMAs and writing
 // its P straight from registers, 16 threads to 64 contiguous bytes of a
-// row. Head widths 64 and 128. Each launch runs on the caller's stream and
-// returns cudaGetLastError().
+// row. Head widths 64, 128 and 256 (at 256 a block takes (64 + 128) x 260
+// x 4 = 199,680 bytes of shared memory, under the 232,448 one block may
+// use). Each launch runs on the caller's stream and returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -164,14 +166,20 @@ int launch(const WParams& p, int batch, cudaStream_t stream) {
 template <typename T>
 int launch_width(const WParams& p, int head_dim, int batch,
                  cudaStream_t stream) {
-  return head_dim == 64 ? launch<T, 64>(p, batch, stream)
-                        : launch<T, 128>(p, batch, stream);
+  switch (head_dim) {
+    case 64:
+      return launch<T, 64>(p, batch, stream);
+    case 128:
+      return launch<T, 128>(p, batch, stream);
+    default:
+      return launch<T, 256>(p, batch, stream);
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q and k share it); head_dim 64 or
-// 128. Returns cudaGetLastError() after the launch; 1
+// dtype: 0 = float32, 1 = bfloat16 (q and k share it); head_dim 64, 128
+// or 256. Returns cudaGetLastError() after the launch; 1
 // (cudaErrorInvalidValue) for an argument this build does not serve.
 extern "C" int attn_weights(const void* q, const void* k, const void* lse,
                             const void* alibi, void* w, int dtype, int batch,
@@ -179,7 +187,8 @@ extern "C" int attn_weights(const void* q, const void* k, const void* lse,
                             int head_dim, float scale, int causal,
                             int q_offset, int window, float softcap,
                             float inv_softcap, void* stream) {
-  if ((head_dim != 64 && head_dim != 128) || (dtype != 0 && dtype != 1) ||
+  if ((head_dim != 64 && head_dim != 128 && head_dim != 256) ||
+      (dtype != 0 && dtype != 1) ||
       kv_len <= 0 || kv_len > skv || hq % hkv != 0) {
     return (int)cudaErrorInvalidValue;
   }

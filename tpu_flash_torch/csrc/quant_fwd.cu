@@ -1,4 +1,5 @@
-// quant_fwd: attention forward over int8 / e4m3 Q, K, V for Hopper (sm_90a).
+// quant_fwd: attention forward over int8 / e4m3 Q, K, V for Hopper (sm_90a)
+// on the tensor cores.
 //
 // Replaces the Pallas TPU kernels of tpu_flash/ops/flash/quantized.py:
 //   _quant_fwd_kernel (:99; rectangular grid :772 and triangular grid
@@ -7,57 +8,79 @@
 //   flash_fwd, the TPU's sequential kv grid axis becomes a loop inside
 //   the block that visits only live kv tiles, so one computation serves
 //   both grids; the staircase differs in its arithmetic and is its own
-//   template instance.
+//   kernel.
 //
-// Per (batch, q head, 64-row q tile); GQA by index (kv head = h / (hq /
-// hkv)); causal aligned at position 0 of q and kv (no q offset):
-//   scores  s = (s_raw * (q_scale * sm_scale)) * k_scale, in that order,
-//           s_raw = the exact dot product, rounded to f32 once: int32
-//           sums for int8 (__dp4a), int64 sums of e4m3 values scaled by
-//           2^9 to integers for fp8 (software and native tiers alike; the
-//           TPU kernel sums e4m3 products in f32, so the two can differ by
-//           an f32 ulp of a score);
+// What it computes, per (batch, q head, row); GQA by index; causal aligned
+// at position 0 of q and kv (no q offset):
+//   scores  s = (s_raw * (q_scale * sm_scale)) * k_scale, in that order;
+//           s_raw = the exact dot rounded to f32 once: int8, the s32 dot of
+//           mma.sync m16n8k32 (|s_raw| <= 2^22 at d <= 256: exact in f32);
+//           e4m3, each value as 2^-9 times an integer of three s8 limbs,
+//           the nine limb-pair dots on the same s8 mma.sync, summed in
+//           int64 (the plain version's exact f64 sum; tensor-core f16 or
+//           fp8 sums round inside the mma, so a score could sit an ulp
+//           off and flip a rounding of P);
 //           softcap; ALiBi slope * (kv_pos - q_pos) on the causal path;
 //           causal, window and kv-tail masks to MASK_VALUE (finite).
 //   tiled   online softmax over 128-column steps (P rounds after each
-//           step's running max, as on the TPU with block_kv = 128);
-//           int8 / fp8 software: P V = sum bf16(p * v_scale) * v;
+//           step's running max, as on the TPU with block_kv = 128): m_next
+//           = max(m, step max), alpha = exp(m - m_next), p = exp(s -
+//           m_next), l = l * alpha + sum p, the sum in the order of
+//           PyTorch's CUDA row sum, as the plain version's;
+//           int8 / fp8 software: P = bf16(p * v_scale);
 //           fp8 native: c = max_row(p * v_scale), c = c == 0 ? 1 : c / 448,
-//           P V = c * sum e4m3(p * v_scale / c) * v;
-//           acc = acc * alpha + P V; out = acc / l (l == 0: 1), or the
-//           sink-inclusive denominator.
+//           P = e4m3(p * v_scale / c);
+//           P V = mma.sync m16n8k16 bf16 (f32 sums) of P and V widened
+//           exactly to bf16 (native: fp16, which holds e4m3 exactly and
+//           takes one conversion from it), from zero each step;
+//           acc = acc * alpha + P V
+//           (native: + c * (P V)); out = acc / l (l == 0: 1), or the
+//           sink-inclusive denominator. A row that sees no live column of
+//           a step (above the diagonal, before its window) keeps m, l and
+//           acc, as the plain version leaves it out of the step.
 //   onepass int8, causal, q_len == kv_len: each 512-row stair splits into
 //           a mask-free prefix [0, lo) and a masked diagonal [lo, lo+512);
 //           each part has its own row max m, l = sum p, and quantizes its
 //           P rows to int8 over the whole part (p_scale = max(p *
 //           v_scale) / 127, clip(rint(p * v_scale / p_scale), 0, 127)),
-//           P V an exact int32 dot times p_scale; the parts merge once.
-//           A part wider than one staged tile takes three passes over K
-//           (row max; l and max(p * v_scale); quantize and P V): scores
-//           are exact, so recomputing them costs no error.
-// Every f32 step the TPU kernel rounds on its own is rounded on its own
-// here (__fmul_rn, __fadd_rn, __fdiv_rn: no contraction; rintf rounds half
-// to even), and scores are exact, so the kernel and its plain version
-// (ops/flash/quantized.py::quant_fwd_plain) differ only in the order of
-// the f32 sums of l and P V, never in a quantization of P.
+//           P V the exact int32 dot (mma.sync m16n8k32 s8) times p_scale;
+//           the parts merge once. The block walks K three times (row max;
+//           l and max(p * v_scale); quantize and P V, the last in 64-column
+//           slices of d): scores are exact, so recomputing them costs no
+//           error.
+// Every f32 step the plain version (ops/flash/quantized.py::
+// quant_fwd_plain) rounds on its own is rounded on its own here (__fmul_rn,
+// __fadd_rn, __fdiv_rn: no contraction; rintf rounds half to even), and
+// scores are exact, so every P matches it, and so does the tiled route's
+// l; the two differ in the order of the f32 sums of P V (and of the
+// staircase's l).
+//
+// Design. A block holds 8 warps of 16 q rows each (4 for fp8 at d 256):
+// consecutive (16 positions, q head) tiles of one kv head, positions
+// outer, so the q heads of a kv head share each K/V tile (read once a
+// block). K and V arrive as bytes by cp.async (one tile each in flight
+// behind the other's work), with their scales double-buffered; fp8 q is
+// split into limb tiles once a block, fp8 K once a step (a 256-entry
+// table), V widened into a bf16 tile for P V (the staircase transposes
+// V's bytes instead, for the s8 B operand). Scores, the softmax and P
+// live in registers in the mma accumulator layout (quad shuffles for row
+// max and sum); O in f32 registers. Causal blocks launch heaviest first
+// over the whole grid.
 //
 // What bounds it on this card: operations. At a Llama-3-8B 8K causal
 // prefill (32 q / 8 kv heads, d 128) it does 5.5e11 operations against
-// about 120 MB of bytes, so the bound is the tensor cores' int8/fp8 rate.
-// This first kernel is deliberately simple: scores from __dp4a (int8) or
-// 32 x 32 -> 64-bit integer multiply-adds (fp8) over tiles staged in
-// shared memory, P V as f32 FMAs (or
-// int32 multiply-adds on the staircase), each thread owning a 4 x 8
-// register tile of S and of O, one block per SM (~197 KB of shared
-// memory). Heavy causal q tiles launch first. It runs far above the
-// bound; mma/wgmma tiles are later work (ROADMAP item 17).
+// about 120 MB of bytes: 0.417 ms at the int8 (QK^T) and bf16 (P V)
+// tensor-core rates (H100 SXM data sheet, 700 W). Every score element takes
+// two scalings, an exp and a rounding on the CUDA cores, the block's
+// barriers separate its phases, and fp8's exact scores take nine s8
+// products where int8 takes one.
 //
 // Layout: q [b, hq, sq, d] int8 or e4m3; q scales read at q_scales[b *
 // sb + h * sh + row * sr] (a lane-replicated [b, hq, sq, 128] tensor, or a
 // stride-0 expand of [b, hq, sq, 1]); k/v [b, hkv, skv, d] contiguous; k/v
 // scales [b, hkv, 1, skv] f32 contiguous; o [b, hq, sq, d] bf16 or f32.
-// d = 128; skv a multiple of 128. Each launch runs on the caller's stream
-// and returns cudaGetLastError().
+// d 64, 128 or 256; skv a multiple of 128; every pointer 16-byte aligned.
+// Each launch runs on the caller's stream and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -65,25 +88,74 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tc.cuh"
+
 namespace {
 
 enum Mode { kInt8 = 0, kFp8Soft = 1, kFp8Native = 2, kInt8Onepass = 3 };
 
-constexpr int BQ = 64;    // q rows per block
-constexpr int BK = 128;   // kv columns per staged tile / online-softmax step
-constexpr int D = 128;    // head dim (the only one this build serves)
-constexpr int THREADS = 256;
-constexpr int QS = D + 4;  // padded f32 row strides, 16-byte aligned
-constexpr int KS = D + 4;
-constexpr int SS = BK + 4;
-constexpr int WS = D / 4 + 1;  // padded int32 row stride of int8 rows
-constexpr int STAIR = 512;     // rows of one onepass stair
+constexpr int BK = 128;  // kv columns a staged tile and online-softmax step
+constexpr int NJ = BK / 8;  // 8-column n-tiles of a step's scores
+constexpr int STAIR = 512;  // rows of one onepass stair
+constexpr int DC = 64;            // d columns of one P V pass
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 constexpr float kInt8Max = 127.f;
 constexpr float kFp8Max = 448.f;
 
-constexpr size_t kSmemBytes =
-    sizeof(float) * (BQ * QS + BK * KS + BK * D + BQ * SS + 6 * BQ + 2 * BK);
+// Parts of the tiled step a diagnostic build leaves out, one bit each (1
+// the exp, 2 the score products, 4 the P V products, 8 the score
+// transform, 16 V's widening and fp8 K's limb split): only
+// tools/torch_quant_parts.py defines it, to time what each part costs.
+// Its outputs are then wrong.
+#ifndef QUANT_FWD_OMIT
+#define QUANT_FWD_OMIT 0
+#endif
+
+// Warps a block (16 q rows each): 8, 4 for fp8 at d 256, whose limb tiles
+// would not fit 8 warps' rows. (Blocks of 4 warps, two an SM, stage and
+// widen the same K/V tiles for half the rows.)
+__host__ __device__ constexpr int warps_for(int d, bool fp8) {
+  return d == 256 && fp8 ? 4 : 8;
+}
+// Whether a tiled step takes two barriers (split: fp8 K's limb tiles
+// beside V's bf16 tile, int8 K's bytes in two buffers) or three (fp8 at
+// d 256, whose limb tiles share the work tile with V).
+__host__ __device__ constexpr bool split_for(int d, bool fp8) {
+  return !(fp8 && d == 256);
+}
+
+// A block's geometry and shared memory, in bytes: q (int8 bytes, or fp8's
+// three limb tiles), K's (KBUF buffers) and V's byte tiles (row stride
+// LDB), split fp8's K limb tiles, the work tile (V in bf16, row stride LDW
+// elements, after fp8 K's limb tiles where not split; on the staircase
+// V's bytes transposed, row stride LDT), fp8's limb table, and k/v scales
+// [2 buffers][k, v][BK].
+template <int D_, int W_, bool FP8_, bool SPLIT_>
+struct Geo {
+  static constexpr int D = D_, WARPS = W_, THREADS = 32 * W_, ROWS = 16 * W_;
+  static constexpr bool FP8 = FP8_, SPLIT = SPLIT_;
+  static constexpr int LDB = D + 16;
+  static constexpr int LDW = D + 8;
+  static constexpr int LDT = BK + 16;
+  static constexpr int LIMBS = FP8 ? 3 : 1;
+  static constexpr int QL = ROWS * LDB;  // one q limb tile
+  static constexpr int KL = BK * LDB;    // one K limb tile
+  static constexpr int KBUF = SPLIT && !FP8 ? 2 : 1;
+  static constexpr size_t KLB = SPLIT && FP8 ? 3 * KL : 0;
+  static constexpr size_t WB = FP8 && !SPLIT && 3 * KL > 2 * BK * LDW
+                                   ? 3 * KL : 2 * BK * LDW;
+  static constexpr size_t Q = 0;
+  static constexpr size_t K = Q + LIMBS * QL;
+  static constexpr size_t V = K + KBUF * KL;
+  static constexpr size_t KLIMB = V + KL;
+  static constexpr size_t W = KLIMB + KLB;
+  static constexpr size_t TAB = W + WB;
+  static constexpr size_t SC = TAB + (FP8 ? 256 * sizeof(uint32_t) : 0);
+  static constexpr size_t SMEM = SC + sizeof(float) * 2 * 2 * BK;
+  static_assert(D % 64 == 0, "d a multiple of 64");
+  static_assert(D * LDT <= 2 * BK * LDW, "V^T bytes fit the work tile");
+  static_assert(SMEM <= 232448, "over the card's 227 KB a block");
+};
 
 struct QParams {
   const uint8_t* q;
@@ -96,591 +168,1007 @@ struct QParams {
   void* o;
   const float* sinks;  // [hq] or nullptr
   const float* alibi;  // [hq] or nullptr
-  int hq, hkv, sq, skv, kv_len;
+  int batch, hq, hkv, sq, skv, kv_len, nblk;
   float sm_scale;
   int causal, window;           // window <= 0: none
   float softcap, inv_softcap;   // softcap <= 0: none
 };
 
-__device__ __forceinline__ float e4m3_to_f(uint8_t b) {
-  __nv_fp8_e4m3 x;
-  x.__x = b;
-  return static_cast<float>(x);
+// Two f32 rounded to nearest even e4m3 (saturating at 448), as an exact
+// fp16 pair (lo in the low half): two conversions for two values.
+__device__ __forceinline__ uint32_t e4m3_f16_pair(float lo, float hi) {
+  return tc::e4m3x2_f16(
+      __nv_cvt_float2_to_fp8x2(make_float2(lo, hi), __NV_SATFINITE,
+                               __NV_E4M3),
+      false);
 }
 
-// Round to nearest even e4m3, saturating at +-448, and back to f32.
-__device__ __forceinline__ float round_e4m3(float x) {
-  return static_cast<float>(__nv_fp8_e4m3(x));
+// x / c rounded to nearest even, from r = 1 / c rounded to nearest:
+// q0 = x r is within an ulp of x / c, x - q0 c is exact (one fma), and
+// q0 + (x - q0 c) r rounds to x / c (Markstein's correction), for x / c
+// normal. A quotient too small to be normal rounds to e4m3 zero either
+// way, where this one serves (native P: x / c in [0, 448]). No branch,
+// where __fdiv_rn takes one to its slow path.
+__device__ __forceinline__ float div_by(float x, float c, float r) {
+  const float q0 = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-q0, c, x), r, q0);
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <typename TO>
-__device__ __forceinline__ TO from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-struct Smem {
-  float* Qf;      // [BQ][QS] int32 q * 2^9 (fp8), or int32 words [BQ][WS]
-  float* Kf;      // [BK][KS] int32 k * 2^9 (fp8), or int32 words [BK][WS]
-  float* Vf;      // [BK][D] v values (f32, or int32 on the staircase)
-  float* Ss;      // [BQ][SS] scores, then P (int32 P on the staircase)
-  float* row_m;   // [BQ] running max
-  float* row_l;   // [BQ] running sum
-  float* row_a;   // [BQ] this step's rescale
-  float* row_c;   // [BQ] fp8 native: this step's P renormalisation
-  float* row_qs;  // [BQ] q_scale * sm_scale
-  float* row_ps;  // [BQ] staircase: max(p * v_scale), then p_scale
-  float* col_ks;  // [BK] k scales of the staged tile
-  float* col_vs;  // [BK] v scales of the staged tile
-
-  __device__ explicit Smem(float* base) {
-    Qf = base;
-    Kf = Qf + BQ * QS;
-    Vf = Kf + BK * KS;
-    Ss = Vf + BK * D;
-    row_m = Ss + BQ * SS;
-    row_l = row_m + BQ;
-    row_a = row_l + BQ;
-    row_c = row_a + BQ;
-    row_qs = row_c + BQ;
-    row_ps = row_qs + BQ;
-    col_ks = row_ps + BQ;
-    col_vs = col_ks + BK;
-  }
+// One warp's 16 q rows: positions p0 .. p0 + 15 of q head h, and the kv
+// tiles [first, last] they see (first > last: none).
+struct WarpRows {
+  bool valid;
+  int h, p0, first, last;
 };
 
-// e4m3 values are multiples of 2^-9 below 2^9 in magnitude: times 2^9
-// they are integers of at most 18 bits, whose products sum exactly in
-// int64.
-__device__ __forceinline__ int e4m3_to_i(uint8_t b) {
-  return __float2int_rn(e4m3_to_f(b) * 512.f);
+// The block's (batch, kv head, row group), heaviest causal group first.
+struct BlockPos {
+  int b, hk, grp;
+};
+
+__device__ __forceinline__ BlockPos block_pos(const QParams& p) {
+  const int lanes = p.batch * p.hkv;
+  const int id = blockIdx.x;
+  BlockPos bp;
+  bp.grp = p.nblk - 1 - id / lanes;
+  bp.hk = (id % lanes) % p.hkv;
+  bp.b = (id % lanes) / p.hkv;
+  return bp;
 }
 
-// Stage 16 payload bytes at element offset `e` of a row into shared memory:
-// int8 rows as int32 words (for __dp4a), e4m3 rows as int32 (x * 2^9).
-template <int MODE>
-__device__ __forceinline__ void stage_row_piece(float* dst, int row, int e,
-                                                uint4 raw) {
-  if (MODE == kInt8 || MODE == kInt8Onepass) {
-    int* w = reinterpret_cast<int*>(dst) + row * WS + e / 4;
-    w[0] = (int)raw.x;
-    w[1] = (int)raw.y;
-    w[2] = (int)raw.z;
-    w[3] = (int)raw.w;
-  } else {
-    const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
-    int* f = reinterpret_cast<int*>(dst) + row * QS + e;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) f[i] = e4m3_to_i(b[i]);
+// Warp w's rows: (position tile, q head of the group) tiles in that order.
+template <int WARPS>
+__device__ __forceinline__ WarpRows warp_rows(const QParams& p,
+                                              const BlockPos& bp, int w,
+                                              bool onepass) {
+  const int g = p.hq / p.hkv;
+  const int t = bp.grp * WARPS + w;
+  WarpRows r;
+  r.valid = t < ((p.sq + 15) / 16) * g;
+  r.h = bp.hk * g + t % g;
+  r.p0 = (t / g) * 16;
+  const int p_last = min(r.p0 + 15, p.sq - 1);
+  int lo = 0, hi = p.kv_len - 1;
+  if (p.causal) {
+    hi = min(hi, p_last);
+    if (p.window > 0) lo = max(0, r.p0 - p.window + 1);
   }
+  if (onepass) {  // both parts: the prefix from 0, the diagonal to p_last
+    lo = 0;
+    hi = p_last;
+  }
+  r.first = lo / BK;
+  r.last = r.valid && hi >= lo ? hi / BK : -1;
+  return r;
 }
 
-// Load the K (and, with `with_v`, V) tile at kv row k0 and their scales.
-template <int MODE>
-__device__ void load_kv_tile(const QParams& p, const Smem& sm,
-                             const uint8_t* k, const uint8_t* v,
-                             const float* ks, const float* vs, int k0,
-                             bool with_v) {
-  const int tid = threadIdx.x;
-  for (int idx = tid; idx < BK * D / 16; idx += THREADS) {
-    const int r = idx / (D / 16), e = (idx % (D / 16)) * 16;
-    const long long off = (long long)(k0 + r) * D + e;
-    stage_row_piece<MODE>(sm.Kf, r, e,
-                          *reinterpret_cast<const uint4*>(k + off));
-    if (with_v) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(v + off);
-      const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
-      if (MODE == kInt8Onepass) {
-        int* vi = reinterpret_cast<int*>(sm.Vf) + r * D + e;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) vi[i] = (int)(int8_t)b[i];
-      } else {
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          sm.Vf[r * D + e + i] = MODE == kInt8 ? (float)(int8_t)b[i]
-                                               : e4m3_to_f(b[i]);
-        }
-      }
+// The union of the block's warps' tiles.
+template <int WARPS>
+__device__ __forceinline__ void block_tiles(const QParams& p,
+                                            const BlockPos& bp, bool onepass,
+                                            int& first, int& last) {
+  first = 1 << 30;
+  last = -1;
+  for (int w = 0; w < WARPS; ++w) {
+    const WarpRows r = warp_rows<WARPS>(p, bp, w, onepass);
+    if (r.first <= r.last) {
+      first = min(first, r.first);
+      last = max(last, r.last);
     }
   }
-  if (tid < BK) {
-    sm.col_ks[tid] = ks[k0 + tid];
-    sm.col_vs[tid] = vs[k0 + tid];
+}
+
+// The block's q row r: where it starts in q, or nullptr past sq.
+template <class G>
+__device__ __forceinline__ const uint8_t* q_row(const QParams& p,
+                                                const BlockPos& bp, int r) {
+  const WarpRows w = warp_rows<G::WARPS>(p, bp, r / 16, false);
+  const int pos = w.p0 + r % 16;
+  if (!w.valid || pos >= p.sq) return nullptr;
+  return p.q + (((long long)bp.b * p.hq + w.h) * p.sq + pos) * G::D;
+}
+
+// int8: the block's q rows into Qb by cp.async.
+template <class G>
+__device__ __forceinline__ void stage_q(const QParams& p, const BlockPos& bp,
+                                        uint8_t* Qb) {
+  constexpr int CPR = G::D / 16;
+  for (int i = threadIdx.x; i < G::ROWS * CPR; i += G::THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 16;
+    const uint8_t* row = q_row<G>(p, bp, r);
+    tc::cp_async16(Qb + r * G::LDB + c, row ? row + c : p.q, row != nullptr);
   }
 }
 
-// Raw scores of the thread's 4 x 8 tile (rows ty*4+i, cols tx+16j).
-template <int MODE>
-__device__ __forceinline__ void raw_scores(const Smem& sm, int ty, int tx,
-                                           float s[4][BK / 16]) {
-  if (MODE == kInt8 || MODE == kInt8Onepass) {
-    const int* Qi = reinterpret_cast<const int*>(sm.Qf);
-    const int* Ki = reinterpret_cast<const int*>(sm.Kf);
-    int acc[4][BK / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) acc[i][j] = 0;
-#pragma unroll 4
-    for (int w = 0; w < D / 4; ++w) {
-      int qw[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qw[i] = Qi[(ty * 4 + i) * WS + w];
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        const int kw = Ki[(tx + 16 * j) * WS + w];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = __dp4a(qw[i], kw, acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) s[i][j] = (float)acc[i][j];
-  } else {
-    long long acc[4][BK / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) acc[i][j] = 0;
-    for (int kk = 0; kk < D; kk += 4) {
-      int4 qv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const int4*>(&sm.Qf[(ty * 4 + i) * QS + kk]);
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        const int4 kv =
-            *reinterpret_cast<const int4*>(&sm.Kf[(tx + 16 * j) * KS + kk]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          long long a = acc[i][j];
-          a += (long long)qv[i].x * kv.x;
-          a += (long long)qv[i].y * kv.y;
-          a += (long long)qv[i].z * kv.z;
-          a += (long long)qv[i].w * kv.w;
-          acc[i][j] = a;
-        }
-      }
-    }
-    // One rounding to f32, then an exact scaling by 2^-18.
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j)
-        s[i][j] = __fmul_rn(__ll2float_rn(acc[i][j]), 3.814697265625e-06f);
-  }
+// fp8 scores as exact integers. An e4m3 value x is X / 2^9 with X an
+// integer, |X| < 2^18; X = a 2^14 + b 2^7 + c with limbs of X's sign and
+// at most 7 bits (|c|, |b| < 128, |a| <= 14), each an s8. The dot of two
+// rows is then sum over limb pairs of 2^(7 (i + j)) times an s8 dot:
+// nine exact int32 products on the tensor cores, summed exactly in int64.
+// tab[byte] = (c, b, a) as the bytes 0, 1, 2 of a word.
+__device__ __forceinline__ uint32_t e4m3_limbs(uint32_t byte) {
+  const int x = __float2int_rn(tc::e4m3x2_f32(byte, false).x * 512.f);
+  const int m = abs(x), sg = x < 0 ? -1 : 1;
+  const int c = sg * (m & 127), b = sg * ((m >> 7) & 127), a = sg * (m >> 14);
+  return (uint32_t)(c & 0xff) | ((uint32_t)(b & 0xff) << 8) |
+         ((uint32_t)(a & 0xff) << 16);
 }
 
-// Scores of the staged tile at kv row k0 into sm.Ss: dequant rescale,
-// softcap, ALiBi and masks. `masked`: apply the causal / window masks.
-template <int MODE>
-__device__ void score_tile(const QParams& p, const Smem& sm, int q0, int k0,
-                           float slope, bool masked) {
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  float s[4][BK / 16];
-  raw_scores<MODE>(sm, ty, tx, s);
+// The limbs of 16 e4m3 bytes: out[0] c, out[1] b, out[2] a, byte for byte.
+__device__ __forceinline__ void limbs16(uint4 raw, const uint32_t* tab,
+                                        uint4 (&out)[3]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t o[3][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const int qpos = q0 + r;
-    const float qsc = sm.row_qs[r];
+    const uint32_t t0 = tab[w[i] & 0xff], t1 = tab[(w[i] >> 8) & 0xff];
+    const uint32_t t2 = tab[(w[i] >> 16) & 0xff], t3 = tab[w[i] >> 24];
+    const uint32_t lo = __byte_perm(t0, t1, 0x5140);  // c0 c1 b0 b1
+    const uint32_t hi = __byte_perm(t2, t3, 0x5140);  // c2 c3 b2 b3
+    o[0][i] = __byte_perm(lo, hi, 0x5410);
+    o[1][i] = __byte_perm(lo, hi, 0x7632);
+    o[2][i] = __byte_perm(__byte_perm(t0, t1, 0x0062),
+                          __byte_perm(t2, t3, 0x0062), 0x5410);
+  }
 #pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const int c = tx + 16 * j;
-      const int kpos = k0 + c;
-      float x = __fmul_rn(__fmul_rn(s[i][j], qsc), sm.col_ks[c]);
-      if (p.softcap > 0.f)
-        x = __fmul_rn(p.softcap, tanhf(__fmul_rn(x, p.inv_softcap)));
-      bool valid = kpos < p.kv_len;
-      if (p.causal) {
-        if (masked) {
-          valid = valid && kpos <= qpos;
-          if (p.window > 0) valid = valid && kpos > qpos - p.window;
-        }
-        if (p.alibi != nullptr)
-          x = __fadd_rn(x, __fmul_rn(slope, (float)(kpos - qpos)));
-      }
-      sm.Ss[r * SS + c] = valid ? x : MASK_VALUE;
-    }
+  for (int l = 0; l < 3; ++l) out[l] = make_uint4(o[l][0], o[l][1], o[l][2], o[l][3]);
+}
+
+// fp8: the limb table, then the block's q rows as three limb tiles (loads
+// from device memory; once a block).
+template <class G>
+__device__ __forceinline__ void q_limbs(const QParams& p, const BlockPos& bp,
+                                        uint8_t* Qb, uint32_t* tab) {
+  for (int i = threadIdx.x; i < 256; i += G::THREADS) tab[i] = e4m3_limbs(i);
+  __syncthreads();
+  constexpr int CPR = G::D / 16;
+  for (int i = threadIdx.x; i < G::ROWS * CPR; i += G::THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 16;
+    const uint8_t* row = q_row<G>(p, bp, r);
+    const uint4 raw = row ? *reinterpret_cast<const uint4*>(row + c)
+                          : make_uint4(0u, 0u, 0u, 0u);
+    uint4 out[3];
+    limbs16(raw, tab, out);
+#pragma unroll
+    for (int l = 0; l < 3; ++l)
+      *reinterpret_cast<uint4*>(Qb + l * G::QL + r * G::LDB + c) = out[l];
   }
 }
 
-// Stage the block's q rows and their scales (q_scale * sm_scale).
-template <int MODE>
-__device__ void load_q(const QParams& p, const Smem& sm, const uint8_t* q,
-                       int b, int h, int q0) {
-  const int tid = threadIdx.x;
-  for (int idx = tid; idx < BQ * D / 16; idx += THREADS) {
-    const int r = idx / (D / 16), e = (idx % (D / 16)) * 16;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < p.sq)
-      raw = *reinterpret_cast<const uint4*>(q + (long long)(q0 + r) * D + e);
-    stage_row_piece<MODE>(sm.Qf, r, e, raw);
-  }
-  if (tid < BQ) {
-    float qs = 0.f;
-    if (q0 + tid < p.sq)
-      qs = p.q_scales[b * p.qs_sb + h * p.qs_sh + (q0 + tid) * p.qs_sr];
-    sm.row_qs[tid] = __fmul_rn(qs, p.sm_scale);
+// fp8: K's bytes into three limb tiles (the work tile).
+template <class G>
+__device__ __forceinline__ void k_limbs(const uint8_t* Kb, uint8_t* Wt,
+                                        const uint32_t* tab) {
+  constexpr int CPR = G::D / 16;
+  for (int i = threadIdx.x; i < BK * CPR; i += G::THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 16;
+    uint4 out[3];
+    limbs16(*reinterpret_cast<const uint4*>(Kb + r * G::LDB + c), tab, out);
+#pragma unroll
+    for (int l = 0; l < 3; ++l)
+      *reinterpret_cast<uint4*>(Wt + l * G::KL + r * G::LDB + c) = out[l];
   }
 }
 
-// The thread's output rows: o = acc * mult, mult = 1 / l (l == 0: 1) or
-// the sink-inclusive denominator.
-template <typename TO>
-__device__ void write_out(const QParams& p, int b, int h, int q0, int ty,
-                          int tx, const float m[4], const float l[4],
-                          const float acc[4][D / 16]) {
-  TO* o = static_cast<TO*>(p.o) +
-          ((long long)b * p.hq + h) * (long long)p.sq * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (q0 + r >= p.sq) continue;
-    float mult;
-    if (p.sinks != nullptr) {
-      const float sk = p.sinks[h];
-      const float m2 = fmaxf(m[i], sk);
-      const float scale_m = expf(__fsub_rn(m[i], m2));
-      const float l_tot =
-          __fadd_rn(__fmul_rn(l[i], scale_m), expf(__fsub_rn(sk, m2)));
-      mult = __fdiv_rn(scale_m, l_tot);
+// K's bytes of tile `tile` into Kb, its k and v scales into sc[0, 2 BK).
+template <class G>
+__device__ __forceinline__ void stage_k(const uint8_t* k, const float* ks,
+                                        const float* vs, int tile,
+                                        uint8_t* Kb, float* sc) {
+  tc::load_bytes<G::D, BK, G::THREADS, G::LDB>(Kb, k, tile * BK, 1 << 30);
+  const int t = threadIdx.x;
+  if (t < BK / 2) {  // 32 pieces of k scales, 32 of v scales
+    const float* src = (t < BK / 4 ? ks : vs) + tile * BK + (t % (BK / 4)) * 4;
+    tc::cp_async16(sc + (t / (BK / 4)) * BK + (t % (BK / 4)) * 4, src, true);
+  }
+}
+
+// V bytes -> 16 bits, in order: int8 or e4m3 to bf16 (MODE int8, fp8
+// software), e4m3 to fp16 (fp8 native).
+template <class G, int MODE>
+__device__ __forceinline__ void widen_v(const uint8_t* Vb, uint8_t* Wt) {
+  constexpr int CPR = G::D / 16;
+  for (int i = threadIdx.x; i < BK * CPR; i += G::THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 16;
+    const uint4 raw = *reinterpret_cast<const uint4*>(Vb + r * G::LDB + c);
+    uint4 lo, hi;
+    if (MODE == kFp8Native) {
+      lo = make_uint4(
+          tc::e4m3x2_f16(raw.x, false), tc::e4m3x2_f16(raw.x, true),
+          tc::e4m3x2_f16(raw.y, false), tc::e4m3x2_f16(raw.y, true));
+      hi = make_uint4(
+          tc::e4m3x2_f16(raw.z, false), tc::e4m3x2_f16(raw.z, true),
+          tc::e4m3x2_f16(raw.w, false), tc::e4m3x2_f16(raw.w, true));
     } else {
-      mult = l[i] == 0.f ? 1.f : __fdiv_rn(1.f, l[i]);
+      constexpr bool E4M3 = MODE == kFp8Soft;
+      tc::widen4_bf16<E4M3>(raw.x, lo.x, lo.y);
+      tc::widen4_bf16<E4M3>(raw.y, lo.z, lo.w);
+      tc::widen4_bf16<E4M3>(raw.z, hi.x, hi.y);
+      tc::widen4_bf16<E4M3>(raw.w, hi.z, hi.w);
+    }
+    uint4* dst = reinterpret_cast<uint4*>(Wt + 2 * (r * G::LDW + c));
+    dst[0] = lo;
+    dst[1] = hi;
+  }
+}
+
+// Staircase: V's int8 bytes transposed, [d][kv] (row stride LDT), the kv
+// order of each 32 permuted to match P's fragments (pass 3 of
+// quant_onepass_kernel): stored column 32 q + 16 u + 4 t + i holds kv row
+// 32 q + 16 u + 2 t + {0, 1, 8, 9}[i].
+template <class G>
+__device__ __forceinline__ void transpose_v(const uint8_t* Vb, uint8_t* Wt) {
+  for (int i = threadIdx.x; i < G::D * BK / 4; i += G::THREADS) {
+    const int d = i / (BK / 4), l0 = (i % (BK / 4)) * 4;
+    const int base = (l0 / 16) * 16 + ((l0 % 16) / 4) * 2;
+    const uint32_t w = (uint32_t)Vb[base * G::LDB + d] |
+                       ((uint32_t)Vb[(base + 1) * G::LDB + d] << 8) |
+                       ((uint32_t)Vb[(base + 8) * G::LDB + d] << 16) |
+                       ((uint32_t)Vb[(base + 9) * G::LDB + d] << 24);
+    *reinterpret_cast<uint32_t*>(Wt + d * G::LDT + l0) = w;
+  }
+}
+
+// An int32 of magnitude at most 2^22 (an s8 dot of d <= 256) as f32,
+// exactly: its bits added into those of 1.5 * 2^23, whose ulp is 1, then
+// 1.5 * 2^23 taken off (an integer add and an f32 add, where I2F would
+// take the quarter-rate conversion pipe).
+__device__ __forceinline__ float exact_f32(int x) {
+  return __int_as_float(0x4b400000 + x) - 12582912.f;
+}
+
+// The tiled kernel's kv order within a step: accumulator column 8 j + u
+// (u = 2 tq + i) holds kv column kv_of(j, u), so that a thread holds kv
+// columns 4 tq .. 4 tq + 3 of each 16 (PyTorch's row-sum partials,
+// torch_row_sum): their first pair in n-tile 2 (j / 2) + tq / 2, the
+// second in the other. ldmatrix takes a row address from each lane, so
+// K's rows (B operand of the scores) and V's (of P V) are read in that
+// order; the 8 rows of each 8 x 8 matrix differ mod 8, so they fall in 8
+// bank groups at the tiles' odd multiples of 16 bytes a row.
+__device__ __forceinline__ int kv_of(int j, int u) {
+  return 16 * (j >> 1) + 4 * (u >> 1) + 2 * ((u >> 2) ^ (j & 1)) + (u & 1);
+}
+// b_off of the n-tiles j, j + 1 (j even) of a K tile in that order.
+template <int LD>
+__device__ __forceinline__ uint32_t k_off(int lane, int j, int c0) {
+  return 2u * (kv_of(j + (lane >> 4), lane & 7) * LD + c0 +
+               ((lane >> 3) & 1) * 8);
+}
+// a_off of P V's k slice c (16 kv rows) of a V tile in that order.
+template <int LD>
+__device__ __forceinline__ uint32_t v_off(int lane, int c, int n) {
+  return 2u * (kv_of(2 * c + ((lane >> 3) & 1), lane & 7) * LD + n +
+               (lane >> 4) * 8);
+}
+
+// The raw scores of the warp's rows (wr: its first row in the q tile)
+// against the staged tile: s[j][e] for column 8 j + 2 tq + (e & 1) (in
+// kv_of's order where PERM), row gr + 8 (e >> 1). int8: the s8 dot of q's
+// and K's byte tiles.
+template <class G, bool PERM>
+__device__ __forceinline__ void int8_scores(float (&s)[NJ][4], uint32_t qt,
+                                            uint32_t kt, int lane, int wr) {
+  constexpr int LQ = G::LDB / 2;  // the byte tiles' stride in byte pairs
+  int acc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+#pragma unroll
+  for (int kk = 0; kk < G::D; kk += 32) {
+    uint32_t qa[4];
+    tc::ldsm(qa, qt + tc::a_off<LQ>(lane, wr, kk / 2));
+#pragma unroll
+    for (int j = 0; j < NJ; j += 2) {
+      uint32_t kb[4];
+      tc::ldsm(kb, kt + (PERM ? k_off<LQ>(lane, j, kk / 2)
+                              : tc::b_off<LQ>(lane, j * 8, kk / 2)));
+      tc::imma(acc[j], qa, kb[0], kb[1]);
+      tc::imma(acc[j + 1], qa, kb[2], kb[3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = exact_f32(acc[j][e]);
+}
+
+// fp8 (tiled, kv_of's order): the exact dot from the limb tiles of q (qt,
+// tiles QL apart) and K (kt, KL apart), 16 columns at a time: five int32 sums by shift (the
+// limb pairs of 2^0, 2^7, 2^14, 2^21, 2^28; each below 2^24 at d <= 256),
+// then one int64, rounded to f32 once and times 2^-18 (exact).
+template <class G>
+__device__ __forceinline__ void fp8_scores(float (&s)[NJ][4], uint32_t qt,
+                                           uint32_t kt, int lane, int wr) {
+  constexpr int LQ = G::LDB / 2;
+#pragma unroll
+  for (int j = 0; j < NJ; j += 2) {
+    int acc[5][2][4];
+#pragma unroll
+    for (int g = 0; g < 5; ++g)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[g][t][e] = 0;
+#pragma unroll
+    for (int kk = 0; kk < G::D; kk += 32) {
+      uint32_t qa[3][4], kb[3][4];
+#pragma unroll
+      for (int l = 0; l < 3; ++l) {
+        tc::ldsm(qa[l], qt + l * G::QL + tc::a_off<LQ>(lane, wr, kk / 2));
+        tc::ldsm(kb[l], kt + l * G::KL + k_off<LQ>(lane, j, kk / 2));
+      }
+#pragma unroll
+      for (int lq = 0; lq < 3; ++lq)
+#pragma unroll
+        for (int lk = 0; lk < 3; ++lk) {
+          tc::imma(acc[lq + lk][0], qa[lq], kb[lk][0], kb[lk][1]);
+          tc::imma(acc[lq + lk][1], qa[lq], kb[lk][2], kb[lk][3]);
+        }
     }
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      o[(long long)(q0 + r) * D + tx + 16 * j] =
-          from_f<TO>(__fmul_rn(acc[i][j], mult));
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = acc[4][t][e] * 16384 + acc[3][t][e] * 128 + acc[2][t][e];
+        const int lo = acc[1][t][e] * 128 + acc[0][t][e];
+        s[j + t][e] = __fmul_rn(__ll2float_rn((long long)hi * 16384 + lo),
+                                3.814697265625e-06f);
+      }
+  }
+}
+
+// The scores of the warp's rows from their raw dots: dequant rescale,
+// softcap, ALiBi and, where `masked`, the masks of the plain version
+// (kv tail, and on the causal path causal and window); `full`: no element
+// of the step is masked. mx: each row's max over the step (quad-reduced).
+// Each option is one branch around a loop over the elements, so the
+// elements' independent chains interleave. PERM: columns in kv_of's order.
+template <bool PERM>
+__device__ __forceinline__ void transform(float (&s)[NJ][4], const QParams& p,
+                                          const WarpRows& w, const float* ksc,
+                                          const float (&qs)[2], float slope,
+                                          int k0, int gr, int tq, bool masked,
+                                          bool full, float (&mx)[2]) {
+  // Element (j, e)'s kv column in the step.
+  auto col = [&](int j, int e) {
+    return PERM ? kv_of(j, 2 * tq + (e & 1)) : 8 * j + 2 * tq + (e & 1);
+  };
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = __fmul_rn(__fmul_rn(s[j][e], qs[e >> 1]), ksc[col(j, e)]);
+  if (p.softcap > 0.f) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] =
+            __fmul_rn(p.softcap, tanhf(__fmul_rn(s[j][e], p.inv_softcap)));
+  }
+  // kv_pos - q_pos of element (j, e).
+  const int rel = k0 - w.p0 - gr;
+  if (p.causal && p.alibi != nullptr) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = __fadd_rn(
+            s[j][e],
+            __fmul_rn(slope, (float)(rel + col(j, e) - 8 * (e >> 1))));
+  }
+  if (!full) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = rel + col(j, e) - 8 * (e >> 1);  // kv - q
+        bool valid = k0 + col(j, e) < p.kv_len;
+        if (p.causal && masked) {
+          valid = valid && d <= 0;
+          if (p.window > 0) valid = valid && d > -p.window;
+        }
+        s[j][e] = valid ? s[j][e] : MASK_VALUE;
+      }
+  }
+  mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+  }
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// The sum of row h's 128 values of a step (accumulator columns in
+// kv_of's order: this thread holds kv columns 16 m + 4 tq + 0, 1 in
+// n-tile 2 m + tq / 2 and + 2, 3 in the other) in the order of PyTorch's
+// CUDA row sum, which the plain version's p.sum(-1) takes
+// (prefill_tile.cuh, torch_row_sum): 32 partials, partial t the
+// sequential sum of columns 4 t .. 4 t + 3 (here t = 4 m + tq, a thread's
+// own), then a tree at halving offsets: 16, 8 and 4 are m + 4, m + 2 and
+// m + 1, 2 and 1 the lanes tq ^ 2 and tq ^ 1. Every thread of the quad
+// returns the sum.
+__device__ __forceinline__ float torch_row_sum(const float (&x)[NJ][4], int h,
+                                               int tq) {
+  const bool lo = tq & 2;  // a partial's first pair in n-tile 2 m + 1
+  float part[NJ / 2];
+#pragma unroll
+  for (int m = 0; m < NJ / 2; ++m) {
+    const float(&e)[4] = x[2 * m];
+    const float(&o)[4] = x[2 * m + 1];
+    const float a0 = lo ? o[2 * h] : e[2 * h];
+    const float a1 = lo ? o[2 * h + 1] : e[2 * h + 1];
+    const float b0 = lo ? e[2 * h] : o[2 * h];
+    const float b1 = lo ? e[2 * h + 1] : o[2 * h + 1];
+    part[m] = __fadd_rn(__fadd_rn(__fadd_rn(a0, a1), b0), b1);
+  }
+#pragma unroll
+  for (int off = NJ / 4; off >= 1; off /= 2)
+#pragma unroll
+    for (int m = 0; m < off; ++m) part[m] = __fadd_rn(part[m], part[m + off]);
+  const float v = __fadd_rn(part[0], __shfl_xor_sync(0xffffffffu, part[0], 2));
+  return __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+}
+
+// q_scale * sm_scale of the thread's rows gr, gr + 8 (0 past sq).
+__device__ __forceinline__ void row_scales(const QParams& p, int b,
+                                           const WarpRows& w, int gr,
+                                           float (&qs)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int pos = w.p0 + gr + 8 * h;
+    const float x = w.valid && pos < p.sq
+                        ? p.q_scales[b * p.qs_sb + w.h * p.qs_sh +
+                                     pos * p.qs_sr]
+                        : 0.f;
+    qs[h] = __fmul_rn(x, p.sm_scale);
+  }
+}
+
+template <typename TO>
+__device__ __forceinline__ void store_pair(TO* dst, float a, float b);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* dst, float a,
+                                                  float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* dst,
+                                                          float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = tc::pack(a, b);
+}
+
+// A row's output multiplier: 1 / l (l == 0: 1), or the sink-inclusive
+// denominator.
+__device__ __forceinline__ float out_mult(const QParams& p, int h, float m,
+                                          float l) {
+  if (p.sinks != nullptr) {
+    const float sk = p.sinks[h];
+    const float m2 = fmaxf(m, sk);
+    const float scale_m = expf(__fsub_rn(m, m2));
+    const float l_tot =
+        __fadd_rn(__fmul_rn(l, scale_m), expf(__fsub_rn(sk, m2)));
+    return __fdiv_rn(scale_m, l_tot);
+  }
+  return l == 0.f ? 1.f : __fdiv_rn(1.f, l);
+}
+
+// Columns [n0, n0 + 8 NW) of the thread's rows gr, gr + 8 (acc[n]: n-tile
+// n0 / 8 + n, pairs of columns 8 n + 2 tq) times each row's multiplier.
+template <int D, int NW, typename TO>
+__device__ __forceinline__ void store_cols(const QParams& p, int b,
+                                           const WarpRows& w, int gr, int tq,
+                                           int n0, const float (&acc)[NW][4],
+                                           const float (&mult)[2]) {
+  if (!w.valid) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int pos = w.p0 + gr + 8 * h;
+    if (pos >= p.sq) continue;
+    TO* row = static_cast<TO*>(p.o) +
+              (((long long)b * p.hq + w.h) * p.sq + pos) * D + n0 + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < NW; ++n)
+      store_pair<TO>(row + 8 * n, __fmul_rn(acc[n][2 * h], mult[h]),
+                     __fmul_rn(acc[n][2 * h + 1], mult[h]));
   }
 }
 
 // The tiled routes (rectangular and triangular grids of the TPU kernel).
-template <int MODE, typename TO>
-__global__ void __launch_bounds__(THREADS)
-quant_fwd_kernel(QParams p) {
-  extern __shared__ float smem_raw[];
-  const Smem sm(smem_raw);
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.hq / p.hkv);
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int q0 = qt * BQ;
-  const long long kv_off = ((long long)b * p.hkv + hk) * (long long)p.skv;
+// A split step: barrier; V widened (and fp8 K split into limbs); barrier;
+// the next tile's loads issued; scores, softmax and P V with no barrier,
+// so one warp's softmax runs beside another's products. fp8 at d 256
+// (not split): K's limbs, then V, take the work tile in turn, one barrier
+// more.
+template <int D, int MODE, typename TO>
+__global__ void __launch_bounds__(
+    32 * warps_for(D, MODE == kFp8Soft || MODE == kFp8Native), 1)
+    quant_fwd_kernel(QParams p) {
+  constexpr bool FP8 = MODE == kFp8Soft || MODE == kFp8Native;
+  constexpr bool SPLIT = split_for(D, FP8);
+  using G = Geo<D, warps_for(D, FP8), FP8, SPLIT>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* Qb = smem + G::Q;
+  uint8_t* Vb = smem + G::V;
+  uint8_t* Kl = smem + (SPLIT ? G::KLIMB : G::W);  // fp8 K's limb tiles
+  uint8_t* Wt = smem + G::W;
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + G::TAB);
+  float* sc = reinterpret_cast<float*>(smem + G::SC);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const BlockPos bp = block_pos(p);
+  const WarpRows w = warp_rows<G::WARPS>(p, bp, warp, false);
+  int first, last;
+  block_tiles<G::WARPS>(p, bp, false, first, last);
+  const long long kv_off = ((long long)bp.b * p.hkv + bp.hk) * p.skv;
   const uint8_t* k = p.k + kv_off * D;
   const uint8_t* v = p.v + kv_off * D;
   const float* ks = p.k_scales + kv_off;
   const float* vs = p.v_scales + kv_off;
-  load_q<MODE>(p, sm, p.q + ((long long)b * p.hq + h) * (long long)p.sq * D,
-               b, h, q0);
-  if (tid < BQ) {
-    sm.row_m[tid] = -INFINITY;
-    sm.row_l[tid] = 0.f;
-  }
-  const float slope = p.alibi != nullptr ? p.alibi[h] : 0.f;
+  // K's byte buffer of a tile, its scales.
+  auto kbuf = [&](int tile) { return smem + G::K + (tile % G::KBUF) * G::KL; };
+  auto scales = [&](int tile) { return sc + (tile & 1) * 2 * BK; };
 
-  // Live kv tiles of this q tile: the triangular grid's active cells.
-  const int q_last = min(q0 + BQ, p.sq) - 1;
-  int first_tile = 0;
-  int last_tile = (p.kv_len + BK - 1) / BK - 1;
-  if (p.causal) {
-    last_tile = min(last_tile, q_last / BK);
-    if (p.window > 0) {
-      const int lo = q0 - p.window + 1;
-      first_tile = lo > 0 ? lo / BK : 0;
-    }
-  }
+  if (!FP8) stage_q<G>(p, bp, Qb);
+  if (first <= last) stage_k<G>(k, ks, vs, first, kbuf(first), scales(first));
+  tc::cp_async_commit();
+  if (first <= last)
+    tc::load_bytes<D, BK, G::THREADS, G::LDB>(Vb, v, first * BK, 1 << 30);
+  tc::cp_async_commit();
+  if (FP8) q_limbs<G>(p, bp, Qb, tab);
 
-  float acc[4][D / 16];
+  float qs[2];
+  row_scales(p, bp.b, w, gr, qs);
+  const float slope = p.alibi != nullptr ? p.alibi[w.h] : 0.f;
+  const int p_last = w.p0 + 15;
+  float o[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const uint32_t qt = tc::smem_addr(Qb), klt = tc::smem_addr(Kl);
+  const uint32_t wt = tc::smem_addr(Wt);
 
-  for (int tile = first_tile; tile <= last_tile; ++tile) {
+  for (int tile = first; tile <= last; ++tile) {
     const int k0 = tile * BK;
-    __syncthreads();  // the previous step's readers are done
-    load_kv_tile<MODE>(p, sm, k, v, ks, vs, k0, true);
-    __syncthreads();
-    score_tile<MODE>(p, sm, q0, k0, slope, true);
-    __syncthreads();
-
-    // Online softmax and P: 4 threads a row, 32 columns each.
-    {
-      const int r = tid / 4, part = tid % 4;
-      float* srow = sm.Ss + r * SS;
-      float mc = -INFINITY;
-      for (int c = part * 32; c < part * 32 + 32; ++c) mc = fmaxf(mc, srow[c]);
-      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
-      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
-      const float m_prev = sm.row_m[r];
-      const float m_next = fmaxf(m_prev, mc);
-      const float alpha = expf(__fsub_rn(m_prev, m_next));
-      float lsum = 0.f, cmax = 0.f;
-      for (int c = part * 32; c < part * 32 + 32; ++c) {
-        const float pp = expf(__fsub_rn(srow[c], m_next));
-        lsum += pp;
-        const float pv = __fmul_rn(pp, sm.col_vs[c]);
-        if (MODE == kFp8Native) {
-          srow[c] = pv;
-          cmax = fmaxf(cmax, pv);
-        } else {
-          srow[c] = round_bf16(pv);
+    const float* ksc = scales(tile);
+    const bool more = tile < last;
+    if (SPLIT) {
+      tc::cp_async_wait<0>();  // this tile's K, V and scales are in
+      __syncthreads();         // and every warp is past the last step
+      if constexpr ((QUANT_FWD_OMIT & 16) == 0) {
+        widen_v<G, MODE>(Vb, Wt);
+        if (FP8) k_limbs<G>(kbuf(tile), Kl, tab);
+      }
+      __syncthreads();
+      if (more) {
+        stage_k<G>(k, ks, vs, tile + 1, kbuf(tile + 1), scales(tile + 1));
+        tc::load_bytes<D, BK, G::THREADS, G::LDB>(Vb, v, k0 + BK, 1 << 30);
+      }
+      tc::cp_async_commit();
+    } else {
+      tc::cp_async_wait<1>();  // this tile's K and scales are in
+      __syncthreads();
+      k_limbs<G>(kbuf(tile), Kl, tab);
+      __syncthreads();  // K's bytes are free
+      if (more) stage_k<G>(k, ks, vs, tile + 1, kbuf(tile + 1), scales(tile + 1));
+      tc::cp_async_commit();
+    }
+    const bool live = w.first <= tile && tile <= w.last;
+    float s[NJ][4];
+    float alpha[2] = {1.f, 1.f}, cc[2] = {1.f, 1.f};
+    if (live) {
+      if constexpr ((QUANT_FWD_OMIT & 2) != 0) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = (float)(j + e);
+      } else if (FP8) {
+        fp8_scores<G>(s, qt, klt, lane, warp * 16);
+      } else {
+        int8_scores<G, true>(s, qt, tc::smem_addr(kbuf(tile)), lane,
+                             warp * 16);
+      }
+      const bool full = k0 + BK <= p.kv_len &&
+                        (!p.causal || (k0 + BK - 1 <= w.p0 &&
+                                       (p.window <= 0 ||
+                                        k0 > p_last - p.window)));
+      float mx[2];
+      if constexpr ((QUANT_FWD_OMIT & 8) != 0) {
+        mx[0] = quad_max(fmaxf(s[0][0], s[1][1]));
+        mx[1] = quad_max(fmaxf(s[0][2], s[1][3]));
+      } else {
+        transform<true>(s, p, w, ksc, qs, slope, k0, gr, tq, true, full, mx);
+      }
+      float cmax[2] = {0.f, 0.f}, mu[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // A row with no live column of this step is left as it was: its
+        // p are exp(MASK_VALUE - inf) = 0 and alpha 1.
+        mu[h] = INFINITY;
+        if (mx[h] > MASK_VALUE) {
+          const float mn = fmaxf(m[h], mx[h]);
+          alpha[h] = expf(__fsub_rn(m[h], mn));
+          m[h] = mu[h] = mn;
         }
       }
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = (QUANT_FWD_OMIT & 1) ? __fsub_rn(s[j][e], mu[e >> 1])
+                                         : expf(__fsub_rn(s[j][e], mu[e >> 1]));
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        l[h] = __fadd_rn(__fmul_rn(l[h], alpha[h]), torch_row_sum(s, h, tq));
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pv =
+              __fmul_rn(s[j][e], ksc[BK + kv_of(j, 2 * tq + (e & 1))]);
+          s[j][e] = pv;
+          if (MODE == kFp8Native) cmax[e >> 1] = fmaxf(cmax[e >> 1], pv);
+        }
       if (MODE == kFp8Native) {
-        cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 1));
-        cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 2));
-        const float cc = cmax == 0.f ? 1.f : __fdiv_rn(cmax, kFp8Max);
-        for (int c = part * 32; c < part * 32 + 32; ++c)
-          srow[c] = round_e4m3(__fdiv_rn(srow[c], cc));
-        if (part == 0) sm.row_c[r] = cc;
-      }
-      __syncwarp();
-      if (part == 0) {
-        sm.row_l[r] = __fadd_rn(__fmul_rn(sm.row_l[r], alpha), lsum);
-        sm.row_m[r] = m_next;
-        sm.row_a[r] = alpha;
+#pragma unroll
+        float rc[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float c = quad_max(cmax[h]);
+          cc[h] = c == 0.f ? 1.f : __fdiv_rn(c, kFp8Max);
+          rc[h] = __frcp_rn(cc[h]);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = div_by(s[j][e], cc[e >> 1], rc[e >> 1]);
       }
     }
-    __syncthreads();
-
-    // acc = acc * alpha + P V (fp8 native: + c * (P V)).
-    float pv[4][D / 16];
+    if (!SPLIT) {
+      // This V is in; every warp is past its scores (the work tile is
+      // free).
+      tc::cp_async_wait<1>();
+      __syncthreads();
+      widen_v<G, MODE>(Vb, Wt);
+      __syncthreads();  // V's bytes are free
+      if (more)
+        tc::load_bytes<D, BK, G::THREADS, G::LDB>(Vb, v, k0 + BK, 1 << 30);
+      tc::cp_async_commit();
+    }
+    if (live) {
+      // P's A fragments: bf16(p * v_scale); native, e4m3(p * v_scale / c)
+      // as fp16 (exact), with V in fp16.
+      uint32_t pa[BK / 16][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) pv[i][j] = 0.f;
-    for (int t = 0; t < BK; t += 4) {
-      float4 pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pr[i] = *reinterpret_cast<const float4*>(&sm.Ss[(ty * 4 + i) * SS + t]);
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        const int c = tx + 16 * j;
-        const float v0 = sm.Vf[(t + 0) * D + c], v1 = sm.Vf[(t + 1) * D + c];
-        const float v2 = sm.Vf[(t + 2) * D + c], v3 = sm.Vf[(t + 3) * D + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float a = pv[i][j];
-          a = fmaf(pr[i].x, v0, a);
-          a = fmaf(pr[i].y, v1, a);
-          a = fmaf(pr[i].z, v2, a);
-          a = fmaf(pr[i].w, v3, a);
-          pv[i][j] = a;
+      for (int c = 0; c < BK / 16; ++c) {
+        if (MODE == kFp8Native) {
+          pa[c][0] = e4m3_f16_pair(s[2 * c][0], s[2 * c][1]);
+          pa[c][1] = e4m3_f16_pair(s[2 * c][2], s[2 * c][3]);
+          pa[c][2] = e4m3_f16_pair(s[2 * c + 1][0], s[2 * c + 1][1]);
+          pa[c][3] = e4m3_f16_pair(s[2 * c + 1][2], s[2 * c + 1][3]);
+        } else {
+          tc::to_a(pa[c], s, c);
         }
       }
-    }
+      // acc = acc * alpha + P V (native: + c * P V), P V from zero.
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const float a = sm.row_a[r];
-      const float cc = MODE == kFp8Native ? sm.row_c[r] : 1.f;
+      for (int n0 = 0; n0 < D; n0 += DC) {
+        float t[DC / 8][4];
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        const float term =
-            MODE == kFp8Native ? __fmul_rn(pv[i][j], cc) : pv[i][j];
-        acc[i][j] = __fadd_rn(__fmul_rn(acc[i][j], a), term);
+        for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
+#pragma unroll
+        for (int c = 0; c < BK / 16; ++c)
+#pragma unroll
+          for (int n = 0; n < DC; n += 16) {
+            uint32_t vb[4];
+            tc::ldsm_t(vb, wt + v_off<G::LDW>(lane, c, n0 + n));
+            if constexpr ((QUANT_FWD_OMIT & 4) != 0) {
+              t[n / 8][0] += __uint_as_float(vb[0] ^ pa[c][0]);
+              t[n / 8 + 1][1] += __uint_as_float(vb[2] ^ pa[c][1]);
+            } else if (MODE == kFp8Native) {
+              tc::mma_f16(t[n / 8], pa[c], vb[0], vb[1]);
+              tc::mma_f16(t[n / 8 + 1], pa[c], vb[2], vb[3]);
+            } else {
+              tc::mma(t[n / 8], pa[c], vb[0], vb[1]);
+              tc::mma(t[n / 8 + 1], pa[c], vb[2], vb[3]);
+            }
+          }
+#pragma unroll
+        for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float term = MODE == kFp8Native
+                                   ? __fmul_rn(t[n][e], cc[e >> 1])
+                                   : t[n][e];
+            float& a = o[n0 / 8 + n][e];
+            a = __fadd_rn(__fmul_rn(a, alpha[e >> 1]), term);
+          }
       }
     }
   }
-  __syncthreads();
-  float m[4], l[4];
+  tc::cp_async_wait<0>();
+  float mult[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = sm.row_m[ty * 4 + i];
-    l[i] = sm.row_l[ty * 4 + i];
-  }
-  write_out<TO>(p, b, h, q0, ty, tx, m, l, acc);
+  for (int h = 0; h < 2; ++h) mult[h] = out_mult(p, w.h, m[h], l[h]);
+  store_cols<D, D / 8, TO>(p, bp.b, w, gr, tq, 0, o, mult);
 }
 
-// One part of a stair (tiles [t_first, t_last]): row max m, l, and P V
-// with P quantized to int8 over the whole part, into pv (the thread's 4 x
-// 8 output tile) and m / l (its 4 rows).
-__device__ void onepass_part(const QParams& p, const Smem& sm,
-                             const uint8_t* k, const uint8_t* v,
-                             const float* ks, const float* vs, int q0,
-                             int t_first, int t_last, bool masked,
-                             float slope, float m_out[4], float l_out[4],
-                             float pv[4][D / 16]) {
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int r = tid / 4, part = tid % 4;
-  float* srow = sm.Ss + r * SS;
-  // Pass 1: the part's row max.
-  float m = -INFINITY;
-  for (int tile = t_first; tile <= t_last; ++tile) {
-    __syncthreads();
-    load_kv_tile<kInt8Onepass>(p, sm, k, v, ks, vs, tile * BK, false);
-    __syncthreads();
-    score_tile<kInt8Onepass>(p, sm, q0, tile * BK, slope, masked);
-    __syncthreads();
-    for (int c = part * 32; c < part * 32 + 32; ++c) m = fmaxf(m, srow[c]);
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-  // Pass 2: l and max(p * v_scale).
-  float lsum = 0.f, pabs = 0.f;
-  for (int tile = t_first; tile <= t_last; ++tile) {
-    __syncthreads();
-    load_kv_tile<kInt8Onepass>(p, sm, k, v, ks, vs, tile * BK, false);
-    __syncthreads();
-    score_tile<kInt8Onepass>(p, sm, q0, tile * BK, slope, masked);
-    __syncthreads();
-    for (int c = part * 32; c < part * 32 + 32; ++c) {
-      const float pp = expf(__fsub_rn(srow[c], m));
-      lsum += pp;
-      pabs = fmaxf(pabs, __fmul_rn(pp, sm.col_vs[c]));
-    }
-  }
-  lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-  lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-  pabs = fmaxf(pabs, __shfl_xor_sync(0xffffffffu, pabs, 1));
-  pabs = fmaxf(pabs, __shfl_xor_sync(0xffffffffu, pabs, 2));
-  const float p_scale = pabs == 0.f ? 1.f : __fdiv_rn(pabs, kInt8Max);
-  if (part == 0) {
-    sm.row_m[r] = m;
-    sm.row_l[r] = lsum;
-    sm.row_ps[r] = p_scale;
-  }
-  // Pass 3: P to int8 levels, exact int32 P V.
-  int iacc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) iacc[i][j] = 0;
-  int* prow = reinterpret_cast<int*>(srow);
-  const int* Pi = reinterpret_cast<const int*>(sm.Ss);
-  const int* Vi = reinterpret_cast<const int*>(sm.Vf);
-  for (int tile = t_first; tile <= t_last; ++tile) {
-    __syncthreads();
-    load_kv_tile<kInt8Onepass>(p, sm, k, v, ks, vs, tile * BK, true);
-    __syncthreads();
-    score_tile<kInt8Onepass>(p, sm, q0, tile * BK, slope, masked);
-    __syncthreads();
-    for (int c = part * 32; c < part * 32 + 32; ++c) {
-      const float pp = expf(__fsub_rn(srow[c], m));
-      const float x = rintf(__fdiv_rn(__fmul_rn(pp, sm.col_vs[c]), p_scale));
-      prow[c] = (int)fminf(fmaxf(x, 0.f), kInt8Max);
-    }
-    __syncthreads();
-    for (int t = 0; t < BK; ++t) {
-      int pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = Pi[(ty * 4 + i) * SS + t];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        const int vv = Vi[t * D + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) iacc[i][j] += pr[i] * vv;
-      }
-    }
-  }
+// Staircase: stage tile `tile` (K, scales and, with `with_v`, V's bytes
+// transposed) and wait for it; every thread returns with it in place.
+template <class G>
+__device__ __forceinline__ void onepass_stage(const uint8_t* k,
+                                              const uint8_t* v,
+                                              const float* ks,
+                                              const float* vs, int tile,
+                                              bool with_v, uint8_t* Kb,
+                                              uint8_t* Vb, uint8_t* Wt,
+                                              float* sc) {
+  __syncthreads();  // the last tile's readers are done
+  stage_k<G>(k, ks, vs, tile, Kb, sc);
+  if (with_v)
+    tc::load_bytes<G::D, BK, G::THREADS, G::LDB>(Vb, v, tile * BK, 1 << 30);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
   __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rr = ty * 4 + i;
-    m_out[i] = sm.row_m[rr];
-    l_out[i] = sm.row_l[rr];
-    const float ps = sm.row_ps[rr];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      pv[i][j] = __fmul_rn(__int2float_rn(iacc[i][j]), ps);
+  if (with_v) {
+    transpose_v<G>(Vb, Wt);
+    __syncthreads();
   }
 }
 
 // The int8 staircase (onepass route): causal, q_len == kv_len.
-template <typename TO>
-__global__ void __launch_bounds__(THREADS)
-quant_onepass_kernel(QParams p) {
-  extern __shared__ float smem_raw[];
-  const Smem sm(smem_raw);
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.hq / p.hkv);
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int q0 = qt * BQ;
-  const long long kv_off = ((long long)b * p.hkv + hk) * (long long)p.skv;
+template <int D, typename TO>
+__global__ void __launch_bounds__(32 * warps_for(D, false), 1)
+    quant_onepass_kernel(QParams p) {
+  using G = Geo<D, warps_for(D, false), false, false>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* Qb = smem + G::Q;
+  uint8_t* Kb = smem + G::K;
+  uint8_t* Vb = smem + G::V;
+  uint8_t* Wt = smem + G::W;
+  float* sc = reinterpret_cast<float*>(smem + G::SC);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const BlockPos bp = block_pos(p);
+  const WarpRows w = warp_rows<G::WARPS>(p, bp, warp, true);
+  int first, last;
+  block_tiles<G::WARPS>(p, bp, true, first, last);
+  const long long kv_off = ((long long)bp.b * p.hkv + bp.hk) * p.skv;
   const uint8_t* k = p.k + kv_off * D;
   const uint8_t* v = p.v + kv_off * D;
   const float* ks = p.k_scales + kv_off;
   const float* vs = p.v_scales + kv_off;
-  load_q<kInt8Onepass>(
-      p, sm, p.q + ((long long)b * p.hq + h) * (long long)p.sq * D, b, h, q0);
-  const float slope = p.alibi != nullptr ? p.alibi[h] : 0.f;
-  const int lo = (q0 / STAIR) * STAIR;  // this stair's first row
-  const int q_last = min(q0 + BQ, p.sq) - 1;
+  stage_q<G>(p, bp, Qb);
+  tc::cp_async_commit();
 
-  float m2[4], l2[4], pv2[4][D / 16];
-  // The masked diagonal [lo, lo + STAIR): tiles past this block's last
-  // row are masked for all of its rows and add exactly nothing.
-  onepass_part(p, sm, k, v, ks, vs, q0, lo / BK, q_last / BK, true, slope, m2,
-               l2, pv2);
-  if (lo == 0) {
-    write_out<TO>(p, b, h, q0, ty, tx, m2, l2, pv2);
-    return;
+  float qs[2];
+  row_scales(p, bp.b, w, gr, qs);
+  const float slope = p.alibi != nullptr ? p.alibi[w.h] : 0.f;
+  // Part 0: the prefix [0, lo) (tiles below `split`, unmasked); part 1:
+  // the diagonal [lo, lo + 512) up to the warp's last row (masked).
+  const int split = (w.p0 / STAIR) * STAIR / BK;
+  const uint32_t qt = tc::smem_addr(Qb), kt = tc::smem_addr(Kb);
+  const uint32_t wt = tc::smem_addr(Wt);
+
+  // The scores of one tile for the warp (its part in `part`), or false.
+  auto scores = [&](int tile, float (&s)[NJ][4], int& part, float (&mx)[2]) {
+    if (!(w.first <= tile && tile <= w.last)) return false;
+    part = tile < split ? 0 : 1;
+    int8_scores<G, false>(s, qt, kt, lane, warp * 16);
+    transform<false>(s, p, w, sc, qs, slope, tile * BK, gr, tq, part == 1,
+                     false, mx);
+    return true;
+  };
+
+  // Pass 1: each part's row max.
+  float m[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+  for (int tile = first; tile <= last; ++tile) {
+    onepass_stage<G>(k, v, ks, vs, tile, false, Kb, Vb, Wt, sc);
+    float s[NJ][4], mx[2];
+    int part;
+    if (scores(tile, s, part, mx)) {
+      m[part][0] = fmaxf(m[part][0], mx[0]);
+      m[part][1] = fmaxf(m[part][1], mx[1]);
+    }
   }
-  float m1[4], l1[4], pv1[4][D / 16];
-  onepass_part(p, sm, k, v, ks, vs, q0, 0, lo / BK - 1, false, slope, m1, l1,
-               pv1);
-  float m[4], l[4];
+  // Pass 2: l and max(p * v_scale).
+  float l[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  float ps[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  for (int tile = first; tile <= last; ++tile) {
+    onepass_stage<G>(k, v, ks, vs, tile, false, Kb, Vb, Wt, sc);
+    float s[NJ][4], mx[2];
+    int part;
+    if (scores(tile, s, part, mx)) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = fmaxf(m1[i], m2[i]);
-    const float a1 = expf(__fsub_rn(m1[i], m[i]));
-    const float a2 = expf(__fsub_rn(m2[i], m[i]));
-    l[i] = __fadd_rn(__fmul_rn(l1[i], a1), __fmul_rn(l2[i], a2));
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      pv1[i][j] = __fadd_rn(__fmul_rn(pv1[i][j], a1), __fmul_rn(pv2[i][j], a2));
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const float pp = expf(__fsub_rn(s[j][e], m[part][h]));
+          l[part][h] += pp;
+          ps[part][h] = fmaxf(
+              ps[part][h], __fmul_rn(pp, sc[BK + 8 * j + 2 * tq + (e & 1)]));
+        }
+    }
   }
-  write_out<TO>(p, b, h, q0, ty, tx, m, l, pv1);
+  float a[2][2], mm[2], ll[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int pt = 0; pt < 2; ++pt) {
+      l[pt][h] = quad_sum(l[pt][h]);
+      const float pabs = quad_max(ps[pt][h]);
+      ps[pt][h] = pabs == 0.f ? 1.f : __fdiv_rn(pabs, kInt8Max);
+    }
+    // The merge: the prefix (part 0) and the diagonal (part 1).
+    mm[h] = fmaxf(m[0][h], m[1][h]);
+    a[0][h] = expf(__fsub_rn(m[0][h], mm[h]));
+    a[1][h] = expf(__fsub_rn(m[1][h], mm[h]));
+    ll[h] = __fadd_rn(__fmul_rn(l[0][h], a[0][h]), __fmul_rn(l[1][h], a[1][h]));
+  }
+  float mult[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) mult[h] = out_mult(p, w.h, mm[h], ll[h]);
+
+  // Pass 3, a 64-column slice of d at a time: P to int8 levels, the exact
+  // int32 P V of each part times its p_scale, merged.
+  for (int n0 = 0; n0 < D; n0 += DC) {
+    float acc[DC / 8][4];
+    int iacc[DC / 8][4];
+#pragma unroll
+    for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[n][e] = 0.f;
+        iacc[n][e] = 0;
+      }
+    for (int tile = first; tile <= last; ++tile) {
+      onepass_stage<G>(k, v, ks, vs, tile, true, Kb, Vb, Wt, sc);
+      float s[NJ][4], mx[2];
+      int part;
+      if (!scores(tile, s, part, mx)) continue;
+      if (part == 1 && tile == split && split > 0) {
+        // The prefix is done: acc = (P V)_0 * a_0.
+#pragma unroll
+        for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[n][e] = __fmul_rn(
+                __fmul_rn(__int2float_rn(iacc[n][e]), ps[0][e >> 1]),
+                a[0][e >> 1]);
+            iacc[n][e] = 0;
+          }
+      }
+      uint32_t lv[NJ][2];  // each n-tile's levels, rows gr and gr + 8
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t pair = 0;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 2 * h + i;
+            const float pp = expf(__fsub_rn(s[j][e], m[part][h]));
+            const float x = rintf(__fdiv_rn(
+                __fmul_rn(pp, sc[BK + 8 * j + 2 * tq + i]), ps[part][h]));
+            pair |= (uint32_t)fminf(fmaxf(x, 0.f), kInt8Max) << (8 * i);
+          }
+          lv[j][h] = pair;
+        }
+#pragma unroll
+      for (int q = 0; q < BK / 32; ++q) {
+        // A operand of kv columns 32 q ..: k order 4 tq + i <- columns
+        // 2 tq + {0, 1, 8, 9}[i] (and + 16), transpose_v's order.
+        const uint32_t pa[4] = {
+            lv[4 * q][0] | (lv[4 * q + 1][0] << 16),
+            lv[4 * q][1] | (lv[4 * q + 1][1] << 16),
+            lv[4 * q + 2][0] | (lv[4 * q + 3][0] << 16),
+            lv[4 * q + 2][1] | (lv[4 * q + 3][1] << 16)};
+#pragma unroll
+        for (int n = 0; n < DC; n += 16) {
+          uint32_t vb[4];
+          tc::ldsm(vb, wt + tc::b_off<G::LDT / 2>(lane, n0 + n, q * 16));
+          tc::imma(iacc[n / 8], pa, vb[0], vb[1]);
+          tc::imma(iacc[n / 8 + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    // out = (P V)_0 a_0 + (P V)_1 a_1 (no prefix: acc = 0, a_1 = 1).
+#pragma unroll
+    for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = __fadd_rn(
+            acc[n][e],
+            __fmul_rn(__fmul_rn(__int2float_rn(iacc[n][e]), ps[1][e >> 1]),
+                      a[1][e >> 1]));
+    store_cols<D, DC / 8, TO>(p, bp.b, w, gr, tq, n0, acc, mult);
+  }
+  tc::cp_async_wait<0>();
 }
 
-template <typename Kernel>
-int launch_kernel(Kernel kernel, const QParams& p, int batch,
-                  cudaStream_t stream) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kSmemBytes);
-  dim3 grid((p.sq + BQ - 1) / BQ, p.hq, batch);
-  kernel<<<grid, THREADS, kSmemBytes, stream>>>(p);
-  return (int)cudaGetLastError();
+using KernelFn = void (*)(QParams);
+
+template <int D, typename TO>
+KernelFn kernel_for(int mode) {
+  switch (mode) {
+    case kInt8:
+      return quant_fwd_kernel<D, kInt8, TO>;
+    case kFp8Soft:
+      return quant_fwd_kernel<D, kFp8Soft, TO>;
+    case kFp8Native:
+      return quant_fwd_kernel<D, kFp8Native, TO>;
+    default:
+      return quant_onepass_kernel<D, TO>;
+  }
+}
+
+template <int D>
+size_t smem_for(int mode) {
+  switch (mode) {
+    case kInt8:
+      return Geo<D, warps_for(D, false), false, split_for(D, false)>::SMEM;
+    case kInt8Onepass:
+      return Geo<D, warps_for(D, false), false, false>::SMEM;
+    default:
+      return Geo<D, warps_for(D, true), true, split_for(D, true)>::SMEM;
+  }
 }
 
 template <typename TO>
-int launch_mode(const QParams& p, int mode, int batch, cudaStream_t s) {
-  switch (mode) {
-    case kInt8:
-      return launch_kernel(quant_fwd_kernel<kInt8, TO>, p, batch, s);
-    case kFp8Soft:
-      return launch_kernel(quant_fwd_kernel<kFp8Soft, TO>, p, batch, s);
-    case kFp8Native:
-      return launch_kernel(quant_fwd_kernel<kFp8Native, TO>, p, batch, s);
+KernelFn kernel_for(int head_dim, int mode, size_t* smem) {
+  switch (head_dim) {
+    case 64:
+      *smem = smem_for<64>(mode);
+      return kernel_for<64, TO>(mode);
+    case 128:
+      *smem = smem_for<128>(mode);
+      return kernel_for<128, TO>(mode);
     default:
-      return launch_kernel(quant_onepass_kernel<TO>, p, batch, s);
+      *smem = smem_for<256>(mode);
+      return kernel_for<256, TO>(mode);
   }
+}
+
+int threads_for(int head_dim, int mode) {
+  return 32 * warps_for(head_dim, mode == kFp8Soft || mode == kFp8Native);
+}
+
+KernelFn kernel_for(int head_dim, int mode, int out_dtype, size_t* smem) {
+  return out_dtype == 0 ? kernel_for<float>(head_dim, mode, smem)
+                        : kernel_for<__nv_bfloat16>(head_dim, mode, smem);
+}
+
+bool served(int head_dim, int mode, int out_dtype) {
+  return (head_dim == 64 || head_dim == 128 || head_dim == 256) &&
+         mode >= 0 && mode <= 3 && out_dtype >= 0 && out_dtype <= 1;
 }
 
 }  // namespace
 
 // mode: 0 int8, 1 fp8 software, 2 fp8 native, 3 int8 staircase (causal,
-// sq == skv == kv_len); out_dtype: 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue) for an
-// argument this build does not serve.
+// sq == skv == kv_len); out_dtype: 0 = float32, 1 = bfloat16; head_dim
+// 64, 128 or 256. Returns cudaGetLastError() after the launch; 1
+// (cudaErrorInvalidValue) for an argument this build does not serve.
 extern "C" int quant_fwd(const void* q, const void* q_scales, const void* k,
                          const void* k_scales, const void* v,
                          const void* v_scales, void* o, const void* sinks,
@@ -689,8 +1177,8 @@ extern "C" int quant_fwd(const void* q, const void* q_scales, const void* k,
                          int hq, int hkv, int sq, int skv, int kv_len,
                          int head_dim, int causal, int window, float sm_scale,
                          float softcap, float inv_softcap, void* stream) {
-  if (head_dim != D || mode < 0 || mode > 3 || out_dtype < 0 ||
-      out_dtype > 1 || skv % BK != 0 || hq % hkv != 0 ||
+  if (!served(head_dim, mode, out_dtype) || skv % BK != 0 || hq % hkv != 0 ||
+      kv_len <= 0 || kv_len > skv ||
       (mode == kInt8Onepass && (!causal || sq != skv || kv_len != skv))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -707,17 +1195,40 @@ extern "C" int quant_fwd(const void* q, const void* q_scales, const void* k,
   p.o = o;
   p.sinks = static_cast<const float*>(sinks);
   p.alibi = static_cast<const float*>(alibi);
+  p.batch = batch;
   p.hq = hq;
   p.hkv = hkv;
   p.sq = sq;
   p.skv = skv;
   p.kv_len = kv_len;
+  const int threads = threads_for(head_dim, mode);
+  p.nblk = (((sq + 15) / 16) * (hq / hkv) + threads / 32 - 1) / (threads / 32);
   p.sm_scale = sm_scale;
   p.causal = causal;
   p.window = window;
   p.softcap = softcap;
   p.inv_softcap = inv_softcap;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_dtype == 0 ? launch_mode<float>(p, mode, batch, s)
-                        : launch_mode<__nv_bfloat16>(p, mode, batch, s);
+  size_t smem = 0;
+  const KernelFn kernel = kernel_for(head_dim, mode, out_dtype, &smem);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const long long blocks = (long long)p.nblk * batch * hkv;
+  kernel<<<(unsigned)blocks, threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The shared memory a block of an instance takes and the blocks of it one
+// SM holds (the CUDA occupancy calculator); 1 for an instance this build
+// does not have.
+extern "C" int quant_fwd_occupancy(int mode, int out_dtype, int head_dim,
+                                   int* smem_bytes, int* blocks_per_sm) {
+  if (!served(head_dim, mode, out_dtype)) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  const KernelFn kernel = kernel_for(head_dim, mode, out_dtype, &smem);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  *smem_bytes = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, threads_for(head_dim, mode), smem);
 }

@@ -1,7 +1,9 @@
-// tc.cuh: the tensor-core primitives of the port's bf16 attention kernels
-// (flash_fwd.cu, variant_fwd.cu through fwd_tile.cuh, and flash_bwd.cu):
-// cp.async staging, ldmatrix fragments and mma.sync m16n8k16 (bf16 in,
-// f32 sums) on sm_90a.
+// tc.cuh: the tensor-core primitives of the port's attention kernels on
+// sm_90a: cp.async staging, ldmatrix fragments and mma.sync m16n8k16 (bf16
+// in, f32 sums) for the bf16 kernels (flash_fwd.cu, variant_fwd.cu through
+// fwd_tile.cuh, and flash_bwd.cu); for the quantized-input forward
+// (quant_fwd.cu) also byte tiles, mma.sync m16n8k32 over int8 (exact s32
+// sums), m16n8k16 over fp16, and exact widenings of int8 and e4m3.
 //
 // Shared-memory tiles are [rows][LD] bf16 with LD = D + 8: a row is
 // padded by 8 elements, so the eight 16-byte rows an ldmatrix reads fall
@@ -10,6 +12,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -114,6 +118,88 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
     const bool ok = r0 + r < rows;
     cp_async16(dst + r * LD + c, ok ? src + (long long)(r0 + r) * D + c : src,
                ok);
+  }
+}
+
+// ---- 8-bit operands (the quantized-input forward, quant_fwd.cu) ----------
+//
+// Byte tiles are [rows][LDB] bytes with LDB = width + 16, so eight rows an
+// ldmatrix reads again fall in eight bank groups. ldmatrix reads 16-byte
+// rows whatever their type, so a_off / b_off with LD = LDB / 2 and the
+// column counted in byte pairs give the 8-bit fragments of m16n8k32: a
+// 32-byte column chunk at byte c0 is (LD units) column c0 / 2, and a lane
+// (gr, tq) receives bytes 4 tq .. 4 tq + 3 of its rows in each 16 bytes,
+// which is the s8 operand layout (A: a[0] row gr, bytes 4 tq.., a[1] row
+// gr + 8, a[2] / a[3] the same 16 bytes on; B: b0, b1 the two 16-byte
+// halves of its n row).
+
+// d += a b over int8: a 16 x 32 (row), b 32 x 8 (col), d 16 x 8 s32, exact
+// (d's layout is mma's).
+__device__ __forceinline__ void imma(int (&d)[4], const uint32_t (&a)[4],
+                                     uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b over fp16 (mma's layouts), f32 sums.
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Rows [r0, r0 + R) of a [rows, W] byte matrix into a [R][LDB] tile, rows
+// at or past `rows` as zeros.
+template <int W, int R, int NT, int LDB>
+__device__ __forceinline__ void load_bytes(uint8_t* dst, const uint8_t* src,
+                                           int r0, int rows) {
+  constexpr int CPR = W / 16;
+#pragma unroll
+  for (int i = threadIdx.x; i < R * CPR; i += NT) {
+    const int r = i / CPR, c = (i % CPR) * 16;
+    const bool ok = r0 + r < rows;
+    cp_async16(dst + r * LDB + c, ok ? src + (long long)(r0 + r) * W + c : src,
+               ok);
+  }
+}
+
+// Exact widenings. Every int8 value and every e4m3 value is a bf16 value
+// and an fp16 value.
+// The bytes 0, 1 (lo) or 2, 3 (hi) of w, e4m3, as an fp16 pair (the lower
+// byte in the lower half): one cvt.rn.f16x2.e4m3x2.
+__device__ __forceinline__ uint32_t e4m3x2_f16(uint32_t w, bool hi) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(hi ? w >> 16 : w & 0xffffu),
+      __NV_E4M3);
+  return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
+}
+// Byte i of w as f32: int8 (2^23 + (x + 128), then - (2^23 + 128): exact)
+// or e4m3.
+__device__ __forceinline__ float int8_f32(uint32_t w, int i) {
+  const uint32_t u = ((w >> (8 * i)) & 0xffu) ^ 0x80u;
+  return __int_as_float(0x4b000000 | u) - 8388736.f;
+}
+__device__ __forceinline__ float2 e4m3x2_f32(uint32_t w, bool hi) {
+  const uint32_t h = e4m3x2_f16(w, hi);
+  return __half22float2(*reinterpret_cast<const __half2*>(&h));
+}
+// Four bytes of w (int8 or e4m3, byte 0 first) as two bf16 pairs.
+template <bool E4M3>
+__device__ __forceinline__ void widen4_bf16(uint32_t w, uint32_t& lo,
+                                            uint32_t& hi) {
+  if (E4M3) {
+    const float2 a = e4m3x2_f32(w, false), b = e4m3x2_f32(w, true);
+    lo = pack(a.x, a.y);
+    hi = pack(b.x, b.y);
+  } else {
+    lo = pack(int8_f32(w, 0), int8_f32(w, 1));
+    hi = pack(int8_f32(w, 2), int8_f32(w, 3));
   }
 }
 

@@ -23,8 +23,8 @@ from tpu_flash_torch.ops import build
 from tpu_flash_torch.ops.flash.api import flash_attention
 from tpu_flash_torch.ops.flash.forward import KERNEL_DTYPES, rounded_scale
 
-# What csrc/attn_weights.cu instantiates (its own set, not the forward's).
-KERNEL_HEAD_DIMS = (64, 128)
+# What csrc/attn_weights.cu instantiates.
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def weights_plain(q, k, lse, *, causal: bool, sm_scale: float,

@@ -20,11 +20,17 @@ serves both) and the opt-in int8 staircase (``onepass=True``, the JAX
 on CPU tensors; the two walk the same 128-column kv steps and round at
 the same places, so they differ only in the order of f32 sums.
 
-Scores are exact dot products rounded to f32 once (the JAX kernel sums
-e4m3 products in f32, an ulp away at most). The fp8 tier: software (P V
-as bf16(p * v_scale) times V) or native (P V renormalises each P row into e4m3); by
-default native where the card multiplies e4m3 (compute capability 8.9
-and up), software on the CPU.
+Scores are exact dot products rounded to f32 once, on both sides: the
+plain version sums int8 products in f32 (exact below 2^24) and e4m3
+products in f64 (exact); the kernel takes int8 dots from the tensor
+cores' s32 sums and e4m3 dots as exact int64 sums of s8 limb products
+(tensor-core f32 sums of e4m3 products, as the JAX kernel takes them,
+round inside the product and would flip P roundings). Every P then
+rounds alike, and the two differ only in the order of the f32 sums of l
+and P V. The fp8 tier: software (P V as bf16(p * v_scale) times V) or
+native (P V renormalises each P row into e4m3); by default native where
+the card multiplies e4m3 (compute capability 8.9 and up), software on
+the CPU.
 """
 
 from __future__ import annotations
@@ -46,10 +52,10 @@ from tpu_flash_torch.ops.quant.quantize import (
 )
 
 NUM_LANES = 128  # the lane-replicated width of the q scales (JAX layout)
-QUANT_BLOCK_Q = 64  # q rows per block of csrc/quant_fwd.cu
+QUANT_BLOCK_Q = 64  # the JAX function's q block: q_len's alignment
 QUANT_BLOCK_KV = TileSizes().block_kv  # kv columns per online-softmax step
 ONEPASS_STAIR = 512  # rows of one staircase stair (the JAX diag_rows)
-KERNEL_HEAD_DIM = 128
+KERNEL_HEAD_DIMS = (64, 128, 256)  # what csrc/quant_fwd.cu instantiates
 KERNEL_OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MODES = {"int8": 0, "fp8": 1, "fp8_native": 2, "onepass": 3}
 
@@ -272,11 +278,11 @@ def _quant_fwd_cuda(qv, qs, kv_, ks, vv, vs, *, dtype_name, causal,
         raise ValueError(f"quant_fwd kernel writes f32 or bf16, not {out_dtype}")
     b, hq, sq, d = qv.shape
     hkv, skv = kv_.shape[1], kv_.shape[2]
-    if d != KERNEL_HEAD_DIM or skv % QUANT_BLOCK_KV:
+    if d not in KERNEL_HEAD_DIMS or skv % QUANT_BLOCK_KV:
         raise ValueError(
-            f"quant_fwd kernel is built for head_dim {KERNEL_HEAD_DIM} and a "
-            f"stored kv length divisible by {QUANT_BLOCK_KV}; got head_dim "
-            f"{d}, stored kv {skv}"
+            f"quant_fwd kernel is built for head_dim in {KERNEL_HEAD_DIMS} "
+            f"and a stored kv length divisible by {QUANT_BLOCK_KV}; got "
+            f"head_dim {d}, stored kv {skv}"
         )
     for t in (qs, kv_, ks, vv, vs, sinks, alibi):
         if t is not None and t.device != qv.device:
@@ -285,7 +291,7 @@ def _quant_fwd_cuda(qv, qs, kv_, ks, vv, vs, *, dtype_name, causal,
     qs_strides = qs.stride()[:3]
     u8 = torch.uint8
     qv, kv_, vv = (build.aligned(t).view(u8) for t in (qv, kv_, vv))
-    ks, vs = ks.float().contiguous(), vs.float().contiguous()
+    ks, vs = build.aligned(ks.float()), build.aligned(vs.float())
     sinks = None if sinks is None else sinks.float().contiguous()
     alibi = None if alibi is None else alibi.float().contiguous()
     mode = "onepass" if onepass else (
@@ -303,6 +309,22 @@ def _quant_fwd_cuda(qv, qs, kv_, ks, vv, vs, *, dtype_name, causal,
         build.stream_handle(qv), tag=mode,
     )
     return o
+
+
+def quant_occupancy(mode: str, out_dtype, head_dim: int):
+    """(shared memory bytes a block, blocks an SM) of the kernel instance
+    that serves ``mode`` (a key of MODES) at ``out_dtype`` and
+    ``head_dim`` on the current card (the CUDA occupancy calculator)."""
+    import ctypes
+
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    fn = build.QUANT_FWD.entry("quant_fwd_occupancy", [build.I] * 3
+                               + [build.P] * 2)
+    rc = fn(MODES[mode], KERNEL_OUT_DTYPES[out_dtype], head_dim,
+            ctypes.byref(smem), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"quant_fwd_occupancy failed: CUDA error {rc}")
+    return smem.value, blocks.value
 
 
 def onepass_route(onepass: bool, dtype_name: str, causal: bool, window,
