@@ -10,11 +10,13 @@ network. Phases, one JSON line each:
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels from tpu_flash_torch/csrc (one nvcc per
      source, all started together), with the build seconds; each
-     instance of the backward pair, the forward, the variant kernel and
-     the two prefill kernels with its registers, spill bytes and
-     tensor-core instructions in its SASS (the bf16 tensor-core instances
-     must have them; the f32 ones, the forward's order-exact instances
-     and every prefill instance not); each instance of the order-exact
+     instance of the backward pair, the forward, the variant kernel, the
+     attention-weights kernel and the two prefill kernels with its
+     registers, spill bytes and tensor-core instructions in its SASS
+     (every backward and weights instance must have them, the f32 ones
+     as three-pass TF32, and the forward's bf16 ones; the forward's
+     order-exact instances and every prefill instance not); each
+     instance of the order-exact
      prefill tile (K5, K6 and the forward's) with its shared memory and
      blocks an SM (two at d 128); each paged decode instance's
      registers, spill bytes, shared memory, blocks an SM and clusters
@@ -41,14 +43,19 @@ network. Phases, one JSON line each:
      forward at config 4's geometry (int8, fp8 native and software at
      8192 tokens in bf16 and f32 with a bar per row and a late-row
      control; options and the int8 staircase at 2048); the row
-     quantizer byte for byte; the attention-weights kernel; every built
+     quantizer byte for byte; the attention-weights kernel (bf16 at 2048
+     tokens with its options, Gemma-2's d 256, f32 at 1024) with a bar
+     per row, a late-row control (lse raised 2^-6 past s/2) and the
+     count of elements off the plain version; every built
      variant of the variant harness's kernel (K13) at its sweep's shape
      with a bar per row and a late-row control, exp2 timed against expf
      in turns;
      and Gemma-2-9B's attention geometry (16 q / 8 kv heads, d 256, cap
      50, a sliding layer's 4096-token window and a global layer; a
      512-token first chunk) on the forward, decode (every tier), paged
-     and ragged prefill and the backward, the backward also at d 64;
+     and ragged prefill and the backward, the backward also at d 64,
+     and in f32 (three-pass TF32) at b 2 x 2048, d 64 and Gemma-2's d
+     256, each with SDPA's f32 backward beside it;
      decode at 16 q heads a kv head (bf16 and int8 pages, bit for bit);
      the bf16 backward is held against the plain version with its bf16
      P in dV (``round_p``);
@@ -113,8 +120,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 SCALE = 128 ** -0.5
+# "tf32x3": f32 work as three TF32 passes on the tensor cores (494.7
+# TFLOP/s dense), the f32 backward's and the weights kernel's arithmetic.
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "int8": 1979e12, "fp8": 1979e12,
-                  "float32": 67e12}
+                  "float32": 67e12, "tf32x3": 494.7e12 / 3}
 # Kernel vs plain version: they take every rounding the TPU kernel
 # specifies and differ only in f32 summation order. That can flip the
 # rounding of a bf16 output element (one ulp at its own magnitude, so at
@@ -608,12 +617,12 @@ def kernel_ms(kernel, fn, iters: int, warmup: int = 1) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / len(events)
 
 
-def bwd_bound(q, k, kw, which):
+def bwd_bound(q, k, kw, which, rate=None):
     """Least time of one backward kernel: its inputs read once (q, dO,
     k, v, lse and di) and the function's outputs written once (dK and dV
     per kv head, as the backward returns them, or dQ), against its
     products over the live pairs: S, dP, dV, dK (8 d FLOPs a pair) for
-    dK/dV, S, dP, dQ (6 d) for dQ."""
+    dK/dV, S, dP, dQ (6 d) for dQ, at the inputs' rate or ``rate``."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     es = q.element_size()
@@ -626,7 +635,7 @@ def bwd_bound(q, k, kw, which):
     else:
         nbytes += b * hq * sq * d * es
         ops = 6.0 * d * pairs
-    return bound(nbytes, ops, str(q.dtype).removeprefix("torch."))
+    return bound(nbytes, ops, rate or str(q.dtype).removeprefix("torch."))
 
 
 # The backward is held with a bar per row (row_agreement): a row of dK or
@@ -792,6 +801,8 @@ def check_flash_bwd(dev):
             lambda: bw.flash_bwd_plain(*args, sm_scale=SCALE, round_p=rp,
                                        **bkw), 2),
             library_ms=sdpa_bwd_ms(q, k, v, do, kw))
+        if not rp:
+            whole.update(f32_extras(q, k, bkw, ms, whole))
         row = dict(case=name, dtype=str(dt).removeprefix("torch."),
                    shape=list(q.shape), kv_len=skv,
                    options={x: str(y) if not torch.is_tensor(y) else "tensor"
@@ -806,6 +817,7 @@ def check_flash_bwd(dev):
         log("kernel_vs_plain", kernel="flash_bwd", **row)
     raise_if_failed("flash_bwd", rows)
     first = rows[0]
+    f32 = next(r for r in rows if r["dtype"] == "float32")
     out = {}
     for which, outputs in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
         # No one PyTorch call computes one kernel's outputs alone: the
@@ -818,8 +830,31 @@ def check_flash_bwd(dev):
             bound_by=first["bound_by"][which], library_ms=None,
             whole_ms=first["whole"]["ms"],
             whole_plain_ms=first["whole"]["plain_ms"],
-            whole_library_ms=first["whole"]["library_ms"])
+            whole_library_ms=first["whole"]["library_ms"],
+            fp32_case=f32["case"], fp32_ms=f32["ms"][which],
+            fp32_bound_ms=f32["bound_ms"][which],
+            fp32_tf32x3_bound_ms=f32["whole"]["tf32x3_bound_ms"][which],
+            fp32_whole_ms=f32["whole"]["ms"],
+            fp32_whole_library_ms=f32["whole"]["library_ms"])
     return out
+
+
+# The f32 backward's ask at phase 3's f32 case (b 2, 32/8 heads, s 2048,
+# d 128, causal): the pair within F32_PAIR_MS, the whole flash_bwd below
+# PyTorch's f32 fused-attention backward in the same run. Logged, not a
+# gate of the run.
+F32_PAIR_MS = 6.0
+
+
+def f32_extras(q, k, kw, ms, whole):
+    """An f32 backward row's bound at three TF32 passes (the kernels'
+    arithmetic) beside the f32 rate's, and the two asks."""
+    pair = ms["dkv"] + ms["dq"]
+    lib = whole["library_ms"]
+    return dict(tf32x3_bound_ms={w: bwd_bound(q, k, kw, w, "tf32x3")[0]
+                                 for w in ms},
+                pair_ms=pair, pair_within_ask=pair <= F32_PAIR_MS,
+                below_library=None if lib is None else whole["ms"] < lib)
 
 
 def decode_inputs(dev, kv_dtype, ring, ps=128, heads=(32, 8)):
@@ -1635,13 +1670,27 @@ def check_quantize_rows(dev):
 
 
 WEIGHTS_SEQ = 2048
+# K12's late-row control: the plain version with the lse of every row past
+# s/2 raised by 2^-6, which scales those rows' P by exp(-2^-6), 1.6% under
+# the kernel's; the per-row bar (2^-12 of the row's max) must see it in at
+# least WEIGHTS_LATE_CAUGHT of those rows.
+WEIGHTS_LATE_SHIFT = 2.0 ** -6
+WEIGHTS_LATE_CAUGHT = 0.9
+# The ask on every case: at most this many times its bound (logged).
+WEIGHTS_BOUND_ASK = 3.0
 
 
 def check_attn_weights(dev):
-    """K12 at b 1, 32 q / 8 kv heads, 2048 tokens, d 128, bf16: P from the
-    forward's lse, kernel against plain version; sinks rows sum below 1.
-    Also at Gemma-2-9B's d 256 (16 / 8 heads, a sliding layer's window
-    and cap, q at GEMMA_Q_STD; its control drops both)."""
+    """K12 at b 1, 32 q / 8 kv heads, 2048 tokens, d 128 in bf16, at
+    Gemma-2-9B's d 256 (16 / 8 heads, a sliding layer's window and cap, q
+    at GEMMA_Q_STD; its control drops both) and at 1024 tokens, d 128 in
+    f32: P from the forward's lse, kernel against plain version with a bar
+    per row (row_agreement: each row within 2^-12 of its own max |ref|,
+    the control off some row's bar, the late-row control off most late
+    rows' bars), the count of elements that differ from the plain version
+    at all; sinks rows sum below 1. The bound counts P's bytes and the
+    inputs' against the score products at the inputs' arithmetic (three
+    TF32 passes in f32)."""
     import torch
 
     from tpu_flash_torch.ops.flash import debug, flash_attention
@@ -1656,6 +1705,8 @@ def check_attn_weights(dev):
     causal = dict(causal=True)
     qkv = (q, k, v, SCALE)
     gemma = (*gemma_qkv(dev, 1, s, s, SEED + 8), GEMMA_SCALE)
+    f32 = tuple(torch.randn(1, h, s // 2, 128, generator=g, device=dev)
+                for h in (32, 8, 8)) + (SCALE,)
     cases = [
         ("causal", qkv, causal, {}, dict(causal=False)),
         ("window_softcap", qkv, dict(causal=True, window=256, softcap=5.0),
@@ -1664,6 +1715,7 @@ def check_attn_weights(dev):
         ("sinks", qkv, causal, dict(sinks=sinks), None),
         ("d256_sliding", gemma,
          dict(causal=True, window=256, softcap=GEMMA_CAP), {}, causal),
+        ("f32_causal", f32, causal, {}, dict(causal=False)),
     ]
     rows = []
     for name, (q, k, v, scale), kw, fwd_only, control in cases:
@@ -1679,33 +1731,50 @@ def check_attn_weights(dev):
         if control is None:  # without sinks the rows would sum to 1
             _, lse0 = flash_attention(q, k, v, save_residuals=True,
                                       sm_scale=scale, **kw)
-            off = max_err(out, debug.weights_plain(q, k, lse0,
-                                                   sm_scale=scale, **kw))
+            off = debug.weights_plain(q, k, lse0, sm_scale=scale, **kw)
         else:
-            off = max_err(out, call(debug.weights_plain, control))
+            off = call(debug.weights_plain, control)
+        n = q.shape[2]
+        late_lse = lse.clone()
+        late_lse[..., n // 2:] += WEIGHTS_LATE_SHIFT
+        late = call(debug.weights_plain, kw, lse=late_lse)
+        held = row_agreement(out, ref, off, None, (late, n // 2),
+                             late_caught=WEIGHTS_LATE_CAUGHT)
+        held.update(differ_plain=differing(out, ref), elements=out.numel())
         row_sums = out.sum(-1)
+        del off, late
         ms = time_ms(lambda: call(debug.attention_weights_from_lse, kw), 10)
         plain_ms = time_ms(lambda: call(debug.weights_plain, kw), 2)
-        nbytes = (4 * out.numel() + 2 * (q.numel() + k.numel())
+        nbytes = (4 * out.numel() + q.element_size() * (q.numel() + k.numel())
                   + 4 * lse.numel())
-        bound_ms, bound_by = bound(
-            nbytes, 2.0 * q.shape[-1] * q.shape[1] * live_pairs(1, s, s, kw),
-            "bfloat16")
-        row = dict(case=name, shape=list(out.shape), d=q.shape[-1],
+        ops = 2.0 * q.shape[-1] * q.shape[1] * live_pairs(1, n, n, kw)
+        rate = "bfloat16" if q.dtype == torch.bfloat16 else "tf32x3"
+        bound_ms, bound_by = bound(nbytes, ops, rate)
+        row = dict(case=name, dtype=str(q.dtype).removeprefix("torch."),
+                   shape=list(out.shape), d=q.shape[-1],
                    row_sum_max=float(row_sums.max()),
-                   row_sum_min=float(row_sums.min()),
-                   **agreement(out, ref, off), ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                   row_sum_min=float(row_sums.min()), **held,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by,
+                   bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   ops_bound_ms=ops / PEAK_OPS_PER_S[rate] * 1e3,
+                   of_bound=ms / bound_ms,
+                   within_ask=ms <= WEIGHTS_BOUND_ASK * bound_ms,
+                   library_ms=None)
         if fwd_only and not row["row_sum_max"] < 1.0:
             row["ok"] = False
         rows.append(row)
         log("kernel_vs_plain", kernel="attn_weights", **row)
         del out, ref
     raise_if_failed("attn_weights", rows)
-    wide = rows[-1]
+    wide = next(r for r in rows if r["case"] == "d256_sliding")
+    f32 = next(r for r in rows if r["dtype"] == "float32")
     return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows),
                 **{f"d256_{x}": wide[x] for x in (
-                    "case", "ms", "plain_ms", "bound_ms", "library_ms")})
+                    "case", "ms", "plain_ms", "bound_ms", "library_ms")},
+                **{f"fp32_{x}": f32[x] for x in (
+                    "case", "ms", "plain_ms", "bound_ms", "bytes_bound_ms",
+                    "ops_bound_ms")})
 
 
 # -- phase 3: Gemma-2-9B's attention geometry (head width 256) --------------
@@ -1984,12 +2053,14 @@ def check_prefill_d256(dev):
 
 def check_flash_bwd_widths(dev):
     """K8/K9 at Gemma-2-9B's geometry (b 1 x 2048 under the cap, b 1 x
-    8192 under the window) and at d 64 (32 heads, b 1 x 2048): dq, dk, dv
-    of the two kernels against the plain version with ``round_p`` (bf16),
+    8192 under the window) and at d 64 (32 heads, b 1 x 2048) in bf16,
+    and the first and last again in f32 (three-pass TF32): dq, dk, dv of
+    the two kernels against the plain version (with ``round_p`` in bf16),
     each row within its own bar (row_agreement), the control without the
     case's option and the late-row control (every case is causal with sq
-    = skv) outside it, the error against the plain version without
-    ``round_p`` logged; SDPA's backward timed without the cap."""
+    = skv) outside it, the bf16 error against the plain version without
+    ``round_p`` logged; SDPA's backward timed without the cap, in the
+    case's dtype."""
     import torch
 
     from tpu_flash_torch.ops import build
@@ -1997,24 +2068,30 @@ def check_flash_bwd_widths(dev):
     from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
 
     rows = []
-    for name, heads, d, s, kw, control in [
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, heads, d, s, kw, control, dt in [
         ("gemma2_global", GEMMA_HEADS, GEMMA_D, 2048,
-         dict(causal=True, softcap=GEMMA_CAP), dict(causal=True)),
+         dict(causal=True, softcap=GEMMA_CAP), dict(causal=True), bf),
         ("gemma2_sliding", GEMMA_HEADS, GEMMA_D, 8192,
          dict(causal=True, softcap=GEMMA_CAP, window=GEMMA_WINDOW),
-         dict(causal=True, softcap=GEMMA_CAP)),
+         dict(causal=True, softcap=GEMMA_CAP), bf),
         ("d64_causal", (32, 8), 64, 2048, dict(causal=True),
-         dict(causal=False)),
+         dict(causal=False), bf),
+        ("f32_gemma2_global", GEMMA_HEADS, GEMMA_D, 2048,
+         dict(causal=True, softcap=GEMMA_CAP), dict(causal=True), f32),
+        ("f32_d64_causal", (32, 8), 64, 2048, dict(causal=True),
+         dict(causal=False), f32),
     ]:
         g = torch.Generator(device=dev).manual_seed(SEED + 25)
         hq, hkv = heads
         qstd = GEMMA_Q_STD if d == GEMMA_D else 1.0
         q = (qstd * torch.randn(1, hq, s, d, generator=g,
-                                device=dev)).bfloat16()
-        k, v = (torch.randn(1, hkv, s, d, generator=g, device=dev).bfloat16()
+                                device=dev)).to(dt)
+        k, v = (torch.randn(1, hkv, s, d, generator=g, device=dev).to(dt)
                 for _ in range(2))
-        do = torch.randn(1, hq, s, d, generator=g, device=dev).bfloat16()
+        do = torch.randn(1, hq, s, d, generator=g, device=dev).to(dt)
         scale = d ** -0.5
+        rp = dt == bf
 
         def residuals(opts):
             o, lse = flash_fwd_plain(q, k, v, sm_scale=scale, save_lse=True,
@@ -2024,14 +2101,16 @@ def check_flash_bwd_widths(dev):
         args = residuals(kw)
         out = bw.flash_bwd(*args, sm_scale=scale, **kw)
         torch.cuda.synchronize()
-        ref = bw.flash_bwd_plain(*args, sm_scale=scale, round_p=True, **kw)
+        ref = bw.flash_bwd_plain(*args, sm_scale=scale, round_p=rp, **kw)
         off = bw.flash_bwd_plain(*residuals(control), sm_scale=scale,
-                                 round_p=True, **control)
-        exact = bw.flash_bwd_plain(*args, sm_scale=scale, **kw)
+                                 round_p=rp, **control)
+        exact = (bw.flash_bwd_plain(*args, sm_scale=scale, **kw) if rp
+                 else ref)
         shifted = bw.flash_bwd_plain(*args[:4], late_do(do), args[5],
-                                     sm_scale=scale, round_p=True, **kw)
+                                     sm_scale=scale, round_p=rp, **kw)
         grads = {n: dict(row_agreement(a, r, c, n, (sh, s // 2)),
-                         vs_f32_p=max_err(a, e))
+                         differ_plain=differing(a, r),
+                         **(dict(vs_f32_p=max_err(a, e)) if rp else {}))
                  for n, a, r, c, e, sh in zip(("dq", "dk", "dv"), out, ref,
                                               off, exact, shifted)}
         del out, ref, off, exact, shifted
@@ -2044,11 +2123,14 @@ def check_flash_bwd_widths(dev):
         bounds = {w: bwd_bound(q, k, kw, w) for w in ms}
         lib_kw = {x: y for x, y in kw.items() if x != "softcap"}
         whole = dict(ms=time_ms(run, 3), plain_ms=time_ms(
-            lambda: bw.flash_bwd_plain(*args, sm_scale=scale, round_p=True,
+            lambda: bw.flash_bwd_plain(*args, sm_scale=scale, round_p=rp,
                                        **kw), 1),
             library_ms=sdpa_bwd_ms(q, k, v, do, lib_kw),
             library="SDPA backward without softcap")
-        row = dict(case=name, shape=list(q.shape), kv_heads=hkv,
+        if not rp:
+            whole.update(f32_extras(q, k, kw, ms, whole))
+        row = dict(case=name, dtype=str(dt).removeprefix("torch."),
+                   shape=list(q.shape), kv_heads=hkv,
                    options={x: str(y) for x, y in kw.items()},
                    control={x: str(y) for x, y in control.items()},
                    **grads, ok=all(r_["ok"] for r_ in grads.values()),
@@ -2075,7 +2157,8 @@ def check_widths(dev, summary):
             d256_bound_ms=r["bound_ms"], d256_library_ms=r["library_ms"],
             d256_max_abs_err=max(x["max_abs_err"] for x in rows))
     for which in ("dkv", "dq"):
-        for prefix, r in (("d256", bwd[0]), ("d64", bwd[2])):
+        for prefix, r in (("d256", bwd[0]), ("d64", bwd[2]),
+                          ("fp32_d256", bwd[3]), ("fp32_d64", bwd[4])):
             summary[f"flash_bwd_{which}"].update({
                 f"{prefix}_case": r["case"], f"{prefix}_ms": r["ms"][which],
                 f"{prefix}_bound_ms": r["bound_ms"][which],
@@ -3085,15 +3168,16 @@ def debug_weights_row(dev, b, h, s, d, causal):
 # that must run on the tensor cores, the instances of each (kernel, on
 # the tensor cores) the source builds). A function's kernel is the
 # pattern's first group, or the library's name. Every other instance
-# must have no tensor-core instruction: the f32 kernels (TF32 would miss
-# their bar) and flash_fwd's order-exact instances (the prefill tile over
-# dense K/V: d 64, 128 and 256 in f32 and bf16, bf16 also at 16 rows a
-# block), which flash_fwd_exact and f32 flash_fwd launch.
+# must have no tensor-core instruction: flash_fwd's order-exact instances
+# (the prefill tile over dense K/V: d 64, 128 and 256 in f32 and bf16,
+# bf16 also at 16 rows a block), which flash_fwd_exact and f32 flash_fwd
+# launch. The backward's and the weights kernel's f32 instances run on
+# the tensor cores too (three-pass TF32: HMMA.1684.F32.TF32).
 TC_LIBRARIES = {
     "flash_bwd": ("FLASH_BWD_DKV", r"flash_bwd_(dkv|dq)_kernel",
-                  r"D(kv|q)Tiles",
-                  {(kn, tc): 3 for kn in ("dkv", "dq")
-                   for tc in (True, False)}),
+                  r"D(kv|q)Tiles", {("dkv", True): 6, ("dq", True): 6}),
+    "attn_weights": ("ATTN_WEIGHTS", r"attn_weights_kernel",
+                     r"attn_weights_kernel", {("attn_weights", True): 6}),
     "flash_fwd": ("FLASH_FWD", r"flash_fwd(?:_tc|_dense)?_kernel",
                   r"flash_fwd_tc_kernel",
                   {("flash_fwd", True): 3, ("flash_fwd", False): 9}),
@@ -3272,8 +3356,7 @@ def tc_instances(lib):
         tc = bool(re.search(tc_re, name))
         row = dict(function=readable.replace("(anonymous namespace)::", ""),
                    kernel=m[1] if m.lastindex else lib,
-                   dtype="bfloat16" if tc or "bfloat16" in name
-                   else "float32",
+                   dtype=instance_dtype(name, tc),
                    needs_tensor_cores=tc,
                    **funcs.get(name, {}),
                    **sass.get(name, dict(hmma=0, hgmma=0, imma=0)))
@@ -3291,6 +3374,17 @@ def tc_instances(lib):
             f"each (kernel, on the tensor cores): {count}, built "
             f"{len(rows)}, want {want}")
     return rows
+
+
+def instance_dtype(name, tc) -> str:
+    """An instance's input dtype from its mangled name: bf16 where the
+    name says so, f32 where it takes float (``If``) or the TF32 tiles,
+    else bf16 for a tensor-core instance."""
+    if "bfloat16" in name:
+        return "bfloat16"
+    if "tf32" in name or "IfLi" in name:
+        return "float32"
+    return "bfloat16" if tc else "float32"
 
 
 QUANT_MODES = ("int8", "fp8", "fp8_native", "onepass")

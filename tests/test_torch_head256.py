@@ -96,6 +96,58 @@ def test_wrapper_widths_are_what_the_source_builds(source, module, name):
     assert _module_widths(module, name) == _source_widths(source)
 
 
+def _bwd_tiles():
+    """{(dtype, kernel, d): tile tuple} of csrc/flash_bwd.cu's Tiles<D>
+    specialisations: the bf16 ones first, then the three-pass TF32 ones
+    (namespace tf32), as the sweep's variants spell them."""
+    text = (build.CSRC_DIR / "flash_bwd.cu").read_text()
+    found = re.findall(r"using (Dkv|Dq) = D(?:kv|q)Tiles<([\d, ]+)>;", text)
+    assert len(found) == 12
+    tiles = {}
+    for i, (kind, args) in enumerate(found):
+        dims = tuple(int(x) for x in args.split(","))
+        dtype = "bfloat16" if i < 6 else "float32"
+        tiles[(dtype, kind.lower(), dims[0])] = dims[1:]
+    return tiles
+
+
+def test_backward_tiles_fit_and_are_the_sweeps_built_shapes():
+    """Each backward instance's tiles fit one block's 227 KB of shared
+    memory by the source's own formula, the f32 tiles' row stride (D + 4
+    floats) is 4 mod 32 (its fragment reads meet 32 banks) and two f32
+    blocks fit an SM at d 128; the sweep tool's first variant of each
+    (dtype, kernel, width) is the shape the source builds."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_bwd_sweep", build.PACKAGE_DIR.parent / "tools" /
+        "torch_bwd_sweep.py")
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    tiles = _bwd_tiles()
+    for (dtype, kind, d), dims in tiles.items():
+        # bf16 double-buffers the streamed tiles; f32 stages them in turn,
+        # the dK/dV kernel with Q's and dO's lo planes beside them.
+        es = 2 if dtype == "bfloat16" else 4
+        ld = d + (8 if es == 2 else 4)
+        if kind == "dkv":
+            bkv, bq, _ = dims
+            stats = 4 * (4 if es == 2 else 2) * bq  # lse and di
+            smem = es * (2 * bkv + 4 * bq) * ld + stats
+        else:
+            bq, bkv = dims
+            smem = es * (2 * bq + (4 if es == 2 else 2) * bkv) * ld
+        assert smem <= 232448, (dtype, kind, d, smem)
+        if es == 4:
+            assert ld % 32 == 4
+            if d == 128:
+                assert 2 * (smem + 1024) <= 233472, (kind, smem)
+        variants = (sweep.VARIANTS if dtype == "bfloat16"
+                    else sweep.F32_VARIANTS)
+        first = next(v for v in variants if v[:2] == (kind, d))
+        assert first[2:] == dims, (dtype, kind, d)
+
+
 def test_serving_and_training_kernels_take_d256_and_the_backward_d64():
     assert 256 in _source_widths("flash_fwd")
     for source in ("paged_decode", "paged_prefill", "ragged_prefill"):

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Tile shapes of the bf16 backward kernels, swept on one CUDA card.
+"""Tile shapes of the backward kernels, swept on one CUDA card.
 
-    python3 tools/torch_bwd_sweep.py [--json out.json]
+    python3 tools/torch_bwd_sweep.py [--dtype bfloat16|float32]
+                                     [--json out.json]
 
 Writes one harness source under build/: the text of
 ``tpu_flash_torch/csrc/flash_bwd.cu`` followed by one C entry point for
 each tile shape below (the kernels are templates on their tiles). Builds
 it with nvcc and times each dK/dV and dQ variant inside ``flash_bwd``
 (the other kernel as built), by CUDA events around its launches, at the
-shapes ``chip_smoke.py`` phase 3 holds the backward at: b 4, 32 q / 8 kv
-heads x 2048, d 128, causal; Gemma-2-9B's b 1, 16 / 8 heads x 2048 at
-d 256 under its cap of 50; b 1, 32 / 8 heads x 2048 at d 64. Each
-variant's outputs are held against the plain version with ``round_p``
-at phase 3's bar for each row. One JSON line a variant: its ms and its
-largest error as a share of its row's bar, the shape the source builds
-marked
-``built``; exit 1 if any variant misses its bar. Needs a CUDA card, nvcc
+shapes ``chip_smoke.py`` phase 3 holds the backward at: b 4 (bf16) or b
+2 (f32), 32 q / 8 kv heads x 2048, d 128, causal; Gemma-2-9B's b 1, 16 /
+8 heads x 2048 at d 256 under its cap of 50; b 1, 32 / 8 heads x 2048 at
+d 64. bf16 variants are the tensor-core kernels (``tc::``), f32 ones the
+three-pass TF32 kernels (``tc::tf32::``). Each variant's outputs are
+held against the plain version (with ``round_p`` in bf16) at phase 3's
+bar for each row. One JSON line a variant: its ms and its largest error
+as a share of its row's bar, the shape the source builds marked
+``built``; exit 1 if any variant misses its bar. ``--dtype`` builds and
+times one dtype's variants only. Needs a CUDA card, nvcc
 and PyTorch.
 """
 
@@ -30,7 +33,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 # (kernel, d, rows the block owns, rows a step, warps sharing 16 rows)
 # dkv: (D, BKV, BQ, DSPLIT); dq: (D, BQ, BKV). The first of each width
-# is the one csrc/flash_bwd.cu builds (Tiles<D>).
+# is the one
+# csrc/flash_bwd.cu builds (Tiles<D>; F32_VARIANTS: the f32 kernels'
+# tf32::Tiles<D>).
 VARIANTS = [
     ("dkv", 128, 64, 32, 1), ("dkv", 128, 64, 64, 1),
     ("dkv", 128, 128, 32, 1), ("dkv", 128, 64, 32, 2),
@@ -42,43 +47,62 @@ VARIANTS = [
     ("dkv", 64, 128, 32, 1),
     ("dq", 64, 64, 32), ("dq", 64, 64, 64), ("dq", 64, 128, 32),
 ]
+F32_VARIANTS = [
+    ("dkv", 128, 64, 16, 1), ("dkv", 128, 64, 32, 1), ("dkv", 128, 32, 16, 1),
+    ("dq", 128, 64, 32), ("dq", 128, 64, 16), ("dq", 128, 128, 16),
+    ("dkv", 256, 64, 16, 2), ("dkv", 256, 32, 16, 2),
+    ("dq", 256, 64, 32), ("dq", 256, 64, 16),
+    ("dkv", 64, 64, 16, 1), ("dkv", 64, 64, 32, 1),
+    ("dq", 64, 64, 32), ("dq", 64, 64, 16),
+]
 SHAPES = {128: (4, 32, 8, dict(causal=True)),
           256: (1, 16, 8, dict(causal=True, softcap=50.0)),
           64: (1, 32, 8, dict(causal=True))}
+F32_BATCH = {128: 2}  # phase 3's f32 case; other widths as SHAPES
 SEQ = 2048
 HARNESS = """
 namespace {
-template <class G>
-int sweep_dkv(const BwdParams& p, int batch, cudaStream_t s) {
-  cudaFuncSetAttribute(tc::flash_bwd_dkv_kernel<G>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <class G, class K>
+int sweep_dkv(K kernel, const BwdParams& p, int batch, cudaStream_t s) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)G::smem);
   dim3 grid((p.skv + G::BKV - 1) / G::BKV, p.hq, batch);
-  tc::flash_bwd_dkv_kernel<G><<<grid, G::THREADS, G::smem, s>>>(p);
+  kernel<<<grid, G::THREADS, G::smem, s>>>(p);
   return (int)cudaGetLastError();
 }
-template <class G>
-int sweep_dq(const BwdParams& p, int batch, cudaStream_t s) {
-  cudaFuncSetAttribute(tc::flash_bwd_dq_kernel<G>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <class G, class K>
+int sweep_dq(K kernel, const BwdParams& p, int batch, cudaStream_t s) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)G::smem);
   dim3 grid((p.sq + G::BQ - 1) / G::BQ, p.hq, batch);
-  tc::flash_bwd_dq_kernel<G><<<grid, G::THREADS, G::smem, s>>>(p);
+  kernel<<<grid, G::THREADS, G::smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 }  // namespace
 """
 
 
-def entry(v) -> str:
-    name = "_".join(map(str, v))
-    if v[0] == "dkv":
-        tiles = f"tc::DkvTiles<{v[1]}, {v[2]}, {v[3]}, {v[4]}>"
-    else:
-        tiles = f"tc::DqTiles<{v[1]}, {v[2]}, {v[3]}>"
-    return (f'extern "C" int {name}(FLASH_BWD_ARGS) {{\n'
-            f"  return sweep_{v[0]}<{tiles}>(FLASH_BWD_PARAMS, batch,\n"
+def variant_name(dtype, v) -> str:
+    return "_".join(map(str, (dtype, *v)))
+
+
+def entry(dtype, v) -> str:
+    ns = "tc::tf32" if dtype == "float32" else "tc"
+    kind = "DkvTiles" if v[0] == "dkv" else "DqTiles"
+    tiles = f"{ns}::{kind}<{', '.join(map(str, v[1:]))}>"
+    return (f'extern "C" int {variant_name(dtype, v)}(FLASH_BWD_ARGS) {{\n'
+            f"  using G = {tiles};\n"
+            f"  return sweep_{v[0]}<G>({ns}::flash_bwd_{v[0]}_kernel<G>,\n"
+            f"      FLASH_BWD_PARAMS, batch,\n"
             f"      static_cast<cudaStream_t>(stream));\n}}\n")
+
+
+def all_variants():
+    dtypes = ("bfloat16", "float32")
+    if "--dtype" in sys.argv:
+        dtypes = (sys.argv[sys.argv.index("--dtype") + 1],)
+    return ([("bfloat16", v) for v in VARIANTS if "bfloat16" in dtypes]
+            + [("float32", v) for v in F32_VARIANTS if "float32" in dtypes])
 
 
 def harness_kernels():
@@ -88,15 +112,15 @@ def harness_kernels():
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = build.BUILD_DIR / "bwd_sweep.cu"
     path.write_text((build.CSRC_DIR / "flash_bwd.cu").read_text() + HARNESS
-                    + "".join(entry(v) for v in VARIANTS))
+                    + "".join(entry(*dv) for dv in all_variants()))
     kernels = {}
-    for v in VARIANTS:
-        name = "_".join(map(str, v))
+    for dv in all_variants():
+        name = variant_name(*dv)
         k = build.CudaKernel(name, name, build.FLASH_BWD_DKV.argtypes,
                              replaces="-")
         k.source = path  # the harness, outside csrc/
-        kernels[v] = k
-    first = kernels[VARIANTS[0]]
+        kernels[dv] = k
+    first = kernels[all_variants()[0]]
     first.finish_build(first.start_build())
     return kernels
 
@@ -116,26 +140,33 @@ def main() -> int:
     kernels = harness_kernels()
     gpu = gpu_query()
     rows = []
-    for d, (b, hq, hkv, kw) in SHAPES.items():
+    for (d, (b, hq, hkv, kw)), dtype in [
+            (x, y) for y in sorted({dv[0] for dv in all_variants()})
+            for x in SHAPES.items()]:
         g = torch.Generator(device="cuda").manual_seed(3)
         qstd = 4.0 if d == 256 else 1.0  # Gemma-2's cap bends the scores
+        dt = getattr(torch, dtype)
+        rp = dt == torch.bfloat16
+        if not rp:
+            b = F32_BATCH.get(d, b)
         q = (qstd * torch.randn(b, hq, SEQ, d, generator=g,
-                                device="cuda")).bfloat16()
+                                device="cuda")).to(dt)
         k, v = (torch.randn(b, hkv, SEQ, d, generator=g,
-                            device="cuda").bfloat16() for _ in range(2))
-        do = torch.randn(b, hq, SEQ, d, generator=g, device="cuda").bfloat16()
+                            device="cuda").to(dt) for _ in range(2))
+        do = torch.randn(b, hq, SEQ, d, generator=g, device="cuda").to(dt)
         o, lse = flash_fwd_plain(q, k, v, sm_scale=d ** -0.5, save_lse=True,
                                  **kw)
         args = (q, k, v, o, do, lse)
-        ref = bw.flash_bwd_plain(*args, sm_scale=d ** -0.5, round_p=True,
+        ref = bw.flash_bwd_plain(*args, sm_scale=d ** -0.5, round_p=rp,
                                  **kw)
-        for var in VARIANTS:
+        variants = VARIANTS if rp else F32_VARIANTS
+        for var in variants:
             if var[1] != d:
                 continue
             which = var[0]
             attr = "FLASH_BWD_DKV" if which == "dkv" else "FLASH_BWD_DQ"
             saved = getattr(build, attr)
-            kern = kernels[var]
+            kern = kernels[(dtype, var)]
             setattr(build, attr, kern)
             try:
                 def run():
@@ -151,8 +182,8 @@ def main() -> int:
                 ms = kernel_ms(kern, run, 5)
             finally:
                 setattr(build, attr, saved)
-            row = dict(kernel=which, d=d, tiles=list(var[2:]),
-                       built=var == next(x for x in VARIANTS
+            row = dict(kernel=which, dtype=dtype, d=d, tiles=list(var[2:]),
+                       built=var == next(x for x in variants
                                          if x[:2] == var[:2]),
                        shape=[b, hq, hkv, SEQ], options=kw, ms=ms,
                        err_of_bar=err, ok=err <= 1.0, gpu=gpu)

@@ -59,20 +59,37 @@
 // 242 a thread), not shared memory, cap the card at 8-12 warps an SM.
 // tools/torch_bwd_sweep.py times other shapes against these.
 //
-// f32: the first, CUDA-core kernels, kept for f32 inputs (TF32 products
-// would miss their 2^-12 bar): f32 FMAs from f32 tiles in shared memory
-// (each thread a 4 x 4 tile of S and dP and a 4 x 8 tile of each
-// accumulator; ~167 KB of shared memory in dK/dV, ~150 KB in dQ at d 128,
-// one block per SM). At d 256 a 64 x 64 step's four f32 tiles of
-// 260-float rows would need 301 KB (dK/dV) and 284 KB (dQ), over the
-// card's 227: dK/dV then steps 32 q rows against its 64 kv rows (217 KB)
-// and dQ 32 kv rows against its 64 q rows (209 KB). The backward rounds
-// nothing across a step (P comes from the forward's lse), so the tiles
-// change only the f32 summation order.
+// f32: the same two kernels on the tensor cores (namespace tc::tf32), in
+// three-pass TF32 (tc.cuh: each f32 operand split into hi = tf32(x) and
+// lo = tf32(x - hi), each product lo hi + hi lo + hi hi on mma.sync
+// m16n8k8, lo lo dropped), the counterpart of the TPU kernel's f32 dots
+// at Precision.HIGHEST, a multi-pass bf16 product (backward.py:38-43).
+// All seven products take it; dS and P are not rounded; S and dP sum
+// their small terms apart from hi hi; p's exp runs on the special-function
+// unit (exp_sfu). Operands stay f32 in shared memory (rows of D + 4
+// floats), read by ldmatrix (an 8 x 4 block of floats is an 8 x 8 b16
+// matrix whose lanes get the tf32 fragment's layout) and split in
+// registers, four integer and float operations a value; the dK/dV
+// kernel's Q and dO, which its 4 warps each read twice a step, are split
+// once as they are staged (their lo parts into planes beside them). S^T
+// and dP^T come out kv-major as in bf16, and P^T and dS^T go from the
+// accumulators into the A operand with no shuffle (tf32_to_a takes the k
+// order the accumulator holds, tf32_ldb_t reads Q and dO in that order).
+// One thing three-pass sums do not give: where dP - di cancels, dS keeps
+// the f32 rounding noise of dP and di, which the plain version leaves in
+// the order of cuBLAS's f32 product (a sequential FMA chain over d) and
+// a per-row bar of 2^-12 holds in a row of few keys. So such an element
+// takes its dP again on the CUDA cores in that order (exact_dot; the
+// rule is at p_and_ds). Tiles (tf32::Tiles<D>, the fastest of
+// tools/torch_bwd_sweep.py --dtype float32): dK/dV owns 64 kv rows (at d
+// 256 two warps a 16 rows, as in bf16) and steps 16 q rows, each step's Q
+// and dO staged in turn with their lo planes (101.5 KB at d 128, two
+// blocks an SM; 200 KB at d 256); dQ owns 64 q rows and steps 32 kv rows,
+// each step's K and V staged in turn (101 KB at d 128).
 //
 // Later work (ROADMAP item 17): wgmma with TMA and warp specialisation,
 // summing each GQA group inside the kernel (per-q-head dK/dV cost hq/hkv
-// times their bytes), tensor cores for f32.
+// times their bytes).
 //
 // Layout: q/o/dO [b, hq, sq, d], k/v [b, hkv, skv, d], lse/di f32
 // [b, hq, sq], dQ like q, dK/dV [b, hq, skv, d]; all contiguous, bf16
@@ -88,40 +105,6 @@
 #include "tc.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;  // 16 x 16 threads over each score tile
-
-// The tiles of head width D: the dK/dV block owns 64 kv rows and steps
-// DKV_BQ q rows; the dQ block owns 64 q rows and steps DQ_BKV kv rows.
-template <int D>
-struct Geo {
-  static constexpr int DKV_BQ = D > 128 ? 32 : 64;
-  static constexpr int DQ_BKV = D > 128 ? 32 : 64;
-  static constexpr int DS = D + 4;  // padded row stride (floats), 16-byte
-                                    // aligned
-  // dK/dV: K, V, Q, dO tiles, P and dS tiles, lse and di of the q tile.
-  static constexpr size_t dkv_smem =
-      sizeof(float) * (2 * 64 * DS + 2 * DKV_BQ * DS +
-                       2 * DKV_BQ * (64 + 4) + 2 * DKV_BQ);
-  // dQ: Q, dO, K, V tiles, the dS tile, lse and di.
-  static constexpr size_t dq_smem =
-      sizeof(float) * (2 * 64 * DS + 2 * DQ_BKV * DS + 64 * (DQ_BKV + 4) +
-                       2 * 64);
-  static_assert(dkv_smem <= 232448 && dq_smem <= 232448,
-                "over the card's 227 KB a block");
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
 
 struct BwdParams {
   const void* q;
@@ -141,315 +124,6 @@ struct BwdParams {
   int causal, q_offset, window;  // window <= 0: none
   float softcap, inv_softcap;    // softcap <= 0: none
 };
-
-// Rows [r0, r0 + R) of a [rows, D] matrix into an f32 shared tile with
-// row stride D + 4; rows at or past `rows` load as zeros.
-template <int D, int R, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int rows) {
-  constexpr int DS = Geo<D>::DS;
-  for (int idx = threadIdx.x; idx < R * D; idx += THREADS) {
-    const int r = idx / D, c = idx % D;
-    dst[r * DS + c] =
-        r0 + r < rows ? to_f(src[(long long)(r0 + r) * D + c]) : 0.f;
-  }
-}
-
-// S = Qs Ks^T and dP = dOs Vs^T over an RQ x RK tile, the thread's cells
-// at q rows ty*(RQ/16)+i and kv cols tx+16*j, then P and dS in place:
-// s[i][j] becomes p, dp[i][j] becomes the unrounded dS.
-template <int D, int RQ, int RK>
-__device__ __forceinline__ void scores_and_ds(
-    const BwdParams& p, int b, int h, int q0, int k0, const float* Qs,
-    const float* Ks, const float* dOs, const float* Vs, const float* lse_s,
-    const float* di_s, float (&s)[RQ / 16][RK / 16],
-    float (&dp)[RQ / 16][RK / 16]) {
-  constexpr int DS = Geo<D>::DS, RI = RQ / 16, RJ = RK / 16;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < RJ; ++j) s[i][j] = dp[i][j] = 0.f;
-  for (int kk = 0; kk < D; kk += 4) {
-    float4 qv[RI], dv[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * RI + i) * DS + kk]);
-      dv[i] =
-          *reinterpret_cast<const float4*>(&dOs[(ty * RI + i) * DS + kk]);
-    }
-#pragma unroll
-    for (int j = 0; j < RJ; ++j) {
-      const float4 kv =
-          *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * DS + kk]);
-      const float4 vv =
-          *reinterpret_cast<const float4*>(&Vs[(tx + 16 * j) * DS + kk]);
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        float a = s[i][j];
-        a = fmaf(qv[i].x, kv.x, a);
-        a = fmaf(qv[i].y, kv.y, a);
-        a = fmaf(qv[i].z, kv.z, a);
-        a = fmaf(qv[i].w, kv.w, a);
-        s[i][j] = a;
-        float c = dp[i][j];
-        c = fmaf(dv[i].x, vv.x, c);
-        c = fmaf(dv[i].y, vv.y, c);
-        c = fmaf(dv[i].z, vv.z, c);
-        c = fmaf(dv[i].w, vv.w, c);
-        dp[i][j] = c;
-      }
-    }
-  }
-  const float slope = p.alibi != nullptr ? p.alibi[h] : 0.f;
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = ty * RI + i;
-    const int qi = q0 + r;
-    const int qpos = qi + p.q_offset;
-#pragma unroll
-    for (int j = 0; j < RJ; ++j) {
-      const int kpos = k0 + tx + 16 * j;
-      float x = s[i][j] * p.scale;
-      float dcap = 1.f;
-      if (p.softcap > 0.f) {
-        const float t = tanhf(x * p.inv_softcap);
-        x = p.softcap * t;
-        dcap = 1.f - t * t;
-      }
-      if (p.alibi != nullptr) x += slope * (float)(kpos - qpos);
-      bool valid = qi < p.sq && kpos < p.kv_len;
-      if (p.causal) {
-        valid = valid && kpos <= qpos;
-        if (p.window > 0) valid = valid && kpos > qpos - p.window;
-      }
-      if (valid && p.q_seg != nullptr) {
-        valid = p.q_seg[(long long)b * p.sq + qi] ==
-                p.kv_seg[(long long)b * p.skv + kpos];
-      }
-      const float pp = valid ? expf(x - lse_s[r]) : 0.f;
-      float ds = pp * (dp[i][j] - di_s[r]);
-      if (p.softcap > 0.f) ds = ds * dcap;
-      s[i][j] = pp;
-      dp[i][j] = ds * p.scale;
-    }
-  }
-}
-
-// lse and di of q rows [q0, q0 + R) into shared memory (0 past sq).
-template <int R>
-__device__ __forceinline__ void load_row_stats(const BwdParams& p, int b,
-                                               int h, int q0, float* lse_s,
-                                               float* di_s) {
-  if (threadIdx.x < R) {
-    const int qi = q0 + threadIdx.x;
-    const long long at = ((long long)b * p.hq + h) * p.sq + qi;
-    lse_s[threadIdx.x] = qi < p.sq ? p.lse[at] : 0.f;
-    di_s[threadIdx.x] = qi < p.sq ? p.di[at] : 0.f;
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(BwdParams p) {
-  constexpr int BKV = 64, BQ = Geo<D>::DKV_BQ, DS = Geo<D>::DS;
-  constexpr int PS = BKV + 4;
-  extern __shared__ float smem[];
-  float* Ks = smem;               // [BKV][DS]
-  float* Vs = Ks + BKV * DS;      // [BKV][DS]
-  float* Qs = Vs + BKV * DS;      // [BQ][DS]
-  float* dOs = Qs + BQ * DS;      // [BQ][DS]
-  float* Ps = dOs + BQ * DS;      // [BQ][PS]  P, q-major
-  float* dSs = Ps + BQ * PS;      // [BQ][PS]  round(dS), q-major
-  float* lse_s = dSs + BQ * PS;   // [BQ]
-  float* di_s = lse_s + BQ;       // [BQ]
-
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.hq / p.hkv);
-  const int k0 = kt * BKV;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const long long qbase = ((long long)b * p.hq + h) * (long long)p.sq * D;
-  const long long kbase = ((long long)b * p.hkv + hk) * (long long)p.skv * D;
-  const T* q = static_cast<const T*>(p.q) + qbase;
-  const T* dout = static_cast<const T*>(p.dout) + qbase;
-
-  load_tile<D, BKV>(Ks, static_cast<const T*>(p.k) + kbase, k0, p.kv_len);
-  load_tile<D, BKV>(Vs, static_cast<const T*>(p.v) + kbase, k0, p.kv_len);
-
-  // q tiles that can see this kv tile (none past the kv tail).
-  const int n_qt = (p.sq + BQ - 1) / BQ;
-  int first = 0, last = k0 < p.kv_len ? n_qt - 1 : -1;
-  if (p.causal) {
-    const int lo = k0 - p.q_offset;  // first q row at or past k0
-    first = lo > 0 ? lo / BQ : 0;
-    if (p.window > 0) {
-      const int hi = k0 + BKV - 1 + p.window - 1 - p.q_offset;
-      last = hi < 0 ? -1 : min(last, hi / BQ);
-    }
-  }
-
-  float dk[4][D / 16], dv[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  for (int qt = first; qt <= last; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // the previous step's readers are done
-    load_tile<D, BQ>(Qs, q, q0, p.sq);
-    load_tile<D, BQ>(dOs, dout, q0, p.sq);
-    load_row_stats<BQ>(p, b, h, q0, lse_s, di_s);
-    __syncthreads();
-
-    constexpr int RI = BQ / 16, RJ = BKV / 16;
-    float s[RI][RJ], ds[RI][RJ];
-    scores_and_ds<D, BQ, BKV>(p, b, h, q0, k0, Qs, Ks, dOs, Vs, lse_s, di_s,
-                              s, ds);
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < RJ; ++j) {
-        Ps[(ty * RI + i) * PS + tx + 16 * j] = s[i][j];
-        dSs[(ty * RI + i) * PS + tx + 16 * j] = round_to<T>(ds[i][j]);
-      }
-    __syncthreads();
-
-    // dV += P^T dO, dK += dS^T Q: thread kv rows ty*4+i, cols tx+16*j.
-    for (int r = 0; r < BQ; ++r) {
-      const float4 pv = *reinterpret_cast<const float4*>(&Ps[r * PS + ty * 4]);
-      const float4 sv =
-          *reinterpret_cast<const float4*>(&dSs[r * PS + ty * 4]);
-      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-      const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        const float o = dOs[r * DS + tx + 16 * j];
-        const float x = Qs[r * DS + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv[i][j] = fmaf(pa[i], o, dv[i][j]);
-          dk[i][j] = fmaf(sa[i], x, dk[i][j]);
-        }
-      }
-    }
-  }
-
-  T* dk_out = static_cast<T*>(p.out1) + ((long long)b * p.hq + h) *
-                                            (long long)p.skv * D;
-  T* dv_out = static_cast<T*>(p.out2) + ((long long)b * p.hq + h) *
-                                            (long long)p.skv * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k0 + ty * 4 + i;
-    if (kr >= p.skv) continue;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      const long long at = (long long)kr * D + tx + 16 * j;
-      dk_out[at] = from_f<T>(dk[i][j]);
-      dv_out[at] = from_f<T>(dv[i][j]);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(BwdParams p) {
-  constexpr int BQ = 64, BKV = Geo<D>::DQ_BKV, DS = Geo<D>::DS;
-  constexpr int PS = BKV + 4;
-  extern __shared__ float smem[];
-  float* Qs = smem;               // [BQ][DS]
-  float* dOs = Qs + BQ * DS;      // [BQ][DS]
-  float* Ks = dOs + BQ * DS;      // [BKV][DS]
-  float* Vs = Ks + BKV * DS;      // [BKV][DS]
-  float* dSs = Vs + BKV * DS;     // [BQ][PS]  round(dS)
-  float* lse_s = dSs + BQ * PS;   // [BQ]
-  float* di_s = lse_s + BQ;       // [BQ]
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.hq / p.hkv);
-  const int q0 = qt * BQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const long long qbase = ((long long)b * p.hq + h) * (long long)p.sq * D;
-  const long long kbase = ((long long)b * p.hkv + hk) * (long long)p.skv * D;
-  const T* k = static_cast<const T*>(p.k) + kbase;
-  const T* v = static_cast<const T*>(p.v) + kbase;
-
-  load_tile<D, BQ>(Qs, static_cast<const T*>(p.q) + qbase, q0, p.sq);
-  load_tile<D, BQ>(dOs, static_cast<const T*>(p.dout) + qbase, q0, p.sq);
-  load_row_stats<BQ>(p, b, h, q0, lse_s, di_s);
-
-  // kv tiles this q tile sees: the forward's active cells.
-  const int q_first = q0 + p.q_offset;
-  const int q_last = min(q0 + BQ, p.sq) - 1 + p.q_offset;
-  int first = 0;
-  int last = (p.kv_len + BKV - 1) / BKV - 1;
-  if (p.causal) {
-    last = min(last, q_last / BKV);
-    if (p.window > 0) {
-      const int lo = q_first - p.window + 1;
-      first = lo > 0 ? lo / BKV : 0;
-    }
-  }
-
-  float dq[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) dq[i][j] = 0.f;
-
-  for (int kt = first; kt <= last; ++kt) {
-    const int k0 = kt * BKV;
-    __syncthreads();
-    load_tile<D, BKV>(Ks, k, k0, p.kv_len);
-    load_tile<D, BKV>(Vs, v, k0, p.kv_len);
-    __syncthreads();
-
-    constexpr int RJ = BKV / 16;
-    float s[4][RJ], ds[4][RJ];
-    scores_and_ds<D, BQ, BKV>(p, b, h, q0, k0, Qs, Ks, dOs, Vs, lse_s, di_s,
-                              s, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < RJ; ++j)
-        dSs[(ty * 4 + i) * PS + tx + 16 * j] = round_to<T>(ds[i][j]);
-    __syncthreads();
-
-    // dQ += dS K: thread q rows ty*4+i, cols tx+16*j.
-    for (int t = 0; t < BKV; t += 4) {
-      float4 sv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        sv[i] = *reinterpret_cast<const float4*>(&dSs[(ty * 4 + i) * PS + t]);
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        const int c = tx + 16 * j;
-        const float k0v = Ks[(t + 0) * DS + c], k1v = Ks[(t + 1) * DS + c];
-        const float k2v = Ks[(t + 2) * DS + c], k3v = Ks[(t + 3) * DS + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float a = dq[i][j];
-          a = fmaf(sv[i].x, k0v, a);
-          a = fmaf(sv[i].y, k1v, a);
-          a = fmaf(sv[i].z, k2v, a);
-          a = fmaf(sv[i].w, k3v, a);
-          dq[i][j] = a;
-        }
-      }
-    }
-  }
-
-  T* dq_out = static_cast<T*>(p.out1) + qbase;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= p.sq) continue;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      dq_out[(long long)qi * D + tx + 16 * j] = from_f<T>(dq[i][j]);
-  }
-}
 
 }  // namespace
 
@@ -518,12 +192,67 @@ __device__ __forceinline__ bool needs_mask(const BwdParams& p, int q0, int bq,
   return k0 + bkv - 1 > qlo || (p.window > 0 && k0 <= qhi - p.window);
 }
 
+// The q tiles [first, last] of bq rows that see kv rows [k0, k0 + bkv)
+// (none past the kv tail): the triangular grid's active cells.
+__device__ __forceinline__ void dkv_steps(const BwdParams& p, int k0, int bkv,
+                                          int bq, int& first, int& last) {
+  const int n_qt = (p.sq + bq - 1) / bq;
+  first = 0;
+  last = k0 < p.kv_len ? n_qt - 1 : -1;
+  if (p.causal) {
+    const int lo = k0 - p.q_offset;  // first q row at or past k0
+    first = lo > 0 ? lo / bq : 0;
+    if (p.window > 0) {
+      const int hi = k0 + bkv - 1 + p.window - 1 - p.q_offset;
+      last = hi < 0 ? -1 : min(last, hi / bq);
+    }
+  }
+}
+
+// The kv tiles [first, last] of bkv rows that q rows [q0, q0 + bq) see:
+// the forward's active cells.
+__device__ __forceinline__ void dq_steps(const BwdParams& p, int q0, int bq,
+                                         int bkv, int& first, int& last) {
+  const int q_first = q0 + p.q_offset;
+  const int q_last = min(q0 + bq, p.sq) - 1 + p.q_offset;
+  first = 0;
+  last = (p.kv_len + bkv - 1) / bkv - 1;
+  if (p.causal) {
+    last = min(last, q_last / bkv);
+    if (p.window > 0) {
+      const int lo = q_first - p.window + 1;
+      first = lo > 0 ? lo / bkv : 0;
+    }
+  }
+}
+
+// dO_i . V_j as a sequential f32 FMA chain over d from 0, the order of
+// cuBLAS's f32 product in the plain version's dP (f32 kernels only).
+template <int D>
+__device__ __forceinline__ float exact_dot(const float* a, const float* b) {
+  float acc = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < D; ++c) acc = fmaf(a[c], b[c], acc);
+  return acc;
+}
+
 // One score's s (the raw q.k sum) -> p and dp -> rounded-later dS, the
-// CUDA-core kernels' arithmetic (scores_and_ds).
+// plain version's arithmetic (the f32 kernels take p's exp on the
+// special-function unit, exp_sfu). EXACT_D > 0 (the f32 kernels): where
+// dp - di cancels far enough for the three-pass sums' error in dp to
+// weigh on a row of dQ or dK, dp = exact_dot(orow, vrow) (its dO and V
+// rows in shared memory): p > 1/2 (a row's P near 1 on one key); p > 1/64
+// with |dp - di| under 1/8 of max(|dp|, |di|); and on a masked step (the
+// diagonal, a window edge, segment ids), where rows of few keys and kv
+// rows of few q rows hold one element's dS nearly alone, any p with
+// |dp - di| under 1/64 of it.
+template <int EXACT_D = 0>
 __device__ __forceinline__ void p_and_ds(const BwdParams& p, int b, int qi,
                                          int kpos, float lse, float di,
                                          float slope, bool masked, float& s,
-                                         float& dp) {
+                                         float& dp,
+                                         const float* orow = nullptr,
+                                         const float* vrow = nullptr) {
   const int qpos = qi + p.q_offset;
   float x = s * p.scale;
   float dcap = 1.f;
@@ -545,7 +274,14 @@ __device__ __forceinline__ void p_and_ds(const BwdParams& p, int b, int qi,
               p.kv_seg[(long long)b * p.skv + kpos];
     }
   }
-  const float pp = valid ? expf(x - lse) : 0.f;
+  const float pp = !valid        ? 0.f
+                   : EXACT_D > 0 ? exp_sfu(x - lse)
+                                 : expf(x - lse);
+  if (EXACT_D > 0 && (pp > 0.015625f || (masked && pp > 0.f))) {
+    const float gap = fabsf(dp - di), top = fmaxf(fabsf(dp), fabsf(di));
+    const float near = pp > 0.015625f ? 0.125f : 0.015625f;
+    if (pp > 0.5f || gap < near * top) dp = exact_dot<EXACT_D>(orow, vrow);
+  }
   float ds = pp * (dp - di);
   if (p.softcap > 0.f) ds = ds * dcap;
   s = pp;
@@ -589,17 +325,8 @@ __global__ void __launch_bounds__(G::THREADS)
   load_rows<D, BKV, NT, LD>(Vs, static_cast<const bf16*>(p.v) + kvbase, k0,
                             p.kv_len);
 
-  // q tiles that can see this kv tile (none past the kv tail).
-  const int n_qt = (p.sq + BQ - 1) / BQ;
-  int first = 0, last = k0 < p.kv_len ? n_qt - 1 : -1;
-  if (p.causal) {
-    const int lo = k0 - p.q_offset;  // first q row at or past k0
-    first = lo > 0 ? lo / BQ : 0;
-    if (p.window > 0) {
-      const int hi = k0 + BKV - 1 + p.window - 1 - p.q_offset;
-      last = hi < 0 ? -1 : min(last, hi / BQ);
-    }
-  }
+  int first, last;  // the q tiles that see this kv tile
+  dkv_steps(p, k0, BKV, BQ, first, last);
 
   auto stage = [&](int qt, int buf) {
     const int q0 = qt * BQ;
@@ -737,18 +464,8 @@ __global__ void __launch_bounds__(G::THREADS)
   load_rows<D, BQ, NT, LD>(dOs, static_cast<const bf16*>(p.dout) + qrow * D,
                            q0, p.sq);
 
-  // kv tiles this q tile sees: the forward's active cells.
-  const int q_first = q0 + p.q_offset;
-  const int q_last = min(q0 + BQ, p.sq) - 1 + p.q_offset;
-  int first = 0;
-  int last = (p.kv_len + BKV - 1) / BKV - 1;
-  if (p.causal) {
-    last = min(last, q_last / BKV);
-    if (p.window > 0) {
-      const int lo = q_first - p.window + 1;
-      first = lo > 0 ? lo / BKV : 0;
-    }
-  }
+  int first, last;  // the kv tiles this q tile sees
+  dq_steps(p, q0, BQ, BKV, first, last);
 
   auto stage = [&](int kt, int buf) {
     load_rows<D, BKV, NT, LD>(Ks + buf * BKV * LD, k, kt * BKV, p.kv_len);
@@ -868,6 +585,359 @@ int launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32: the same kernels in three-pass TF32 (tc.cuh), operands f32 in shared
+// memory and split as their fragments are read (the note at the top).
+namespace tf32 {
+
+// dK/dV block: as tc::DkvTiles, over f32 tiles. Each step's Q and dO are
+// staged in turn (not the next step's while this one runs: that room
+// holds their lo parts, split once as they are staged rather than by
+// each warp at each of its two reads).
+template <int D_, int BKV_, int BQ_, int DSPLIT_>
+struct DkvTiles {
+  static constexpr int D = D_, BKV = BKV_, BQ = BQ_, DSPLIT = DSPLIT_;
+  static constexpr int WARPS = BKV / 16 * DSPLIT;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int LD = D + 4;  // row stride (floats)
+  static constexpr int DW = D / DSPLIT;
+  // K, V; Q, dO and their lo planes; lse and di.
+  static constexpr size_t smem =
+      sizeof(float) * ((2 * BKV + 4 * BQ) * LD + 2 * BQ);
+  static_assert(smem <= 232448, "over the card's 227 KB a block");
+  static_assert(BQ % 16 == 0, "q rows a step come in pairs of n-tiles");
+};
+
+// dQ block: as tc::DqTiles, over f32 tiles, each step's K and V staged in
+// turn (the room of a second stage buys wider steps).
+template <int D_, int BQ_, int BKV_>
+struct DqTiles {
+  static constexpr int D = D_, BQ = BQ_, BKV = BKV_;
+  static constexpr int WARPS = BQ / 16;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int LD = D + 4;
+  // Q, dO; K and V.
+  static constexpr size_t smem = sizeof(float) * (2 * BQ + 2 * BKV) * LD;
+  static_assert(smem <= 232448, "over the card's 227 KB a block");
+  static_assert(BKV % 16 == 0, "kv rows a step come in pairs of n-tiles");
+};
+
+// The tiles of each head width (see the note at the top of the file).
+template <int D>
+struct Tiles;
+template <>
+struct Tiles<64> {
+  using Dkv = DkvTiles<64, 64, 16, 1>;
+  using Dq = DqTiles<64, 64, 32>;
+};
+template <>
+struct Tiles<128> {
+  using Dkv = DkvTiles<128, 64, 16, 1>;
+  using Dq = DqTiles<128, 64, 32>;
+};
+template <>
+struct Tiles<256> {
+  using Dkv = DkvTiles<256, 64, 16, 2>;
+  using Dq = DqTiles<256, 64, 32>;
+};
+
+// dK/dV: tc::flash_bwd_dkv_kernel's walk and products in three-pass
+// TF32; P^T and dS^T stay f32.
+template <class G>
+__global__ void __launch_bounds__(G::THREADS)
+    flash_bwd_dkv_kernel(BwdParams p) {
+  constexpr int D = G::D, BKV = G::BKV, BQ = G::BQ, DSPLIT = G::DSPLIT;
+  constexpr int LD = G::LD, DW = G::DW, NT = G::THREADS;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  float* Ks = reinterpret_cast<float*>(tc_smem);  // [BKV][LD]
+  float* Vs = Ks + BKV * LD;                     // [BKV][LD]
+  float* Qs = Vs + BKV * LD;                     // [BQ][LD]
+  float* dOs = Qs + BQ * LD;                     // [BQ][LD]
+  uint32_t* Ql = reinterpret_cast<uint32_t*>(dOs + BQ * LD);  // Q's lo
+  uint32_t* Ol = Ql + BQ * LD;                                // dO's lo
+  float* lse_s = reinterpret_cast<float*>(Ol + BQ * LD);      // [BQ]
+  float* di_s = lse_s + BQ;                                   // [BQ]
+
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.hq / p.hkv);
+  const int k0 = kt * BKV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int wr = warp / DSPLIT * 16;  // the warp's kv rows in the tile
+  const int wc = warp % DSPLIT * DW;  // and its dK/dV columns
+  const long long qrow = ((long long)b * p.hq + h) * p.sq;
+  const float* q = static_cast<const float*>(p.q) + qrow * D;
+  const float* dout = static_cast<const float*>(p.dout) + qrow * D;
+  const float* lse = p.lse + qrow;
+  const float* di = p.di + qrow;
+  const long long kvbase = ((long long)b * p.hkv + hk) * p.skv * D;
+
+  load_rows_f32<D, BKV, NT, LD>(Ks, static_cast<const float*>(p.k) + kvbase,
+                                k0, p.kv_len);
+  load_rows_f32<D, BKV, NT, LD>(Vs, static_cast<const float*>(p.v) + kvbase,
+                                k0, p.kv_len);
+  cp_async_commit();
+  int first, last;  // the q tiles that see this kv tile
+  dkv_steps(p, k0, BKV, BQ, first, last);
+
+  auto stage = [&](int qt) {
+    const int q0 = qt * BQ;
+    load_rows_f32<D, BQ, NT, LD>(Qs, q, q0, p.sq);
+    load_rows_f32<D, BQ, NT, LD>(dOs, dout, q0, p.sq);
+    for (int r = threadIdx.x; r < BQ; r += NT) {
+      const bool ok = q0 + r < p.sq;
+      cp_async4(lse_s + r, ok ? lse + q0 + r : lse, ok);
+      cp_async4(di_s + r, ok ? di + q0 + r : di, ok);
+    }
+  };
+
+  float dk[DW / 8][4], dv[DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  const int kr0 = k0 + wr + gr;  // the thread's kv rows: kr0, kr0 + 8
+  const float slope = p.alibi != nullptr ? p.alibi[h] : 0.f;
+
+  for (int qt = first; qt <= last; ++qt) {
+    stage(qt);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    tf32_lo_rows<D, 2 * BQ, NT, LD>(Ql, Qs);  // Q and dO, adjacent
+    __syncthreads();
+    const int q0 = qt * BQ;
+
+    float s[BQ / 8][4], dp[BQ / 8][4], s_lo[BQ / 8][4], dp_lo[BQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = dp[j][e] = s_lo[j][e] = dp_lo[j][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D; kk += 8) {
+      Split<4> ka, va;
+      tf32_lda<LD>(ka, Ks, lane, wr, kk);
+      tf32_lda<LD>(va, Vs, lane, wr, kk);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; j += 2) {
+        Split<2> qb[2], ob[2];
+        tf32_ldb2<LD>(qb[0], qb[1], Qs, Ql, lane, j * 8, kk);
+        tf32_ldb2<LD>(ob[0], ob[1], dOs, Ol, lane, j * 8, kk);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          mma3(s[j + t], s_lo[j + t], ka, qb[t]);
+          mma3(dp[j + t], dp_lo[j + t], va, ob[t]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] += s_lo[j][e];
+        dp[j][e] += dp_lo[j][e];
+      }
+
+    const bool masked = needs_mask(p, q0, BQ, k0, BKV);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = j * 8 + 2 * tq + (e & 1);
+        const int kl = wr + gr + (e >> 1) * 8;
+        p_and_ds<D>(p, b, q0 + ql, k0 + kl, lse_s[ql], di_s[ql], slope,
+                    masked, s[j][e], dp[j][e], dOs + ql * LD, Vs + kl * LD);
+      }
+
+#pragma unroll
+    for (int c = 0; c < BQ / 8; ++c) {
+      Split<4> pa, sa;
+      tf32_to_a(pa, s[c]);   // P^T
+      tf32_to_a(sa, dp[c]);  // dS^T
+#pragma unroll
+      for (int n = 0; n < DW / 8; ++n) {
+        Split<2> ob, qb;
+        tf32_ldb_t<LD>(ob, dOs, Ol, lane, c * 8, wc + n * 8);
+        tf32_ldb_t<LD>(qb, Qs, Ql, lane, c * 8, wc + n * 8);
+        mma3(dv[n], pa, ob);
+        mma3(dk[n], sa, qb);
+      }
+    }
+    __syncthreads();  // the next stage overwrites this step's buffers
+  }
+  cp_async_wait<0>();
+
+  const long long obase = ((long long)b * p.hq + h) * p.skv * D;
+  float* dk_out = static_cast<float*>(p.out1) + obase;
+  float* dv_out = static_cast<float*>(p.out2) + obase;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int kr = kr0 + 8 * half;
+    if (kr >= p.skv) continue;
+#pragma unroll
+    for (int n = 0; n < DW / 8; ++n) {
+      const long long at = (long long)kr * D + wc + n * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(dk_out + at) =
+          make_float2(dk[n][2 * half], dk[n][2 * half + 1]);
+      *reinterpret_cast<float2*>(dv_out + at) =
+          make_float2(dv[n][2 * half], dv[n][2 * half + 1]);
+    }
+  }
+}
+
+// dQ: tc::flash_bwd_dq_kernel's walk and products in three-pass TF32; dS
+// stays f32.
+template <class G>
+__global__ void __launch_bounds__(G::THREADS)
+    flash_bwd_dq_kernel(BwdParams p) {
+  constexpr int D = G::D, BQ = G::BQ, BKV = G::BKV;
+  constexpr int LD = G::LD, NT = G::THREADS;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  float* Qs = reinterpret_cast<float*>(tc_smem);  // [BQ][LD]
+  float* dOs = Qs + BQ * LD;                     // [BQ][LD]
+  float* Ks = dOs + BQ * LD;                     // [BKV][LD]
+  float* Vs = Ks + BKV * LD;                     // [BKV][LD]
+
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.hq / p.hkv);
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int wr = warp * 16;
+  const long long qrow = ((long long)b * p.hq + h) * p.sq;
+  const long long kvbase = ((long long)b * p.hkv + hk) * p.skv * D;
+  const float* k = static_cast<const float*>(p.k) + kvbase;
+  const float* v = static_cast<const float*>(p.v) + kvbase;
+
+  load_rows_f32<D, BQ, NT, LD>(Qs, static_cast<const float*>(p.q) + qrow * D,
+                               q0, p.sq);
+  load_rows_f32<D, BQ, NT, LD>(
+      dOs, static_cast<const float*>(p.dout) + qrow * D, q0, p.sq);
+  cp_async_commit();
+  int first, last;  // the kv tiles this q tile sees
+  dq_steps(p, q0, BQ, BKV, first, last);
+
+  // The thread's q rows qr0 and qr0 + 8, with their lse and di (0 past sq).
+  const int qr0 = q0 + wr + gr;
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = qr0 + 8 * half;
+    lse_r[half] = qi < p.sq ? p.lse[qrow + qi] : 0.f;
+    di_r[half] = qi < p.sq ? p.di[qrow + qi] : 0.f;
+  }
+  const float slope = p.alibi != nullptr ? p.alibi[h] : 0.f;
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int kt = first; kt <= last; ++kt) {
+    const int k0 = kt * BKV;
+    load_rows_f32<D, BKV, NT, LD>(Ks, k, k0, p.kv_len);
+    load_rows_f32<D, BKV, NT, LD>(Vs, v, k0, p.kv_len);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    float s[BKV / 8][4], dp[BKV / 8][4], s_lo[BKV / 8][4], dp_lo[BKV / 8][4];
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = dp[j][e] = s_lo[j][e] = dp_lo[j][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < D; kk += 8) {
+      Split<4> qa, oa;
+      tf32_lda<LD>(qa, Qs, lane, wr, kk);
+      tf32_lda<LD>(oa, dOs, lane, wr, kk);
+#pragma unroll
+      for (int j = 0; j < BKV / 8; j += 2) {
+        Split<2> kb[2], vb[2];
+        tf32_ldb2<LD>(kb[0], kb[1], Ks, lane, j * 8, kk);
+        tf32_ldb2<LD>(vb[0], vb[1], Vs, lane, j * 8, kk);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          mma3(s[j + t], s_lo[j + t], qa, kb[t]);
+          mma3(dp[j + t], dp_lo[j + t], oa, vb[t]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] += s_lo[j][e];
+        dp[j][e] += dp_lo[j][e];
+      }
+
+    const bool masked = needs_mask(p, q0, BQ, k0, BKV);
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1, kl = j * 8 + 2 * tq + (e & 1);
+        p_and_ds<D>(p, b, qr0 + 8 * half, k0 + kl, lse_r[half], di_r[half],
+                    slope, masked, s[j][e], dp[j][e],
+                    dOs + (wr + gr + 8 * half) * LD, Vs + kl * LD);
+      }
+
+#pragma unroll
+    for (int c = 0; c < BKV / 8; ++c) {
+      Split<4> sa;
+      tf32_to_a(sa, dp[c]);  // dS
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        Split<2> kb;
+        tf32_ldb_t<LD>(kb, Ks, lane, c * 8, n * 8);
+        mma3(dq[n], sa, kb);
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  float* dq_out = static_cast<float*>(p.out1) + qrow * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = qr0 + 8 * half;
+    if (qi >= p.sq) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(dq_out + (long long)qi * D + n * 8 +
+                                 2 * tq) =
+          make_float2(dq[n][2 * half], dq[n][2 * half + 1]);
+  }
+}
+
+template <int D>
+int launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
+  using G = typename Tiles<D>::Dkv;
+  cudaFuncSetAttribute(flash_bwd_dkv_kernel<G>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)G::smem);
+  dim3 grid((p.skv + G::BKV - 1) / G::BKV, p.hq, batch);
+  flash_bwd_dkv_kernel<G><<<grid, G::THREADS, G::smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
+  using G = typename Tiles<D>::Dq;
+  cudaFuncSetAttribute(flash_bwd_dq_kernel<G>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)G::smem);
+  dim3 grid((p.sq + G::BQ - 1) / G::BQ, p.hq, batch);
+  flash_bwd_dq_kernel<G><<<grid, G::THREADS, G::smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf32
+
 }  // namespace tc
 
 namespace {
@@ -905,28 +975,6 @@ BwdParams make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
-template <typename T, int D>
-int launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
-  constexpr size_t smem = Geo<D>::dkv_smem;
-  cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((p.skv + 63) / 64, p.hq, batch);
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-int launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
-  constexpr size_t smem = Geo<D>::dq_smem;
-  cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((p.sq + 63) / 64, p.hq, batch);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
 bool served(int dtype, int head_dim) {
   return (dtype == 0 || dtype == 1) &&
          (head_dim == 64 || head_dim == 128 || head_dim == 256);
@@ -934,8 +982,8 @@ bool served(int dtype, int head_dim) {
 
 }  // namespace
 
-// dtype: 0 = float32 (the CUDA-core kernels), 1 = bfloat16 (the
-// tensor-core kernels); q, k, v, dO and the outputs share it.
+// dtype: 0 = float32 (three-pass TF32), 1 = bfloat16; q, k, v, dO and the
+// outputs share it.
 // flash_bwd_dkv writes dK to out1 and dV to out2; flash_bwd_dq writes dQ
 // to out1 (out2 unused). Each returns cudaGetLastError() after its launch;
 // 1 (cudaErrorInvalidValue) for a dtype or head_dim (64, 128, 256) this
@@ -957,9 +1005,9 @@ extern "C" int flash_bwd_dkv(FLASH_BWD_ARGS) {
   const BwdParams p = FLASH_BWD_PARAMS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (head_dim == 64) return launch_dkv<float, 64>(p, batch, s);
-    if (head_dim == 256) return launch_dkv<float, 256>(p, batch, s);
-    return launch_dkv<float, 128>(p, batch, s);
+    if (head_dim == 64) return tc::tf32::launch_dkv<64>(p, batch, s);
+    if (head_dim == 256) return tc::tf32::launch_dkv<256>(p, batch, s);
+    return tc::tf32::launch_dkv<128>(p, batch, s);
   }
   if (head_dim == 64) return tc::launch_dkv<64>(p, batch, s);
   if (head_dim == 256) return tc::launch_dkv<256>(p, batch, s);
@@ -971,9 +1019,9 @@ extern "C" int flash_bwd_dq(FLASH_BWD_ARGS) {
   const BwdParams p = FLASH_BWD_PARAMS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (head_dim == 64) return launch_dq<float, 64>(p, batch, s);
-    if (head_dim == 256) return launch_dq<float, 256>(p, batch, s);
-    return launch_dq<float, 128>(p, batch, s);
+    if (head_dim == 64) return tc::tf32::launch_dq<64>(p, batch, s);
+    if (head_dim == 256) return tc::tf32::launch_dq<256>(p, batch, s);
+    return tc::tf32::launch_dq<128>(p, batch, s);
   }
   if (head_dim == 64) return tc::launch_dq<64>(p, batch, s);
   if (head_dim == 256) return tc::launch_dq<256>(p, batch, s);

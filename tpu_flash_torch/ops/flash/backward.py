@@ -23,7 +23,11 @@ The bf16 kernels also round P to bf16 for the dV product (tensor cores
 take bf16 operands), as the TPU kernel's single bf16 MXU pass does at
 ``Precision.DEFAULT`` (``tpu_flash/ops/flash/backward.py:38-43,184-188``);
 interpret mode does not, so the plain version rounds it only when asked
-(``round_p=True``).
+(``round_p=True``). The f32 kernels take every product in three TF32
+passes on the tensor cores (the counterpart of the TPU's
+``Precision.HIGHEST``) and round nothing; where P > 1/2 they take dp
+again as the plain version's sequential f32 sum, since dp - di cancels
+there.
 
 dk/dv come back per q head ([b, hq, skv, d]); the caller sums each GQA
 group. :func:`flash_bwd` takes the plain version for CPU tensors only; a

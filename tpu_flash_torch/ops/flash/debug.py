@@ -6,7 +6,9 @@ it from the forward's own state in two passes: the forward runs with
 ``save_residuals=True`` (its lse, sink-inclusive), then the
 ``attn_weights`` kernel (``csrc/attn_weights.cu``; :func:`weights_plain`
 on CPU tensors) re-walks the scores with the forward's scale, softcap,
-ALiBi and masks and writes ``P = exp(s - lse)``. Against the oracle's
+ALiBi and masks and writes ``P = exp(s - lse)`` (scores on the tensor
+cores: bf16 in one pass, f32 in three TF32 passes; tiles the masks hide
+written as zeros). Against the oracle's
 weights (``reference_attention(..., return_weights=True)``) a wrong P
 points at the score path, a right P with a wrong output at the
 accumulation.
