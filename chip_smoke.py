@@ -44,8 +44,9 @@ network. Phases, one JSON line each:
      8192 tokens in bf16 and f32 with a bar per row and a late-row
      control; options and the int8 staircase at 2048); the row
      quantizer byte for byte; the attention-weights kernel (bf16 at 2048
-     tokens with its options, Gemma-2's d 256, f32 at 1024) with a bar
-     per row, a late-row control (lse raised 2^-6 past s/2) and the
+     tokens with its options, Gemma-2's d 256, f32 at 1024, and in each
+     a window that ends past kv_len, whose late rows see no key) with a
+     bar per row, a late-row control (lse raised 2^-6 past s/2) and the
      count of elements off the plain version; every built
      variant of the variant harness's kernel (K13) at its sweep's shape
      with a bar per row and a late-row control, exp2 timed against expf
@@ -54,8 +55,9 @@ network. Phases, one JSON line each:
      50, a sliding layer's 4096-token window and a global layer; a
      512-token first chunk) on the forward, decode (every tier), paged
      and ragged prefill and the backward, the backward also at d 64,
-     and in f32 (three-pass TF32) at b 2 x 2048, d 64 and Gemma-2's d
-     256, each with SDPA's f32 backward beside it;
+     and in f32 (three-pass TF32, its bound at that rate) at b 2 x
+     2048, d 64 and Gemma-2's d 256, each with SDPA's f32 backward
+     beside it;
      decode at 16 q heads a kv head (bf16 and int8 pages, bit for bit);
      the bf16 backward is held against the plain version with its bf16
      P in dV (``round_p``);
@@ -794,7 +796,7 @@ def check_flash_bwd(dev):
         plain_ms = {w: time_ms(lambda w=w: bw.flash_bwd_plain(
             *args, sm_scale=SCALE, part=w, round_p=rp, **bkw), 2)
             for w in ms}
-        bounds = {w: bwd_bound(q, k, bkw, w) for w in ms}
+        bounds = {w: bwd_bound(q, k, bkw, w, bwd_rate(dt)) for w in ms}
         # The pair as flash_bwd launches it, its plain version and PyTorch's
         # fused-attention backward: three times of the whole backward.
         whole = dict(ms=time_ms(run, 5), plain_ms=time_ms(
@@ -833,7 +835,7 @@ def check_flash_bwd(dev):
             whole_library_ms=first["whole"]["library_ms"],
             fp32_case=f32["case"], fp32_ms=f32["ms"][which],
             fp32_bound_ms=f32["bound_ms"][which],
-            fp32_tf32x3_bound_ms=f32["whole"]["tf32x3_bound_ms"][which],
+            fp32_cuda_core_bound_ms=f32["whole"]["f32_rate_bound_ms"][which],
             fp32_whole_ms=f32["whole"]["ms"],
             fp32_whole_library_ms=f32["whole"]["library_ms"])
     return out
@@ -846,13 +848,21 @@ def check_flash_bwd(dev):
 F32_PAIR_MS = 6.0
 
 
+def bwd_rate(dtype) -> str:
+    """The rate a backward kernel's bound takes: bf16's, or in f32 three
+    TF32 passes, the kernels' own arithmetic."""
+    import torch
+
+    return "bfloat16" if dtype == torch.bfloat16 else "tf32x3"
+
+
 def f32_extras(q, k, kw, ms, whole):
-    """An f32 backward row's bound at three TF32 passes (the kernels'
-    arithmetic) beside the f32 rate's, and the two asks."""
+    """An f32 backward row's bound at the CUDA cores' f32 rate (beside its
+    bound at three TF32 passes), and the two asks."""
     pair = ms["dkv"] + ms["dq"]
     lib = whole["library_ms"]
-    return dict(tf32x3_bound_ms={w: bwd_bound(q, k, kw, w, "tf32x3")[0]
-                                 for w in ms},
+    return dict(f32_rate_bound_ms={w: bwd_bound(q, k, kw, w, "float32")[0]
+                                   for w in ms},
                 pair_ms=pair, pair_within_ask=pair <= F32_PAIR_MS,
                 below_library=None if lib is None else whole["ms"] < lib)
 
@@ -1673,7 +1683,9 @@ WEIGHTS_SEQ = 2048
 # K12's late-row control: the plain version with the lse of every row past
 # s/2 raised by 2^-6, which scales those rows' P by exp(-2^-6), 1.6% under
 # the kernel's; the per-row bar (2^-12 of the row's max) must see it in at
-# least WEIGHTS_LATE_CAUGHT of those rows.
+# least WEIGHTS_LATE_CAUGHT of those rows. The cases whose window ends past
+# kv_len hold none: their rows that see no key have an lse of MASK_VALUE,
+# which 2^-6 does not move, and most late rows are such rows.
 WEIGHTS_LATE_SHIFT = 2.0 ** -6
 WEIGHTS_LATE_CAUGHT = 0.9
 # The ask on every case: at most this many times its bound (logged).
@@ -1684,16 +1696,20 @@ def check_attn_weights(dev):
     """K12 at b 1, 32 q / 8 kv heads, 2048 tokens, d 128 in bf16, at
     Gemma-2-9B's d 256 (16 / 8 heads, a sliding layer's window and cap, q
     at GEMMA_Q_STD; its control drops both) and at 1024 tokens, d 128 in
-    f32: P from the forward's lse, kernel against plain version with a bar
-    per row (row_agreement: each row within 2^-12 of its own max |ref|,
-    the control off some row's bar, the late-row control off most late
-    rows' bars), the count of elements that differ from the plain version
-    at all; sinks rows sum below 1. The bound counts P's bytes and the
+    f32, and with a window that ends past kv_len in each of the three
+    (rows that see no key, whose P is 1 on every column: hidden tiles
+    next to live ones in one block and in one row): P from the forward's
+    lse, kernel against plain version with a bar per row (row_agreement:
+    each row within 2^-12 of its own max |ref|, the control off some
+    row's bar, the late-row control off most late rows' bars), the count
+    of elements that differ from the plain version at all; sinks rows sum
+    below 1. The bound counts P's bytes and the
     inputs' against the score products at the inputs' arithmetic (three
     TF32 passes in f32)."""
     import torch
 
     from tpu_flash_torch.ops.flash import debug, flash_attention
+    from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
     s = WEIGHTS_SEQ
@@ -1716,11 +1732,31 @@ def check_attn_weights(dev):
         ("d256_sliding", gemma,
          dict(causal=True, window=256, softcap=GEMMA_CAP), {}, causal),
         ("f32_causal", f32, causal, {}, dict(causal=False)),
+        ("no_key_rows", qkv, dict(causal=True, window=256, kv_len=s // 2),
+         {}, dict(causal=True, kv_len=s // 2)),
+        ("d256_no_key_rows", gemma,
+         dict(causal=True, window=256, kv_len=s // 2, softcap=GEMMA_CAP), {},
+         dict(causal=True, kv_len=s // 2, softcap=GEMMA_CAP)),
+        ("f32_no_key_rows", f32, dict(causal=True, window=128, kv_len=s // 4),
+         {}, dict(causal=True, kv_len=s // 4)),
     ]
     rows = []
     for name, (q, k, v, scale), kw, fwd_only, control in cases:
         _, lse = flash_attention(q, k, v, save_residuals=True, sm_scale=scale,
                                  **kw, **fwd_only)
+        no_key = {}
+        if "kv_len" in kw:
+            # The rows that see no key take the plain forward's lse
+            # (MASK_VALUE: P is 1 on every column), whatever the forward
+            # kernel gives them, which is logged.
+            _, plain_lse = flash_fwd_plain(q, k, v, sm_scale=scale,
+                                           save_lse=True, **kw)
+            blind = ~attention_mask(1, q.shape[2], k.shape[2], kw)[
+                0, 0].any(-1)
+            no_key = dict(rows_no_key=int(blind.sum()),
+                          fwd_lse_no_key_as_plain=bool(torch.equal(
+                              lse[..., blind], plain_lse[..., blind])))
+            lse = plain_lse
 
         def call(fn, opts, q=q, k=k, lse=lse, scale=scale):
             return fn(q, k, lse, sm_scale=scale, **opts)
@@ -1735,10 +1771,12 @@ def check_attn_weights(dev):
         else:
             off = call(debug.weights_plain, control)
         n = q.shape[2]
-        late_lse = lse.clone()
-        late_lse[..., n // 2:] += WEIGHTS_LATE_SHIFT
-        late = call(debug.weights_plain, kw, lse=late_lse)
-        held = row_agreement(out, ref, off, None, (late, n // 2),
+        late = None
+        if "kv_len" not in kw:
+            late_lse = lse.clone()
+            late_lse[..., n // 2:] += WEIGHTS_LATE_SHIFT
+            late = (call(debug.weights_plain, kw, lse=late_lse), n // 2)
+        held = row_agreement(out, ref, off, None, late,
                              late_caught=WEIGHTS_LATE_CAUGHT)
         held.update(differ_plain=differing(out, ref), elements=out.numel())
         row_sums = out.sum(-1)
@@ -1753,7 +1791,7 @@ def check_attn_weights(dev):
         row = dict(case=name, dtype=str(q.dtype).removeprefix("torch."),
                    shape=list(out.shape), d=q.shape[-1],
                    row_sum_max=float(row_sums.max()),
-                   row_sum_min=float(row_sums.min()), **held,
+                   row_sum_min=float(row_sums.min()), **no_key, **held,
                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by,
                    bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
@@ -2120,7 +2158,7 @@ def check_flash_bwd_widths(dev):
 
         ms = {"dkv": kernel_ms(build.FLASH_BWD_DKV, run, 3),
               "dq": kernel_ms(build.FLASH_BWD_DQ, run, 3)}
-        bounds = {w: bwd_bound(q, k, kw, w) for w in ms}
+        bounds = {w: bwd_bound(q, k, kw, w, bwd_rate(dt)) for w in ms}
         lib_kw = {x: y for x, y in kw.items() if x != "softcap"}
         whole = dict(ms=time_ms(run, 3), plain_ms=time_ms(
             lambda: bw.flash_bwd_plain(*args, sm_scale=scale, round_p=rp,

@@ -81,8 +81,10 @@ def _check_rows_with_control(out, ref, control, grad, late=None):
     on one key, dS = P (dP - di) cancels to f32 noise (~2^-21 of max |dQ|
     in a row that sees one key) that the tensor-core kernels and the
     plain version sum in different orders. dV = P^T dO subtracts nothing,
-    and the f32 kernels take such an element's dP in the plain version's
-    order (P > 1/2): no floor."""
+    and the f32 kernels take dP in the plain version's order where dP -
+    di cancels (csrc/flash_bwd.cu, p_and_ds: P > 1/2; P > 1/64 with
+    |dP - di| under 1/8 of max(|dP|, |di|); any P on a masked step with
+    it under 1/64): no floor."""
     own = _row_bars(ref)
     floor = grad != "dv" and ref.dtype == torch.bfloat16
     bars = own.clamp_min(2.0 ** -16 * float(ref.float().abs().max())) \
@@ -806,16 +808,23 @@ def test_quantize_rows_kernel_byte_identical(dev, dtype, d):
     [(dict(causal=True), dict(causal=False)),
      (dict(causal=True, window=60, softcap=5.0), dict(causal=True)),
      (dict(causal=True, alibi=True, q_offset=40, kv_len=250),
-      dict(causal=True, q_offset=40, kv_len=250))],
-    ids=["causal", "window-softcap", "alibi-offset-tail"],
+      dict(causal=True, q_offset=40, kv_len=250)),
+     (dict(causal=True, window=8, kv_len=40), dict(causal=True, kv_len=40))],
+    ids=["causal", "window-softcap", "alibi-offset-tail",
+         "window-past-kv-len"],
 )
 def test_attn_weights_kernel_matches_plain(dev, dtype, d, kw, control):
     """K12 against its plain version on the forward kernel's lse, each row
     of P within 2^-12 of its own max (bf16 scores on the tensor cores,
     f32 in three TF32 passes), the control off some row's bar, and the
     plain version with the lse of rows past sq/2 raised by 2^-6 (their P
-    1.6% lower) off the bars of 90% of those rows."""
+    1.6% lower) off the bars of 90% of those rows. With a window that
+    ends past kv_len, rows from 47 on see no key: their lse is
+    MASK_VALUE, which 2^-6 does not move (no late-row control), and their
+    P is 1 on every column, the tiles the kernel skips included; that
+    case takes the plain forward's lse, which gives such rows MASK_VALUE."""
     from tpu_flash_torch.ops.flash import debug, flash_attention
+    from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
 
     g = torch.Generator(device=dev).manual_seed(10)
     q = _rn(g, 1, 8, 210, d, dtype=dtype)
@@ -824,16 +833,27 @@ def test_attn_weights_kernel_matches_plain(dev, dtype, d, kw, control):
     kw = dict(kw)
     if kw.pop("alibi", False):
         kw["alibi"] = torch.linspace(0.3, 0.01, 8, device=dev)
-    _, lse = flash_attention(q, k, v, save_residuals=True, **kw)
     scale = d ** -0.5
+    blind = kw.get("window") == 8  # rows from 47 on see no key
+    if blind:
+        _, lse = flash_fwd_plain(q, k, v, sm_scale=scale, save_lse=True,
+                                 **kw)
+    else:
+        _, lse = flash_attention(q, k, v, save_residuals=True, **kw)
     out = debug.attention_weights_from_lse(q, k, lse, sm_scale=scale, **kw)
     torch.cuda.synchronize()
-    late_lse = lse.clone()
-    late_lse[..., 105:] += 2.0 ** -6
+    ref = debug.weights_plain(q, k, lse, sm_scale=scale, **kw)
+    late = None
+    if not blind:
+        late_lse = lse.clone()
+        late_lse[..., 105:] += 2.0 ** -6
+        late = (debug.weights_plain(q, k, late_lse, sm_scale=scale, **kw),
+                105)
+    else:
+        assert (ref[..., 47:, :] == 1).all()
     _check_rows_with_control(
-        out, debug.weights_plain(q, k, lse, sm_scale=scale, **kw),
-        debug.weights_plain(q, k, lse, sm_scale=scale, **control), None,
-        (debug.weights_plain(q, k, late_lse, sm_scale=scale, **kw), 105))
+        out, ref, debug.weights_plain(q, k, lse, sm_scale=scale, **control),
+        None, late)
 
 
 def test_new_kernels_launch_and_never_take_the_plain_path(dev):

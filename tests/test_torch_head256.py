@@ -112,11 +112,10 @@ def _bwd_tiles():
 
 
 def test_backward_tiles_fit_and_are_the_sweeps_built_shapes():
-    """Each backward instance's tiles fit one block's 227 KB of shared
-    memory by the source's own formula, the f32 tiles' row stride (D + 4
-    floats) is 4 mod 32 (its fragment reads meet 32 banks) and two f32
-    blocks fit an SM at d 128; the sweep tool's first variant of each
-    (dtype, kernel, width) is the shape the source builds."""
+    """The sweep tool's first variant of each (dtype, kernel, width) is
+    the shape the source builds. That the tiles fit a block's 227 KB of
+    shared memory (two f32 blocks an SM at d 128) and that the f32 row
+    stride is 4 mod 32, the source asserts itself (static_assert)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -124,24 +123,7 @@ def test_backward_tiles_fit_and_are_the_sweeps_built_shapes():
         "torch_bwd_sweep.py")
     sweep = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sweep)
-    tiles = _bwd_tiles()
-    for (dtype, kind, d), dims in tiles.items():
-        # bf16 double-buffers the streamed tiles; f32 stages them in turn,
-        # the dK/dV kernel with Q's and dO's lo planes beside them.
-        es = 2 if dtype == "bfloat16" else 4
-        ld = d + (8 if es == 2 else 4)
-        if kind == "dkv":
-            bkv, bq, _ = dims
-            stats = 4 * (4 if es == 2 else 2) * bq  # lse and di
-            smem = es * (2 * bkv + 4 * bq) * ld + stats
-        else:
-            bq, bkv = dims
-            smem = es * (2 * bq + (4 if es == 2 else 2) * bkv) * ld
-        assert smem <= 232448, (dtype, kind, d, smem)
-        if es == 4:
-            assert ld % 32 == 4
-            if d == 128:
-                assert 2 * (smem + 1024) <= 233472, (kind, smem)
+    for (dtype, kind, d), dims in _bwd_tiles().items():
         variants = (sweep.VARIANTS if dtype == "bfloat16"
                     else sweep.F32_VARIANTS)
         first = next(v for v in variants if v[:2] == (kind, d))

@@ -3,6 +3,7 @@
 
     python3 tools/torch_bwd_sweep.py [--dtype bfloat16|float32]
                                      [--json out.json]
+    python3 tools/torch_bwd_sweep.py --seeds N [--json out.json]
 
 Writes one harness source under build/: the text of
 ``tpu_flash_torch/csrc/flash_bwd.cu`` followed by one C entry point for
@@ -18,8 +19,19 @@ held against the plain version (with ``round_p`` in bf16) at phase 3's
 bar for each row. One JSON line a variant: its ms and its largest error
 as a share of its row's bar, the shape the source builds marked
 ``built``; exit 1 if any variant misses its bar. ``--dtype`` builds and
-times one dtype's variants only. Needs a CUDA card, nvcc
-and PyTorch.
+times one dtype's variants only.
+
+``--seeds N`` instead holds the f32 kernels as built, and as built with
+``FLASH_BWD_RETAKE_DP 0`` (dP never taken again in the plain version's
+order where dP - di cancels), at phase 3's f32 backward cases (b 2, 32 /
+8 heads x 2048, d 128, causal; b 1, 32 / 8 x 2048, d 64, causal;
+Gemma-2-9B's b 1, 16 / 8 x 2048, d 256, q std 10, cap 50) and the card
+test's ALiBi + segments case (b 2, 8 / 2 heads x 256, d 128), each with
+inputs from seeds 1 .. N. One JSON line a (case, seed): for each build
+the rows of dq, dk and dv past their bar (2^-12 of the row's max |ref|)
+and the largest error as a share of its row's bar; a last line sums the
+rows missed over the seeds. Exit 1 if the kernels as built miss a row.
+Needs a CUDA card, nvcc and PyTorch.
 """
 
 from __future__ import annotations
@@ -125,12 +137,116 @@ def harness_kernels():
     return kernels
 
 
+def no_retake_kernels():
+    """{ops.build attribute: CudaKernel} of flash_bwd.cu built with
+    FLASH_BWD_RETAKE_DP 0, started and finished here."""
+    from tpu_flash_torch.ops import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = build.BUILD_DIR / "flash_bwd_no_retake.cu"
+    path.write_text("#define FLASH_BWD_RETAKE_DP 0\n"
+                    + (build.CSRC_DIR / "flash_bwd.cu").read_text())
+    kernels = {}
+    for attr in ("FLASH_BWD_DKV", "FLASH_BWD_DQ"):
+        base = getattr(build, attr)
+        k = build.CudaKernel(base.name, base.symbol, base.argtypes,
+                             replaces="-")
+        k.source = path  # outside csrc/
+        kernels[attr] = k
+    first = kernels["FLASH_BWD_DKV"]
+    first.finish_build(first.start_build())
+    return kernels
+
+
+# --seeds: (name, b, hq, hkv, s, d, q std, options; "alibi" and
+# "segments" are made on the card as the card test makes them).
+SEED_CASES = [
+    ("f32_causal", 2, 32, 8, 2048, 128, 1.0, dict(causal=True)),
+    ("f32_d64_causal", 1, 32, 8, 2048, 64, 1.0, dict(causal=True)),
+    ("f32_gemma2_global", 1, 16, 8, 2048, 256, 10.0,
+     dict(causal=True, softcap=50.0)),
+    ("f32_alibi_segments", 2, 8, 2, 256, 128, 1.0,
+     dict(causal=True, alibi=True, segments=3)),
+]
+
+
+def seed_sweep(n: int) -> int:
+    import torch
+
+    from chip_smoke import gpu_query
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.ops.flash import backward as bw
+    from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    builds = {"built": {}, "no_retake": no_retake_kernels()}
+    gpu = gpu_query()
+    rows, totals = [], {}
+    for name, b, hq, hkv, s, d, qstd, opts in SEED_CASES:
+        for seed in range(1, n + 1):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            q = qstd * torch.randn(b, hq, s, d, generator=g, device="cuda")
+            k, v = (torch.randn(b, hkv, s, d, generator=g, device="cuda")
+                    for _ in range(2))
+            do = torch.randn(b, hq, s, d, generator=g, device="cuda")
+            kw = {x: y for x, y in opts.items()
+                  if x not in ("alibi", "segments")}
+            if opts.get("alibi"):
+                kw["alibi"] = torch.linspace(0.3, 0.01, hq, device="cuda")
+            if opts.get("segments"):  # the card test's _segment_ids
+                i = (torch.arange(s, device="cuda")[None, :]
+                     + 7 * torch.arange(b, device="cuda")[:, None])
+                kw["q_seg"] = kw["kv_seg"] = (
+                    i * opts["segments"] // (s + 7 * b)).int()
+            scale = d ** -0.5
+            o, lse = flash_fwd_plain(q, k, v, sm_scale=scale, save_lse=True,
+                                     **kw)
+            args = (q, k, v, o, do, lse)
+            ref = bw.flash_bwd_plain(*args, sm_scale=scale, **kw)
+            row = dict(case=name, seed=seed, shape=[b, hq, hkv, s, d],
+                       options=sorted(opts), gpu=gpu)
+            for which, kernels in builds.items():
+                saved = {a: getattr(build, a) for a in kernels}
+                for a, kern in kernels.items():
+                    setattr(build, a, kern)
+                try:
+                    out = bw.flash_bwd(*args, sm_scale=scale, **kw)
+                    torch.cuda.synchronize()
+                finally:
+                    for a, kern in saved.items():
+                        setattr(build, a, kern)
+                missed, worst = {}, 0.0
+                for gname, a_, r_ in zip(("dq", "dk", "dv"), out, ref):
+                    err = (a_ - r_).abs().amax(-1)
+                    bars = 2.0 ** -12 * r_.abs().amax(-1)
+                    missed[gname] = int((err > bars).sum())
+                    worst = max(worst, float((err / bars.clamp_min(1e-30))
+                                             .max()))
+                row[which] = dict(rows_missed=missed, err_of_bar=worst)
+                t = totals.setdefault((name, which), {})
+                for gname, m in missed.items():
+                    t[gname] = t.get(gname, 0) + m
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    summary = dict(seeds=n, rows_missed={f"{c}/{w}": t
+                                         for (c, w), t in totals.items()},
+                   gpu=gpu)
+    print(json.dumps(summary), flush=True)
+    if "--json" in sys.argv[1:]:
+        with open(sys.argv[sys.argv.index("--json") + 1], "w") as f:
+            json.dump(dict(rows=rows, summary=summary), f)
+    return 0 if all(sum(r["built"]["rows_missed"].values()) == 0
+                    for r in rows) else 1
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("torch_bwd_sweep: no CUDA device", file=sys.stderr)
         return 2
+    if "--seeds" in sys.argv[1:]:
+        return seed_sweep(int(sys.argv[sys.argv.index("--seeds") + 1]))
     from chip_smoke import bwd_row_bars, gpu_query, kernel_ms
     from tpu_flash_torch.ops import build
     from tpu_flash_torch.ops.flash import backward as bw

@@ -26,8 +26,11 @@
 //    and rounded to its own type when it is staged (f32 q also split
 //    into its hi and lo parts there, once a block);
 //  - a kv tile that the causal mask or the window hides from all 64 rows is
-//    written as zeros (what exp(MASK_VALUE - lse) gives) with no load and
-//    no product; masks are applied only on tiles that cross an edge;
+//    written with no load and no product: each row's elements there are
+//    the row's exp(MASK_VALUE - lse), taken once a row with expf. That is
+//    0 for a row that sees a key, and 1 for a row that sees none (a window
+//    past kv_len), whose lse is MASK_VALUE as in the plain version. Masks
+//    are applied only on tiles that cross an edge;
 //  - P goes out through a per-warp shared-memory tile as 16-byte streaming
 //    stores (st.global.cs: written once, never read back), so one store
 //    instruction of a warp covers whole 128-byte lines.
@@ -64,7 +67,9 @@ struct WTiles {
   // Q; K twice (double buffer); a 16 x BK P tile a warp.
   static constexpr size_t smem =
       sizeof(T) * (QP * BQ + 2 * BK) * LD + sizeof(float) * WARPS * 16 * PLD;
-  static_assert(smem <= 232448, "over the card's 227 KB a block");
+  // With the static fill of the rows (BQ floats).
+  static_assert(smem + sizeof(float) * BQ <= 232448,
+                "over the card's 227 KB a block");
 };
 
 struct WParams {
@@ -174,22 +179,26 @@ __device__ __forceinline__ void scores_qreg(float (&s)[G::BK / 8][4],
     for (int e = 0; e < 4; ++e) s[j][e] += s_lo[j][e];
 }
 
-// Zeros over columns [c0, c1) of rows [r0, r1) of P, the block's threads
-// on consecutive 16-byte pieces where the rows allow.
-__device__ __forceinline__ void zeros(const WParams& p, float* w, int r0,
-                                      int r1, int c0, int c1, int nt) {
+// Columns [c0, c1) of rows [r0, r1) of P, hidden from every row: row r
+// takes fill[r - r0], the block's threads on consecutive 16-byte pieces
+// where the rows allow.
+__device__ __forceinline__ void fill_hidden(const WParams& p, float* w,
+                                            const float* fill, int r0,
+                                            int r1, int c0, int c1, int nt) {
   if (c0 >= c1 || r0 >= r1) return;
   if (p.kv_len % 4 == 0) {  // c0 and c1 are multiples of 4 too
     const int per = (c1 - c0) / 4;
     for (int i = threadIdx.x; i < (r1 - r0) * per; i += nt) {
-      const int r = r0 + i / per, c = c0 + 4 * (i % per);
-      __stcs(reinterpret_cast<float4*>(w + (long long)r * p.kv_len + c),
-             make_float4(0.f, 0.f, 0.f, 0.f));
+      const int r = i / per, c = c0 + 4 * (i % per);
+      const float f = fill[r];
+      __stcs(reinterpret_cast<float4*>(w + (long long)(r0 + r) * p.kv_len +
+                                       c),
+             make_float4(f, f, f, f));
     }
   } else {
     const int per = c1 - c0;
     for (int i = threadIdx.x; i < (r1 - r0) * per; i += nt)
-      w[(long long)(r0 + i / per) * p.kv_len + c0 + i % per] = 0.f;
+      w[(long long)(r0 + i / per) * p.kv_len + c0 + i % per] = fill[i / per];
   }
 }
 
@@ -200,6 +209,7 @@ __global__ void __launch_bounds__(WTiles<T, D>::THREADS)
   constexpr int BQ = G::BQ, BK = G::BK, LD = G::LD, PLD = G::PLD;
   constexpr int NT = G::THREADS;
   extern __shared__ __align__(16) unsigned char w_smem[];
+  __shared__ float fill[BQ];  // each row's P on a hidden tile
   T* Qs = reinterpret_cast<T*>(w_smem);  // [QP][BQ][LD] scaled q
   T* Ks = Qs + G::QP * BQ * LD;          // [2][BK][LD]
   float* Ps = reinterpret_cast<float*>(Ks + 2 * BK * LD);  // [4][16][PLD]
@@ -216,7 +226,7 @@ __global__ void __launch_bounds__(WTiles<T, D>::THREADS)
                ((long long)b * p.hkv + hk) * (long long)p.skv * D;
   float* w = p.w + (long long)bh * p.sq * p.kv_len;
 
-  // The kv tiles some row of the block sees; the rest are zeros.
+  // The kv tiles some row of the block sees; the rest take fill.
   const int n_kt = (p.kv_len + BK - 1) / BK;
   int first = 0, last = n_kt - 1;
   if (p.causal) {
@@ -257,11 +267,18 @@ __global__ void __launch_bounds__(WTiles<T, D>::THREADS)
       }
     }
   }
+  if (threadIdx.x < BQ) {
+    const int qi = q0 + threadIdx.x;
+    const float l = qi < p.sq ? p.lse[(long long)bh * p.sq + qi] : 0.f;
+    fill[threadIdx.x] = l == -INFINITY ? 0.f : expf(__fsub_rn(MASK_VALUE, l));
+  }
+  __syncthreads();
   if (first > last) {
-    zeros(p, w, q0, q_end, 0, p.kv_len, NT);
+    fill_hidden(p, w, fill, q0, q_end, 0, p.kv_len, NT);
   } else {
-    zeros(p, w, q0, q_end, 0, first * BK, NT);
-    zeros(p, w, q0, q_end, min((last + 1) * BK, p.kv_len), p.kv_len, NT);
+    fill_hidden(p, w, fill, q0, q_end, 0, first * BK, NT);
+    fill_hidden(p, w, fill, q0, q_end, min((last + 1) * BK, p.kv_len),
+                p.kv_len, NT);
   }
 
   // The thread's rows (gr, gr + 8 of the warp's 16) and their lse.

@@ -245,7 +245,12 @@ __device__ __forceinline__ float exact_dot(const float* a, const float* b) {
 // with |dp - di| under 1/8 of max(|dp|, |di|); and on a masked step (the
 // diagonal, a window edge, segment ids), where rows of few keys and kv
 // rows of few q rows hold one element's dS nearly alone, any p with
-// |dp - di| under 1/64 of it.
+// |dp - di| under 1/64 of it. FLASH_BWD_RETAKE_DP 0 builds the kernels
+// without this rule (tools/torch_bwd_sweep.py --seeds counts, over seeds,
+// the rows each build leaves past their bar).
+#ifndef FLASH_BWD_RETAKE_DP
+#define FLASH_BWD_RETAKE_DP 1
+#endif
 template <int EXACT_D = 0>
 __device__ __forceinline__ void p_and_ds(const BwdParams& p, int b, int qi,
                                          int kpos, float lse, float di,
@@ -277,7 +282,8 @@ __device__ __forceinline__ void p_and_ds(const BwdParams& p, int b, int qi,
   const float pp = !valid        ? 0.f
                    : EXACT_D > 0 ? exp_sfu(x - lse)
                                  : expf(x - lse);
-  if (EXACT_D > 0 && (pp > 0.015625f || (masked && pp > 0.f))) {
+  if (EXACT_D > 0 && FLASH_BWD_RETAKE_DP &&
+      (pp > 0.015625f || (masked && pp > 0.f))) {
     const float gap = fabsf(dp - di), top = fmaxf(fabsf(dp), fabsf(di));
     const float near = pp > 0.015625f ? 0.125f : 0.015625f;
     if (pp > 0.5f || gap < near * top) dp = exact_dot<EXACT_D>(orow, vrow);
@@ -606,6 +612,7 @@ struct DkvTiles {
       sizeof(float) * ((2 * BKV + 4 * BQ) * LD + 2 * BQ);
   static_assert(smem <= 232448, "over the card's 227 KB a block");
   static_assert(BQ % 16 == 0, "q rows a step come in pairs of n-tiles");
+  static_assert(LD % 32 == 4, "fragment reads of 8 rows meet 32 banks");
 };
 
 // dQ block: as tc::DqTiles, over f32 tiles, each step's K and V staged in
@@ -620,6 +627,7 @@ struct DqTiles {
   static constexpr size_t smem = sizeof(float) * (2 * BQ + 2 * BKV) * LD;
   static_assert(smem <= 232448, "over the card's 227 KB a block");
   static_assert(BKV % 16 == 0, "kv rows a step come in pairs of n-tiles");
+  static_assert(LD % 32 == 4, "fragment reads of 8 rows meet 32 banks");
 };
 
 // The tiles of each head width (see the note at the top of the file).
@@ -634,6 +642,10 @@ template <>
 struct Tiles<128> {
   using Dkv = DkvTiles<128, 64, 16, 1>;
   using Dq = DqTiles<128, 64, 32>;
+  // Two blocks an SM (228 KB, 1 KB of it reserved a block).
+  static_assert(2 * (Dkv::smem + 1024) <= 233472 &&
+                    2 * (Dq::smem + 1024) <= 233472,
+                "two blocks an SM at d 128");
 };
 template <>
 struct Tiles<256> {

@@ -25,9 +25,11 @@ take bf16 operands), as the TPU kernel's single bf16 MXU pass does at
 interpret mode does not, so the plain version rounds it only when asked
 (``round_p=True``). The f32 kernels take every product in three TF32
 passes on the tensor cores (the counterpart of the TPU's
-``Precision.HIGHEST``) and round nothing; where P > 1/2 they take dp
-again as the plain version's sequential f32 sum, since dp - di cancels
-there.
+``Precision.HIGHEST``) and round nothing. Where dp - di cancels they take
+dp again as the plain version's sequential f32 sum (``p_and_ds`` in
+``csrc/flash_bwd.cu``): at P > 1/2; at P > 1/64 with |dp - di| under 1/8
+of max(|dp|, |di|); and on a masked step, at any P with |dp - di| under
+1/64 of it.
 
 dk/dv come back per q head ([b, hq, skv, d]); the caller sums each GQA
 group. :func:`flash_bwd` takes the plain version for CPU tensors only; a
