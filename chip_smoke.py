@@ -69,17 +69,22 @@ network. Phases, one JSON line each:
      (gathered history, the ragged kernel); the int4, fp8, int4g32 and
      k8v4 tiers with no layout fields (the engine's auto layout, printed);
      and 8 prompts of 1024 tokens built so that prompt lookup drafts,
-     served for 16 tokens through speculative verify; then Gemma-2-9B at
-     full width (42 layers, head width 256, seeded random bf16 weights)
-     on the int8 + ring and bf16 caches. Launch counters (per kernel and
-     per page tier) reset before each run;
+     served for 16 tokens through speculative verify; a decode window
+     (int8 + ring, 32 tokens each) traced with ``utils/profiling.timed``,
+     its heaviest kernels printed (paged_decode must be among them);
+     then Gemma-2-9B at full width (42 layers, head width 256, seeded
+     random bf16 weights) on the int8 + ring and bf16 caches. Launch
+     counters (per kernel and per page tier) reset before each run;
   5. trained model: checkpoints/tiny-byte-llama served at the engine's
      defaults on every cache tier, and a staggered two-request scenario
      that reaches every route (int8, int4, fp8); the int8 runs again with
      paged_prefill=False; each run's greedy text against the same engine
      on the plain versions (token for token; every kernel call also held
      against its plain version on the same inputs, decode to the bit),
-     and each tier's greedy match against the bf16 cache's tokens;
+     and each tier's greedy match against the bf16 cache's tokens; then
+     draft-model speculation (the checkpoint drafting for itself, and a
+     seeded random draft of its shape) token for token against the
+     engine without speculation, acceptance printed;
   6. training at full width: Llama-3-8B widths cut to 4 of its 32 layers
      (the only cut), seeded random bf16 weights made on the card, batch
      4 x 2048 tokens, AdamW with a norm clip for 6 steps on one repeated
@@ -89,11 +94,15 @@ network. Phases, one JSON line each:
      Markdown on the kernels and on the plain versions, then 10 AdamW
      steps on each path from the same weights and batches (one batch
      packed with segment ids), step losses compared;
-  8. bench: ``tpu_flash_torch.bench`` configs 1-5, 7, 8 and 11
-     in-process (flash parity at d 64 and 128, prefill TFLOP/s, decode
-     tok/s and the int8 quantization delta, int8 and fp8 QKV prefill at
-     8K, 32K prefill and int4 decode, windowed decode and paged prefill
-     at 32K / 4K, the attention train step), ``attention_weights`` on
+  8. bench: ``tpu_flash_torch.bench`` configs 1-12 in-process (flash
+     parity at d 64 and 128, prefill TFLOP/s, decode tok/s and the int8
+     quantization delta, int8 and fp8 QKV prefill at 8K, 32K prefill and
+     int4 decode, the engine's wall-clock serving rows, windowed decode
+     and paged prefill at 32K / 4K, the quantized caches' greedy quality
+     (int8 >= 0.95, int4 and fp8 >= 0.90, every tier's tokens those of
+     the plain versions), the engine's decode on its kernel time (below
+     the wall time per step), the attention train step, speculative
+     serving), ``attention_weights`` on
      config 1's shapes against the oracle's weights, then the variant
      sweep (``tpu_flash_torch.bench.experiments``): targets met, every
      variant through the parity gate, rates finite and positive, each
@@ -2605,8 +2614,8 @@ def speculation_prompts(model, params, vocab_size):
 def check_main_path(dev):
     """Phase 4: the default routing on the int8 and bf16 tiers, both
     again with paged_prefill=False (gathered history, the ragged kernel),
-    the int4, fp8, int4g32 and k8v4 tiers at the auto layout, and a
-    speculative run."""
+    the int4, fp8, int4g32 and k8v4 tiers at the auto layout, a traced
+    decode window, and a speculative run."""
     import torch
 
     from tpu_flash_torch.models import LLAMA3_8B
@@ -2653,6 +2662,7 @@ def check_main_path(dev):
             if gathered and rec["launches"]["paged_prefill"]:
                 raise AssertionError(f"paged history with paging off: {rec}")
             recs.append(rec)
+        recs.append(trace_decode_window(model, params, prompts))
         spec_prompts = speculation_prompts(model, params,
                                            LLAMA3_8B.vocab_size)
         rec, _ = serve_main(model, params, "bfloat16", 0, spec_prompts, 16,
@@ -2666,6 +2676,50 @@ def check_main_path(dev):
     gc.collect()
     torch.cuda.empty_cache()
     return recs
+
+
+# Kernels of the decode window's trace printed, heaviest first;
+# paged_decode must be among them.
+TRACE_TOP = 10
+
+
+def trace_decode_window(model, params, prompts):
+    """Phase 4's decode window under ``utils/profiling.timed``: the 8
+    prompts in the int8 + ring cache, then 32 greedy tokens each at the
+    engine's defaults (every step a decode call), CUDA activity only, the
+    Chrome trace written under build/profiles. Logs the window's wall
+    time, summed kernel time, the device's idle share and its heaviest
+    kernels; fails unless paged_decode is among them."""
+    from tpu_flash_torch.engine.metrics import EngineMetrics
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.utils.profiling import timed
+
+    kv_dtype, ring = MAIN_TIERS[0]
+    eng = main_path_engine(model, params, kv_dtype, ring, prompts)
+    for p in prompts:
+        eng.submit(p, 32)
+    while (eng.scheduler.waiting or any(
+            r.prefilled < r.prompt_len
+            for r in eng.scheduler.active.values())):
+        eng.step()
+    eng.metrics = EngineMetrics()
+    build.reset_launch_counts()
+    logdir = os.path.join(REPO, "build", "profiles")
+    win = timed(eng.run, "cuda", logdir)
+    eng.close()
+    top = sorted(win.kernels.items(), key=lambda kv: -kv[1])[:TRACE_TOP]
+    rec = dict(kv_dtype=kv_dtype, recent_window=ring, wall_s=win.wall,
+               kernel_s=win.busy, idle_share=win.idle_share(),
+               routes=eng.metrics.route_counts(),
+               launches=build.launch_counts(),
+               top_kernels=[[n[:80], sec] for n, sec in top],
+               trace_dir=os.path.relpath(logdir, REPO))
+    log("main_path_decode_trace", gpu=gpu_query(), **rec)
+    if not any("paged_decode" in n for n, _ in top):
+        raise AssertionError(
+            f"paged_decode not among the decode window's {TRACE_TOP} "
+            f"heaviest kernels: {rec['top_kernels']}")
+    return rec
 
 
 # Gemma-2-9B at full width (GEMMA2_9B: hidden 3584, 16 q / 8 kv heads of
@@ -2882,6 +2936,57 @@ def check_trained(dev):
         raise AssertionError(f"trained-model greedy match: {failed}")
     if not sum(r["speculation"]["proposed"] for r in results):
         raise AssertionError("no draft was proposed on the trained model")
+    return results + check_draft_speculation(models["bfloat16"])
+
+
+def check_draft_speculation(model_and_params):
+    """Phase 5, draft-model speculation: the bf16 checkpoint on a bf16
+    cache serves TRAINED_PROMPTS for 32 tokens with speculation off, then
+    with k 8 drafts from the model itself (self-draft) and from a seeded
+    random model of the same shape (weak draft). Each speculative run's
+    tokens must be the run without speculation's, token for token, with
+    drafts proposed and verified and the draft model's forward launched
+    (``flash_fwd``) and the verify (``paged_prefill``); the acceptance
+    rate is logged."""
+    import torch
+
+    from tpu_flash_torch.core.config import CacheConfig, EngineConfig
+    from tpu_flash_torch.engine import InferenceEngine
+    from tpu_flash_torch.ops import build
+
+    model, params = model_and_params
+    weak = model.init(torch.Generator(device=model.device)
+                      .manual_seed(SEED + 99))
+    cfg = EngineConfig(
+        max_batch_size=4, max_seq_len=128, prefill_chunk=32,
+        cache=CacheConfig(page_size=32, num_pages=14, max_pages_per_seq=4,
+                          kv_dtype="bfloat16", recent_window=0))
+
+    def serve(spec_k, draft):
+        eng = InferenceEngine(model, params, cfg, draft=draft)
+        eng.speculation_k = spec_k
+        ids = [eng.submit(list(p), 32) for p in TRAINED_PROMPTS]
+        eng.run()
+        eng.close()
+        return ([eng.outputs[i] for i in ids], eng.speculation_stats(),
+                eng.metrics.route_counts())
+
+    want, _, _ = serve(0, None)
+    results = []
+    for name, draft in (("self", (model, params)), ("weak", (model, weak))):
+        build.reset_launch_counts()
+        got, spec, routes = serve(8, draft)
+        rec = dict(draft=name, match=token_match(got, want),
+                   acceptance_rate=spec["acceptance_rate"], speculation=spec,
+                   routes=routes, launches=build.launch_counts())
+        log("trained_draft_model", **rec)
+        if got != want:
+            raise AssertionError(f"{name}-draft speculation changed the "
+                                 f"greedy tokens: {rec}")
+        if not (spec["proposed"] and routes["speculative"]):
+            raise AssertionError(f"{name} draft never verified: {rec}")
+        require_launches(rec, ["flash_fwd", "paged_prefill"])
+        results.append(rec)
     return results
 
 
@@ -3119,21 +3224,83 @@ def check_trained_training(dev):
 # Calibration floor of the bench's differential timing (its --iters): the
 # windows still grow to 0.15 s, so this cuts only the floor, not coverage.
 BENCH_ITERS = 8
-RATE_METRICS = ("tflops", "tokens_per_s", "us_per_chunk", "train_tflops")
-BENCH_CONFIGS = [1, 2, 3, 4, 5, 7, 8, 11]
+RATE_METRICS = ("tflops", "tokens_per_s", "us_per_chunk", "train_tflops",
+                "decode_tokens_per_s", "device_decode_tokens_per_s")
+BENCH_CONFIGS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12]
+# Config 9's gates (tests/test_quality.py): the in-ring report's prefix
+# match against the bf16 cache.
+QUALITY_GATES = {"int8": 0.95, "int4": 0.90, "fp8": 0.90}
+
+
+@contextlib.contextmanager
+def recorded_greedy(calls):
+    """Appends (kv_dtype, token lists) of every ``generate_greedy`` call
+    (``bench/quality.py``) while the block runs."""
+    from tpu_flash_torch.bench import quality
+
+    real = quality.generate_greedy
+
+    def spy(model, params, prompts, max_new_tokens, kv_dtype="bfloat16",
+            **kw):
+        out = real(model, params, prompts, max_new_tokens, kv_dtype, **kw)
+        calls.append((kv_dtype, out))
+        return out
+
+    quality.generate_greedy = spy
+    try:
+        yield calls
+    finally:
+        quality.generate_greedy = real
+
+
+def check_quality(rows, kernel_calls, dev):
+    """Config 9 on the card: the gates of QUALITY_GATES on its in-ring
+    rows, and every generate_greedy call's tokens equal to the same call
+    on the plain versions (config 9 run again under plain_versions).
+
+    The gates follow the JAX package's but pass by construction here: the
+    in-ring contexts (8 prompt + 32 new tokens) sit under the default
+    128-token ring, so paged attention reads almost nothing from the
+    quantized pages. The check that covers the quantized tiers is the
+    token equality with the plain versions over all 11 calls, the
+    beyond-window report's (a 32-token ring) included."""
+    from tpu_flash_torch.bench.__main__ import config9_quant_quality
+
+    plain_calls = []
+    with plain_versions(), recorded_greedy(plain_calls):
+        config9_quant_quality(BENCH_ITERS, device=dev)
+    differ = [i for i, (a, b) in enumerate(zip(kernel_calls, plain_calls))
+              if a != b]
+    in_ring = {r["name"].split()[2].removesuffix("-kv"): r["value"]
+               for r in rows if r["config"] == 9 and "greedy" in r["name"]}
+    missed = {dt: in_ring.get(dt) for dt, gate in QUALITY_GATES.items()
+              if not in_ring.get(dt, 0.0) >= gate}
+    rec = dict(calls=len(kernel_calls), plain_calls=len(plain_calls),
+               differ_plain=[kernel_calls[i][0] for i in differ],
+               gates=QUALITY_GATES, prefix_match=in_ring)
+    log("bench_quality", **rec)
+    if (missed or differ or not kernel_calls
+            or len(kernel_calls) != len(plain_calls)):
+        raise AssertionError(
+            f"config 9: below its gates {missed}, tokens off the plain "
+            f"versions' {rec['differ_plain']}")
+    return rec
 
 
 def check_bench(dev):
-    """Phase 8: ``python -m tpu_flash_torch.bench --configs
-    1,2,3,4,5,7,8,11`` in-process on the card, every row logged; it fails
-    unless config 1's parity rows and config 3's int8 quantization-delta
-    row pass their targets, every rate is finite and positive, and the
-    configs launched their kernels. Then the debug entry point,
+    """Phase 8: ``python -m tpu_flash_torch.bench --configs 1-12``
+    in-process on the card, every row logged; it fails unless config 1's
+    parity rows and config 3's int8 quantization-delta row pass their
+    targets, every rate is finite and positive, config 9 meets its gates
+    with the plain versions' tokens (``check_quality``), each config-10
+    row's kernel time a step is below its wall time, and the configs
+    launched their kernels. Then the debug entry point,
     ``attention_weights``, on config 1's shapes (P within
     DEBUG_WEIGHTS_TOL of the oracle's weights), and the variant sweep
     (``python -m tpu_flash_torch.bench.experiments``): every variant
     through the parity gate and timed. Launch counts are reset first, so
-    they are this phase's alone."""
+    they are this phase's alone (config 9's plain-version run launches
+    none)."""
     import torch
 
     from tpu_flash_torch.bench import experiments
@@ -3142,7 +3309,9 @@ def check_bench(dev):
 
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    rows = run_configs(BENCH_CONFIGS, iters=BENCH_ITERS, device=dev)
+    greedy = []
+    with recorded_greedy(greedy):
+        rows = run_configs(BENCH_CONFIGS, iters=BENCH_ITERS, device=dev)
     weights = [debug_weights_row(dev, *shape) for shape in DEBUG_SHAPES]
     sweep = experiments.sweep(device=dev, iters=BENCH_ITERS)
     torch.cuda.synchronize()
@@ -3160,17 +3329,24 @@ def check_bench(dev):
     bad = [r["name"] for r in rows + sweep
            if r.get("metric") in RATE_METRICS + ("ms",)
            and not (math.isfinite(r["value"]) and r["value"] > 0)]
-    if (missed or bad or len([r for r in rows if "pass" in r]) != 3
+    slow = [r["name"] for r in rows if r["config"] == 10
+            and not 0 < r["step_us"] < r["wall_step_us"]]
+    configs = {r["config"] for r in rows}
+    if (missed or bad or slow
+            or len([r for r in rows if "pass" in r]) != 3
+            or configs != set(BENCH_CONFIGS)
             or not all("value" in r for r in sweep)):
         raise AssertionError(
             f"bench: rows off target {missed}, rates not finite and "
-            f"positive {bad}"
+            f"positive {bad}, kernel time not below wall {slow}, configs "
+            f"{sorted(configs)}"
         )
-    require_launches(rec, ["flash_fwd", "paged_decode", "paged_prefill",
-                           "paged_decode:int4_mxu", "flash_bwd_dkv",
-                           "flash_bwd_dq", "quant_fwd", "quant_fwd:int8",
-                           "quant_fwd:fp8_native", "quantize_rows",
-                           "attn_weights", "variant_fwd"])
+    rec["quality"] = check_quality(rows, greedy, dev)
+    require_launches(rec, ["flash_fwd", "flash_fwd_exact", "paged_decode",
+                           "paged_prefill", "paged_decode:int4_mxu",
+                           "flash_bwd_dkv", "flash_bwd_dq", "quant_fwd",
+                           "quant_fwd:int8", "quant_fwd:fp8_native",
+                           "quantize_rows", "attn_weights", "variant_fwd"])
     return rec
 
 

@@ -3,7 +3,7 @@
 the same thing: the bench's FLOP and byte counts, config 1's rows (the
 flash forward's plain version, d 64 and d 128), the flash forward at
 d 64 against the JAX kernel in interpret mode (bar 2e-5 in f32: the two
-sum in different orders), and the CLI's refusals.
+sum in different orders), and the CLI's refusals of unknown configs.
 """
 
 import math
@@ -100,8 +100,8 @@ def test_time_per_call_measures_a_known_wait():
 
 
 @pytest.mark.parametrize("configs,message", [
-    ("6", "not ported yet"),
-    ("1,12", "item 16"),
+    ("0", "unknown config(s) [0]"),
+    ("1,13", "unknown config(s) [13]"),
     ("13", "unknown config"),
     ("x", "comma-separated"),
 ])

@@ -238,3 +238,30 @@ def test_kernel_library_name_hashes_shared_headers(tmp_path, monkeypatch):
     assert kernel.library_path() == before
     header.write_text("// v2\n")
     assert kernel.library_path() != before
+
+
+def test_built_library_keeps_its_nvcc_log(tmp_path, monkeypatch):
+    """A library already built is reused with the nvcc log saved beside
+    it (the ptxas report that the card's checks read), so a second build
+    in the same checkout has the same log; a library without its log is
+    built again."""
+    from tpu_flash_torch.ops import build
+
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text("// kernel\n")
+    kernel = build.CudaKernel("k", "k", [], replaces="-")
+    (tmp_path / "build").mkdir()
+    kernel.library_path().write_bytes(b"")
+    kernel.log_path().write_text("ptxas info : Used 40 registers\n")
+    kernel.finish_build(kernel.start_build())
+    assert kernel.build_seconds == 0.0
+    assert kernel.build_log == "ptxas info : Used 40 registers\n"
+
+    def no_nvcc():
+        raise RuntimeError("would build")
+
+    monkeypatch.setattr(build, "find_nvcc", no_nvcc)
+    kernel.log_path().unlink()
+    with pytest.raises(RuntimeError, match="would build"):
+        kernel.start_build()

@@ -58,44 +58,21 @@ def classify(name: str) -> str:
     return "other"
 
 
-def trace(fn):
-    """(wall seconds, {kernel name: device seconds}) of fn()."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    # Device activity only: host-side op tracing would slow the eager,
-    # host-bound decode loop and inflate the idle share.
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us and ev.key and ev.device_type.name == "CUDA":
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us * 1e-6
-    return wall, kernels
-
-
-def report(window, kv_dtype, wall, kernels, tokens, routes,
-           untraced_wall=None, untraced_wall_no_spec=None):
-    busy = sum(kernels.values())
+def report(window, kv_dtype, win, tokens, routes, untraced_wall=None,
+           untraced_wall_no_spec=None):
+    """One JSON line for a window ``win`` (``utils/profiling.timed``)."""
     by_class = {}
-    for name, sec in kernels.items():
+    for name, sec in win.kernels.items():
         cls = classify(name)
         by_class[cls] = by_class.get(cls, 0.0) + sec
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(win.kernels.items(), key=lambda kv: -kv[1])[:8]
     print(json.dumps({
         "window": window, "kv_dtype": kv_dtype, "tokens": tokens,
         "dispatches": routes,
-        "wall_s": wall, "device_kernel_s": busy,
-        "idle_share": 1.0 - busy / wall if wall else None,
+        "wall_s": win.wall, "device_kernel_s": win.busy,
+        "idle_share": win.idle_share() if win.wall else None,
         "untraced_wall_s": untraced_wall,
-        "untraced_idle_share": (1.0 - busy / untraced_wall
+        "untraced_idle_share": (win.idle_share(untraced_wall)
                                 if untraced_wall else None),
         "untraced_wall_speculation_off_s": untraced_wall_no_spec,
         "by_class_s": by_class,
@@ -124,6 +101,7 @@ def main() -> int:
                             main_path_prompts)
     from tpu_flash_torch.engine.metrics import EngineMetrics
     from tpu_flash_torch.models import LLAMA3_8B
+    from tpu_flash_torch.utils.profiling import timed
 
     model, params = main_path_model("cuda")
     prompts = main_path_prompts(LLAMA3_8B.vocab_size)
@@ -133,8 +111,7 @@ def main() -> int:
             for p in prompts:
                 eng.submit(p, 1)
             eng.metrics = EngineMetrics()
-            wall, kernels = trace(eng.run)
-            report("prefill", kv_dtype, wall, kernels,
+            report("prefill", kv_dtype, timed(eng.run),
                    sum(len(p) for p in prompts), eng.metrics.route_counts())
             if "--prefill-only" in sys.argv[1:]:
                 eng.close()
@@ -154,8 +131,7 @@ def main() -> int:
                 eng.speculation_k = saved
             fill_to_decode(eng, prompts, 32)
             eng.metrics = EngineMetrics()
-            wall, kernels = trace(eng.run)
-            report("decode", kv_dtype, wall, kernels,
+            report("decode", kv_dtype, timed(eng.run),
                    eng.metrics.decode_tokens, eng.metrics.route_counts(),
                    *untraced)
             eng.close()
@@ -172,9 +148,8 @@ def main() -> int:
                 eng.submit(p, 1)
             eng.run()
 
-        wall, kernels = trace(staggered)
-        report("prefill staggered, paged_prefill=False", kv_dtype, wall,
-               kernels, sum(len(p) for p in prompts),
+        report("prefill staggered, paged_prefill=False", kv_dtype,
+               timed(staggered), sum(len(p) for p in prompts),
                eng.metrics.route_counts())
         eng.close()
     return 0

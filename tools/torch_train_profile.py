@@ -50,8 +50,8 @@ def main() -> int:
         return 2
     from chip_smoke import (SEED, TRAIN_LR, TRAIN_TOKENS, gpu_query,
                             train_batch, train_model)
-    from torch_serve_profile import trace
     from tpu_flash_torch.parallel import make_train_step, param_leaves
+    from tpu_flash_torch.utils.profiling import timed
 
     model, params = train_model("cuda")
     batch = train_batch("cuda", model.config.vocab_size, SEED + 6)
@@ -70,22 +70,21 @@ def main() -> int:
     steps()
     torch.cuda.synchronize()
     untraced = time.perf_counter() - t0
-    wall, kernels = trace(steps)
-    busy = sum(kernels.values())
+    win = timed(steps)
     by_class = {}
-    for name, sec in kernels.items():
+    for name, sec in win.kernels.items():
         cls = classify(name)
         by_class[cls] = by_class.get(cls, 0.0) + sec
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    top = sorted(win.kernels.items(), key=lambda kv: -kv[1])[:10]
     positions = STEPS * TRAIN_TOKENS[0] * (TRAIN_TOKENS[1] - 1)
     print(json.dumps({
         "window": "train", "gpu": gpu_query(), "steps": STEPS,
         "layers": model.config.num_layers, "tokens": positions,
-        "wall_s": wall, "untraced_wall_s": untraced,
+        "wall_s": win.wall, "untraced_wall_s": untraced,
         "train_tok_per_s_untraced": positions / untraced,
-        "device_kernel_s": busy,
-        "idle_share": 1.0 - busy / wall,
-        "untraced_idle_share": 1.0 - busy / untraced,
+        "device_kernel_s": win.busy,
+        "idle_share": win.idle_share(),
+        "untraced_idle_share": win.idle_share(untraced),
         "by_class_s": by_class,
         "top_kernels": [[n[:80], s] for n, s in top],
     }), flush=True)

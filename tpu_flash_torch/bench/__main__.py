@@ -1,9 +1,8 @@
-"""Benchmark CLI of the port: the counterpart of ``python -m tpu_flash.bench``
-for its kernel-level configs (1-5, 7, 8, 11), one JSON row per bench row on
-stdout.
+"""Benchmark CLI of the port: the counterpart of ``python -m tpu_flash.bench``,
+one JSON row per bench row on stdout.
 
-    python -m tpu_flash_torch.bench --configs 1,2,3,4,5,7,8,11 [--iters N]
-        [--json out.json] [--device cuda|cpu]
+    python -m tpu_flash_torch.bench --configs 1,2,3,4,5,6,7,8,9,10,11,12
+        [--iters N] [--json out.json] [--device cuda|cpu]
 
   1. parity vs exact oracle        (B=1 s=128 d=64 fp32, <=1e-2; a bf16
                                     causal sweep row)
@@ -15,23 +14,37 @@ stdout.
      + paged int8 and bf16 decode at 8K ctx
   5. 32K context               (8-head 32K causal prefill TFLOP/s; int4
                                 decode b4 gqa4 at 32K, 1024-token pages)
+  6. engine serving throughput (the whole engine on the host's wall clock,
+                                b8 int8 cache, 4-layer model: steady state,
+                                and staggered arrivals with fused mixed
+                                steps on and off)
   7. windowed decode           (b8 gqa4, 32K context, 4K window, int8 and
                                 bf16 pages; speedup over full context)
   8. windowed paged prefill    (a 512-token chunk over 32K of history,
                                 4K window, bf16 and int8 pages; speedup
                                 over the full-history sweep)
+  9. quantized-cache generation quality (greedy token match of each cache
+                                tier against the bf16 cache, tiny
+                                random-weight model at d 128; and past a
+                                32-token ring)
+  10. engine decode on the kernels' time (the engine's burst, host
+                                excluded, with the wall time per step and
+                                the device's idle share beside it; toy
+                                rows and Llama-3-8B widths at 8 layers)
   11. attention train step     (forward + the backward kernels through
                                 autograd, 3.5x forward FLOPs; 2K h32, 8K h8)
+  12. speculative serving      (off, self-draft k8 and k16, prompt lookup;
+                                random weights and the trained
+                                checkpoints/tiny-byte-llama)
 
-Rows keep the JAX bench's names and metrics. Rates are the card's own
-against the card's data-sheet figures (``utils/device.py``). Config 2
-carries no measured-ceiling gate: the JAX bench's gate is a ceiling
-measured on a TPU, which says nothing about this card. The engine-level
-configs 6, 9, 10 and 12 are not ported yet (ROADMAP queue 1, item 16).
-``SIZES`` holds the lengths of configs 5, 7, 8 and 11 (tests shrink
-them). On ``--device cpu`` the kernels' plain versions run: parity rows
-mean what they say, throughput rows time PyTorch's CPU kernels and carry
-``"backend": "cpu"``.
+Rows keep the JAX bench's names and metrics (the JAX bench's config-6
+rows say "config": 4; here they say 6). Rates are the card's own against
+the card's data-sheet figures (``utils/device.py``). Config 2 carries no
+measured-ceiling gate: the JAX bench's gate is a ceiling measured on a
+TPU, which says nothing about this card. ``SIZES`` holds the lengths of
+configs 5-12 (tests shrink them). On ``--device cpu`` the kernels' plain
+versions run: parity and quality rows mean what they say, throughput rows
+time PyTorch's CPU kernels and carry ``"backend": "cpu"``.
 """
 
 from __future__ import annotations
@@ -42,14 +55,28 @@ import sys
 
 import torch
 
-# Configs of the JAX bench that wait for a later slice of the port.
-NOT_PORTED = (6, 9, 10, 12)
-# Lengths of configs 5, 7, 8 and 11, the JAX bench's.
+# Sizes of configs 5-12, the JAX bench's.
 SIZES = {
     "long_ctx": 32768,    # config 5's prefill and decode, 7's, 8's history
     "window": 4096,       # configs 7 and 8
     "chunk": 512,         # config 8
     "train": ((32, 2048), (8, 8192)),  # config 11: (heads, seq) rows
+    # Configs 6, 10 (toy rows) and 12 (random weights): the engine
+    # benches' model.
+    "engine_model": dict(num_layers=4, hidden=1024, num_q_heads=8,
+                         head_dim=128),
+    # Config 6: batch, prompt and new tokens a request.
+    "engine": dict(batch=8, prompt_len=512, new_tokens=64),
+    # Config 10: the toy rows' batch, prompt tokens, the context each row
+    # reserves, decode steps a burst, and the production rows' model
+    # (Llama-3-8B widths, 8 layers) and batches.
+    "device_decode": dict(batch=8, prompt_len=512, max_ctx=1024, burst=8),
+    "production": dict(num_layers=8, hidden=4096, num_q_heads=32,
+                       num_kv_heads=8, batches=(8, 16, 32)),
+    # Config 9: new tokens of the in-ring report and the beyond-window one.
+    "quality_new_tokens": (32, 96),
+    # Config 12's random-weight rows: batch, prompt and new tokens.
+    "speculative": dict(batch=4, prompt_len=48, new_tokens=96),
 }
 
 
@@ -323,6 +350,217 @@ def config8_windowed_prefill(iters: int, device="cuda"):
     return rows
 
 
+def config6_engine(iters: int, device="cuda"):
+    """The whole serving stack (scheduler, chunked prefill, burst decode,
+    sampling, watchdogs) on the host's wall clock, after a warm-up round;
+    then staggered arrivals (mixed prefill and decode steps) with fused
+    mixed steps on and off."""
+    del iters
+    from tpu_flash_torch.bench.suite import bench_engine_tokens_per_s
+
+    kw = dict(SIZES["engine_model"], **SIZES["engine"], device=device)
+    tps, _, m, _ = bench_engine_tokens_per_s(**kw)
+    _log(f"  engine steady-state: {tps:.0f} tok/s "
+         f"(p50 step {m.get('p50_step_ms', 0):.1f} ms)")
+    rows = [{
+        "config": 6,
+        "name": f"engine continuous-batching b{kw['batch']} int8-kv "
+                f"({kw['num_layers']}-layer model)",
+        "metric": "decode_tokens_per_s",
+        "value": tps,
+        "p50_step_ms": m.get("p50_step_ms", 0.0),
+        "mean_occupancy": m.get("mean_batch_occupancy", 0.0),
+    }]
+    for fused in (True, False):
+        tps_s, wall_s, m_s, _ = bench_engine_tokens_per_s(
+            staggered=True, fused_mixed_step=fused, **kw)
+        _log(f"  staggered fused={fused}: {tps_s:.0f} tok/s, "
+             f"wall {wall_s:.1f}s "
+             f"(p50 step {m_s.get('p50_step_ms', 0):.1f} ms)")
+        rows.append({
+            "config": 6,
+            "name": f"engine staggered arrivals fused={fused}",
+            "metric": "decode_tokens_per_s",
+            "value": tps_s,
+            "wall_s": wall_s,
+            "p50_step_ms": m_s.get("p50_step_ms", 0.0),
+        })
+    return rows
+
+
+def config9_quant_quality(iters: int, device="cuda"):
+    """Generation quality of the quantized caches: greedy-decode the same
+    prompts through the engine with a bf16 cache and with each quantized
+    tier; token-match rates (``bench/quality.py``). The model has random
+    weights, so argmax margins are far smaller than a trained model's:
+    the rates are a lower bound."""
+    del iters
+    import dataclasses
+
+    from tpu_flash_torch.bench.quality import quant_quality_report
+    from tpu_flash_torch.models import TINY_TEST, FlashTransformer
+
+    cfg = dataclasses.replace(TINY_TEST, head_dim=128)
+    model = FlashTransformer(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    prompts = [
+        [3, 14, 15, 9, 2, 6, 53, 58],
+        [97, 93, 23, 84, 62, 64, 33, 83],
+        [11, 200, 47, 5, 130, 77, 8, 99],
+    ]
+    new_in, new_beyond = SIZES["quality_new_tokens"]
+    geo = dict(baseline_dtype="bfloat16", page_size=128, max_seq_len=512,
+               prefill_chunk=64)
+    report = quant_quality_report(
+        model, params, prompts, max_new_tokens=new_in,
+        kv_dtypes=("int8", "int4", "int4g32", "k8v4", "fp8"), **geo)
+    rows = []
+    for dt, r in report.items():
+        rows.append({
+            "config": 9,
+            "name": f"quant quality {dt}-kv greedy token match "
+                    "(tiny random-weight model)",
+            "metric": "prefix_match_rate",
+            "value": r["prefix_match"],
+            "positionwise_match_rate": r["positionwise_match"],
+            "n_tokens": r["n_tokens"],
+        })
+        _log(f"  {dt}: prefix {r['prefix_match']:.3f} "
+             f"positionwise {r['positionwise_match']:.3f}")
+    # Past the ring: a 32-token exact ring under the generated context,
+    # so most attention reads quantized pages (the default 128-token ring
+    # would cover these short contexts entirely).
+    report_bw = quant_quality_report(
+        model, params, prompts, max_new_tokens=new_beyond,
+        kv_dtypes=("int8", "int4", "int4g32", "k8v4"), recent_window=32,
+        **geo)
+    ctx = len(prompts[0]) + new_beyond
+    for dt, r in report_bw.items():
+        rows.append({
+            "config": 9,
+            "name": f"quant quality {dt}-kv beyond-window stress "
+                    f"(ring 32 << context {ctx}, random-weight model)",
+            "metric": "prefix_match_rate",
+            "value": r["prefix_match"],
+            "positionwise_match_rate": r["positionwise_match"],
+            "n_tokens": r["n_tokens"],
+        })
+        _log(f"  {dt} beyond-window: prefix {r['prefix_match']:.3f} "
+             f"positionwise {r['positionwise_match']:.3f}")
+    return rows
+
+
+def device_decode_row(name, res, **extra):
+    tps, _, sec_step, wall_step, idle = res
+    _log(f"  {name}: {tps:.0f} tok/s ({sec_step * 1e6:.0f} us/step kernel "
+         f"time, {wall_step * 1e6:.0f} us/step wall, idle {idle:.3f})")
+    return {"config": 10, "name": name,
+            "metric": "device_decode_tokens_per_s", "value": tps,
+            "step_us": sec_step * 1e6, "wall_step_us": wall_step * 1e6,
+            "idle_share": idle, **extra}
+
+
+def config10_engine_device(iters: int, device="cuda"):
+    """Serving decode on the kernels' time: the engine's own burst with
+    the lengths held constant, its kernel time summed from a trace (host
+    excluded; on the CPU the time of PyTorch's ops), beside the wall time
+    per step and the device's idle share over the same window. Toy rows
+    (MHA and GQA-4), then Llama-3-8B widths at 8 layers over a batch
+    sweep at the engine's auto cache layout."""
+    from tpu_flash_torch.bench.suite import bench_engine_device_decode
+    from tpu_flash_torch.core.config import CacheConfig
+    from tpu_flash_torch.utils.tuning import resolve_cache_config
+
+    toy, lens = SIZES["engine_model"], SIZES["device_decode"]
+    inner = max(4, iters // 4)
+    rows = []
+    for kv_dtype, hkv, label in (("bfloat16", 8, "mha"), ("int8", 8, "mha"),
+                                 ("bfloat16", 2, "gqa4")):
+        res = bench_engine_device_decode(
+            kv_dtype=kv_dtype, num_kv_heads=hkv, inner=inner, device=device,
+            **toy, **lens)
+        rows.append(device_decode_row(
+            f"engine device-side decode b{lens['batch']} {toy['num_layers']}L "
+            f"h{toy['num_q_heads']}/{hkv}kv d{toy['head_dim']} {label} "
+            f"{kv_dtype}-kv (per-layer rates scale; kernel time, host "
+            "excluded)", res))
+    prod = dict(SIZES["production"])
+    batches = prod.pop("batches")
+    for batch, kv_dtype in ((batches[0], "bfloat16"),
+                            *((b, "int8") for b in batches)):
+        resolved = resolve_cache_config(
+            CacheConfig(kv_dtype=kv_dtype), max_seq_len=lens["max_ctx"],
+            max_batch_size=batch)
+        res = bench_engine_device_decode(
+            kv_dtype=kv_dtype, page_size=None, inner=inner, device=device,
+            **prod, **dict(lens, batch=batch))
+        rows.append(device_decode_row(
+            f"engine device-side decode b{batch} {prod['num_layers']}L "
+            f"h{prod['num_q_heads']}/{prod['num_kv_heads']}kv d128 "
+            f"hidden{prod['hidden']} gqa4 {kv_dtype}-kv auto-layout "
+            f"ps{resolved.page_size} ring{resolved.recent_window} "
+            "(production shape; per-layer rates scale; kernel time, host "
+            "excluded)", res, page_size=resolved.page_size,
+            recent_window=resolved.recent_window))
+    return rows
+
+
+SPEC_TEXT = (b"def attention(q, k, v):\n    scores = q @ k.T / sqrt(d)\n"
+             b"    return softmax(scores) @ v\n\n"
+             b"def paged_decode(cache, q):\n")
+
+
+def config12_speculative(iters: int, device="cuda"):
+    """Speculative decoding at serving level: plain burst decode,
+    self-draft speculation (the draft model is the target: the acceptance
+    ceiling wherever its 64-token window suffices) at k 8 and 16, and
+    prompt lookup on random prompts (the low-acceptance overhead regime),
+    on random weights and on the trained checkpoint (real margins). The
+    tokens/s count the timed round's tokens (the JAX bench's count the
+    warm-up round's too)."""
+    del iters
+    import os
+
+    from tpu_flash_torch.bench.suite import bench_engine_speculative
+
+    variants = [("random", None, None)]
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "checkpoints", "tiny-byte-llama")
+    if os.path.isdir(ckpt):
+        from tpu_flash_torch.checkpoint import load_hf_dir
+
+        mp = load_hf_dir(ckpt, dtype="bfloat16", device=device)
+        prompts = [list(SPEC_TEXT[i:i + 48]) for i in (0, 16, 32, 48)]
+        variants.append(("trained", mp, prompts))
+    spec = SIZES["speculative"]
+    rows = []
+    for substrate, mp, prompts in variants:
+        for mode, k in (("off", 8), ("self-draft", 8), ("self-draft", 16),
+                        ("prompt-lookup", 8)):
+            r = bench_engine_speculative(
+                mode=mode, spec_k=k, model_and_params=mp, prompts=prompts,
+                device=device, **SIZES["engine_model"], **spec)
+            batch = len(prompts) if prompts else spec["batch"]
+            plen = (max(len(p) for p in prompts) if prompts
+                    else spec["prompt_len"])
+            rows.append({
+                "config": 12,
+                "name": f"speculative serving {mode} k{k} b{batch} "
+                        f"{substrate}-weights bf16-kv ps128 "
+                        f"({plen}-token prompts, {spec['new_tokens']} new)",
+                "metric": "tokens_per_s",
+                "value": r["tokens_per_s"],
+                "steps": r["steps"],
+                "decode_tokens_per_step": r["decode_tokens_per_step"],
+                "acceptance_rate": r["acceptance_rate"],
+            })
+            _log(f"  {substrate} {mode} k{k}: "
+                 f"{r['tokens_per_s']:.0f} tok/s, {r['steps']} steps, "
+                 f"{r['decode_tokens_per_step']:.2f} tok/step, "
+                 f"accept {r['acceptance_rate']:.2f}")
+    return rows
+
+
 def config11_train(iters: int, device="cuda"):
     """The attention training step (forward + the backward kernels through
     the port's autograd function), 3.5x forward FLOPs."""
@@ -349,9 +587,13 @@ CONFIGS = {
     3: config3_decode,
     4: config4_quantized,
     5: config5_longcontext,
+    6: config6_engine,
     7: config7_windowed_decode,
     8: config8_windowed_prefill,
+    9: config9_quant_quality,
+    10: config10_engine_device,
     11: config11_train,
+    12: config12_speculative,
 }
 
 
@@ -372,7 +614,7 @@ def run_configs(configs, iters: int = 32, device="cuda"):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Benchmarks of the PyTorch + CUDA port, the JAX "
-                    "bench's kernel-level configs")
+                    "bench's configs")
     ap.add_argument("--configs", default="1,2,3,4,5,7,8,11")
     ap.add_argument("--iters", type=int, default=32)
     ap.add_argument("--json", default=None, help="write rows as JSON")
@@ -384,10 +626,6 @@ def main(argv=None):
     except ValueError:
         ap.error(f"--configs must be comma-separated integers, got "
                  f"{args.configs!r}")
-    later = [c for c in wanted if c in NOT_PORTED]
-    if later:
-        ap.error(f"config(s) {later} of the JAX bench are not ported yet "
-                 f"(ROADMAP queue 1, item 16); available: {sorted(CONFIGS)}")
     unknown = [c for c in wanted if c not in CONFIGS]
     if unknown:
         ap.error(f"unknown config(s) {unknown}; available: "

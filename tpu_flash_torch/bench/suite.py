@@ -310,3 +310,326 @@ def bench_train_step(
         roofline_tflops=roofline,
         hbm_gbps=bytes_moved / seconds / 1e9,
     )
+
+
+# -- engine-level benches (configs 6, 10 and 12) ------------------------------
+
+
+def _engine_model(num_layers, hidden, num_q_heads, num_kv_heads, head_dim,
+                  device, seed: int = 0, name: str = "bench-engine"):
+    """The engine benches' model (vocab 8192, intermediate 2 x hidden,
+    bf16) and its seeded random weights on ``device``."""
+    from tpu_flash_torch.models import FlashTransformer, ModelConfig
+
+    cfg = ModelConfig(
+        name=name,
+        vocab_size=8192,
+        hidden_size=hidden,
+        num_layers=num_layers,
+        num_q_heads=num_q_heads,
+        num_kv_heads=num_kv_heads,
+        head_dim=head_dim,
+        intermediate_size=2 * hidden,
+        dtype="bfloat16",
+    )
+    model = FlashTransformer(cfg, device=device)
+    return model, model.init(torch.Generator(device=device).manual_seed(seed))
+
+
+def _bench_engine(
+    num_layers, hidden, num_q_heads, num_kv_heads, head_dim, batch, ctx,
+    page_size, kv_dtype, recent_window=None, device="cuda",
+    **engine_kwargs
+):
+    """Shared engine construction for the engine-level benches.
+    ``recent_window`` overrides the CacheConfig default (0 disables the
+    exact recent ring). ``page_size=None`` leaves the whole cache layout to
+    the engine's auto policy (``utils/tuning.py``)."""
+    from tpu_flash_torch.core.config import CacheConfig, EngineConfig
+    from tpu_flash_torch.engine import InferenceEngine
+
+    model, params = _engine_model(num_layers, hidden, num_q_heads,
+                                  num_kv_heads, head_dim, device)
+    ring_kw = (
+        {} if recent_window is None else {"recent_window": recent_window}
+    )
+    if page_size is None:  # the auto layout
+        cache = CacheConfig(kv_dtype=kv_dtype, **ring_kw)
+    else:
+        pages_per_seq = -(-ctx // page_size)
+        cache = CacheConfig(
+            page_size=page_size,
+            num_pages=batch * pages_per_seq + 8,
+            max_pages_per_seq=pages_per_seq,
+            kv_dtype=kv_dtype,
+            **ring_kw,
+        )
+    ecfg = EngineConfig(
+        max_batch_size=batch,
+        max_seq_len=ctx,
+        prefill_chunk=512,
+        cache=cache,
+        **engine_kwargs,
+    )
+    return InferenceEngine(model, params, ecfg)
+
+
+def bench_engine_tokens_per_s(
+    num_layers: int = 4,
+    hidden: int = 1024,
+    num_q_heads: int = 8,
+    num_kv_heads: int = 8,
+    head_dim: int = 128,
+    batch: int = 8,
+    prompt_len: int = 512,
+    new_tokens: int = 64,
+    kv_dtype: str = "int8",
+    page_size: int = 128,
+    staggered: bool = False,
+    fused_mixed_step="auto",
+    lora_rank: int = 0,
+    max_decode_burst: int = 8,
+    device="cuda",
+):
+    """End-to-end continuous-batching engine throughput (the whole serving
+    stack: scheduler, chunked prefill, paged decode, sampling, watchdogs)
+    on the host's wall clock. Returns (decode_tokens_per_s, total_wall_s,
+    metrics_summary, prefix_stats). Layer count is reduced: scale
+    judgments should use per-layer rates.
+
+    ``staggered`` submits arrivals in waves so prefill and decode overlap
+    (the regime where ``fused_mixed_step`` merges each step's prefill and
+    decode into one dispatch). A warm-up round builds and loads the
+    kernels and grows the allocator's caches; the second round is timed.
+    Multi-LoRA (``lora_rank`` > 0) is not ported yet."""
+    import numpy as np
+
+    if lora_rank:
+        raise NotImplementedError(
+            "multi-LoRA serving is not ported yet (ROADMAP queue 1, item "
+            "13)"
+        )
+    engine = _bench_engine(
+        num_layers, hidden, num_q_heads, num_kv_heads, head_dim, batch,
+        prompt_len + new_tokens, page_size, kv_dtype, device=device,
+        fused_mixed_step=fused_mixed_step,
+        max_decode_burst=max_decode_burst,
+    )
+    vocab = engine.model.config.vocab_size
+    host_rng = np.random.default_rng(1)
+
+    def submit_one():
+        engine.submit(host_rng.integers(0, vocab, prompt_len).tolist(),
+                      max_new_tokens=new_tokens)
+
+    def run_round():
+        if not staggered:
+            for _ in range(batch):
+                submit_one()
+            engine.run()
+            return
+        # Waves: half up front (at least one), the rest arriving while
+        # earlier requests decode, so every wave makes mixed prefill and
+        # decode steps. Leftovers are submitted if the engine idles early,
+        # so the rate's denominator covers all the work.
+        first = max(1, batch // 2)
+        for _ in range(first):
+            submit_one()
+        left = batch - first
+        while engine.scheduler.has_work() or left:
+            if not engine.scheduler.has_work():
+                submit_one()
+                left -= 1
+                continue
+            engine.step()
+            if left:
+                submit_one()
+                left -= 1
+
+    run_round()  # warm-up: kernel builds, allocator growth
+    engine.metrics = type(engine.metrics)()
+    _sync(device)
+    t0 = time.perf_counter()
+    run_round()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    m = engine.metrics.summary()
+    stats = engine.prefix_stats()
+    engine.close()
+    return batch * new_tokens / wall, wall, m, stats
+
+
+def bench_engine_device_decode(
+    num_layers: int = 4,
+    hidden: int = 1024,
+    num_q_heads: int = 8,
+    num_kv_heads: int = 8,
+    head_dim: int = 128,
+    batch: int = 8,
+    prompt_len: int = 512,
+    kv_dtype: str = "int8",
+    page_size: int = 128,
+    burst: int = 8,
+    inner: int = 8,
+    max_ctx: int = 1024,
+    recent_window=None,
+    device="cuda",
+):
+    """Serving decode throughput on the kernels' time: the engine's own
+    burst (``_decode_multi_impl``: every layer's RMSNorm, QKV, cache
+    append, paged attention and MLP, then sampling) run ``inner`` times
+    under ``utils/profiling.timed``, the kernel time summed over the
+    window (on the CPU: the time of PyTorch's ops themselves).
+
+    A real engine and a real prefill make the caches and page tables live
+    at full batch occupancy. The engine's lengths and last tokens are
+    saved after it and restored before every burst, so each burst
+    re-appends the same tokens at the same page offsets and ring slots: a
+    steady-state workload that cannot overflow the page pool.
+
+    Returns (decode_tokens_per_s, seconds_per_token, seconds_per_step,
+    wall_seconds_per_step, idle_share): the first three on the summed
+    kernel time, host excluded; then the host's wall clock per step over
+    the traced window and the share of it the device spent idle."""
+    import numpy as np
+
+    from tpu_flash_torch.utils.profiling import timed
+
+    engine = _bench_engine(
+        num_layers, hidden, num_q_heads, num_kv_heads, head_dim, batch,
+        max_ctx, page_size, kv_dtype, recent_window=recent_window,
+        device=device,
+    )
+    vocab = engine.model.config.vocab_size
+    host_rng = np.random.default_rng(1)
+    for _ in range(batch):
+        engine.submit(
+            host_rng.integers(0, vocab, prompt_len).tolist(),
+            max_new_tokens=max_ctx - prompt_len - 1,
+        )
+    # Step until every request has cleared prefill (generated >= 1), so
+    # the bursts see live caches at full batch occupancy.
+    for _ in range(64):
+        if engine.scheduler.active and not engine.scheduler.waiting and all(
+            r.generated >= 1 for r in engine.scheduler.active.values()
+        ):
+            break
+        engine.step()
+    active = torch.from_numpy(engine.active.copy()).to(engine.device)
+    lengths, last_tokens = engine.lengths, engine.last_tokens
+
+    def run_bursts(n):
+        for _ in range(n):
+            engine.lengths, engine.last_tokens = lengths, last_tokens
+            engine._decode_multi_impl(burst, active)
+
+    with torch.inference_mode():
+        run_bursts(1)  # warm-up: this burst's kernels and caches
+        window = timed(lambda: run_bursts(inner), device)
+    engine.close()
+    steps = inner * burst
+    n_active = int(active.sum())
+    sec_per_step = max(window.busy / steps, 1e-12)
+    return (n_active / sec_per_step, sec_per_step / max(n_active, 1),
+            sec_per_step, window.wall / steps, window.idle_share())
+
+
+def bench_engine_speculative(
+    num_layers: int = 4,
+    hidden: int = 1024,
+    num_q_heads: int = 8,
+    num_kv_heads: int = 8,
+    head_dim: int = 128,
+    batch: int = 4,
+    prompt_len: int = 48,
+    new_tokens: int = 96,
+    kv_dtype: str = "bfloat16",
+    spec_k: int = 8,
+    mode: str = "self-draft",  # "self-draft" | "prompt-lookup" | "off"
+    model_and_params=None,  # e.g. a trained checkpoint (config 12)
+    prompts=None,  # token lists; default: random in [0, 8192)
+    device="cuda",
+):
+    """Serving-level speculative decoding. Returns a dict: wall tokens/s,
+    engine steps, decode tokens per step, the acceptance rate and the
+    outputs.
+
+    Modes:
+      * "self-draft": the draft model is the target model, so drafts
+        match the target's greedy stream wherever the draft's 64-token
+        sliding window sees enough context: the verify machinery near its
+        acceptance ceiling (prompt_len stays under the draft window);
+      * "prompt-lookup": bigram prompt-lookup drafting on random prompts,
+        the low-acceptance regime (speculation's overhead);
+      * "off": speculation_k = 0 (plain burst decode, same prompts and
+        shapes)."""
+    import numpy as np
+
+    from tpu_flash_torch.core.config import CacheConfig, EngineConfig
+    from tpu_flash_torch.engine import InferenceEngine
+
+    if model_and_params is not None:
+        model, params = model_and_params
+    else:
+        model, params = _engine_model(num_layers, hidden, num_q_heads,
+                                      num_kv_heads, head_dim, device,
+                                      name="bench-spec")
+    if prompts is not None:
+        prompt_len = max(len(p) for p in prompts)
+        batch = len(prompts)
+    ctx = prompt_len + new_tokens + spec_k + 2
+    page_size = 128
+    pages_per_seq = -(-ctx // page_size)
+    ecfg = EngineConfig(
+        max_batch_size=batch,
+        max_seq_len=ctx,
+        prefill_chunk=64,
+        cache=CacheConfig(
+            page_size=page_size,
+            num_pages=batch * pages_per_seq + 8,
+            max_pages_per_seq=pages_per_seq,
+            kv_dtype=kv_dtype,
+        ),
+    )
+    draft = (model, params) if mode == "self-draft" else None
+    engine = InferenceEngine(model, params, ecfg, draft=draft)
+    engine.speculation_k = 0 if mode == "off" else spec_k
+
+    if prompts is None:
+        host_rng = np.random.default_rng(7)
+        prompts = [
+            host_rng.integers(0, model.config.vocab_size, prompt_len)
+            .tolist() for _ in range(batch)
+        ]
+
+    def run_round():
+        ids = [engine.submit(list(p), max_new_tokens=new_tokens)
+               for p in prompts]
+        engine.run()
+        return {i: engine.outputs[i] for i in ids}
+
+    run_round()  # warm-up: every route's kernels (prefill, verify, burst)
+    engine.metrics = type(engine.metrics)()
+    engine._spec_proposed = 0
+    engine._spec_accepted = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    outs = run_round()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    engine.close()
+    total = sum(len(v) for v in outs.values())
+    m = engine.metrics.summary()
+    stats = engine.speculation_stats()
+    return {
+        "mode": mode,
+        "tokens_per_s": total / wall,
+        "wall_s": wall,
+        "steps": m["steps"],
+        "decode_tokens_per_step": (
+            m["decode_tokens"] / m["steps"] if m["steps"] else 0.0
+        ),
+        "acceptance_rate": stats["acceptance_rate"],
+        "proposed": stats["proposed"],
+        "outputs": outs,
+    }

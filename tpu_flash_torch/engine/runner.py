@@ -20,14 +20,14 @@ burst decode (``paged_attention``) or speculative verify -> sampling.
     decode slots ride along as length-1 rows at their KV position and
     sample from the same dispatch.
   * decode: with ``speculation_k`` > 0 and nothing waiting, every active
-    slot proposes a prompt-lookup draft and all drafts are verified in one
+    slot proposes a draft (prompt lookup, or the draft model's greedy
+    tokens when the engine has one) and all drafts are verified in one
     batched forward (paged prefill over the pages, or an f32 einsum over
     the gathered table with ``paged_prefill=False``), then exact rejection
     sampling; otherwise bursts of up to ``max_decode_burst`` single-token
     steps over every batch slot, one host fetch per burst.
 
-n>1 forks, preemption/swap, draft-model speculation, LoRA and logit_bias
-are later slices.
+n>1 forks, preemption/swap, LoRA and logit_bias are later slices.
 
 The engine runs on ``model.device`` ("cuda" unless the model was built
 for "cpu"); it mutates its cache and slot tensors in place.
@@ -85,7 +85,13 @@ class InferenceEngine:
         params,
         config: EngineConfig,
         seed: int = 0,
+        draft=None,
     ):
+        """``draft``: an optional ``(FlashTransformer, params)`` pair, a
+        small draft model for speculative decoding. When set, drafts come
+        from the draft model (greedy, over a sliding context window)
+        instead of prompt lookup; verification is the same either way, so
+        outputs stay exact."""
         cfg = model.config
         # Auto (None) cache-layout fields resolve from the serving regime
         # (kv_dtype, context, batch) by the JAX engine's policy.
@@ -163,6 +169,12 @@ class InferenceEngine:
         self.speculation_max_table_tokens = 32768
         self._spec_proposed = 0
         self._spec_accepted = 0
+        # Draft-model speculation: the draft model greedy-generates the k
+        # draft tokens of every row in k eager forwards over a sliding
+        # window, with one host fetch. Prompt lookup when unset.
+        self.draft_model = draft[0] if draft is not None else None
+        self.draft_params = draft[1] if draft is not None else None
+        self.draft_window = 64  # context tokens the draft model sees
 
     # -- client API ----------------------------------------------------------
 
@@ -239,6 +251,18 @@ class InferenceEngine:
 
     def close(self) -> None:
         self._fetcher.close()
+
+    def prefix_stats(self) -> Dict[str, float]:
+        """Prefix-cache observability: hit rate and retained pages."""
+        if self.prefix_index is None:
+            return {"enabled": 0.0}
+        return {
+            "enabled": 1.0,
+            "hit_rate": self.prefix_index.hit_rate,
+            "hits_tokens": float(self.prefix_index.hits_tokens),
+            "misses_tokens": float(self.prefix_index.misses_tokens),
+            "indexed_pages": float(self.prefix_index.num_indexed_pages),
+        }
 
     # -- engine step -----------------------------------------------------------
 
@@ -816,11 +840,51 @@ class InferenceEngine:
                 return list(context[i + ngram:i + ngram + k])
         return []
 
+    def _draft_impl(self, k: int, windows, lengths):
+        """Greedy-generate ``k`` draft tokens per row with the draft model
+        over a batch of context windows: ``windows`` [B, W] holds each
+        row's last ``lengths[b]`` context tokens left-aligned
+        (right-padded); each step runs a causal forward over the [B, W + k]
+        buffer and writes each row's argmax at its own frontier, with no
+        host sync between steps. Window-relative positions: the draft is a
+        sliding-window policy, so only the acceptance rate depends on it,
+        never the output. Returns drafts [B, k]."""
+        b = windows.shape[0]
+        buf = torch.cat([windows, windows.new_zeros((b, k))], dim=1)
+        rows = torch.arange(b, device=buf.device)
+        pos = lengths.clone()  # each row's next slot
+        drafts = []
+        for _ in range(k):
+            logits = self.draft_model.forward(self.draft_params, buf)
+            nxt = logits[rows, pos - 1].argmax(dim=-1)
+            buf[rows, pos] = nxt
+            pos = pos + 1
+            drafts.append(nxt)
+        return torch.stack(drafts, dim=1)
+
     def _propose_drafts(self, contexts: List[List[int]],
                         k: int) -> List[List[int]]:
-        """Up to k draft tokens per context by prompt lookup (draft-model
-        proposals are a later slice)."""
-        return [self._find_draft(c, k) for c in contexts]
+        """Draft up to k tokens per context: from the draft model when the
+        engine has one (one batch for all rows, padded to a power-of-two
+        row count, one host fetch), else by prompt lookup. Both are
+        deterministic proposals, verified by the same exact rejection
+        sampling."""
+        if self.draft_model is None:
+            return [self._find_draft(c, k) for c in contexts]
+        w = self.draft_window
+        bb = _pow2_bucket(len(contexts), lo=1)
+        rows, lens = [], []
+        for c in contexts:
+            tail = c[-w:]
+            rows.append(tail + [0] * (w - len(tail)))
+            lens.append(len(tail))
+        for _ in range(bb - len(contexts)):
+            rows.append([0] * w)
+            lens.append(1)
+        drafts = self._fetcher.fetch(self._draft_impl(
+            k, self._dev_tensor(rows, torch.int64),
+            self._dev_tensor(lens, torch.int64)))
+        return [[int(t) for t in drafts[i]] for i in range(len(contexts))]
 
     def _verify_dense_attention(self, q, k, v, positions, li: int):
         """Verify attention without paging: exact f32 attention of the

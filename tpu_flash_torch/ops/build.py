@@ -83,11 +83,15 @@ class CudaKernel:
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:16]}.so"
 
+    def log_path(self) -> Path:
+        """nvcc's log (its -Xptxas -v report) kept beside the library."""
+        return self.library_path().with_suffix(".log")
+
     def start_build(self) -> Optional[subprocess.Popen]:
         """Start nvcc (returns the process), or None when the library for
-        the current sources is already built."""
+        the current sources is already built with its log."""
         out = self.library_path()
-        if out.exists():
+        if out.exists() and self.log_path().exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -102,6 +106,7 @@ class CudaKernel:
     def finish_build(self, proc: Optional[subprocess.Popen]) -> None:
         if proc is None:
             self.build_seconds = 0.0
+            self.build_log = self.log_path().read_text()
             return
         log, _ = proc.communicate()
         self.build_log = log
@@ -110,6 +115,7 @@ class CudaKernel:
                 f"nvcc failed for {self.source.name} "
                 f"(exit {proc.returncode}):\n{log}"
             )
+        self.log_path().write_text(log)
         os.replace(self._tmp, self.library_path())
         self.build_seconds = time.perf_counter() - self._t0
 
