@@ -60,7 +60,11 @@ network. Phases, one JSON line each:
      beside it;
      decode at 16 q heads a kv head (bf16 and int8 pages, bit for bit);
      the bf16 backward is held against the plain version with its bf16
-     P in dV (``round_p``);
+     P in dV (``round_p``); the forward's rows that see no key (a window
+     ending past kv_len) on both entries at d 128 and 256, each row
+     within its bar, the blind rows' lse MASK_VALUE + log(kv_len), a
+     control (those rows averaging only the last step's keys) that must
+     miss;
   4. main path: Llama-3-8B geometry at full width (all 32 layers, seeded
      random bf16 weights made on the card) served by the port's engine at
      its default routing (paged prefill, fused mixed steps, speculation
@@ -72,6 +76,11 @@ network. Phases, one JSON line each:
      served for 16 tokens through speculative verify; a decode window
      (int8 + ring, 32 tokens each) traced with ``utils/profiling.timed``,
      its heaviest kernels printed (paged_decode must be among them);
+     the HTTP server (``tpu_flash_torch.serve``) in front of the int8 +
+     ring engine: one greedy request alone against ``engine.submit``
+     alone, then greedy, streamed, n=2 greedy, n=3 sampled, forced and
+     banned-token requests at once from client threads beside a bad
+     request and /health (requests/s and the wall a request printed);
      then Gemma-2-9B at full width (42 layers, head width 256, seeded
      random bf16 weights) on the int8 + ring and bf16 caches. Launch
      counters (per kernel and per page tier) reset before each run;
@@ -84,7 +93,10 @@ network. Phases, one JSON line each:
      and each tier's greedy match against the bf16 cache's tokens; then
      draft-model speculation (the checkpoint drafting for itself, and a
      seeded random draft of its shape) token for token against the
-     engine without speculation, acceptance printed;
+     engine without speculation, acceptance printed; an n=3 greedy
+     group, a banned-token request and a neighbour on bf16, int8 +
+     ring, int4 and k8v4, token for token the plain versions', and the
+     group's branches equal to the prompt served alone;
   6. training at full width: Llama-3-8B widths cut to 4 of its 32 layers
      (the only cut), seeded random bf16 weights made on the card, batch
      4 x 2048 tokens, AdamW with a norm clip for 6 steps on one repeated
@@ -536,6 +548,130 @@ def check_flash(dev):
         raise_if_failed(name, rs)
     return {name: dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
             for name, rs in rows.items()}
+
+
+# Rows that see no key: causal, 512 q rows, a 64-token window and kv_len
+# 300 of 512 keys. Rows past position kv_len + window - 2 (362) start
+# their window at or past kv_len; the plain version gives them the mask
+# value on every column of [0, kv_len): o the mean of V, lse MASK_VALUE +
+# log(kv_len). (head width, q heads, kv heads): the main path's and
+# Gemma-2-9B's.
+BLIND = dict(causal=True, window=64, kv_len=300)
+BLIND_FIRST = BLIND["kv_len"] + BLIND["window"] - 1
+BLIND_GEO = ((128, 32, 8), (256, 16, 8))
+
+
+def blind_control(ref, v, kv_len, first):
+    """``ref`` with the rows that see no key averaging only the keys of
+    the last 128-column step before kv_len, as a kernel that walked only
+    the steps the window reaches would give them: it must miss."""
+    ctl = ref.clone()
+    g = ref.shape[1] // v.shape[1]
+    tail = v[:, :, kv_len // 128 * 128:kv_len].float().mean(2)
+    ctl[:, :, first:] = tail.repeat_interleave(g, 1)[:, :, None].to(
+        ref.dtype)
+    return ctl
+
+
+def blind_bound(q, k, kw, first):
+    """flash_bound's rule, with each row that sees no key doing the work
+    of every key of [0, kv_len) (its output is their mean). The function
+    reads q and K/V[:kv_len] and writes o."""
+    b, hq, sq, d = q.shape
+    kv_len = kw["kv_len"]
+    pairs = live_pairs(b, sq, k.shape[2], kw) + b * (sq - first) * kv_len
+    nbytes = q.element_size() * (2 * q.numel()
+                                 + 2 * b * k.shape[1] * kv_len * d)
+    return bound(nbytes, 4.0 * hq * d * pairs, "bfloat16")
+
+
+# The additive mask blind_library gives hidden columns: far below any
+# score (a row that sees no key then weighs its columns alike), yet finite
+# after SDPA's kernels scale it by log2 e, as the mask value (-0.7 x the
+# f32 maximum) is not: with that mask, the rows that see no key came out
+# 0.19-0.22 off the mean of V on the H100.
+SDPA_MASK = -2.0 ** 100
+
+
+def blind_library(q, k, v, kw, ref):
+    """PyTorch's fused attention on K/V[:kv_len] under an additive mask
+    holding SDPA_MASK on the columns a row does not see (so a row that
+    sees none averages V, as the plain version's does): its ms and its
+    largest |out - ref| (None, None without ``enable_gqa``)."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    n = kw["kv_len"]
+    seen = attention_mask(1, q.shape[2], n, kw)
+    mask = torch.zeros(seen.shape, device=q.device).masked_fill(
+        ~seen, SDPA_MASK).to(q.dtype)
+    ks, vs = k[:, :, :n], v[:, :, :n]
+
+    def call():
+        return sdpa(q, ks, vs, attn_mask=mask, scale=kw["sm_scale"],
+                    enable_gqa=True)
+
+    try:
+        err = max_err(call(), ref)
+    except TypeError:  # PyTorch without enable_gqa
+        return None, None
+    return time_ms(call, 10), err
+
+
+def check_flash_blind(dev, summary):
+    """K1's rows that see no key, bf16 at d 128 and 256, on both entry
+    points: every row within its bar of the plain version's (row_bars),
+    the blind rows too; the control (those rows averaging only the last
+    step's keys) missed in some row; V raised 3% missed in most rows past
+    sq / 2; the blind rows' lse MASK_VALUE + log(kv_len) within the f32
+    bar of it. Each case timed beside its bound and SDPA's time under an
+    additive mask on K/V[:kv_len] (blind_library); the summary rows keep
+    the largest error."""
+    import torch
+
+    from tpu_flash_torch.core.reference import DEFAULT_MASK_VALUE
+    from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
+
+    want_lse = float(torch.tensor(DEFAULT_MASK_VALUE)
+                     + math.log(BLIND["kv_len"]))
+    rows = []
+    for d, hq, hkv in BLIND_GEO:
+        g = torch.Generator(device=dev).manual_seed(SEED + d)
+        q = torch.randn(2, hq, 512, d, generator=g, device=dev).bfloat16()
+        k, v = (torch.randn(2, hkv, 512, d, generator=g, device=dev)
+                .bfloat16() for _ in range(2))
+        kw = dict(BLIND, sm_scale=d ** -0.5)
+        ref = flash_fwd_plain(q, k, v, **kw)
+        ctl = blind_control(ref, v, BLIND["kv_len"], BLIND_FIRST)
+        late = flash_fwd_plain(q, k, v * VARIANT_LATE_SHIFT, **kw)
+        plain_ms = time_ms(lambda: flash_fwd_plain(q, k, v, **kw), 3)
+        bound_ms, bound_by = blind_bound(q, k, BLIND, BLIND_FIRST)
+        library_ms, library_err = blind_library(q, k, v, kw, ref)
+        for name, fwd in flash_entries().items():
+            out, lse = fwd(q, k, v, save_lse=True, **kw)
+            torch.cuda.synchronize()
+            held = row_agreement(out, ref, ctl, None, (late, 256),
+                                 late_caught=VARIANT_LATE_CAUGHT)
+            blind_lse = lse[..., BLIND_FIRST:]
+            lse_err = float((blind_lse - want_lse).abs().max())
+            lse_bar = F32_TOL_REL * abs(want_lse)
+            row = dict(case=f"blind_rows_d{d}", kernel=name,
+                       shape=list(q.shape), **BLIND,
+                       first_blind_row=BLIND_FIRST, **held,
+                       differ_plain=differing(out, ref),
+                       blind_lse_err=lse_err, blind_lse_bar=lse_bar,
+                       ms=time_ms(lambda: fwd(q, k, v, **kw), 10),
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms,
+                       library_max_abs_err=library_err,
+                       library="SDPA on K/V[:kv_len], additive mask")
+            row["ok"] = held["ok"] and lse_err <= lse_bar
+            log("kernel_vs_plain", **row)
+            rows.append(row)
+            summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
+                                               held["max_abs_err"])
+    raise_if_failed("flash_fwd (rows that see no key)", rows)
+    return rows
 
 
 def sdpa_ms(q, k, v, mask=None, causal=True):
@@ -2663,6 +2799,7 @@ def check_main_path(dev):
                 raise AssertionError(f"paged history with paging off: {rec}")
             recs.append(rec)
         recs.append(trace_decode_window(model, params, prompts))
+        recs.append(check_server(model, params, prompts))
         spec_prompts = speculation_prompts(model, params,
                                            LLAMA3_8B.vocab_size)
         rec, _ = serve_main(model, params, "bfloat16", 0, spec_prompts, 16,
@@ -2676,6 +2813,168 @@ def check_main_path(dev):
     gc.collect()
     torch.cuda.empty_cache()
     return recs
+
+
+# The HTTP server (tpu_flash_torch.serve) in front of the main path's
+# engine (int8 + ring): one greedy request alone, then SERVER_MIX's
+# requests at once from client threads, a bad request and /health.
+SERVER_NEW = 16  # new tokens a completion
+SERVER_FORCE = 1234  # the token a +100 bias forces
+
+
+def http_call(addr, method, path, body=None):
+    """(status, body bytes, seconds) of one HTTP call to the server."""
+    import http.client
+
+    t = time.perf_counter()
+    conn = http.client.HTTPConnection(*addr, timeout=600)
+    conn.request(method, path,
+                 body=None if body is None else json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, data, time.perf_counter() - t
+
+
+def sse_events(data: bytes):
+    """The JSON events of a streamed response, and whether it ended with
+    the [DONE] sentinel."""
+    events = [json.loads(line[len(b"data: "):])
+              for line in data.split(b"\n\n")
+              if line.startswith(b"data: ") and b"[DONE]" not in line]
+    return events, data.rstrip().endswith(b"data: [DONE]")
+
+
+def server_mix(prompts, banned):
+    """(name, request body) of the concurrent requests: greedy, greedy
+    streamed, n=2 greedy, n=3 sampled at temperature 0.8 (the engine's
+    seeded generator), one +100 bias forcing SERVER_FORCE, and one -100
+    bias banning the tokens ``banned`` (an unbiased run's)."""
+    new = dict(max_tokens=SERVER_NEW)
+    return [
+        ("greedy", dict(prompt=prompts[0], **new)),
+        ("stream", dict(prompt=prompts[1], stream=True, **new)),
+        ("n2_greedy", dict(prompt=prompts[3], n=2, **new)),
+        ("n3_sampled", dict(prompt=prompts[4], n=3, temperature=0.8,
+                            **new)),
+        ("force", dict(prompt=prompts[5],
+                       logit_bias={str(SERVER_FORCE): 100.0}, **new)),
+        ("ban", dict(prompt=prompts[2],
+                     logit_bias={str(t): -100.0 for t in banned}, **new)),
+    ]
+
+
+def check_server(model, params, prompts):
+    """Phase 4, the HTTP server at full width: the main path's engine
+    (int8 + ring, default routing) behind ``serve(engine, port=0,
+    block=False)``. One greedy request sent alone must give the tokens of
+    the same request through ``engine.submit`` alone; then SERVER_MIX
+    goes out at once from client threads beside a bad request (400) and
+    /health (200). Every completion answers 200 with SERVER_NEW tokens a
+    choice, the streamed chunks join up to the final response, greedy
+    branches are equal, the forced token fills every position, no banned
+    token appears, and paged_decode and paged_prefill launch. Logs
+    requests/s and the wall a request with the card's name and power
+    limit."""
+    import threading
+
+    import torch
+
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.serve import serve
+
+    kv_dtype, ring = MAIN_TIERS[0]
+    eng = main_path_engine(model, params, kv_dtype, ring, prompts)
+    rid = eng.submit(prompts[2], SERVER_NEW)
+    eng.run()
+    offline = eng.outputs[rid]
+    httpd, es = serve(eng, port=0, block=False)
+    addr = httpd.server_address
+    try:
+        build.reset_launch_counts()
+        status, data, alone_s = http_call(
+            addr, "POST", "/v1/completions",
+            dict(prompt=prompts[2], max_tokens=SERVER_NEW))
+        alone = json.loads(data)["choices"][0]["tokens"]
+        mix = server_mix(prompts, sorted(set(offline)))
+        calls = [(n, "POST", "/v1/completions", b) for n, b in mix]
+        calls += [("bad", "POST", "/v1/completions",
+                   dict(prompt=prompts[0], lora="x")),
+                  ("health", "GET", "/health", None)]
+        results = {}
+
+        def client(name, method, path, body):
+            results[name] = http_call(addr, method, path, body)
+
+        threads = [threading.Thread(target=client, args=c) for c in calls]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = build.launch_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        es.close()
+        eng.close()
+    failed = []
+    if status != 200 or alone != offline:
+        failed.append(f"alone {status}: {alone} != offline {offline}")
+    choices = {}
+    for name, body in mix:
+        code, data, _ = results[name]
+        if code != 200:
+            failed.append(f"{name}: HTTP {code} {data[:200]!r}")
+            continue
+        if body.get("stream"):
+            events, done = sse_events(data)
+            streamed = [t for e in events
+                        if e["object"] == "text_completion.chunk"
+                        for t in e["choices"][0]["tokens"]]
+            final = [e for e in events if e["object"] == "text_completion"]
+            if not done or len(final) != 1 or \
+                    streamed != final[0]["choices"][0]["tokens"]:
+                failed.append(f"{name}: streamed {streamed} against "
+                              f"{final}")
+                continue
+            choices[name] = final[0]["choices"]
+        else:
+            choices[name] = json.loads(data)["choices"]
+        n = body.get("n", 1)
+        if [len(c["tokens"]) for c in choices[name]] != [SERVER_NEW] * n:
+            failed.append(f"{name}: token counts {choices[name]}")
+    if "n2_greedy" in choices and len({
+            tuple(c["tokens"]) for c in choices["n2_greedy"]}) != 1:
+        failed.append(f"greedy branches differ: {choices['n2_greedy']}")
+    if "force" in choices and choices["force"][0]["tokens"] != \
+            [SERVER_FORCE] * SERVER_NEW:
+        failed.append(f"force: {choices['force']}")
+    if "ban" in choices and set(choices["ban"][0]["tokens"]) & set(offline):
+        failed.append(f"ban: {choices['ban']} against {offline}")
+    if results["bad"][0] != 400 or results["health"][0] != 200:
+        failed.append(f"bad {results['bad'][:2]}, health "
+                      f"{results['health'][:2]}")
+    for k in ("paged_decode", "paged_prefill"):
+        if not launches.get(k):
+            failed.append(f"{k} never launched: {launches}")
+    latencies = [results[n][2] for n, _ in mix]
+    rec = dict(kv_dtype=kv_dtype, recent_window=ring, gpu=gpu_query(),
+               requests=len(mix), completions=sum(
+                   b.get("n", 1) for _, b in mix),
+               new_tokens_each=SERVER_NEW, wall_s=wall,
+               requests_per_s=len(mix) / wall,
+               wall_per_request_s=statistics.mean(latencies),
+               max_request_s=max(latencies), alone_s=alone_s,
+               health=json.loads(results["health"][1]),
+               launches=launches, failed=failed)
+    log("main_path_server", **rec)
+    if failed:
+        raise AssertionError(f"HTTP server: {failed}")
+    return rec
 
 
 # Kernels of the decode window's trace printed, heaviest first;
@@ -2936,7 +3235,88 @@ def check_trained(dev):
         raise AssertionError(f"trained-model greedy match: {failed}")
     if not sum(r["speculation"]["proposed"] for r in results):
         raise AssertionError("no draft was proposed on the trained model")
-    return results + check_draft_speculation(models["bfloat16"])
+    return (results + check_draft_speculation(models["bfloat16"])
+            + check_trained_forks(models["bfloat16"]))
+
+
+# Forks and logit bias on the trained checkpoint: an n=3 greedy group on a
+# prompt ending mid page (its tail page copied at the fork), a request with
+# its likeliest bytes banned, and a neighbour; 24 new tokens each.
+FORK_PROMPTS = (b"The cache stores the keys and values o",
+                b"def quantize(x, scale):\n    return ",
+                b"import numpy as np\n\n")
+FORK_BAN = {t: -100.0 for t in b" etaoinsr"}
+FORK_NEW = 24
+# (kv dtype, ring): bf16; int8 with a ring (copied at the fork); int4 (a
+# token-packed tail page); k8v4 (gathered history).
+FORK_TIERS = (("bfloat16", 0), ("int8", 32), ("int4", 32), ("k8v4", 32))
+
+
+def check_trained_forks(model_and_params, tiers=FORK_TIERS):
+    """Phase 5, forks and logit bias: on each of ``tiers`` the mix
+    (FORK_PROMPTS: the n=3 group, the ban, the neighbour) at the engine's
+    defaults, token for token the same run on the plain versions, with
+    every kernel call shadowed by its plain version (decode to the bit,
+    the others within the phase-3 bar); no banned byte emitted. Then the
+    group's branches against the same prompt served alone, with
+    speculation off on both sides (decode then runs over every batch
+    slot, so each matmul has the same rows in both runs; a verify batch
+    has as many rows as items, and cuBLAS picks its algorithm by rows)."""
+    from tpu_flash_torch.core.config import CacheConfig, EngineConfig
+    from tpu_flash_torch.engine import InferenceEngine
+
+    model, params = model_and_params
+    results, failed = [], []
+    for kv_dtype, ring in tiers:
+        cfg = EngineConfig(
+            max_batch_size=6, max_seq_len=128, prefill_chunk=32,
+            cache=CacheConfig(page_size=32, num_pages=24,
+                              max_pages_per_seq=4, kv_dtype=kv_dtype,
+                              recent_window=ring))
+
+        def serve(mix, spec_k=8):
+            eng = InferenceEngine(model, params, cfg)
+            eng.speculation_k = spec_k
+            ids = [eng.submit(list(FORK_PROMPTS[0]), FORK_NEW,
+                              n=3 if mix else 1)]
+            if mix:
+                ids += [eng.submit(list(FORK_PROMPTS[1]), FORK_NEW,
+                                   logit_bias=FORK_BAN),
+                        eng.submit(list(FORK_PROMPTS[2]), FORK_NEW)]
+            eng.run()
+            eng.close()
+            return [[eng.outputs[c] for c in eng.branches(i)] for i in ids]
+
+        shadow = {}
+        with shadowed(shadow):
+            got = serve(True)
+        with plain_versions():
+            want = serve(True)
+        (solo,), = serve(False, spec_k=0)
+        (group,) = serve(True, spec_k=0)[:1]
+        rec = dict(kv_dtype=kv_dtype, recent_window=ring,
+                   match_plain=got == want,
+                   branches_equal_solo=group == [solo] * 3,
+                   banned_emitted=sorted(set(got[1][0]) & set(FORK_BAN)),
+                   shadow=shadow,
+                   text=[bytes(o).decode("utf-8", "replace")
+                         for g_ in got for o in g_])
+        log("trained_forks", **rec)
+        name = f"{kv_dtype} ring {ring}"
+        if not rec["match_plain"]:
+            failed.append(f"{name}: kernels {got} != plain {want}")
+        if not rec["branches_equal_solo"]:
+            failed.append(f"{name}: branches {group} != solo {solo}")
+        if rec["banned_emitted"]:
+            failed.append(f"{name}: banned bytes {rec['banned_emitted']}")
+        if (shadow.get("paged_decode", {}).get("differing")
+                or any(v["max_of_bar"] > 1.0 for v in shadow.values())):
+            failed.append(f"{name}: kernel call off its plain version "
+                          f"{shadow}")
+        results.append(rec)
+    if failed:
+        raise AssertionError(f"trained forks and bias: {failed}")
+    return results
 
 
 def check_draft_speculation(model_and_params):
@@ -3381,7 +3761,9 @@ def debug_weights_row(dev, b, h, s, d, causal):
 # ops.build, the pattern of its kernel functions, the pattern of those
 # that must run on the tensor cores, the instances of each (kernel, on
 # the tensor cores) the source builds). A function's kernel is the
-# pattern's first group, or the library's name. Every other instance
+# pattern's first group, or the library's name. flash_fwd's tensor-core
+# kernel has two builds a head width: for calls with rows that see no key
+# and for the others. Every other instance
 # must have no tensor-core instruction: flash_fwd's order-exact instances
 # (the prefill tile over dense K/V: d 64, 128 and 256 in f32 and bf16,
 # bf16 also at 16 rows a block), which flash_fwd_exact and f32 flash_fwd
@@ -3394,7 +3776,7 @@ TC_LIBRARIES = {
                      r"attn_weights_kernel", {("attn_weights", True): 6}),
     "flash_fwd": ("FLASH_FWD", r"flash_fwd(?:_tc|_dense)?_kernel",
                   r"flash_fwd_tc_kernel",
-                  {("flash_fwd", True): 3, ("flash_fwd", False): 9}),
+                  {("flash_fwd", True): 6, ("flash_fwd", False): 9}),
     "variant_fwd": ("VARIANT_FWD", r"variant_fwd_kernel",
                     r"variant_fwd_kernel", {("variant_fwd", True): 20}),
     # K10: every instance on the tensor cores (quant_instances
@@ -3685,6 +4067,7 @@ def main() -> int:
                "attn_weights": check_attn_weights(dev),
                "variant_fwd": check_variant(dev)}
     check_widths(dev, summary)
+    check_flash_blind(dev, summary)
     check_decode_wide_group(dev)
     main_runs = check_main_path(dev)
     main_runs += check_gemma_path(dev)

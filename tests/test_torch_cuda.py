@@ -33,6 +33,8 @@ cores and f32 scores in three TF32 passes.
 """
 
 import math
+import os
+import sys
 
 import pytest
 import torch
@@ -181,6 +183,52 @@ def test_flash_fwd_exact_matches_plain(dev, dtype, d):
     _check_with_control(out, flash_fwd_plain(q, k, v, **kw),
                         flash_fwd_plain(q, k, v, sm_scale=d ** -0.5,
                                         causal=False))
+
+
+def _smoke():
+    """chip_smoke.py, whose kernel routing, controls and card checks these
+    tests share with it."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("entry", ["flash_fwd", "flash_fwd_exact"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_fwd_rows_that_see_no_key_match_plain(dev, d, entry):
+    """bf16, both entries: every row within its bar of the plain
+    version's (_row_bars), the rows that see no key too; the control
+    (those rows averaging only the last step's keys) missed in some row;
+    V raised 3% missed in 90% of the rows past s/2; the blind rows' lse
+    MASK_VALUE + log(kv_len) within 2^-12 of it, the others' within
+    1e-4 of the plain version's."""
+    from tpu_flash_torch.core.reference import DEFAULT_MASK_VALUE
+    from tpu_flash_torch.ops.flash import forward
+
+    # causal, a 64-token window, kv_len 300 of 512 keys: rows from
+    # BLIND_FIRST (363) on start their window at or past kv_len.
+    cs = _smoke()
+    g = torch.Generator(device=dev).manual_seed(26)
+    hq = 4 if d == 256 else 8
+    q = _rn(g, 2, hq, 512, d, dtype=torch.bfloat16)
+    k, v = (_rn(g, 2, 2, 512, d, dtype=torch.bfloat16) for _ in range(2))
+    kw = dict(cs.BLIND, sm_scale=d ** -0.5)
+    out, lse = getattr(forward, entry)(q, k, v, save_lse=True, **kw)
+    torch.cuda.synchronize()
+    ref, ref_lse = forward.flash_fwd_plain(q, k, v, save_lse=True, **kw)
+    late = forward.flash_fwd_plain(q, k, v * 1.03, **kw)
+    _check_rows_with_control(
+        out, ref, cs.blind_control(ref, v, cs.BLIND["kv_len"],
+                                   cs.BLIND_FIRST),
+        None, (late, 256))
+    want = torch.tensor(DEFAULT_MASK_VALUE) + math.log(cs.BLIND["kv_len"])
+    first = cs.BLIND_FIRST
+    blind = lse[..., first:]
+    assert ((blind - want).abs() <= 2.0 ** -12 * abs(float(want))).all()
+    assert (lse[..., :first] - ref_lse[..., :first]).abs().max() <= 1e-4
 
 
 DECODE_TIERS = {  # name: (K tier, V tier, paged_attention options)
@@ -1214,3 +1262,29 @@ def test_variant_kernel_refuses_what_it_does_not_build(dev):
     with pytest.raises(ValueError, match="head_dim"):
         y = torch.zeros(1, 1, 512, 64, dtype=torch.bfloat16, device=dev)
         variant_attention(y, y, y, **args)
+
+
+# -- the engine surface of the HTTP server -----------------------------------
+
+
+def test_engine_forks_and_ban_match_the_plain_engine(dev):
+    """Phase 5's forks and logit bias on the trained checkpoint with an
+    int8 cache and a 32-token ring (the ring copied at the fork):
+    chip_smoke.check_trained_forks holds an n=3 greedy group (a prompt
+    ending mid page), a request with its likeliest bytes banned and a
+    neighbour token for token against the same engine on the plain
+    versions, every kernel call against its plain version, the branches
+    against the prompt served alone, and no banned byte emitted; here
+    also the decode and order-exact prefill kernels launched."""
+    from tpu_flash_torch.checkpoint import load_hf_dir
+    from tpu_flash_torch.ops import build
+
+    cs = _smoke()
+    ckpt = os.path.join(cs.REPO, "checkpoints", "tiny-byte-llama")
+    model, params = load_hf_dir(ckpt, dtype="bfloat16", device=dev)
+    build.reset_launch_counts()
+    (rec,) = cs.check_trained_forks((model, params), tiers=(("int8", 32),))
+    launches = build.launch_counts()
+    assert launches.get("paged_decode") and launches.get("flash_fwd_exact")
+    assert rec["match_plain"] and rec["branches_equal_solo"]
+    assert not rec["banned_emitted"]

@@ -242,10 +242,13 @@ def test_greedy_engine_is_token_exact_vs_jax(trained, kv_dtype, ring):
 
 
 def test_engine_refuses_what_the_slice_does_not_port(trained):
-    """Still refused: optimistic admission and n > 1. An unresolved
-    cache layout now resolves (tests/test_torch_engine_tiers.py holds it
-    to JAX's). Paged prefill, fused mixed steps and speculation (k = 8 by
-    default) construct and step."""
+    """Still refused: optimistic admission, and LoRA adapters (none can
+    be registered: a name raises the JAX engine's "unknown adapter"
+    ValueError; n > 1 forks and logit_bias are held in
+    tests/test_torch_fork_bias.py). An unresolved cache layout now
+    resolves (tests/test_torch_engine_tiers.py holds it to JAX's). Paged
+    prefill, fused mixed steps and speculation (k = 8 by default)
+    construct and step."""
     _, _, tm, tp = trained
     resolved = CacheConfig(**LAYOUT, recent_window=0)
     auto = InferenceEngine(tm, tp, EngineConfig(max_seq_len=256,
@@ -255,8 +258,8 @@ def test_engine_refuses_what_the_slice_does_not_port(trained):
         InferenceEngine(tm, tp, EngineConfig(cache=resolved,
                                              admission="optimistic"))
     eng = InferenceEngine(tm, tp, EngineConfig(cache=resolved))
-    with pytest.raises(NotImplementedError, match="parallel sampling"):
-        eng.submit([1, 2, 3], 4, n=2)
+    with pytest.raises(ValueError, match="unknown adapter 'x'"):
+        eng.submit([1, 2, 3], 4, lora="x")
     assert eng.cancel(eng.submit([1, 2, 3], 4))
     assert not eng.scheduler.has_work()
     eng = InferenceEngine(tm, tp, EngineConfig(

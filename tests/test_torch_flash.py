@@ -67,6 +67,12 @@ CASES = {
     "sinks": dict(sq=48, skv=48, causal=True, sinks=True),
     "alibi": dict(sq=48, skv=80, causal=True, q_offset=32, alibi=True),
     "lse": dict(sq=72, skv=72, causal=True, save_residuals=True),
+    # Rows past position skv + window - 2 = 190 start their window at or
+    # past the last key: every key takes the mask value (o the mean of
+    # V, lse MASK_VALUE + log(skv)). One 128-key tile, so the JAX
+    # kernel's walk covers every key for them too.
+    "window-past-kv": dict(sq=256, skv=128, causal=True, window=64,
+                           save_residuals=True),
 }
 
 
@@ -96,6 +102,31 @@ def test_kv_tail_masks_padded_rows():
     t = t_flash(tq, tk, tv, causal=False, kv_len=37)
     ref = reference_gqa_attention(tq, tk[:, :, :37], tv[:, :, :37])
     np.testing.assert_allclose(_f32(t), _f32(ref), **F32_TOL)
+
+
+def test_rows_that_see_no_key_average_v():
+    """A window that ends past ``kv_len``: rows whose window starts at or
+    past kv_len (positions past kv_len + window - 2) give the mean of
+    V[:kv_len] and lse MASK_VALUE + log(kv_len), as the JAX kernel's
+    rows whose every key is masked do; the other rows are unchanged by
+    the keys past kv_len."""
+    from tpu_flash_torch.core.reference import DEFAULT_MASK_VALUE
+    from tpu_flash_torch.ops.flash.forward import flash_fwd
+
+    _, _, (tq, tk, tv) = _inputs(5, 1, 4, 2, 160, 160, 32)
+    kw = dict(causal=True, sm_scale=32 ** -0.5, window=16, save_lse=True)
+    out, lse = flash_fwd(tq, tk, tv, kv_len=100, **kw)
+    first = 100 + 16 - 1
+    mean = tv[:, :, :100].mean(2).repeat_interleave(2, 1)
+    np.testing.assert_allclose(
+        _f32(out[:, :, first:]),
+        _f32(mean[:, :, None].expand(-1, -1, 160 - first, -1)), **F32_TOL)
+    want = np.float32(DEFAULT_MASK_VALUE) + np.float32(np.log(100))
+    np.testing.assert_array_equal(_f32(lse[:, :, first:]), want)
+    cut, cut_lse = flash_fwd(tq[:, :, :first], tk[:, :, :100],
+                             tv[:, :, :100], **kw)
+    np.testing.assert_array_equal(_f32(out[:, :, :first]), _f32(cut))
+    np.testing.assert_array_equal(_f32(lse[:, :, :first]), _f32(cut_lse))
 
 
 def test_bf16_causal_gqa_chunk():

@@ -65,12 +65,23 @@
 // at d 256 a block is two of the tile's 64-column windows, whose scores go
 // through a slot of the score scratch (the wrapper allocates it). l sums
 // each block in the order of PyTorch's CUDA row sum (prefill_tile.cuh,
-// TORCH_L), so it is the plain version's l bit for bit. A row that sees
-// no key of a non-empty K/V (a window past kv_len)
-// attends every key with the mask value, as the plain version does: its
-// block then walks every column. Not detected from positions: a q segment
-// that no key carries (such a row averages only the keys its block
-// walks).
+// TORCH_L), so it is the plain version's l bit for bit.
+//
+// Rows that see no key. A causal row of a non-empty K/V whose window
+// starts at or past kv_len (or whose position is below 0) takes every
+// column of [0, kv_len) at the mask value, as the plain version does: m =
+// MASK_VALUE, l = kv_len, o the mean of V, lse MASK_VALUE + log(kv_len).
+// Both kernels detect such a block (`blind`) and walk every step of
+// [0, kv_len) for it. The tensor-core kernel has a build for calls that
+// hold such a row (BLIND; the host picks it from the first and last row's
+// positions), in which only the warps that hold one (decided once a warp)
+// stop skipping steps and leave columns past kv_len at -inf, so a blind
+// row does not count them; the block's other warps walk and score as the
+// build without the test, which every other call runs. A row whose max is
+// the mask value leaves it unscaled by ln 2 (the mask value is never taken
+// to log2 units: times log2 e it would overflow to -inf).
+// Not detected from positions, in either kernel: a q segment that no key
+// carries (such a row averages only the keys its block walks).
 
 // Layout: q [b, hq, sq, d], k/v [b, hkv, skv, d], o like q, lse f32
 // [b, hq, sq]; all contiguous (bf16 rows 16-byte aligned). GQA by index:
@@ -107,15 +118,25 @@ struct FwdParams {
   float softcap, inv_softcap;    // softcap <= 0: none
 };
 
+// Whether a causal row of positions [lo, hi] sees no key of a non-empty
+// K/V: its position is below 0, or its window starts at or past kv_len.
+__host__ __device__ __forceinline__ bool sees_no_key(const FwdParams& p,
+                                                     int lo, int hi) {
+  return p.causal && p.kv_len > 0 &&
+         (lo < 0 || (p.window > 0 && hi - p.window + 2 > p.kv_len));
+}
+
 // The kv tiles of BK rows a q tile [q0, q0 + bq) attends: the triangular
-// grid's active cells. Returns (first, last) in first/last.
+// grid's active cells, or (BLIND builds) every tile of [0, kv_len) where a
+// row of the tile sees no key. Returns (first, last) in first/last.
+template <bool BLIND>
 __device__ __forceinline__ void kv_tiles(const FwdParams& p, int q0, int bq,
                                          int& first, int& last) {
   const int q_first = q0 + p.q_offset;
   const int q_last = min(q0 + bq, p.sq) - 1 + p.q_offset;
   first = 0;
   last = (p.kv_len + BK - 1) / BK - 1;
-  if (p.causal) {
+  if (p.causal && !(BLIND && sees_no_key(p, q_first, q_last))) {
     last = min(last, q_last / BK);
     if (p.window > 0) {
       const int lo = q_first - p.window + 1;
@@ -148,21 +169,26 @@ constexpr bool TC_EXP2 = true;
 // Softcap, ALiBi and the masks for one warp's 16 q rows from wq0. Under
 // EXP2 a live score leaves in log2 units (times log2 e, after softcap and
 // ALiBi: the rounded q' stays the TPU's), for exp2f. PLAIN: whether the
-// build has the option-free path (plain()) at all.
-template <bool EXP2, bool PLAIN>
+// build has the option-free path (plain()) at all. BLIND: whether a row of
+// the call may see no key (the build for such calls; the other build's
+// warps never test for one).
+template <bool EXP2, bool PLAIN, bool BLIND>
 struct FlashScore {
   const FwdParams& p;
   int b, wq0;
   float slope;
   bool no_options;  // no softcap, no ALiBi
+  bool blind_warp;  // BLIND builds: a row of the warp sees no key
+  // A row of the warp sees no key: the warp walks every step.
+  __device__ bool blind() const { return BLIND && blind_warp; }
   // The warp's positions: its first and last q row that exist.
   __device__ int qlo() const { return wq0 + p.q_offset; }
   __device__ int qhi() const { return min(wq0 + 15, p.sq - 1) + p.q_offset; }
   // No row of the warp sees the step: past sq, above the diagonal, or
-  // below the window.
+  // below the window (and no row of the warp sees no key).
   __device__ bool skip(int k0) const {
     if (wq0 >= p.sq) return true;
-    if (!p.causal) return false;
+    if (!p.causal || blind()) return false;
     return k0 > qhi() || (p.window > 0 && k0 + BK - 1 <= qlo() - p.window);
   }
   // The step needs the compares: segment ids, the kv tail, or the
@@ -189,11 +215,15 @@ struct FlashScore {
       valid = p.q_seg[(long long)b * p.sq + row] ==
               p.kv_seg[(long long)b * p.skv + kpos];
     }
-    return valid ? x : MASK_VALUE;
+    if (valid) return x;
+    // Past kv_len the plain version walks no column: in a warp that holds
+    // a row that sees no key, -inf there counts in no row's sum, where the
+    // mask value would.
+    return blind() && kpos >= p.kv_len ? -INFINITY : MASK_VALUE;
   }
 };
 
-template <class G, bool EXP2, bool PLAIN>
+template <class G, bool EXP2, bool PLAIN, bool BLIND>
 __global__ void __launch_bounds__(G::THREADS)
     flash_fwd_tc_kernel(const __grid_constant__ FwdParams p) {
   constexpr int D = G::D;
@@ -208,10 +238,13 @@ __global__ void __launch_bounds__(G::THREADS)
   const long long qbase = ((long long)b * p.hq + h) * (long long)p.sq * D;
   const long long kvbase = ((long long)b * p.hkv + hk) * (long long)p.skv * D;
   int first, last;
-  kv_tiles(p, q0, G::BQ, first, last);
-  const FlashScore<EXP2, PLAIN> score{
-      p, b, q0 + warp * 16, p.alibi != nullptr ? p.alibi[h] : 0.f,
-      !(p.softcap > 0.f) && !(p.causal && p.alibi != nullptr)};
+  kv_tiles<BLIND>(p, q0, G::BQ, first, last);
+  const int wq0 = q0 + warp * 16;
+  const FlashScore<EXP2, PLAIN, BLIND> score{
+      p, b, wq0, p.alibi != nullptr ? p.alibi[h] : 0.f,
+      !(p.softcap > 0.f) && !(p.causal && p.alibi != nullptr),
+      BLIND && sees_no_key(p, wq0 + p.q_offset,
+                           min(wq0 + 15, p.sq - 1) + p.q_offset)};
   tc::FwdRows<D> r;
   tc::fwd_block<G, EXP2>(static_cast<const bf16*>(p.q) + qbase,
                          static_cast<const bf16*>(p.k) + kvbase,
@@ -224,9 +257,12 @@ __global__ void __launch_bounds__(G::THREADS)
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + 8 * half;
     if (row >= p.sq) continue;
+    // A live max leaves in log2 units; the mask value (the max of a row
+    // that sees no key) leaves as it is.
+    const float m = r.m[half];
     float mult, lse;
-    finish_row(p, h, EXP2 ? r.m[half] * LN2 : r.m[half], r.l[half], mult,
-               lse);
+    finish_row(p, h, EXP2 && !(BLIND && m == MASK_VALUE) ? m * LN2 : m,
+               r.l[half], mult, lse);
     tc::fwd_store_row<D>(static_cast<bf16*>(p.o) + qbase + (long long)row * D,
                          r, half, mult);
     if (p.lse != nullptr && (lane & 3) == 0)
@@ -234,15 +270,25 @@ __global__ void __launch_bounds__(G::THREADS)
   }
 }
 
-template <class G, bool EXP2, bool PLAIN = true>
-int launch_bf16(const FwdParams& p, int batch, cudaStream_t stream) {
-  cudaFuncSetAttribute(flash_fwd_tc_kernel<G, EXP2, PLAIN>,
+template <class G, bool EXP2, bool PLAIN, bool BLIND>
+int launch_tc(const FwdParams& p, int batch, cudaStream_t stream) {
+  cudaFuncSetAttribute(flash_fwd_tc_kernel<G, EXP2, PLAIN, BLIND>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)G::smem);
   dim3 grid((p.sq + G::BQ - 1) / G::BQ, p.hq, batch);
-  flash_fwd_tc_kernel<G, EXP2, PLAIN>
+  flash_fwd_tc_kernel<G, EXP2, PLAIN, BLIND>
       <<<grid, G::THREADS, G::smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The BLIND build only for a call whose last row (or first, at a negative
+// offset) sees no key, so every other call runs the build without the
+// test.
+template <class G, bool EXP2, bool PLAIN = true>
+int launch_bf16(const FwdParams& p, int batch, cudaStream_t stream) {
+  if (sees_no_key(p, p.q_offset, p.sq - 1 + p.q_offset))
+    return launch_tc<G, EXP2, PLAIN, true>(p, batch, stream);
+  return launch_tc<G, EXP2, PLAIN, false>(p, batch, stream);
 }
 
 FwdParams make_params(const void* q, const void* k, const void* v, void* o,

@@ -264,3 +264,32 @@ class PagedKVCache:
         kr[slots, :, rows] = new_k[src].to(kr.dtype)
         vr[slots, :, rows] = new_v[src].to(vr.dtype)
         return self
+
+    def copy_pages(self, src, dst) -> "PagedKVCache":
+        """Copy whole pages ``src[i] -> dst[i]`` across every layer and
+        kv head, in place: both sides' payloads and scales (a fork's
+        partial tail page, which each branch appends into). Every tensor
+        keeps the page axis at dim 2 whatever its side's layout
+        (``_side_layout``: token-packed nibbles hold ps / 2 rows a page;
+        int4g32's group rows are stored transposed, [2 * d/32, ps]; k8v4
+        mixes the int8 and int4 layouts), so one index copies each page
+        byte for byte."""
+        dev = self.k_pages.device
+        src = torch.as_tensor(src, dtype=torch.long, device=dev)
+        dst = torch.as_tensor(dst, dtype=torch.long, device=dev)
+        for t in (self.k_pages, self.v_pages, self.k_scales, self.v_scales):
+            if t is not None:
+                t[:, :, dst] = t[:, :, src]
+        return self
+
+    def copy_recent(self, src_slot: int, dst_slots) -> "PagedKVCache":
+        """Copy one slot's recent ring into other slots, in place
+        (sampling forks: branches start from the parent's context, so
+        they inherit its exact recent window)."""
+        if self.k_recent is None:
+            return self
+        dst = torch.as_tensor(list(dst_slots), dtype=torch.long,
+                              device=self.k_recent.device)
+        for ring in (self.k_recent, self.v_recent):
+            ring[:, dst] = ring[:, src_slot:src_slot + 1]
+        return self

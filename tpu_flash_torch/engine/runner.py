@@ -27,7 +27,17 @@ burst decode (``paged_attention``) or speculative verify -> sampling.
     sampling; otherwise bursts of up to ``max_decode_burst`` single-token
     steps over every batch slot, one host fetch per burst.
 
-n>1 forks, preemption/swap, LoRA and logit_bias are later slices.
+``submit(n > 1)`` prefills the prompt once and forks n decode branches
+at its final chunk: they share the prompt's full pages (allocator
+refcounts), each gets its own copy of the partial tail page
+(``PagedKVCache.copy_pages``) and of the parent's recent ring
+(``copy_recent``), and their first tokens are one batched draw from the
+parent's last logits. ``logit_bias`` is a per-slot [vocab] row added to
+the logits on every sampling path (prefill's first token, fused decode
+rows, burst steps, speculative verify); reported log-probs are of the
+biased logits. Optimistic admission with preemption/swap and LoRA
+adapters are later slices: ``lora`` takes None (a name raises, as for an
+adapter never registered).
 
 The engine runs on ``model.device`` ("cuda" unless the model was built
 for "cpu"); it mutates its cache and slot tensors in place.
@@ -60,7 +70,7 @@ from tpu_flash_torch.engine.sampling import (
     sample_tokens,
     speculative_sample,
 )
-from tpu_flash_torch.engine.scheduler import Request, Scheduler
+from tpu_flash_torch.engine.scheduler import Request, RequestState, Scheduler
 from tpu_flash_torch.models.transformer import FlashTransformer, _rms_norm
 from tpu_flash_torch.ops.decode import paged_attention
 from tpu_flash_torch.ops.flash import (
@@ -76,6 +86,15 @@ def _pow2_bucket(n: int, lo: int = 8) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def _adapter_id(name: Optional[str]) -> int:
+    """The id of a request's LoRA adapter, as the JAX ``LoRAStore.id_of``
+    gives it: 0 for None. Adapters are a later slice, so no name is
+    registered."""
+    if name is None:
+        return 0
+    raise ValueError(f"unknown adapter {name!r}")
 
 
 class InferenceEngine:
@@ -147,10 +166,20 @@ class InferenceEngine:
         self.top_ks = np.zeros((mb,), np.int32)
         self.top_ps = np.ones((mb,), np.float32)
         self.min_ps = np.zeros((mb,), np.float32)
+        # Per-slot additive logit bias (submit(logit_bias={token: bias})):
+        # a dense [mb, vocab] f32 tensor added to the logits of every
+        # sampling path that holds a biased slot; a row changes only when
+        # its slot's request does.
+        self.logit_bias = torch.zeros((mb, cfg.vocab_size),
+                                      dtype=torch.float32, device=dev)
+        self._slot_bias = np.zeros((mb,), bool)
+        self._slot_bias_req = np.full((mb,), -1, np.int64)
         self._generator = torch.Generator(device=dev)
         self._generator.manual_seed(seed)
         self.outputs: Dict[int, List[int]] = {}
         self.logprobs: Dict[int, List[float]] = {}
+        # Parallel sampling: request id -> [id, child ids...]; survives
+        # retirement so callers can map a submit() id to all completions.
         self._branch_ids: Dict[int, List[int]] = {}
         self.metrics = EngineMetrics()
         self.health_config = config.health or HealthConfig()
@@ -186,21 +215,42 @@ class InferenceEngine:
         stop_tokens: Optional[List[int]] = None,
         n: int = 1,
         priority: int = 0,
+        lora: Optional[str] = None,
+        logit_bias: Optional[Dict[int, float]] = None,
     ) -> int:
-        """Queue a request; returns its id. Higher ``priority`` admits
-        first. ``n > 1`` (parallel completions) is a later slice."""
-        if n != 1:
-            raise NotImplementedError(
-                "n > 1 parallel sampling is not ported yet (ROADMAP queue "
-                "1, item 13)"
+        """Queue a request; returns its id. ``n > 1`` asks for n parallel
+        completions of the same prompt (OpenAI-style ``n``): the prompt
+        prefills once, then forks into n decode branches sharing the
+        prompt's KV pages (branch ids via :meth:`branches`; each branch
+        has its own outputs/logprobs entry). Higher ``priority`` admits
+        first. ``lora`` names an adapter; none can be registered yet, so
+        only None is served. ``logit_bias`` maps token ids to additive
+        logit offsets (OpenAI convention: ~-100 bans a token, ~+100
+        forces it) applied before the sampling filters on every path;
+        reported logprobs are of the biased distribution."""
+        if n < 1:
+            raise ValueError("n must be >= 1")
+        if n > 1 and max_new_tokens < 1:
+            raise ValueError("parallel sampling needs max_new_tokens >= 1")
+        if n > self.config.max_batch_size:
+            raise ValueError(
+                f"n={n} exceeds max_batch_size "
+                f"{self.config.max_batch_size}: the branch group needs n "
+                f"batch slots at once"
             )
+        # Work that could never fit the page pool even when idle would
+        # wait forever (num_pages - 1: one page is the trash page). Each
+        # branch owns every page past the prompt's full ones.
         ps = self.config.cache.page_size
         total = -(-(len(prompt) + max_new_tokens) // ps)
-        if total > self.config.cache.num_pages - 1:
+        own = total - len(prompt) // ps
+        if total + (n - 1) * own > self.config.cache.num_pages - 1:
             raise ValueError(
                 "request needs more KV pages than the cache has "
-                f"({total} > {self.config.cache.num_pages - 1})"
+                f"({total + (n - 1) * own} > "
+                f"{self.config.cache.num_pages - 1})"
             )
+        lora_id = _adapter_id(lora)
         req_id = self._next_id
         self._next_id += 1
         req = Request(
@@ -209,17 +259,52 @@ class InferenceEngine:
             max_new_tokens=max_new_tokens,
             sampling=sampling,
             stop_tokens=tuple(stop_tokens or ()),
+            n_branches=n,
             priority=priority,
+            lora_id=lora_id,
         )
         req._prompt = list(prompt)
+        if logit_bias:
+            vocab = self.model.config.vocab_size
+            for t in logit_bias:
+                if not 0 <= int(t) < vocab:
+                    raise ValueError(
+                        f"logit_bias token {t} outside vocab [0, {vocab})"
+                    )
+            req._logit_bias = dict(logit_bias)
+        if n > 1:
+            children = []
+            for _ in range(n - 1):
+                cid = self._next_id
+                self._next_id += 1
+                ch = Request(
+                    req_id=cid,
+                    prompt_len=len(prompt),
+                    max_new_tokens=max_new_tokens,
+                    sampling=sampling,
+                    stop_tokens=tuple(stop_tokens or ()),
+                    parent_id=req_id,
+                    priority=priority,
+                    lora_id=lora_id,
+                )
+                ch._prompt = req._prompt  # branches never prefill
+                if logit_bias:
+                    ch._logit_bias = dict(logit_bias)
+                children.append(ch)
+                self.outputs[cid] = []
+                self.logprobs[cid] = []
+            req.child_ids = tuple(ch.req_id for ch in children)
+            req._children_reqs = children
         self.scheduler.add_request(req)
         self.outputs[req_id] = []
         self.logprobs[req_id] = []
-        self._branch_ids[req_id] = [req_id]
+        self._branch_ids[req_id] = [req_id, *req.child_ids]
         return req_id
 
     def branches(self, req_id: int) -> List[int]:
-        """All completion ids of a request (itself, in this slice)."""
+        """All completion ids of a request: itself plus any parallel-
+        sampling branch ids (submission order). Valid for live and
+        finished requests alike."""
         return list(self._branch_ids.get(req_id, [req_id]))
 
     def cancel(self, req_id: int) -> bool:
@@ -236,7 +321,10 @@ class InferenceEngine:
                 if slot is not None and sched.slots[slot] == cid:
                     self.active[slot] = False
                 hit = True
-        kept = [r for r in sched.waiting if r.req_id not in comp]
+        kept = [
+            r for r in sched.waiting
+            if r.req_id not in comp and r.parent_id != req_id
+        ]
         if len(kept) != len(sched.waiting):
             sched.waiting.clear()
             sched.waiting.extend(kept)
@@ -248,6 +336,22 @@ class InferenceEngine:
         while self.scheduler.has_work():
             self.step()
         return self.outputs
+
+    def stream(self):
+        """Generator driving the engine until idle, yielding ``(req_id,
+        index, token)`` for every newly committed token after each step:
+        tokens surface at step granularity (a burst or an accepted draft
+        yields several at once). New requests may be submitted between
+        yields; iteration ends when no work remains."""
+        emitted = {rid: len(t) for rid, t in self.outputs.items()}
+        while self.scheduler.has_work():
+            self.step()
+            # list(): submit() between yields may grow the dict.
+            for rid, toks in list(self.outputs.items()):
+                start = emitted.get(rid, 0)
+                for i in range(start, len(toks)):
+                    yield rid, i, toks[i]
+                emitted[rid] = len(toks)
 
     def close(self) -> None:
         self._fetcher.close()
@@ -668,6 +772,9 @@ class InferenceEngine:
         # The fused decode rows: one batched sample with per-row
         # parameters, then the decode step's per-slot bookkeeping.
         dlog = last_logits[len(chunks):len(chunks) + len(ditems)]
+        dslots = [s for _, s, _ in ditems]
+        if self._slot_bias[dslots].any():
+            dlog = dlog + self.logit_bias[dslots]
         sps = [it[0].sampling for it in ditems]
         toks = self._sample(
             dlog,
@@ -714,16 +821,16 @@ class InferenceEngine:
         self.page_tables[slot] = table_row
         self.lengths[slot] = new_len
         sp = req.sampling
-        self.temps[slot] = sp.temperature
-        self.top_ks[slot] = sp.top_k
-        self.top_ps[slot] = sp.top_p
-        self.min_ps[slot] = sp.min_p
+        self._install_request(slot, req)
         # Index the prompt's full pages written so far for prefix reuse.
         if self.prefix_index is not None:
             self.prefix_index.register(req._prompt[:new_len], table)
         if new_len < req.prompt_len:
             return
-        # Final chunk: its last-position logits emit the first token.
+        # Final chunk: its last-position logits (biased) emit the first
+        # token.
+        if self._slot_bias[slot]:
+            last_logits = last_logits + self.logit_bias[slot]
         tok = self._sample(
             last_logits[None],
             np.array([sp.temperature], np.float32),
@@ -735,22 +842,112 @@ class InferenceEngine:
         tok_host, logp_host = self._fetcher.fetch(
             torch.stack([tok.double(), logp.double()])
         )
-        next_token = int(tok_host)
+        self._start_decoding(slot, req, int(tok_host), float(logp_host))
+        if req.child_ids:
+            self._fork_branches(req, table, last_logits)
+
+    def _start_decoding(self, slot: int, req: Request, tok: int,
+                        logp: float) -> None:
+        """``req``'s first token ``tok`` (log-prob ``logp``) in ``slot``:
+        the slot decodes from it unless it is a stop token."""
         self.last_tokens[slot] = tok
         self.active[slot] = True
-        self.outputs[req.req_id].append(next_token)
-        self.logprobs[req.req_id].append(float(logp_host))
+        self.outputs[req.req_id].append(tok)
+        self.logprobs[req.req_id].append(logp)
         self.scheduler.report_decoded(req.req_id)
-        if next_token in req.stop_tokens:
+        if tok in req.stop_tokens:
             req.stopped = True
             self.active[slot] = False
+
+    def _install_request(self, slot: int, req: Request) -> None:
+        """Point ``slot``'s sampling parameters and logit bias at
+        ``req``: its bias row is written once (prefill calls this per
+        chunk), and a row a previous request left is cleared."""
+        sp = req.sampling
+        self.temps[slot] = sp.temperature
+        self.top_ks[slot] = sp.top_k
+        self.top_ps[slot] = sp.top_p
+        self.min_ps[slot] = sp.min_p
+        bias = getattr(req, "_logit_bias", None)
+        if bias:
+            if self._slot_bias_req[slot] == req.req_id:
+                return
+            row = torch.zeros((self.model.config.vocab_size,),
+                              dtype=torch.float32)
+            for t, v in bias.items():
+                row[int(t)] = float(v)
+            self.logit_bias[slot] = row.to(self.device)
+            self._slot_bias[slot] = True
+            self._slot_bias_req[slot] = req.req_id
+        elif self._slot_bias[slot]:
+            self.logit_bias[slot] = 0.0
+            self._slot_bias[slot] = False
+            self._slot_bias_req[slot] = -1
+
+    # -- parallel sampling (n > 1 branches a prompt) ---------------------------
+
+    def _fork_branches(self, req: Request, table, last_logits) -> None:
+        """Turn the parent's FORK_WAIT children into running decode
+        branches: copy the prompt's partial tail page into each child's
+        own page and the parent's recent ring into each child's slot,
+        sample each child's first token from the parent's final prefill
+        logits (already biased), and install each slot's decode state.
+        Children then decode as ordinary independent sequences."""
+        sched = self.scheduler
+        children = [
+            sched.active[cid]
+            for cid in req.child_ids
+            if cid in sched.active
+            and sched.active[cid].state is RequestState.FORK_WAIT
+        ]
+        if not children:
+            return
+        ps = self.config.cache.page_size
+        pps = self.config.cache.max_pages_per_seq
+        shared_n = req.prompt_len // ps
+        if req.prompt_len % ps:
+            self.cache.copy_pages(
+                [table[shared_n]] * len(children),
+                [sched.page_table(ch.req_id)[shared_n] for ch in children],
+            )
+        if self.cache.k_recent is not None:
+            self.cache.copy_recent(req.batch_slot,
+                                   [ch.batch_slot for ch in children])
+        # One batched draw: n independent samples from the same logits,
+        # with the parent's sampling parameters.
+        sp = req.sampling
+        nch = len(children)
+        toks = self._sample(
+            last_logits.expand(nch, -1),
+            np.full((nch,), sp.temperature, np.float32),
+            np.full((nch,), sp.top_k, np.int32),
+            np.full((nch,), sp.top_p, np.float32),
+            np.full((nch,), sp.min_p, np.float32),
+        )
+        lps = torch.log_softmax(last_logits, dim=-1)[toks]
+        host = self._fetcher.fetch(torch.stack([toks.double(),
+                                                lps.double()]))
+        for i, ch in enumerate(children):
+            slot = ch.batch_slot
+            ctable = sched.page_table(ch.req_id)
+            self.page_tables[slot] = self._dev_tensor(
+                ctable + [self.trash_page] * (pps - len(ctable)),
+                torch.int32)
+            self.lengths[slot] = req.prompt_len
+            self._install_request(slot, ch)
+            ch.state = RequestState.RUNNING
+            ch.prefilled = req.prompt_len
+            self._start_decoding(slot, ch, int(host[0, i]),
+                                 float(host[1, i]))
+        req._children_reqs = []
 
     # -- decode ----------------------------------------------------------------
 
     def _decode_step_impl(self, tokens, lengths, active_mask, temps,
-                          top_ks, top_ps, min_ps):
+                          top_ks, top_ps, min_ps, bias=None):
         """One decode token for every batch slot (inactive slots write the
-        trash page; their outputs are ignored). Returns (next_tokens,
+        trash page; their outputs are ignored); ``bias`` [mb, vocab] is
+        added to the logits when given. Returns (next_tokens,
         new_lengths, finite, logps)."""
         model = self.model
         cfg = model.config
@@ -797,6 +994,8 @@ class InferenceEngine:
             x = x + model._mlp(layer, xn)
         x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
         logits = (x @ params["lm_head"]).float()
+        if bias is not None:
+            logits = logits + bias
         sampled = self._sample(logits, temps, top_ks, top_ps, min_ps)
         # Inactive slots keep their token: it is the slot's state.
         next_tokens = torch.where(active_mask, sampled, tokens)
@@ -810,15 +1009,17 @@ class InferenceEngine:
         ).all()
         return next_tokens, new_lengths, finite, logps
 
-    def _decode_multi_impl(self, n_steps: int, active_mask):
+    def _decode_multi_impl(self, n_steps: int, active_mask, bias=None):
         """``n_steps`` decode steps back to back, with no host sync
-        between them. Returns (tokens [n, mb], finite, logps [n, mb])."""
+        between them (``bias``: as ``_decode_step_impl``'s). Returns
+        (tokens [n, mb], finite, logps [n, mb])."""
         toks, flags, logps = [], [], []
         for _ in range(n_steps):
             (self.last_tokens, self.lengths, finite, lp) = (
                 self._decode_step_impl(
                     self.last_tokens, self.lengths, active_mask,
                     self.temps, self.top_ks, self.top_ps, self.min_ps,
+                    bias,
                 )
             )
             toks.append(self.last_tokens)
@@ -925,13 +1126,14 @@ class InferenceEngine:
         return torch.einsum("bhqk,bhkd->bhqd", w, vf).to(q.dtype)
 
     def _verify_impl(self, n_tok: int, tokens, lengths_b, table_rows, temps,
-                     top_ks, top_ps, draft_lens, min_ps, slots):
+                     top_ks, top_ps, draft_lens, min_ps, slots, bias=None):
         """Verify a batch of [last_token, draft...] rows [B, n_tok] in one
         forward at per-row offsets ``lengths_b``, then exact rejection
         sampling per row. Every row's n_tok tokens' K/V append to the
         pages (rejected entries are masked by lengths and overwritten when
         their positions are reached); the exact ring takes only the
         accepted rows, after the sampler (the rest go to the trash slot).
+        ``bias`` [B, vocab], when given, is added to every row's logits.
         Returns (emit [B, n_tok], n_emit [B], finite, logps [B, n_tok])."""
         ps = self.config.cache.page_size
         pps = self.config.cache.max_pages_per_seq
@@ -981,11 +1183,13 @@ class InferenceEngine:
             self.params, tokens, kv_hook=kv_hook, positions=positions,
             attention_fn=attention_fn,
         )  # [B, n_tok, vocab]
+        if bias is not None:
+            logits = logits + bias[:, None, :]
         emit, n_emit = speculative_sample(
             logits, tokens[:, 1:], self._generator, temps, top_ks, top_ps,
             draft_lens, min_p=min_ps,
         )
-        # Reported log-probs are the raw model distribution's.
+        # Reported log-probs are the (biased) logits' before the filters.
         logps = torch.log_softmax(logits, dim=-1).gather(
             -1, emit[..., None]
         )[..., 0]
@@ -1041,12 +1245,19 @@ class InferenceEngine:
             return torch.tensor([getattr(sp, name) for sp in sps],
                                 dtype=dtype, device=dev)
 
+        bias = None
+        if self._slot_bias[[slot for _, slot, _ in items]].any():
+            bias = torch.cat([
+                self.logit_bias[slots_t],
+                torch.zeros((n_pad, self.logit_bias.shape[1]),
+                            dtype=torch.float32, device=dev),
+            ])
         emit, n_emit, finite, logps = self._verify_impl(
             n_tok, torch.tensor(tok_rows, dtype=torch.long, device=dev),
             lengths_b, table_rows, param("temperature", torch.float32),
             param("top_k", torch.int64), param("top_p", torch.float32),
             torch.tensor(dlens, dtype=torch.long, device=dev),
-            param("min_p", torch.float32), slot_rows,
+            param("min_p", torch.float32), slot_rows, bias,
         )
         # One host fetch: tokens, log-probs, counts (exact in float64) and
         # the finite flag.
@@ -1152,8 +1363,11 @@ class InferenceEngine:
         n_steps = max(1, min(remaining + [self.max_decode_burst]))
         if self.scheduler.waiting:
             n_steps = 1
+        # The bias joins the burst only when a slot it decodes has one, so
+        # the unbiased step adds nothing to the device or the host.
         all_tokens, finite, all_logps = self._decode_multi_impl(
-            n_steps, active_mask
+            n_steps, active_mask,
+            self.logit_bias if self._slot_bias[mask].any() else None,
         )
         # One host fetch per burst: tokens and log-probs (both exact in
         # float64), then the finite flag as a last row.
