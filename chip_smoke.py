@@ -64,7 +64,9 @@ network. Phases, one JSON line each:
      ending past kv_len) on both entries at d 128 and 256, each row
      within its bar, the blind rows' lse MASK_VALUE + log(kv_len), a
      control (those rows averaging only the last step's keys) that must
-     miss;
+     miss; rows whose q segment no key carries (bf16 and f32, both
+     entries, d 128) likewise, the kernels' second pass giving them the
+     mean of V;
   4. main path: Llama-3-8B geometry at full width (all 32 layers, seeded
      random bf16 weights made on the card) served by the port's engine at
      its default routing (paged prefill, fused mixed steps, speculation
@@ -81,9 +83,21 @@ network. Phases, one JSON line each:
      alone, then greedy, streamed, n=2 greedy, n=3 sampled, forced and
      banned-token requests at once from client threads beside a bad
      request and /health (requests/s and the wall a request printed);
-     then Gemma-2-9B at full width (42 layers, head width 256, seeded
-     random bf16 weights) on the int8 + ring and bf16 caches. Launch
-     counters (per kernel and per page tier) reset before each run;
+     optimistic admission on a 32-page pool under recompute and under
+     swap preemption (each must preempt, deliver every budget and free
+     every page; the first request restored holding, byte for byte, its
+     pages and ring row as they stood when it was swapped out; tok/s,
+     the wall and the token match beside the reserve run's); the
+     swap run snapshotted mid-decode with a victim swapped out, restored
+     into a fresh engine and run on, token for token the uninterrupted
+     run (bytes, write and read seconds printed); two seeded rank-16
+     adapters over every projection served mixed with base requests
+     (base rows' first logits bit for bit the run without adapters,
+     adapted rows within the 5% bar of the plain forward on merged
+     weights, the base logits missing it); then Gemma-2-9B at full width
+     (42 layers, head width 256, seeded random bf16 weights) on the int8
+     + ring and bf16 caches. Launch counters (per kernel and per page
+     tier) reset before each run;
   5. trained model: checkpoints/tiny-byte-llama served at the engine's
      defaults on every cache tier, and a staggered two-request scenario
      that reaches every route (int8, int4, fp8); the int8 runs again with
@@ -96,7 +110,12 @@ network. Phases, one JSON line each:
      engine without speculation, acceptance printed; an n=3 greedy
      group, a banned-token request and a neighbour on bf16, int8 +
      ring, int4 and k8v4, token for token the plain versions', and the
-     group's branches equal to the prompt served alone;
+     group's branches equal to the prompt served alone; optimistic
+     admission on a 6-page pool (bf16 and int8 + ring, recompute and
+     swap, and swap with an adapter), each run token for token the plain
+     versions' with every kernel call shadowed, the adapter run also
+     snapshotted after a swap and restored, its continuation the
+     uninterrupted run's;
   6. training at full width: Llama-3-8B widths cut to 4 of its 32 layers
      (the only cut), seeded random bf16 weights made on the card, batch
      4 x 2048 tokens, AdamW with a norm clip for 6 steps on one repeated
@@ -105,7 +124,10 @@ network. Phases, one JSON line each:
   7. the trained checkpoint: its loss over windows of the repo's own
      Markdown on the kernels and on the plain versions, then 10 AdamW
      steps on each path from the same weights and batches (one batch
-     packed with segment ids), step losses compared;
+     packed with segment ids), step losses compared; the kernel path's
+     first 4 steps again, a ``TrainCheckpointManager`` checkpoint, params
+     and AdamW state restored into fresh objects and steps 5-10 taken:
+     every loss bit for bit the uninterrupted run's;
   8. bench: ``tpu_flash_torch.bench`` configs 1-12 in-process (flash
      parity at d 64 and 128, prefill TFLOP/s, decode tok/s and the int8
      quantization delta, int8 and fp8 QKV prefill at 8K, 32K prefill and
@@ -114,12 +136,17 @@ network. Phases, one JSON line each:
      (int8 >= 0.95, int4 and fp8 >= 0.90, every tier's tokens those of
      the plain versions), the engine's decode on its kernel time (below
      the wall time per step), the attention train step, speculative
-     serving), ``attention_weights`` on
-     config 1's shapes against the oracle's weights, then the variant
+     serving; config 6 also through two rank-16 adapters),
+     ``attention_weights`` on config 1's shapes against the oracle's
+     weights, then the variant
      sweep (``tpu_flash_torch.bench.experiments``): targets met, every
      variant through the parity gate, rates finite and positive, each
-     config's kernels launched.
+     config's kernels launched. This phase runs at a smaller depth than
+     the bench's CLI, to keep the smoke within its time: its
+     differential timing takes windows of 0.05 s, 3 times each, not 0.15
+     s, 4 times (``BENCH_WINDOW_S``, ``BENCH_REPEATS``).
 
+A ``phase_walls`` line gives each phase's seconds, the build's included.
 Then the nvidia-smi line, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
 exits non-zero and prints no result. Without CUDA it exits 2 at once.
@@ -139,6 +166,7 @@ import subprocess
 import sys
 import time
 
+START = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -573,16 +601,17 @@ def blind_control(ref, v, kv_len, first):
     return ctl
 
 
-def blind_bound(q, k, kw, first):
-    """flash_bound's rule, with each row that sees no key doing the work
-    of every key of [0, kv_len) (its output is their mean). The function
-    reads q and K/V[:kv_len] and writes o."""
+def blind_bound(q, k, kw):
+    """flash_bound's rule for a case with rows that see no key: the live
+    pairs' work, plus the mean of V[:kv_len] that those rows' output is
+    (kv_len d adds for each batch row and kv head, shared by all such
+    rows of it). The function reads q and K/V[:kv_len] and writes o."""
     b, hq, sq, d = q.shape
-    kv_len = kw["kv_len"]
-    pairs = live_pairs(b, sq, k.shape[2], kw) + b * (sq - first) * kv_len
-    nbytes = q.element_size() * (2 * q.numel()
-                                 + 2 * b * k.shape[1] * kv_len * d)
-    return bound(nbytes, 4.0 * hq * d * pairs, "bfloat16")
+    hkv, kv_len = k.shape[1], kw["kv_len"]
+    ops = (4.0 * hq * d * live_pairs(b, sq, k.shape[2], kw)
+           + b * hkv * kv_len * d)
+    nbytes = q.element_size() * (2 * q.numel() + 2 * b * hkv * kv_len * d)
+    return bound(nbytes, ops, str(q.dtype).removeprefix("torch."))
 
 
 # The additive mask blind_library gives hidden columns: far below any
@@ -645,7 +674,7 @@ def check_flash_blind(dev, summary):
         ctl = blind_control(ref, v, BLIND["kv_len"], BLIND_FIRST)
         late = flash_fwd_plain(q, k, v * VARIANT_LATE_SHIFT, **kw)
         plain_ms = time_ms(lambda: flash_fwd_plain(q, k, v, **kw), 3)
-        bound_ms, bound_by = blind_bound(q, k, BLIND, BLIND_FIRST)
+        bound_ms, bound_by = blind_bound(q, k, BLIND)
         library_ms, library_err = blind_library(q, k, v, kw, ref)
         for name, fwd in flash_entries().items():
             out, lse = fwd(q, k, v, save_lse=True, **kw)
@@ -671,6 +700,89 @@ def check_flash_blind(dev, summary):
             summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
                                                held["max_abs_err"])
     raise_if_failed("flash_fwd (rows that see no key)", rows)
+    return rows
+
+
+# Rows whose q segment no key carries: causal, b 2, 512 rows, segment ids
+# of three documents a row (segment_ids), with rows ORPHAN_ROWS given an
+# id no key has. The plain version gives them every column of [0, kv_len)
+# at the mask value: o the mean of V, lse MASK_VALUE + log(kv_len). The
+# control gives rows 40-59 the mean of the first 128-column step's V, as
+# a kernel that walked only a q tile's steps would (their tile's diagonal
+# ends in that step).
+ORPHAN_ROWS = ((40, 60), (300, 320))
+ORPHAN_ID = 9
+
+
+def orphan_inputs(dev, dtype):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    q = torch.randn(2, 32, 512, 128, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(2, 8, 512, 128, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    kv_seg = segment_ids(2, 512, 3, dev)
+    q_seg = kv_seg.clone()
+    for lo, hi in ORPHAN_ROWS:
+        q_seg[:, lo:hi] = ORPHAN_ID
+    return q, k, v, dict(causal=True, kv_len=512, q_seg=q_seg,
+                         kv_seg=kv_seg, sm_scale=128 ** -0.5)
+
+
+def check_flash_orphan(dev, summary):
+    """K1's rows whose q segment no key carries, bf16 and f32 at d 128 on
+    both entry points (the second pass after either kernel): every row
+    within its bar of the plain version's, the orphan rows too; the
+    control missed in some row; V raised 3% missed in most rows past
+    sq / 2; the orphan rows' lse MASK_VALUE + log(kv_len) within the f32
+    bar of it. Each case timed beside its bound, the plain version's time
+    and SDPA's under an additive mask (blind_library); the summary rows
+    keep the largest error."""
+    import torch
+
+    from tpu_flash_torch.core.reference import DEFAULT_MASK_VALUE
+    from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
+
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, kw = orphan_inputs(dev, dtype)
+        want_lse = float(torch.tensor(DEFAULT_MASK_VALUE)
+                         + math.log(kw["kv_len"]))
+        ref = flash_fwd_plain(q, k, v, **kw)
+        ctl = ref.clone()
+        first = v[:, :, :128].float().mean(2).repeat_interleave(4, 1)
+        lo, hi = ORPHAN_ROWS[0]
+        ctl[:, :, lo:hi] = first[:, :, None].to(dtype)
+        late = flash_fwd_plain(q, k, v * VARIANT_LATE_SHIFT, **kw)
+        plain_ms = time_ms(lambda: flash_fwd_plain(q, k, v, **kw), 3)
+        bound_ms, bound_by = blind_bound(q, k, kw)
+        library_ms, library_err = blind_library(q, k, v, kw, ref)
+        orphan = torch.zeros(512, dtype=torch.bool, device=dev)
+        for lo, hi in ORPHAN_ROWS:
+            orphan[lo:hi] = True
+        for name, fwd in flash_entries().items():
+            out, lse = fwd(q, k, v, save_lse=True, **kw)
+            torch.cuda.synchronize()
+            held = row_agreement(out, ref, ctl, None, (late, 256),
+                                 late_caught=VARIANT_LATE_CAUGHT)
+            lse_err = float((lse[..., orphan] - want_lse).abs().max())
+            lse_bar = F32_TOL_REL * abs(want_lse)
+            row = dict(case="orphan_segment_d128", kernel=name,
+                       dtype=str(dtype).removeprefix("torch."),
+                       shape=list(q.shape), orphan_rows=ORPHAN_ROWS, **held,
+                       differ_plain=differing(out, ref),
+                       orphan_lse_err=lse_err, orphan_lse_bar=lse_bar,
+                       ms=time_ms(lambda: fwd(q, k, v, **kw), 10),
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms,
+                       library_max_abs_err=library_err,
+                       library="SDPA, additive mask")
+            row["ok"] = held["ok"] and lse_err <= lse_bar
+            log("kernel_vs_plain", **row)
+            rows.append(row)
+            summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
+                                               held["max_abs_err"])
+    raise_if_failed("flash_fwd (q segments that no key carries)", rows)
     return rows
 
 
@@ -2603,17 +2715,18 @@ def main_path_prompts(vocab_size):
             .tolist() for i in range(8)]
 
 
-def main_path_engine(model, params, kv_dtype, ring, prompts, **config):
+def main_path_engine(model, params, kv_dtype, ring, prompts, num_pages=161,
+                     **config):
     """The main path's engine at its default routing (``config`` overrides
     EngineConfig fields), warmed up by one short request so that
     CUDA/cuBLAS initialisation and allocator growth stay out of timed
     runs. ``ring`` None leaves the cache layout to the engine's auto
-    policy; otherwise 128-token pages and that ring."""
+    policy; otherwise ``num_pages`` pages of 128 tokens and that ring."""
     from tpu_flash_torch.core.config import CacheConfig, EngineConfig
     from tpu_flash_torch.engine import InferenceEngine
 
     layout = {} if ring is None else dict(
-        page_size=128, num_pages=161, max_pages_per_seq=16,
+        page_size=128, num_pages=num_pages, max_pages_per_seq=16,
         recent_window=ring)
     cfg = EngineConfig(
         max_batch_size=8, max_seq_len=2048, prefill_chunk=512,
@@ -2630,8 +2743,15 @@ DECODE_ROUTES = ("decode", "speculative")
 
 
 def serve_main(model, params, kv_dtype, ring, prompts, new_tokens, *,
-               check_logits=True, **config):
+               check_logits=True, num_pages=161, loras=None, prepare=None,
+               inspect=None, first=None, **config):
     """Serve ``prompts`` on the port's engine; returns the phase record.
+
+    ``loras``: each prompt's adapter name (or None); ``prepare(engine)``
+    runs before the requests are submitted (registering adapters, setting
+    spies), ``inspect(engine)`` after the run, its dict joining the
+    record; ``first``, a dict, receives the first prefill dispatch's
+    tokens, valid lengths and last logits.
 
     prefill_tok_per_s: prompt tokens over the time spent in prefill
     dispatches (same-stage groups and ragged steps, fused decode rows
@@ -2644,22 +2764,27 @@ def serve_main(model, params, kv_dtype, ring, prompts, new_tokens, *,
     from tpu_flash_torch.engine.metrics import EngineMetrics
     from tpu_flash_torch.ops import build
 
-    eng = main_path_engine(model, params, kv_dtype, ring, prompts, **config)
-    first = {}
+    eng = main_path_engine(model, params, kv_dtype, ring, prompts,
+                           num_pages=num_pages, **config)
+    first = {} if first is None else first
     impl = eng._chunked_prefill_impl
 
-    def capture(hist_len, tokens, table_rows, n_valids, slots):
-        last, finite = impl(hist_len, tokens, table_rows, n_valids, slots)
+    def capture(hist_len, tokens, table_rows, n_valids, slots, *rest):
+        last, finite = impl(hist_len, tokens, table_rows, n_valids, slots,
+                            *rest)
         if not first:
             first.update(tokens=tokens.clone(), n_valids=n_valids.clone(),
                          last=last.clone())
         return last, finite
 
     eng._chunked_prefill_impl = capture
+    if prepare is not None:
+        prepare(eng)
     eng.metrics = m = EngineMetrics(sync_dispatches=True)
     torch.cuda.synchronize()
     build.reset_launch_counts()
-    ids = [eng.submit(p, new_tokens) for p in prompts]
+    ids = [eng.submit(p, new_tokens, lora=lora)
+           for p, lora in zip(prompts, loras or [None] * len(prompts))]
     t0 = time.perf_counter()
     with scratch_peak() as scratch:
         eng.run()
@@ -2691,6 +2816,8 @@ def serve_main(model, params, kv_dtype, ring, prompts, new_tokens, *,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         prefill_scratch_mib=scratch["bytes"] / 2**20,
     )
+    if inspect is not None:
+        rec.update(inspect(eng))
     eng.close()
     if not check_logits:
         return rec, out
@@ -2774,9 +2901,13 @@ def check_main_path(dev):
         runs += [(kv, ring, dict(paged_prefill=False))
                  for kv, ring in MAIN_TIERS]
         runs += [(kv, None, {}) for kv in AUTO_TIERS]
+        reserve_first = {}
         for kv_dtype, ring, config in runs:
-            rec, _ = serve_main(model, params, kv_dtype, ring, prompts, 32,
-                                **config)
+            first = reserve_first if not recs else None
+            rec, out = serve_main(model, params, kv_dtype, ring, prompts, 32,
+                                  first=first, **config)
+            if first is not None:
+                reserve = (rec, out)
             log("main_path", gpu=gpu_query(), **rec)
             if not rec["finite"]:
                 raise AssertionError("non-finite logits")
@@ -2800,6 +2931,13 @@ def check_main_path(dev):
             recs.append(rec)
         recs.append(trace_decode_window(model, params, prompts))
         recs.append(check_server(model, params, prompts))
+        pre = check_preemption(model, params, prompts, reserve)
+        recs += list(pre.values())
+        recs.append(check_snapshot_path(model, params, prompts,
+                                        pre["swap"]["_out"]))
+        recs.append(check_lora_path(model, params, prompts, reserve_first))
+        for r in recs:
+            r.pop("_out", None)
         spec_prompts = speculation_prompts(model, params,
                                            LLAMA3_8B.vocab_size)
         rec, _ = serve_main(model, params, "bfloat16", 0, spec_prompts, 16,
@@ -2813,6 +2951,291 @@ def check_main_path(dev):
     gc.collect()
     torch.cuda.empty_cache()
     return recs
+
+
+# Optimistic admission at full width: the main path's 8 prompts (100-1500
+# tokens, 32 new each) on int8 + the 128-token ring, on PREEMPT_PAGES
+# pages of 128 tokens (one of them the trash page). At full context the 8
+# requests need 56 pages, but only 2 more than their prompts' 54: on 40
+# pages admission would just wait. On 31 usable pages the 6 requests
+# admitted first fill the pool, so the first to grow past its prompt's
+# pages preempts the newest.
+PREEMPT_PAGES = 32
+
+
+def check_preemption(model, params, prompts, reserve):
+    """Phase 4, ``main_path_preemption``: optimistic admission under
+    recompute and under swap preemption. Each run must preempt, deliver
+    every budget (serve_main), end with every page free (once the prefix
+    index lets its pages go) and no stash, and launch K4 and K5; under
+    swap the pages (and ring row) of the first request restored must hold,
+    byte for byte, what its own pages held when it was swapped out (a
+    device copy taken in the scheduler's swap-out hook before the engine
+    gathers its stash). Printed beside the reserve run's: prefill and
+    decode tok/s, the wall, and the share of tokens that match it (a
+    figure: the two runs' prefill chunks have other shapes, and cuBLAS
+    picks its algorithm by rows)."""
+    import torch
+
+    reserve_rec, reserve_out = reserve
+    out = {}
+    for mode in ("recompute", "swap"):
+        restores, before = [], {}
+
+        def prepare(eng):
+            c = eng.cache
+            tiers = [t for t in (c.k_pages, c.v_pages, c.k_scales,
+                                 c.v_scales) if t is not None]
+            real_out, real_restore = (eng.scheduler.swap_out_hook,
+                                      eng._swap_restore)
+
+            def out_spy(req, pages):
+                # The victim's pages as they stand, before the engine
+                # gathers them and the scheduler frees them.
+                if (not restores and pages and req.req_id not in before
+                        and req.req_id not in eng._swapped):
+                    idx = torch.tensor(pages, device=c.k_pages.device)
+                    rings = ([r[:, req.batch_slot].clone()
+                              for r in (c.k_recent, c.v_recent)]
+                             if c.k_recent is not None
+                             and req.batch_slot >= 0 else [])
+                    before[req.req_id] = (
+                        len(pages), [t[:, :, idx].clone() for t in tiers],
+                        rings)
+                real_out(req, pages)
+
+            def restore_spy(req):
+                real_restore(req)
+                if restores or req.req_id not in before:
+                    return
+                n, arrays, rings = before.pop(req.req_id)
+                idx = torch.tensor(
+                    eng.scheduler.page_table(req.req_id)[:n],
+                    device=c.k_pages.device)
+                same = [torch.equal(t[:, :, idx], a)
+                        for t, a in zip(tiers, arrays, strict=True)]
+                same += [torch.equal(r[:, req.batch_slot], a) for r, a in
+                         zip((c.k_recent, c.v_recent), rings)]
+                restores.append(dict(req=req.req_id, pages=n,
+                                     bytes=sum(a.numel() * a.element_size()
+                                               for a in arrays),
+                                     ring_rows=len(rings),
+                                     byte_for_byte=all(same)))
+                before.clear()
+
+            eng.scheduler.swap_out_hook = out_spy
+            eng._swap_restore = restore_spy
+
+        def inspect(eng):
+            if eng.prefix_index is not None:
+                eng.prefix_index.drop_all()
+            return dict(
+                preemptions=eng.scheduler.num_preemptions,
+                pages_free_at_end=eng.scheduler.allocator.num_free,
+                usable_pages=eng.config.cache.num_pages - 1,
+                stashes_left=len(eng._swapped))
+
+        t0 = time.perf_counter()
+        rec, toks = serve_main(model, params, "int8", 128, prompts, 32,
+                               check_logits=False, num_pages=PREEMPT_PAGES,
+                               admission="optimistic", preemption=mode,
+                               prepare=prepare, inspect=inspect)
+        rec.update(
+            preemption=mode, first_restore=restores[:1],
+            swap_restores_checked=len(restores),
+            match_vs_reserve=token_match(toks, reserve_out),
+            reserve=dict(wall_s=reserve_rec["wall_s"],
+                         prefill_tok_per_s=reserve_rec["prefill_tok_per_s"],
+                         decode_tok_per_s=reserve_rec["decode_tok_per_s"]),
+            call_s=time.perf_counter() - t0)
+        log("main_path_preemption", gpu=gpu_query(), **rec)
+        if not (rec["preemptions"] > 0
+                and rec["pages_free_at_end"] == rec["usable_pages"]
+                and rec["stashes_left"] == 0):
+            raise AssertionError(f"{mode} preemption: {rec}")
+        if mode == "swap" and not (restores
+                                   and restores[0]["byte_for_byte"]
+                                   and restores[0]["ring_rows"] == 2):
+            raise AssertionError(f"swap restore off the pages swapped out: "
+                                 f"{rec}")
+        require_launches(rec, ["paged_decode", "paged_prefill"])
+        out[mode] = dict(rec, _out=toks)
+    return out
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+@contextlib.contextmanager
+def build_tempdir(prefix):
+    """A new directory under the checkout's build/ (for the snapshots and
+    checkpoints the smoke writes), removed when the block ends."""
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=prefix, dir=os.path.join(REPO, "build"))
+    try:
+        yield tmp
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_snapshot_path(model, params, prompts, want):
+    """Phase 4, ``main_path_snapshot``: the swap-mode engine of
+    check_preemption served again, snapshotted mid-decode (at the first
+    step after which a victim is swapped out and some request has 8
+    tokens, else once some request has 16), restored into a fresh engine
+    and run to the end: its tokens must be the uninterrupted swap run's
+    (``want``), token for token. The snapshot goes under build/ and is
+    removed afterwards; its bytes and the seconds to write and to read it
+    are printed."""
+    import torch
+
+    from tpu_flash_torch.checkpoint import restore_engine, snapshot_engine
+    from tpu_flash_torch.ops import build
+
+    kw = dict(num_pages=PREEMPT_PAGES, admission="optimistic",
+              preemption="swap")
+    eng = main_path_engine(model, params, "int8", 128, prompts, **kw)
+    build.reset_launch_counts()
+    ids = [eng.submit(p, 32) for p in prompts]
+    steps = 0
+    while eng.scheduler.has_work():
+        eng.step()
+        steps += 1
+        most = max(len(eng.outputs[i]) for i in ids)
+        if (eng._swapped and most >= 8) or most >= 16:
+            break
+    swapped = sorted(eng._swapped)
+    done = sum(len(eng.outputs[i]) for i in ids)
+    with build_tempdir("snapshot-") as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snapshot_engine(tmp, eng)
+        write_s = time.perf_counter() - t0
+        size = dir_bytes(tmp)
+        eng.close()
+        del eng
+        counts = build.launch_counts()
+        fresh = main_path_engine(model, params, "int8", 128, prompts, **kw)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        restore_engine(tmp, fresh)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        fresh.run()
+        got = [fresh.outputs[i] for i in ids]
+        fresh.close()
+        after = build.launch_counts()
+        counts = {k: counts.get(k, 0) + after.get(k, 0)
+                  for k in set(counts) | set(after)}
+    rec = dict(launches=counts, steps_before=steps,
+               swapped_at_snapshot=swapped,
+               tokens_at_snapshot=done, snapshot_bytes=size,
+               write_s=write_s, read_s=read_s,
+               match=token_match(got, want), removed=not os.path.exists(tmp))
+    log("main_path_snapshot", gpu=gpu_query(), **rec)
+    if got != want:
+        raise AssertionError(f"snapshot continuation off the uninterrupted "
+                             f"run: {rec}")
+    require_launches(rec, ["paged_decode"])
+    return rec
+
+
+# Two seeded rank-16 adapters over all seven projections of all 32
+# layers. A delta's std is about sqrt(16) * LORA_SCALE of a projection's
+# (unit-variance activations, A ~ N(0, LORA_SCALE^2 / fan_in), B ~ N(0,
+# 1)): a tenth of it, enough to move the logits past phase 4's bar.
+LORA_RANK, LORA_SCALE = 16, 0.025
+LORA_NAMES = ("a", "b")
+
+
+def main_path_adapter(cfg, seed):
+    """{layer: {proj: (A, B)}} numpy f32, seeded (on the host)."""
+    import numpy as np
+
+    from tpu_flash_torch.engine.lora import seeded_adapter
+
+    return seeded_adapter(cfg, LORA_RANK, LORA_SCALE,
+                          np.random.default_rng(seed))
+
+
+def merged_params(params, adapters):
+    """The base params with each adapter delta A B folded into its bf16
+    weight (W + A B in f32, rounded once)."""
+    import torch
+
+    layers = []
+    for li, layer in enumerate(params["layers"]):
+        new = dict(layer)
+        for p, (a, b) in adapters.get(li, {}).items():
+            w = layer[p]
+            new[p] = (w.float() + torch.from_numpy(a).to(w.device)
+                      @ torch.from_numpy(b).to(w.device)).to(w.dtype)
+        layers.append(new)
+    return dict(params, layers=layers)
+
+
+def check_lora_path(model, params, prompts, reserve_first):
+    """Phase 4, ``main_path_lora``: two seeded rank-16 adapters over every
+    projection of every layer; the 8 prompts served mixed (base, a, b in
+    turn) on int8 + ring. The base rows' first logits must be bit for bit
+    those of the run with no adapter (``reserve_first``, the same first
+    dispatch); each adapted row's within phase 4's bar (LOGITS_REL_TOL of
+    max |logit|) of the plain forward on the merged weights W + A B; the
+    control, the base run's logits of those rows, must miss it. tok/s
+    printed."""
+    import torch
+
+    cfg = model.config
+    adapters = {n: main_path_adapter(cfg, SEED + 40 + i)
+                for i, n in enumerate(LORA_NAMES)}
+    loras = [(None, *LORA_NAMES)[i % 3] for i in range(len(prompts))]
+
+    def prepare(eng):
+        for n, ad in adapters.items():
+            eng.register_lora(n, ad)
+
+    first = {}
+    rec, _ = serve_main(model, params, "int8", 128, prompts, 32,
+                        check_logits=False, loras=loras, prepare=prepare,
+                        first=first)
+    base_rows = [i for i, n in enumerate(loras) if n is None]
+    rec.update(loras=loras, rank=LORA_RANK, scale=LORA_SCALE,
+               base_rows_bit_for_bit=bool(torch.equal(
+                   first["last"][base_rows],
+                   reserve_first["last"][base_rows])))
+    rows = torch.arange(first["tokens"].shape[0], device=first["last"].device)
+    for n in LORA_NAMES:
+        sel = [i for i, x in enumerate(loras) if x == n]
+        merged = merged_params(params, adapters[n])
+        with torch.no_grad(), plain_versions():
+            ref = model.forward(merged, first["tokens"][sel])
+        del merged
+        ref_last = ref[rows[:len(sel)], first["n_valids"][sel] - 1]
+        scale = float(ref_last.abs().max())
+        err = float((first["last"][sel] - ref_last).abs().max())
+        ctl = float((reserve_first["last"][sel] - ref_last).abs().max())
+        rec[f"adapter_{n}"] = dict(rows=sel, rel_err=err / scale,
+                                   control_rel_err=ctl / scale,
+                                   argmax_equal=float((
+                                       first["last"][sel].argmax(-1)
+                                       == ref_last.argmax(-1)).float()
+                                       .mean()))
+    log("main_path_lora", gpu=gpu_query(), **rec)
+    if not rec["base_rows_bit_for_bit"] or any(
+            not (rec[f"adapter_{n}"]["rel_err"] <= LOGITS_REL_TOL
+                 < rec[f"adapter_{n}"]["control_rel_err"])
+            for n in LORA_NAMES):
+        raise AssertionError(f"adapted serving off: {rec}")
+    require_launches(rec, ["paged_decode", "paged_prefill",
+                           "flash_fwd_exact"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 # The HTTP server (tpu_flash_torch.serve) in front of the main path's
@@ -3236,7 +3659,8 @@ def check_trained(dev):
     if not sum(r["speculation"]["proposed"] for r in results):
         raise AssertionError("no draft was proposed on the trained model")
     return (results + check_draft_speculation(models["bfloat16"])
-            + check_trained_forks(models["bfloat16"]))
+            + check_trained_forks(models["bfloat16"])
+            + check_trained_preemption(models["bfloat16"]))
 
 
 # Forks and logit bias on the trained checkpoint: an n=3 greedy group on a
@@ -3316,6 +3740,108 @@ def check_trained_forks(model_and_params, tiers=FORK_TIERS):
         results.append(rec)
     if failed:
         raise AssertionError(f"trained forks and bias: {failed}")
+    return results
+
+
+# Optimistic admission on the trained checkpoint: TRAINED_PROMPTS, 32 new
+# tokens each, on TRAINED_PREEMPT_PAGES pages of 32 tokens (one the trash
+# page): at full context the three requests need 8 pages, so the
+# scheduler preempts. (kv dtype, ring, preemption, adapter): bf16 and
+# int8 + a 32-token ring in both modes, then int8 + ring under swap with
+# the first and third request through a seeded adapter.
+TRAINED_PREEMPT_PAGES = 6
+TRAINED_PREEMPT_RUNS = (("bfloat16", 0, "recompute", False),
+                        ("bfloat16", 0, "swap", False),
+                        ("int8", 32, "recompute", False),
+                        ("int8", 32, "swap", False),
+                        ("int8", 32, "swap", True))
+
+
+def check_trained_preemption(model_and_params):
+    """Phase 5, preemption and adapters: each of TRAINED_PREEMPT_RUNS at
+    the engine's defaults, token for token the same run on the plain
+    versions, with every kernel call shadowed by its plain version
+    (decode to the bit, the others within the phase-3 bar), and at least
+    one preemption. The adapter run is also snapshotted after its first
+    swap (once a request has 8 tokens), restored into a fresh engine and
+    run on: its tokens must be the uninterrupted run's. Each run's match
+    against the reserve engine's tokens is printed (a figure)."""
+    from tpu_flash_torch.checkpoint import restore_engine, snapshot_engine
+    from tpu_flash_torch.core.config import CacheConfig, EngineConfig
+    from tpu_flash_torch.engine import InferenceEngine
+
+    model, params = model_and_params
+    adapter = main_path_adapter(model.config, SEED + 50)
+    results, failed = [], []
+    for kv_dtype, ring, mode, lora in TRAINED_PREEMPT_RUNS:
+        def engine(admission="optimistic", num_pages=TRAINED_PREEMPT_PAGES):
+            eng = InferenceEngine(model, params, EngineConfig(
+                max_batch_size=4, max_seq_len=128, prefill_chunk=32,
+                admission=admission, preemption=mode,
+                cache=CacheConfig(page_size=32, num_pages=num_pages,
+                                  max_pages_per_seq=4, kv_dtype=kv_dtype,
+                                  recent_window=ring)))
+            if lora:
+                eng.register_lora("t", adapter)
+            return eng
+
+        def submit(eng):
+            return [eng.submit(list(p), 32, lora="t" if lora and i != 1
+                               else None)
+                    for i, p in enumerate(TRAINED_PROMPTS)]
+
+        def serve(**kw):
+            eng = engine(**kw)
+            ids = submit(eng)
+            eng.run()
+            eng.close()
+            return ([eng.outputs[i] for i in ids],
+                    eng.scheduler.num_preemptions)
+
+        shadow = {}
+        with shadowed(shadow):
+            got, preemptions = serve()
+        with plain_versions():
+            want, _ = serve()
+        reserve, _ = serve(admission="reserve", num_pages=14)
+        name = f"{kv_dtype} ring {ring} {mode}{' adapter' if lora else ''}"
+        rec = dict(kv_dtype=kv_dtype, recent_window=ring, preemption=mode,
+                   adapter=lora, preemptions=preemptions,
+                   match_plain=got == want,
+                   match_vs_reserve=token_match(got, reserve), shadow=shadow,
+                   text=[bytes(t).decode("utf-8", "replace") for t in got])
+        if lora:
+            eng = engine()
+            ids = submit(eng)
+            while eng.scheduler.has_work() and not (
+                    eng._swapped
+                    and max(len(eng.outputs[i]) for i in ids) >= 8):
+                eng.step()
+            with build_tempdir("snapshot-") as tmp:
+                rec["swapped_at_snapshot"] = sorted(eng._swapped)
+                snapshot_engine(tmp, eng)
+                eng.close()
+                fresh = engine()
+                restore_engine(tmp, fresh)
+                fresh.run()
+                fresh.close()
+            rec["snapshot_continuation_equal"] = (
+                [fresh.outputs[i] for i in ids] == got)
+            if not (rec["swapped_at_snapshot"]
+                    and rec["snapshot_continuation_equal"]):
+                failed.append(f"{name}: snapshot continuation")
+        log("trained_preemption", **rec)
+        if not rec["match_plain"]:
+            failed.append(f"{name}: kernels {got} != plain {want}")
+        if not preemptions:
+            failed.append(f"{name}: nothing preempted")
+        if (shadow.get("paged_decode", {}).get("differing")
+                or any(v["max_of_bar"] > 1.0 for v in shadow.values())):
+            failed.append(f"{name}: kernel call off its plain version "
+                          f"{shadow}")
+        results.append(rec)
+    if failed:
+        raise AssertionError(f"trained preemption: {failed}")
     return results
 
 
@@ -3576,6 +4102,7 @@ def check_trained_training(dev):
                                        evals["plain_steps"])]
     control = [abs(a - b) for a, b in zip(evals["kernel_steps"],
                                           evals["plain_steps"][1:])]
+    resume = check_train_resume(dev, ckpt, batches, evals["kernel_steps"])
     rec = dict(eval_loss_kernel=evals["kernel"],
                eval_loss_plain=evals["plain"], ln_256=math.log(256),
                step_losses_kernel=evals["kernel_steps"],
@@ -3584,7 +4111,7 @@ def check_trained_training(dev):
                tol=TRAINED_LOSS_TOL, lr=TRAINED_LR,
                launches=evals["kernel_launches"],
                batch=[TRAINED_ROWS, TRAINED_LEN],
-               packed_step=TRAINED_STEPS // 2)
+               packed_step=TRAINED_STEPS // 2, resume=resume)
     log("trained_training", **rec)
     if not (abs(evals["kernel"] - evals["plain"]) <= TRAINED_LOSS_TOL
             and evals["kernel"] < 0.5 * math.log(256)):
@@ -3596,20 +4123,94 @@ def check_trained_training(dev):
     require_launches(rec, ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"])
     if any(evals["plain_launches"].values()):
         raise AssertionError(f"the plain path launched a kernel: {rec}")
+    if not resume["bit_for_bit"]:
+        raise AssertionError(f"resumed training off the uninterrupted "
+                             f"losses: {rec}")
     return rec
+
+
+TRAINED_RESUME_AT = 4
+
+
+def check_train_resume(dev, ckpt, batches, want):
+    """Phase 7, resume: the kernel path's first TRAINED_RESUME_AT steps
+    again from the checkpoint, a ``TrainCheckpointManager`` checkpoint of
+    the params and the AdamW state (under build/, removed afterwards),
+    both restored into fresh objects (weights loaded anew, a new
+    optimizer), then the remaining steps. Every loss must be the
+    uninterrupted kernel run's (``want``) bit for bit."""
+    import torch
+
+    from tpu_flash_torch.checkpoint import TrainCheckpointManager, load_hf_dir
+    from tpu_flash_torch.parallel import make_train_step, param_leaves
+
+    def trainer(params):
+        opt = torch.optim.AdamW(param_leaves(params), lr=TRAINED_LR,
+                                weight_decay=0.01)
+        return opt, make_train_step(model, optimizer=opt, max_grad_norm=1.0)
+
+    k = TRAINED_RESUME_AT
+    model, params = load_hf_dir(ckpt, dtype="bfloat16", device=dev)
+    opt, step = trainer(params)
+    got = [float(step(params, toks, seg)) for toks, seg in batches[:k]]
+    with build_tempdir("train-ckpt-") as tmp, \
+            TrainCheckpointManager(tmp, max_to_keep=2) as mgr:
+        t0 = time.perf_counter()
+        mgr.save(k, params, opt.state_dict())
+        save_s = time.perf_counter() - t0
+        size = dir_bytes(tmp)
+        del params, opt, step
+        model, fresh = load_hf_dir(ckpt, dtype="bfloat16", device=dev)
+        t0 = time.perf_counter()
+        at, params, opt_state = mgr.restore_latest(like_params=fresh)
+        restore_s = time.perf_counter() - t0
+    opt, step = trainer(params)
+    opt.load_state_dict(opt_state)
+    got += [float(step(params, toks, seg))
+            for toks, seg in batches[k:TRAINED_STEPS]]
+    return dict(saved_after_step=at, checkpoint_bytes=size, save_s=save_s,
+                restore_s=restore_s, losses=got,
+                bit_for_bit=got == list(want))
 
 
 # -- phase 8: the port's bench and the variant sweep --------------------------
 
 # Calibration floor of the bench's differential timing (its --iters): the
-# windows still grow to 0.15 s, so this cuts only the floor, not coverage.
+# windows still grow to BENCH_WINDOW_S, so this cuts only the floor, not
+# coverage.
 BENCH_ITERS = 8
+# Phase 8's differential timing (bench/suite.py::time_per_call): windows of
+# at least BENCH_WINDOW_S seconds, each pair BENCH_REPEATS times, where the
+# bench's CLI takes 0.15 s and 4. A depth cut that keeps the smoke within
+# its time: every row still runs, its rate over a shorter window.
+BENCH_WINDOW_S, BENCH_REPEATS = 0.05, 3
 RATE_METRICS = ("tflops", "tokens_per_s", "us_per_chunk", "train_tflops",
                 "decode_tokens_per_s", "device_decode_tokens_per_s")
 BENCH_CONFIGS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12]
 # Config 9's gates (tests/test_quality.py): the in-ring report's prefix
 # match against the bf16 cache.
 QUALITY_GATES = {"int8": 0.95, "int4": 0.90, "fp8": 0.90}
+
+
+@contextlib.contextmanager
+def bench_windows():
+    """The bench's time_per_call at BENCH_WINDOW_S and BENCH_REPEATS
+    unless a caller gives its own (the bench modules look it up at call
+    time)."""
+    from tpu_flash_torch.bench import suite
+
+    real = suite.time_per_call
+
+    def short(fn, **kw):
+        kw.setdefault("target_window", BENCH_WINDOW_S)
+        kw.setdefault("repeats", BENCH_REPEATS)
+        return real(fn, **kw)
+
+    suite.time_per_call = short
+    try:
+        yield
+    finally:
+        suite.time_per_call = real
 
 
 @contextlib.contextmanager
@@ -3689,14 +4290,20 @@ def check_bench(dev):
 
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    greedy = []
-    with recorded_greedy(greedy):
-        rows = run_configs(BENCH_CONFIGS, iters=BENCH_ITERS, device=dev)
-    weights = [debug_weights_row(dev, *shape) for shape in DEBUG_SHAPES]
-    sweep = experiments.sweep(device=dev, iters=BENCH_ITERS)
-    torch.cuda.synchronize()
+    greedy, rows, config_s = [], [], {}
+    with recorded_greedy(greedy), bench_windows():
+        for c in BENCH_CONFIGS:
+            t = time.perf_counter()
+            rows += run_configs([c], iters=BENCH_ITERS, device=dev)
+            torch.cuda.synchronize()
+            config_s[c] = time.perf_counter() - t
+        t = time.perf_counter()
+        weights = [debug_weights_row(dev, *shape) for shape in DEBUG_SHAPES]
+        sweep = experiments.sweep(device=dev, iters=BENCH_ITERS)
+        torch.cuda.synchronize()
     rec = dict(rows=len(rows), variants=len(sweep),
-               wall_s=time.perf_counter() - t0,
+               wall_s=time.perf_counter() - t0, config_s=config_s,
+               weights_and_sweep_s=time.perf_counter() - t,
                launches=build.launch_counts(), debug_weights=weights)
     gpu = gpu_query()
     for r in rows:
@@ -4041,6 +4648,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_query()
+    walls, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        walls[name] = now - mark[0]
+        mark[0] = now
+
     log("device", gpu=gpu, kind=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, python=sys.version.split()[0])
@@ -4054,6 +4668,7 @@ def main() -> int:
            for lib in TC_LIBRARIES},
         prefill_occupancy=prefill_occupancy(),
         decode_instances=decode_instances())
+    lap("build")
     if "--trained-only" in sys.argv[1:]:
         check_trained(dev)  # phase 5 alone, to look into a greedy flip
         return 0
@@ -4068,13 +4683,22 @@ def main() -> int:
                "variant_fwd": check_variant(dev)}
     check_widths(dev, summary)
     check_flash_blind(dev, summary)
+    check_flash_orphan(dev, summary)
     check_decode_wide_group(dev)
+    lap("kernels")
     main_runs = check_main_path(dev)
+    lap("main_path_llama3_8b")
     main_runs += check_gemma_path(dev)
+    lap("main_path_gemma2_9b")
     check_trained(dev)
+    lap("trained_model")
     main_runs.append(check_training(dev))
+    lap("training")
     check_trained_training(dev)
+    lap("trained_training")
     main_runs.append(check_bench(dev))
+    lap("bench")
+    log("phase_walls", seconds=walls, total_s=time.perf_counter() - START)
     # One row per kernel, and one per page tier of the two kernels that
     # serve several ("<kernel>:<tier>", launched under that tag).
     kernels = []

@@ -58,6 +58,8 @@ def test_config6_rows():
         "engine continuous-batching b2 int8-kv (1-layer model)",
         "engine staggered arrivals fused=True",
         "engine staggered arrivals fused=False",
+        "engine continuous-batching b2 int8-kv multi-LoRA 2 x r16 "
+        "(1-layer model)",
     ]
     assert {r["metric"] for r in rows} == {"decode_tokens_per_s"}
     assert all(r["config"] == 6 for r in rows)
@@ -124,8 +126,10 @@ def test_config12_rows():
 
 
 def test_cli_prints_config6_and_refuses_lora(capsys):
+    """The CLI prints config 6's four rows (the last through adapters);
+    ``lora_rank`` without an adapter to serve it is refused."""
     bench.main(["--configs", "6", "--device", "cpu"])
     rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
-    assert [r["config"] for r in rows] == [6, 6, 6]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        bench_engine_tokens_per_s(lora_rank=4, device="cpu")
+    assert [r["config"] for r in rows] == [6, 6, 6, 6]
+    with pytest.raises(ValueError, match="lora_count >= 1"):
+        bench_engine_tokens_per_s(lora_rank=4, lora_count=0, device="cpu")

@@ -231,6 +231,35 @@ def test_flash_fwd_rows_that_see_no_key_match_plain(dev, d, entry):
     assert (lse[..., :first] - ref_lse[..., :first]).abs().max() <= 1e-4
 
 
+@pytest.mark.parametrize("entry", ["flash_fwd", "flash_fwd_exact"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_orphan_segment_rows_match_plain(dev, dtype, entry):
+    """Rows whose q segment no key carries (chip_smoke.py's
+    ``orphan_inputs``, d 128), both entries: every row within its bar of
+    the plain version's, those rows too (the mean of V[:kv_len]); the
+    control (rows 40-59 averaging the first step's V) missed in some row;
+    V raised 3% missed in 90% of the rows past s/2; the orphan rows' lse
+    MASK_VALUE + log(kv_len) within 2^-12 of it."""
+    from tpu_flash_torch.core.reference import DEFAULT_MASK_VALUE
+    from tpu_flash_torch.ops.flash import forward
+
+    cs = _smoke()
+    q, k, v, kw = cs.orphan_inputs(dev, dtype)
+    out, lse = getattr(forward, entry)(q, k, v, save_lse=True, **kw)
+    torch.cuda.synchronize()
+    ref = forward.flash_fwd_plain(q, k, v, **kw)
+    ctl = ref.clone()
+    lo, hi = cs.ORPHAN_ROWS[0]
+    ctl[:, :, lo:hi] = v[:, :, :128].float().mean(2).repeat_interleave(
+        4, 1)[:, :, None].to(dtype)
+    late = forward.flash_fwd_plain(q, k, v * 1.03, **kw)
+    _check_rows_with_control(out, ref, ctl, None, (late, 256))
+    want = torch.tensor(DEFAULT_MASK_VALUE) + math.log(kw["kv_len"])
+    for lo, hi in cs.ORPHAN_ROWS:
+        rows = lse[..., lo:hi]
+        assert ((rows - want).abs() <= 2.0 ** -12 * abs(float(want))).all()
+
+
 DECODE_TIERS = {  # name: (K tier, V tier, paged_attention options)
     "float32": ("float32", "float32", {}),
     "bfloat16": ("bfloat16", "bfloat16", {}),

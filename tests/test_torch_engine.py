@@ -242,21 +242,24 @@ def test_greedy_engine_is_token_exact_vs_jax(trained, kv_dtype, ring):
 
 
 def test_engine_refuses_what_the_slice_does_not_port(trained):
-    """Still refused: optimistic admission, and LoRA adapters (none can
-    be registered: a name raises the JAX engine's "unknown adapter"
-    ValueError; n > 1 forks and logit_bias are held in
-    tests/test_torch_fork_bias.py). An unresolved cache layout now
-    resolves (tests/test_torch_engine_tiers.py holds it to JAX's). Paged
-    prefill, fused mixed steps and speculation (k = 8 by default)
-    construct and step."""
+    """Still refused: an admission policy the engine does not know (the
+    JAX config's ValueError) and an adapter never registered (the JAX
+    engine's "unknown adapter" ValueError). Optimistic admission now
+    constructs (tests/test_torch_preemption.py holds it to JAX's tokens;
+    n > 1 forks and logit_bias are held in
+    tests/test_torch_fork_bias.py). An unresolved cache layout resolves
+    (tests/test_torch_engine_tiers.py holds it to JAX's). Paged prefill,
+    fused mixed steps and speculation (k = 8 by default) construct and
+    step."""
     _, _, tm, tp = trained
     resolved = CacheConfig(**LAYOUT, recent_window=0)
     auto = InferenceEngine(tm, tp, EngineConfig(max_seq_len=256,
                                                 cache=CacheConfig()))
     assert auto.config.cache.resolved
-    with pytest.raises(NotImplementedError, match="preemption"):
-        InferenceEngine(tm, tp, EngineConfig(cache=resolved,
-                                             admission="optimistic"))
+    with pytest.raises(ValueError, match="admission"):
+        EngineConfig(cache=resolved, admission="eager")
+    assert InferenceEngine(tm, tp, EngineConfig(
+        cache=resolved, admission="optimistic")).scheduler.preempt_hook
     eng = InferenceEngine(tm, tp, EngineConfig(cache=resolved))
     with pytest.raises(ValueError, match="unknown adapter 'x'"):
         eng.submit([1, 2, 3], 4, lora="x")

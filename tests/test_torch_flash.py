@@ -129,6 +129,71 @@ def test_rows_that_see_no_key_average_v():
     np.testing.assert_array_equal(_f32(lse[:, :, :first]), _f32(cut_lse))
 
 
+def _orphan_case(causal, sinks=False):
+    """Causal or not, s 256 (two 128-key blocks): q rows 10-19 and
+    140-149 carry a segment id (2) that no key has. Returns the JAX
+    kernel's and the port's (o, lse) and V as numpy."""
+    from tpu_flash.ops.flash import SegmentIds
+
+    rng, (jq, jk, jv), (tq, tk, tv) = _inputs(6, 1, 4, 2, 256, 256, 64)
+    kv_seg = np.zeros((1, 256), np.int32)
+    kv_seg[:, 128:] = 1
+    q_seg = kv_seg.copy()
+    q_seg[:, 10:20] = q_seg[:, 140:150] = 2
+    extra_j, extra_t = {}, {}
+    if sinks:
+        s = rng.standard_normal(4).astype(np.float32)
+        extra_j["sinks"], extra_t["sinks"] = jnp.asarray(s), torch.from_numpy(s)
+    j = j_flash(jq, jk, jv, causal=causal, block_sizes=ROUTES["rect"],
+                segment_ids=SegmentIds(jnp.asarray(q_seg),
+                                       jnp.asarray(kv_seg)),
+                save_residuals=True, **extra_j)
+    t = t_flash(tq, tk, tv, causal=causal, save_residuals=True,
+                segment_ids=(torch.from_numpy(q_seg),
+                             torch.from_numpy(kv_seg)), **extra_t)
+    return [_f32(x) for x in (*j, *t)] + [np.repeat(_f32(tv), 2, axis=1)]
+
+
+def test_rows_whose_segment_no_key_carries():
+    """A q segment that no key carries: every column of those rows takes
+    the mask value. The port's plain version gives them the mean of
+    V[:kv_len] and lse MASK_VALUE + log(kv_len) (MASK_VALUE in f32), as
+    it gives a row that sees no key. The JAX kernel gives the mean of the
+    columns its block walk visits: all of them without causality, and
+    with it only the kv blocks up to the row's q block's diagonal (a
+    reference quirk, ROADMAP: rows 10-19 of the first q block average the
+    first 128 keys). With sinks the sink takes the whole weight on both
+    sides (o 0, lse the sink), whatever the walk."""
+    from tpu_flash_torch.core.reference import DEFAULT_MASK_VALUE
+
+    mask = np.float32(DEFAULT_MASK_VALUE)
+    for causal in (False, True):
+        jo, jl, to, tl, v = _orphan_case(causal)
+        if not causal:  # the JAX walk visits every key for every row
+            np.testing.assert_allclose(to, jo, **F32_TOL)
+        for rows in (slice(10, 20), slice(140, 150)):
+            np.testing.assert_allclose(
+                to[:, :, rows],
+                np.broadcast_to(v.mean(2)[:, :, None], to[:, :, rows].shape),
+                **F32_TOL)
+            np.testing.assert_array_equal(tl[:, :, rows], mask)
+            np.testing.assert_array_equal(jl[:, :, rows], mask)
+        live = np.r_[0:10, 20:140, 150:256]
+        np.testing.assert_allclose(to[:, :, live], jo[:, :, live], **F32_TOL)
+        np.testing.assert_allclose(tl[:, :, live], jl[:, :, live], **F32_TOL)
+        if causal:  # the JAX walk: rows 140-149 see both blocks
+            np.testing.assert_allclose(to[:, :, 140:150], jo[:, :, 140:150],
+                                       **F32_TOL)
+            np.testing.assert_allclose(
+                jo[:, :, 10:20],
+                np.broadcast_to(v[:, :, :128].mean(2)[:, :, None],
+                                jo[:, :, 10:20].shape), **F32_TOL)
+    jo, jl, to, tl, _ = _orphan_case(True, sinks=True)
+    np.testing.assert_allclose(to, jo, **F32_TOL)
+    np.testing.assert_allclose(tl, jl, **F32_TOL)
+    assert not to[:, :, 10:20].any()
+
+
 def test_bf16_causal_gqa_chunk():
     """bf16 chunk with q_offset (the engine's gathered-history route)."""
     _, (jq, jk, jv), (tq, tk, tv) = _inputs(3, 2, 4, 2, 32, 96, 128,

@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""K1's tensor-core forward (``flash_fwd``, bf16) held against another
-checkout's on one CUDA card, in turns.
+"""K1's ``flash_fwd`` entry held against another checkout's on one CUDA
+card, in turns.
 
-    python3 tools/torch_fwd_tc_ab.py OTHER [--rounds N] [--json out.jsonl]
+    python3 tools/torch_fwd_tc_ab.py OTHER [--segments] [--rounds N]
+        [--json out.jsonl]
 
 OTHER is a checkout unpacked under ``build/`` (``git archive <rev> | tar -x
 -C build/parent``) whose ``flash_fwd`` C entry takes this tree's arguments.
 The tool builds OTHER's ``csrc/flash_fwd.cu`` with OTHER's headers beside
-this tree's, then prints one JSON line a case, for ``chip_smoke.py`` phase
+this tree's, and times OTHER's kernel through OTHER's own wrapper
+(``ops/flash/forward.py``), so each side's call is what that checkout
+runs. It prints one JSON line a case: by default ``chip_smoke.py`` phase
 3's bf16 forward cases (``flash_cases``), Gemma-2-9B's sliding and global
 layers and first chunk (``GEMMA_FLASH_CASES``) and the rows that see no
-key at d 128 and 256 (``BLIND_GEO``): the output elements that differ
-between the two kernels and those off the plain version, and the
-CUDA-event ms of each kernel in turns (OTHER, this, this, OTHER;
-``--rounds`` rounds, default 5), medians and every reading, beside the
-case's bound and the card's name and power limit.
+key at d 128 and 256 (``BLIND_GEO``); with ``--segments`` the calls with
+segment ids alone, in bf16 (the tensor cores) and f32 (the order-exact
+kernel): phase 3's ``segments`` case, whose every row sees a key, and
+``check_flash_orphan``'s inputs, whose q segments no key carries in some
+rows. Each line holds the output elements that differ between the two
+sides and those off the plain version, and the CUDA-event ms of each
+call in turns (OTHER, this, this, OTHER; ``--rounds`` rounds, default
+5), medians and every reading, beside the case's bound and the card's
+name and power limit.
 
 Exit 1 if a case in which every row sees a key differs from OTHER's by
 one element. Needs a CUDA card, nvcc and PyTorch.
@@ -23,6 +30,7 @@ one element. Needs a CUDA card, nvcc and PyTorch.
 from __future__ import annotations
 
 import ctypes
+import importlib.util
 import json
 import os
 import statistics
@@ -53,6 +61,33 @@ def cases(cs):
     return out
 
 
+def segment_cases(cs):
+    """The calls with segment ids, bf16 and f32: (name, q, k, v, options,
+    rows that see no key)."""
+    import torch
+
+    out = []
+    for dtype in ("bfloat16", "float32"):
+        out += [(f"{name}_{dtype}", q, k, v, kw, False)
+                for name, q, k, v, kw, _ in cs.flash_cases("cuda", dtype)
+                if name == "segments"]
+        q, k, v, kw = cs.orphan_inputs("cuda", getattr(torch, dtype))
+        kw.pop("sm_scale")
+        out.append((f"orphan_segment_{dtype}", q, k, v, kw, True))
+    return out
+
+
+def wrapper_of(root: Path):
+    """OTHER's ``ops/flash/forward.py`` loaded as a module of its own (it
+    imports this tree's other modules)."""
+    spec = importlib.util.spec_from_file_location(
+        "other_forward", root / "tpu_flash_torch" / "ops" / "flash"
+        / "forward.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main() -> int:
     import torch
 
@@ -64,7 +99,9 @@ def main() -> int:
     from tpu_flash_torch.ops import build
     from tpu_flash_torch.ops.flash import forward as fw
 
-    other = Path(sys.argv[1]).resolve() / "tpu_flash_torch" / "csrc"
+    root = Path(sys.argv[1]).resolve()
+    other = root / "tpu_flash_torch" / "csrc"
+    other_fw = wrapper_of(root)
     rounds = 5
     if "--rounds" in sys.argv:
         rounds = int(sys.argv[sys.argv.index("--rounds") + 1])
@@ -98,9 +135,11 @@ def main() -> int:
     emit(phase="built", seconds=time.perf_counter() - t0, gpu=gpu)
 
     same = True
-    for name, q, k, v, kw, blind in cases(cs):
+    todo = segment_cases(cs) if "--segments" in sys.argv else cases(cs)
+    for name, q, k, v, kw, blind in todo:
         kw = dict(kw, sm_scale=q.shape[-1] ** -0.5)
-        fns = {"other": lambda: fw._flash_fwd_cuda(theirs, q, k, v, **kw),
+        fns = {"other": lambda: other_fw._flash_fwd_cuda(theirs, q, k, v,
+                                                         **kw),
                "this": lambda: fw._flash_fwd_cuda(build.FLASH_FWD, q, k, v,
                                                   **kw)}
         mine, other_o = fns["this"](), fns["other"]()
@@ -113,7 +152,7 @@ def main() -> int:
             for who in ("other", "this", "this", "other"):
                 ms[who].append(cs.time_ms(fns[who], iters))
         bound_ms, bound_by = (
-            cs.blind_bound(q, k, kw, cs.BLIND_FIRST) if blind
+            cs.blind_bound(q, k, kw) if blind
             else cs.flash_bound(q, k, kw))
         emit(phase="turns", case=name, shape=list(q.shape), kv=k.shape[2],
              options={a: (list(b.shape) if isinstance(b, torch.Tensor)

@@ -65,8 +65,10 @@ SIZES = {
     # benches' model.
     "engine_model": dict(num_layers=4, hidden=1024, num_q_heads=8,
                          head_dim=128),
-    # Config 6: batch, prompt and new tokens a request.
+    # Config 6: batch, prompt and new tokens a request; its multi-LoRA
+    # row's adapters (rank, count; over every layer and projection).
     "engine": dict(batch=8, prompt_len=512, new_tokens=64),
+    "engine_lora": dict(lora_rank=16, lora_count=2),
     # Config 10: the toy rows' batch, prompt tokens, the context each row
     # reserves, decode steps a burst, and the production rows' model
     # (Llama-3-8B widths, 8 layers) and batches.
@@ -354,7 +356,8 @@ def config6_engine(iters: int, device="cuda"):
     """The whole serving stack (scheduler, chunked prefill, burst decode,
     sampling, watchdogs) on the host's wall clock, after a warm-up round;
     then staggered arrivals (mixed prefill and decode steps) with fused
-    mixed steps on and off."""
+    mixed steps on and off; then the first row again with every request
+    through one of ``SIZES["engine_lora"]``'s adapters."""
     del iters
     from tpu_flash_torch.bench.suite import bench_engine_tokens_per_s
 
@@ -385,6 +388,21 @@ def config6_engine(iters: int, device="cuda"):
             "wall_s": wall_s,
             "p50_step_ms": m_s.get("p50_step_ms", 0.0),
         })
+    lora = SIZES["engine_lora"]
+    tps_l, wall_l, m_l, _ = bench_engine_tokens_per_s(**lora, **kw)
+    _log(f"  multi-LoRA: {tps_l:.0f} tok/s, wall {wall_l:.1f}s "
+         f"(p50 step {m_l.get('p50_step_ms', 0):.1f} ms)")
+    rows.append({
+        "config": 6,
+        "name": f"engine continuous-batching b{kw['batch']} int8-kv "
+                f"multi-LoRA {lora['lora_count']} x r{lora['lora_rank']} "
+                f"({kw['num_layers']}-layer model)",
+        "metric": "decode_tokens_per_s",
+        "value": tps_l,
+        "wall_s": wall_l,
+        "p50_step_ms": m_l.get("p50_step_ms", 0.0),
+        "base_decode_tokens_per_s": tps,
+    })
     return rows
 
 

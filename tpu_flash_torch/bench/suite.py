@@ -388,6 +388,7 @@ def bench_engine_tokens_per_s(
     staggered: bool = False,
     fused_mixed_step="auto",
     lora_rank: int = 0,
+    lora_count: int = 2,
     max_decode_burst: int = 8,
     device="cuda",
 ):
@@ -401,14 +402,13 @@ def bench_engine_tokens_per_s(
     (the regime where ``fused_mixed_step`` merges each step's prefill and
     decode into one dispatch). A warm-up round builds and loads the
     kernels and grows the allocator's caches; the second round is timed.
-    Multi-LoRA (``lora_rank`` > 0) is not ported yet."""
+    ``lora_rank`` > 0 tags the requests in turn with ``lora_count``
+    seeded adapters of that rank over every layer and projection (the
+    worst case: every projection pays the per-row low-rank products)."""
     import numpy as np
 
-    if lora_rank:
-        raise NotImplementedError(
-            "multi-LoRA serving is not ported yet (ROADMAP queue 1, item "
-            "13)"
-        )
+    if lora_rank and lora_count < 1:
+        raise ValueError("lora_rank > 0 needs lora_count >= 1 adapters")
     engine = _bench_engine(
         num_layers, hidden, num_q_heads, num_kv_heads, head_dim, batch,
         prompt_len + new_tokens, page_size, kv_dtype, device=device,
@@ -417,10 +417,22 @@ def bench_engine_tokens_per_s(
     )
     vocab = engine.model.config.vocab_size
     host_rng = np.random.default_rng(1)
+    lora_names = []
+    if lora_rank:
+        from tpu_flash_torch.engine.lora import seeded_adapter
+
+        for i in range(lora_count):
+            lora_names.append(f"bench-lora-{i}")
+            engine.register_lora(lora_names[-1], seeded_adapter(
+                engine.model.config, lora_rank, 0.01, host_rng))
+    n_submitted = [0]
 
     def submit_one():
+        lora = (lora_names[n_submitted[0] % len(lora_names)]
+                if lora_names else None)
+        n_submitted[0] += 1
         engine.submit(host_rng.integers(0, vocab, prompt_len).tolist(),
-                      max_new_tokens=new_tokens)
+                      max_new_tokens=new_tokens, lora=lora)
 
     def run_round():
         if not staggered:

@@ -5,8 +5,16 @@ from tpu_flash_torch.checkpoint.convert import (
     params_from_jax,
     read_safetensors,
 )
+from tpu_flash_torch.checkpoint.store import (
+    TrainCheckpointManager,
+    restore_engine,
+    restore_params,
+    save_params,
+    snapshot_engine,
+)
 
 __all__ = [
-    "load_hf_dir", "model_config_from_hf", "params_from_hf_llama",
-    "params_from_jax", "read_safetensors",
+    "TrainCheckpointManager", "load_hf_dir", "model_config_from_hf",
+    "params_from_hf_llama", "params_from_jax", "read_safetensors",
+    "restore_engine", "restore_params", "save_params", "snapshot_engine",
 ]

@@ -1,0 +1,423 @@
+"""Checkpoints: weights, training state, and engine snapshots.
+
+The port of ``tpu_flash/checkpoint/store.py``. Three surfaces:
+
+* ``save_params`` / ``restore_params``: one-shot weight checkpoints (the
+  params dict, ``torch.save`` into a directory, read back with
+  ``torch.load(weights_only=True)``).
+* ``TrainCheckpointManager``: step-indexed keep-N checkpoints of the
+  params and a ``torch.optim`` state dict, for training resume.
+* ``snapshot_engine`` / ``restore_engine``: a consistent snapshot of the
+  serving engine's paged KV cache and the host state that gives the pages
+  meaning (page tables, lengths, allocator ownership, request progress,
+  waiting requests, swap stashes), so that an interrupted serving process
+  resumes mid-sequence. The files and keys are the JAX package's
+  (``engine_meta.json``, ``engine_arrays.npz``), so the two snapshots
+  compare key by key; the random state is the engine's
+  ``torch.Generator`` state.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import re
+import shutil
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+_PARAMS_FILE = "params.pt"
+_STATE_FILE = "state.pt"
+
+
+def _abs(path) -> pathlib.Path:
+    return pathlib.Path(path).absolute()
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _detached(tree):
+    return _tree_map(lambda t: t.detach(), tree)
+
+
+def _like(tree, like):
+    """``tree``'s tensors cast and moved to those of ``like`` (same
+    structure, else ValueError)."""
+    if isinstance(like, dict):
+        if not isinstance(tree, dict) or set(tree) != set(like):
+            raise ValueError("checkpoint structure differs from `like`")
+        return {k: _like(tree[k], like[k]) for k in like}
+    if isinstance(like, (list, tuple)):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(like):
+            raise ValueError("checkpoint structure differs from `like`")
+        return type(like)(_like(t, lk) for t, lk in zip(tree, like))
+    if isinstance(like, torch.Tensor):
+        if not isinstance(tree, torch.Tensor) or tree.shape != like.shape:
+            raise ValueError("checkpoint tensor shape differs from `like`")
+        return tree.to(device=like.device, dtype=like.dtype)
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Params (weights)
+# ---------------------------------------------------------------------------
+
+
+def save_params(path, params, *, force: bool = True) -> None:
+    """Write a params dict into the directory ``path`` (made if needed);
+    without ``force`` an existing checkpoint there raises."""
+    path = _abs(path)
+    if (path / _PARAMS_FILE).exists() and not force:
+        raise FileExistsError(f"checkpoint exists: {path}")
+    path.mkdir(parents=True, exist_ok=True)
+    torch.save(_detached(params), path / _PARAMS_FILE)
+
+
+def restore_params(path, like: Optional[Any] = None, device=None):
+    """Read a params dict. ``like`` (a dict of the same structure) pins
+    each tensor's dtype and device; without it tensors land on
+    ``device`` ("cuda" unless the caller asks for "cpu")."""
+    params = torch.load(_abs(path) / _PARAMS_FILE, map_location="cpu",
+                        weights_only=True)
+    if like is not None:
+        return _like(params, like)
+    dev = torch.device(device if device is not None else "cuda")
+    return _tree_map(lambda t: t.to(dev), params)
+
+
+# ---------------------------------------------------------------------------
+# Training resume
+# ---------------------------------------------------------------------------
+
+
+class TrainCheckpointManager:
+    """Step-indexed keep-N checkpoints of {params, opt_state} under one
+    directory (a subdirectory a step). Training loops call ``save(step,
+    params, optimizer.state_dict())`` every K steps and
+    ``restore_latest()`` on restart, then ``optimizer.load_state_dict``
+    on an optimizer built over the restored params."""
+
+    def __init__(self, directory, *, max_to_keep: int = 3):
+        if max_to_keep < 1:
+            raise ValueError("max_to_keep must be >= 1")
+        self._dir = _abs(directory)
+        self._dir.mkdir(parents=True, exist_ok=True)
+        self._keep = max_to_keep
+
+    def _steps(self):
+        return sorted(int(p.name) for p in self._dir.iterdir()
+                      if p.is_dir() and re.fullmatch(r"\d+", p.name)
+                      and (p / _STATE_FILE).exists())
+
+    def save(self, step: int, params, opt_state=None) -> None:
+        state = {"params": _detached(params)}
+        if opt_state is not None:
+            state["opt_state"] = _detached(opt_state)
+        target = self._dir / str(int(step))
+        tmp = self._dir / f".{int(step)}.tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        torch.save(state, tmp / _STATE_FILE)
+        shutil.rmtree(target, ignore_errors=True)
+        tmp.rename(target)
+        for old in self._steps()[:-self._keep]:
+            shutil.rmtree(self._dir / str(old))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self._steps()
+        return steps[-1] if steps else None
+
+    def restore_latest(self, like_params=None, like_opt_state=None,
+                       device=None):
+        """(step, params, opt_state) of the newest checkpoint, or None.
+        ``like_params`` / ``like_opt_state`` pin dtypes and devices as
+        :func:`restore_params`'s ``like`` does; without them tensors land
+        on ``device`` ("cuda" unless the caller asks for "cpu")."""
+        step = self.latest_step()
+        if step is None:
+            return None
+        state = torch.load(self._dir / str(step) / _STATE_FILE,
+                           map_location="cpu", weights_only=True)
+        dev = torch.device(device if device is not None else "cuda")
+        params = (_like(state["params"], like_params)
+                  if like_params is not None
+                  else _tree_map(lambda t: t.to(dev), state["params"]))
+        opt_state = state.get("opt_state")
+        if opt_state is not None and like_opt_state is not None:
+            opt_state = _like(opt_state, like_opt_state)
+        return step, params, opt_state
+
+    def close(self) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+# ---------------------------------------------------------------------------
+# Engine / KV-cache snapshots
+# ---------------------------------------------------------------------------
+
+_ENGINE_META = "engine_meta.json"
+_ENGINE_ARRAYS = "engine_arrays.npz"
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 and e4m3 payloads as f32 (lossless for
+    both; numpy has neither type), as the JAX snapshot stores them."""
+    x = x.detach().cpu()
+    if x.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        x = x.float()
+    return x.numpy()
+
+
+def _torch(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(
+        device=like.device, dtype=like.dtype)
+
+
+def snapshot_engine(path, engine) -> None:
+    """Snapshot a live ``InferenceEngine`` into the directory ``path``: KV
+    pages (and scales, and exact recent rings), page tables, lengths,
+    last tokens, slot sampling state, adapters and logit bias, the
+    generator state, allocator ownership, every active and waiting
+    request (pending fork children inline), outputs and log-probs, branch
+    ids, adapter names and swap stashes. The arrays go uncompressed into
+    one npz: KV payloads barely compress."""
+    path = _abs(path)
+    path.mkdir(parents=True, exist_ok=True)
+    cache = engine.cache
+    arrays = {
+        "k_pages": _np(cache.k_pages),
+        "v_pages": _np(cache.v_pages),
+        "page_tables": _np(engine.page_tables),
+        "lengths": _np(engine.lengths),
+        "last_tokens": _np(engine.last_tokens).astype(np.int32),
+        "active": np.asarray(engine.active),
+        "temps": np.asarray(engine.temps),
+        "top_ks": np.asarray(engine.top_ks),
+        "top_ps": np.asarray(engine.top_ps),
+        "min_ps": np.asarray(engine.min_ps),
+        "lora_ids": np.asarray(engine.lora_ids),
+        "logit_bias": _np(engine.logit_bias),
+        "slot_bias": np.asarray(engine._slot_bias),
+        "rng": engine._generator.get_state().numpy(),
+    }
+    if cache.quantized:
+        arrays["k_scales"] = _np(cache.k_scales)
+        arrays["v_scales"] = _np(cache.v_scales)
+    if cache.k_recent is not None:
+        arrays["k_recent"] = _np(cache.k_recent)
+        arrays["v_recent"] = _np(cache.v_recent)
+    for rid, stash in engine._swapped.items():
+        for j, a in enumerate(stash["arrays"]):
+            arrays[f"swap_{rid}_{j}"] = _np(a)
+        if "recent" in stash:
+            arrays[f"swap_{rid}_rk"] = _np(stash["recent"][0])
+            arrays[f"swap_{rid}_rv"] = _np(stash["recent"][1])
+    np.savez(path / _ENGINE_ARRAYS, **arrays)
+
+    sched = engine.scheduler
+
+    def req_dict(req):
+        d = {
+            "req_id": req.req_id,
+            "prompt_len": req.prompt_len,
+            "max_new_tokens": req.max_new_tokens,
+            "state": req.state.name,
+            "batch_slot": req.batch_slot,
+            "prefilled": req.prefilled,
+            "generated": req.generated,
+            "prompt": list(getattr(req, "_prompt", [])),
+            "sampling": [
+                req.sampling.temperature, req.sampling.top_k,
+                req.sampling.top_p, req.sampling.min_p,
+            ],
+            "stop_tokens": list(req.stop_tokens),
+            "stopped": req.stopped,
+            "n_branches": req.n_branches,
+            "parent_id": req.parent_id,
+            "child_ids": list(req.child_ids),
+            "resume_token": req.resume_token,
+            "swap_npages": req.swap_npages,
+            "priority": req.priority,
+            "lora_id": req.lora_id,
+            "logit_bias": {
+                str(t): v
+                for t, v in (getattr(req, "_logit_bias", None) or {}).items()
+            },
+            "arrival": getattr(req, "_arrival", 0),
+            "admit_seq": getattr(req, "_admit_seq", 0),
+        }
+        # A waiting fork parent still carries its un-admitted children:
+        # they go inline, so that restore rebuilds the group whole.
+        pending = getattr(req, "_children_reqs", None)
+        if req.state.name == "WAITING" and pending:
+            d["pending_children"] = [req_dict(c) for c in pending]
+        return d
+
+    meta = {
+        "page_size": cache.page_size,
+        "kv_dtype": cache.kv_dtype,
+        "requests": {str(rid): req_dict(r) for rid, r in sched.active.items()},
+        "waiting": [req_dict(r) for r in sched.waiting],
+        # Pages are allocated per request at admission and released at
+        # retirement: the active requests own every live page.
+        "alloc": {
+            str(rid): sched.allocator.pages_of(rid) for rid in sched.active
+        },
+        "outputs": {str(k): v for k, v in engine.outputs.items()},
+        "logprobs": {str(k): v for k, v in engine.logprobs.items()},
+        "next_id": engine._next_id,
+        "branch_ids": {str(k): list(v) for k, v in engine._branch_ids.items()},
+        "lora_names": engine.lora.names,
+        "swapped": {
+            str(rid): {"n": stash["n"], "k": len(stash["arrays"])}
+            for rid, stash in engine._swapped.items()
+        },
+    }
+    (path / _ENGINE_META).write_text(json.dumps(meta))
+
+
+@torch.inference_mode()
+def restore_engine(path, engine) -> None:
+    """Restore a snapshot into a freshly built engine of the same config
+    (shapes must match), with the same adapters registered in the same
+    order. Decoding resumes where the snapshot left it: page ownership,
+    request progress, device state and the generator all round-trip. The
+    prefix index restores cold."""
+    from tpu_flash_torch.engine.sampling import SamplingParams
+    from tpu_flash_torch.engine.scheduler import Request, RequestState
+
+    path = _abs(path)
+    meta = json.loads((path / _ENGINE_META).read_text())
+    data = np.load(path / _ENGINE_ARRAYS)
+    cache = engine.cache
+    if meta["page_size"] != cache.page_size:
+        raise ValueError("snapshot page_size mismatch")
+    if meta["kv_dtype"] != cache.kv_dtype:
+        raise ValueError("snapshot kv_dtype mismatch")
+    if tuple(data["k_pages"].shape) != tuple(cache.k_pages.shape):
+        raise ValueError(
+            f"snapshot cache shape {data['k_pages'].shape} != engine "
+            f"{tuple(cache.k_pages.shape)}"
+        )
+    want = meta.get("lora_names", [])
+    if want and engine.lora.names != want:
+        raise ValueError(
+            f"snapshot was taken with LoRA adapters {want}; re-register "
+            f"them (same order) before restore: engine has "
+            f"{engine.lora.names}"
+        )
+    names = ["k_pages", "v_pages"]
+    if cache.quantized:
+        names += ["k_scales", "v_scales"]
+    if cache.k_recent is not None and "k_recent" in data:
+        names += ["k_recent", "v_recent"]
+    for name in names:
+        t = getattr(cache, name)
+        t.copy_(_torch(data[name], t))
+    for name in ("page_tables", "lengths", "last_tokens", "logit_bias"):
+        t = getattr(engine, name)
+        t.copy_(_torch(data[name], t))
+    engine.active = np.array(data["active"])
+    engine.temps = np.array(data["temps"])
+    engine.top_ks = np.array(data["top_ks"])
+    engine.top_ps = np.array(data["top_ps"])
+    engine.min_ps = np.array(data["min_ps"])
+    engine.lora_ids = np.array(data["lora_ids"])
+    engine._slot_bias = np.array(data["slot_bias"])
+    engine._slot_bias_req[:] = -1  # rows are written again on next install
+    engine._generator.set_state(torch.from_numpy(np.array(data["rng"])))
+    engine.outputs = {int(k): list(v) for k, v in meta["outputs"].items()}
+    engine.logprobs = {int(k): list(v) for k, v in meta["logprobs"].items()}
+    engine._next_id = meta["next_id"]
+
+    sched = engine.scheduler
+    for sid, pages in meta["alloc"].items():
+        # Each sequence takes back its own physical pages (the page tables
+        # name them); a page an earlier sequence already took was
+        # prefix-shared at snapshot time and is shared again.
+        for page in pages:
+            if sched.allocator.refcount(page) > 0:
+                ok = sched.allocator.share(int(sid), [page])
+            else:
+                ok = sched.allocator.alloc_exact(int(sid), [page])
+            if not ok:
+                raise ValueError(
+                    f"snapshot page {page} for seq {sid} unavailable in "
+                    f"this allocator"
+                )
+
+    def build_req(rd):
+        t, k, p, min_p = rd["sampling"]
+        req = Request(
+            req_id=rd["req_id"],
+            prompt_len=rd["prompt_len"],
+            max_new_tokens=rd["max_new_tokens"],
+            sampling=SamplingParams(temperature=t, top_k=int(k), top_p=p,
+                                    min_p=min_p),
+            stop_tokens=tuple(rd["stop_tokens"]),
+            state=RequestState[rd["state"]],
+            prefilled=rd["prefilled"],
+            generated=rd["generated"],
+            stopped=rd["stopped"],
+            batch_slot=rd["batch_slot"],
+            n_branches=rd["n_branches"],
+            parent_id=rd["parent_id"],
+            child_ids=tuple(rd["child_ids"]),
+            resume_token=rd["resume_token"],
+            swap_npages=rd["swap_npages"],
+            priority=rd["priority"],
+            lora_id=rd["lora_id"],
+        )
+        req._prompt = list(rd["prompt"])
+        if rd["logit_bias"]:
+            req._logit_bias = {int(t): float(v)
+                               for t, v in rd["logit_bias"].items()}
+        req._arrival = rd["arrival"]
+        req._admit_seq = rd["admit_seq"]
+        if rd.get("pending_children"):
+            req._children_reqs = [build_req(c)
+                                  for c in rd["pending_children"]]
+        return req
+
+    for rid, rd in meta["requests"].items():
+        req = build_req(rd)
+        sched.active[int(rid)] = req
+        if req.batch_slot >= 0:
+            sched.slots[req.batch_slot] = req.req_id
+    for rd in meta["waiting"]:
+        sched.waiting.append(build_req(rd))
+    engine._branch_ids = {int(k): list(v)
+                          for k, v in meta["branch_ids"].items()}
+    # The scheduler's ordering counters resume past every request.
+    reqs = list(sched.active.values()) + list(sched.waiting)
+    if reqs:
+        sched._arrival_counter = 1 + max(r._arrival for r in reqs)
+        sched._admit_counter = 1 + max(r._admit_seq for r in reqs)
+    # Swap stashes: payloads back in their pages' dtypes, scales f32.
+    engine._swapped = {}
+    sides = [cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales]
+    for rid, info in meta["swapped"].items():
+        arrays = [torch.from_numpy(data[f"swap_{rid}_{j}"]).to(sides[j].dtype)
+                  for j in range(info["k"])]
+        stash = {"n": info["n"], "arrays": arrays}
+        if f"swap_{rid}_rk" in data:
+            ring = cache.k_recent.dtype
+            stash["recent"] = (
+                torch.from_numpy(data[f"swap_{rid}_rk"]).to(ring),
+                torch.from_numpy(data[f"swap_{rid}_rv"]).to(ring),
+            )
+        engine._swapped[int(rid)] = stash

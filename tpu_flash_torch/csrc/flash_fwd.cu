@@ -80,8 +80,19 @@
 // build without the test, which every other call runs. A row whose max is
 // the mask value leaves it unscaled by ln 2 (the mask value is never taken
 // to log2 units: times log2 e it would overflow to -inf).
-// Not detected from positions, in either kernel: a q segment that no key
-// carries (such a row averages only the keys its block walks).
+//
+// Rows whose every key a segment id hides (a q segment that no key of
+// [0, kv_len) carries, or none before the row's diagonal) are not known
+// from positions: each kernel walks only its usual steps for them, so
+// such a row ends with its max at the mask value having averaged only the
+// columns it walked. For calls with segment ids a second pass
+// (masked_rows_kernel, after either kernel) finds those rows by their lse
+// (below half the mask value: MASK_VALUE, or MASK_VALUE * ln 2 where the
+// tensor-core kernel took the mask value to log2 units; a row that sees a
+// key has a finite score's lse, a row with sinks the sink's) and writes
+// the plain version's answer: o the mean of V[:kv_len], summed in
+// sequence, lse MASK_VALUE + log(kv_len). The wrapper passes an lse
+// buffer for such calls; calls without segment ids run no second pass.
 
 // Layout: q [b, hq, sq, d], k/v [b, hkv, skv, d], o like q, lse f32
 // [b, hq, sq]; all contiguous (bf16 rows 16-byte aligned). GQA by index:
@@ -550,6 +561,104 @@ DenseParams dense_params(const void* q, const void* k, const void* v,
               skv, kv_len, scale, causal, q_offset, window, softcap,        \
               inv_softcap)
 
+// ---------------------------------------------------------------------------
+// Rows whose max stayed at the mask value (segment ids; see the note at the
+// top): one block per (MASKED_ROWS rows, q head, batch row), one thread a
+// column.
+
+namespace {
+
+constexpr int MASKED_ROWS = 64;
+
+template <class T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <class T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <class T, int D>
+__global__ void __launch_bounds__(D)
+    masked_rows_kernel(const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int hq, int hkv, int sq,
+                       int skv, int kv_len) {
+  const int h = blockIdx.y, b = blockIdx.z, r0 = blockIdx.x * MASKED_ROWS;
+  const int n = min(MASKED_ROWS, sq - r0);
+  const long long rows = ((long long)b * hq + h) * sq + r0;
+  __shared__ bool masked[MASKED_ROWS];
+  __shared__ int any;
+  if (threadIdx.x == 0) any = 0;
+  __syncthreads();
+  for (int r = threadIdx.x; r < n; r += D) {
+    masked[r] = lse[rows + r] < 0.5f * MASK_VALUE;
+    if (masked[r]) any = 1;
+  }
+  __syncthreads();
+  if (!any) return;
+  // Every column of [0, kv_len) at the mask value: P 1 on each, l kv_len.
+  const T* vc = v + ((long long)b * hkv + h / (hq / hkv)) * skv * D +
+                threadIdx.x;
+  float sum = 0.f;
+  for (int j = 0; j < kv_len; ++j) sum += to_f32(vc[(long long)j * D]);
+  const T mean = from_f32<T>(sum * (1.0f / (float)kv_len));
+  for (int r = 0; r < n; ++r) {
+    if (!masked[r]) continue;
+    o[(rows + r) * D + threadIdx.x] = mean;
+    if (threadIdx.x == 0) lse[rows + r] = MASK_VALUE + logf((float)kv_len);
+  }
+}
+
+template <class T>
+int launch_masked_rows(const void* v, void* o, float* lse, int batch, int hq,
+                       int hkv, int sq, int skv, int kv_len, int head_dim,
+                       cudaStream_t stream) {
+  const dim3 grid((sq + MASKED_ROWS - 1) / MASKED_ROWS, hq, batch);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(o);
+  if (head_dim == 64)
+    masked_rows_kernel<T, 64><<<grid, 64, 0, stream>>>(vt, ot, lse, hq, hkv,
+                                                       sq, skv, kv_len);
+  else if (head_dim == 256)
+    masked_rows_kernel<T, 256><<<grid, 256, 0, stream>>>(
+        vt, ot, lse, hq, hkv, sq, skv, kv_len);
+  else
+    masked_rows_kernel<T, 128><<<grid, 128, 0, stream>>>(
+        vt, ot, lse, hq, hkv, sq, skv, kv_len);
+  return (int)cudaGetLastError();
+}
+
+// After either kernel: the second pass for calls with segment ids (rc, the
+// kernel's return, passes through when it failed or no pass is due).
+int masked_rows(int rc, const void* v, void* o, void* lse, const void* q_seg,
+                int dtype, int batch, int hq, int hkv, int sq, int skv,
+                int kv_len, int head_dim, void* stream) {
+  if (rc != 0 || q_seg == nullptr || lse == nullptr || kv_len <= 0 ||
+      sq <= 0)
+    return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 1)
+    return launch_masked_rows<__nv_bfloat16>(v, o, l, batch, hq, hkv, sq,
+                                             skv, kv_len, head_dim, s);
+  return launch_masked_rows<float>(v, o, l, batch, hq, hkv, sq, skv, kv_len,
+                                   head_dim, s);
+}
+
+}  // namespace
+
+#define MASKED_ROWS_ARGS                                                    \
+  v, o, lse, q_seg, dtype, batch, hq, hkv, sq, skv, kv_len, head_dim, stream
+
 bool served(int dtype, int head_dim) {
   return (dtype == 0 || dtype == 1) &&
          (head_dim == 64 || head_dim == 128 || head_dim == 256);
@@ -574,17 +683,25 @@ static int launch_exact(FLASH_FWD_ARGS) {
 // scratch: scratch_floats f32 of device memory holding scratch_slots slots
 // (prefill_tile.cuh, take_scratch) for f32 at d 256, as forward.py sizes
 // it, else nullptr; rows: the order-exact kernel's rows a block (64, or
-// 16 for bf16). Returns cudaGetLastError() after the launch; 1
+// 16 for bf16). With segment ids, lse must be given: the second pass reads
+// it. Returns cudaGetLastError() after the launches; 1
 // (cudaErrorInvalidValue) for a configuration this build does not serve.
 extern "C" int flash_fwd(FLASH_FWD_ARGS) {
   if (!served(dtype, head_dim)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch_exact(FLASH_FWD_NAMES);
-  const FwdParams p = FLASH_FWD_PARAMS;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch_bf16<TcTiles<64>, TC_EXP2>(p, batch, s);
-  if (head_dim == 256)
-    return launch_bf16<TcTiles<256>, TC_EXP2>(p, batch, s);
-  return launch_bf16<TcTiles<128>, TC_EXP2>(p, batch, s);
+  int rc;
+  if (dtype == 0) {
+    rc = launch_exact(FLASH_FWD_NAMES);
+  } else {
+    const FwdParams p = FLASH_FWD_PARAMS;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (head_dim == 64)
+      rc = launch_bf16<TcTiles<64>, TC_EXP2>(p, batch, s);
+    else if (head_dim == 256)
+      rc = launch_bf16<TcTiles<256>, TC_EXP2>(p, batch, s);
+    else
+      rc = launch_bf16<TcTiles<128>, TC_EXP2>(p, batch, s);
+  }
+  return masked_rows(rc, MASKED_ROWS_ARGS);
 }
 
 // The order-exact forward: the order-exact kernel for both dtypes, whose
@@ -593,7 +710,7 @@ extern "C" int flash_fwd(FLASH_FWD_ARGS) {
 // top). Same arguments and returns as flash_fwd.
 extern "C" int flash_fwd_exact(FLASH_FWD_ARGS) {
   if (!served(dtype, head_dim)) return (int)cudaErrorInvalidValue;
-  return launch_exact(FLASH_FWD_NAMES);
+  return masked_rows(launch_exact(FLASH_FWD_NAMES), MASKED_ROWS_ARGS);
 }
 
 // The shared memory and blocks an SM of the order-exact instance a call

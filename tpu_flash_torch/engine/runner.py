@@ -35,9 +35,19 @@ refcounts), each gets its own copy of the partial tail page
 parent's last logits. ``logit_bias`` is a per-slot [vocab] row added to
 the logits on every sampling path (prefill's first token, fused decode
 rows, burst steps, speculative verify); reported log-probs are of the
-biased logits. Optimistic admission with preemption/swap and LoRA
-adapters are later slices: ``lora`` takes None (a name raises, as for an
-adapter never registered).
+biased logits.
+
+Optimistic admission (``EngineConfig(admission="optimistic")``) admits
+on prompt pages alone and tops each running sequence up before every
+step; when the pool runs dry the scheduler preempts the newest sequence.
+Its victim either folds its generated tokens into its prompt and
+re-prefills them later, resuming decode from its newest emitted token
+without sampling it again (``preemption="recompute"``), or has its pages
+(scales and exact recent ring with them) copied to CPU tensors and
+scattered back into new pages when it is admitted again (``"swap"``).
+``register_lora`` adds a LoRA adapter (``engine/lora.py``) that
+``submit(lora=name)`` applies to every projection of that request's rows
+on every route; adapted requests never share prefix pages.
 
 The engine runs on ``model.device`` ("cuda" unless the model was built
 for "cpu"); it mutates its cache and slot tensors in place.
@@ -62,6 +72,7 @@ from tpu_flash_torch.engine.health import (
     StepTimer,
     watchdog_check,
 )
+from tpu_flash_torch.engine.lora import LoRAStore, apply_lora
 from tpu_flash_torch.engine.metrics import EngineMetrics
 from tpu_flash_torch.engine.prefix import PrefixIndex
 from tpu_flash_torch.engine.sampling import (
@@ -88,15 +99,6 @@ def _pow2_bucket(n: int, lo: int = 8) -> int:
     return p
 
 
-def _adapter_id(name: Optional[str]) -> int:
-    """The id of a request's LoRA adapter, as the JAX ``LoRAStore.id_of``
-    gives it: 0 for None. Adapters are a later slice, so no name is
-    registered."""
-    if name is None:
-        return 0
-    raise ValueError(f"unknown adapter {name!r}")
-
-
 class InferenceEngine:
     def __init__(
         self,
@@ -119,11 +121,6 @@ class InferenceEngine:
                 config.cache, max_seq_len=config.max_seq_len,
                 max_batch_size=config.max_batch_size,
             ))
-        if config.admission != "reserve":
-            raise NotImplementedError(
-                "optimistic admission and preemption are not ported yet "
-                "(ROADMAP queue 1, item 13)"
-            )
         if config.cache.num_pages < 2:
             raise ValueError("need at least 2 pages (one is reserved)")
         self.model = model
@@ -176,6 +173,17 @@ class InferenceEngine:
         self._slot_bias_req = np.full((mb,), -1, np.int64)
         self._generator = torch.Generator(device=dev)
         self._generator.manual_seed(seed)
+        # Multi-LoRA: registered adapters and each batch slot's adapter id
+        # (0: none).
+        self.lora = LoRAStore(cfg.num_layers, device=dev)
+        self.lora_ids = np.zeros((mb,), np.int32)
+        # Optimistic admission: swapped-out victims' KV on the host
+        # (req_id -> {"n": pages, "arrays": [k, v(, k_scales, v_scales)],
+        # "recent": (k ring, v ring)}), and the scheduler's hooks that
+        # carry out its preemptions.
+        self._swapped: Dict[int, dict] = {}
+        self.scheduler.preempt_hook = self._host_preempt_recompute
+        self.scheduler.swap_out_hook = self._host_swap_out
         self.outputs: Dict[int, List[int]] = {}
         self.logprobs: Dict[int, List[float]] = {}
         # Parallel sampling: request id -> [id, child ids...]; survives
@@ -223,8 +231,10 @@ class InferenceEngine:
         prefills once, then forks into n decode branches sharing the
         prompt's KV pages (branch ids via :meth:`branches`; each branch
         has its own outputs/logprobs entry). Higher ``priority`` admits
-        first. ``lora`` names an adapter; none can be registered yet, so
-        only None is served. ``logit_bias`` maps token ids to additive
+        first and is preferred as a survivor under optimistic admission.
+        ``lora`` names an adapter registered with :meth:`register_lora`,
+        applied to every projection of this request; adapted requests
+        bypass the prefix cache. ``logit_bias`` maps token ids to additive
         logit offsets (OpenAI convention: ~-100 bans a token, ~+100
         forces it) applied before the sampling filters on every path;
         reported logprobs are of the biased distribution."""
@@ -250,7 +260,7 @@ class InferenceEngine:
                 f"({total + (n - 1) * own} > "
                 f"{self.config.cache.num_pages - 1})"
             )
-        lora_id = _adapter_id(lora)
+        lora_id = self.lora.id_of(lora)
         req_id = self._next_id
         self._next_id += 1
         req = Request(
@@ -301,6 +311,26 @@ class InferenceEngine:
         self._branch_ids[req_id] = [req_id, *req.child_ids]
         return req_id
 
+    def register_lora(self, name: str, adapters, *, alpha=None) -> int:
+        """Register a LoRA adapter for per-request serving
+        (``submit(lora=name)``): ``adapters`` maps layer index to {proj:
+        (A [in, r], B [r, out])}; ``alpha`` scales the delta by alpha / r.
+        Returns its id."""
+        return self.lora.register(name, adapters, alpha=alpha)
+
+    def _lora_hook(self, ids: List[int]):
+        """proj_hook(li, name, x, y) adding each row's adapter delta (ids:
+        the rows' adapter ids), or None when no adapter is registered."""
+        if self.lora.empty:
+            return None
+        stacks = self.lora.stacks()
+        ids_t = self._dev_tensor(ids, torch.int64)
+
+        def hook(li, name, x, y):
+            return apply_lora(stacks, li, name, x, y, ids_t)
+
+        return hook
+
     def branches(self, req_id: int) -> List[int]:
         """All completion ids of a request: itself plus any parallel-
         sampling branch ids (submission order). Valid for live and
@@ -329,6 +359,11 @@ class InferenceEngine:
             sched.waiting.clear()
             sched.waiting.extend(kept)
             hit = True
+        # Swapped-out stashes of every branch of the group go too (a
+        # snapshot would carry a dead stash along).
+        for cid in comp | {req_id}:
+            if self._swapped.pop(cid, None) is not None:
+                hit = True
         return hit
 
     def run(self) -> Dict[int, List[int]]:
@@ -381,6 +416,17 @@ class InferenceEngine:
         )
         plan = self.scheduler.step()
         t0 = time.perf_counter()
+        # Optimistic admission: swapped victims admitted again get their KV
+        # back, and slots whose page table grew get their rows, before
+        # anything reads them.
+        for rid in plan.swap_in:
+            req = self.scheduler.active.get(rid)
+            if req is not None and rid in self._swapped:
+                self._swap_restore(req)
+        for slot in plan.refresh_tables:
+            rid = self.scheduler.slots[slot]
+            if rid is not None:
+                self._install_table_row(slot, rid)
         n_decoded = 0
         n_prefill = sum(c.length for c in plan.prefill)
         with StepTimer(self.health):
@@ -489,14 +535,15 @@ class InferenceEngine:
         return gather(k), gather(v)
 
     def _chunked_prefill_impl(self, hist_len: int, tokens, table_rows,
-                              n_valids, slots):
+                              n_valids, slots, lora_ids):
         """One batch of same-stage chunks: tokens [B, bucket] at positions
         [hist_len, hist_len + bucket) of their sequences. Each row attends
         its history plus itself: straight from the pages when paging is on
         and the history is page-aligned, else gathered dense (q_offset =
         kept history). The first n_valids[b] tokens' K/V append to the
-        row's pages (pads to the trash page). Returns (last-valid-position
-        logits [B, vocab], finite flag)."""
+        row's pages (pads to the trash page); ``lora_ids`` are the rows'
+        adapter ids. Returns (last-valid-position logits [B, vocab], finite
+        flag)."""
         ps = self.config.cache.page_size
         pps = self.config.cache.max_pages_per_seq
         b, bucket = tokens.shape
@@ -572,6 +619,7 @@ class InferenceEngine:
         logits = self.model.forward(
             self.params, tokens, q_offset=hist_keep, kv_hook=kv_hook,
             positions=positions, attention_fn=attention_fn, order_exact=True,
+            proj_hook=self._lora_hook(lora_ids),
         )
         last = logits[torch.arange(b, device=dev), n_valids.long() - 1]
         return last, torch.isfinite(logits).all()
@@ -582,7 +630,7 @@ class InferenceEngine:
         length and its batch slot."""
         pps = self.config.cache.max_pages_per_seq
         rows = dict(tokens=[], table_rows=[], tables=[], n_valids=[],
-                    slots=[])
+                    slots=[], lora_ids=[])
         for c in chunks:
             req = self.scheduler.active[c.req_id]
             toks = req._prompt[c.start:c.start + c.length]
@@ -595,6 +643,7 @@ class InferenceEngine:
             rows["slots"].append(
                 req.batch_slot if req.batch_slot >= 0 else self.trash_slot
             )
+            rows["lora_ids"].append(req.lora_id)
         return rows
 
     def _pad_rows(self, rows, n: int, bucket: int) -> None:
@@ -606,6 +655,7 @@ class InferenceEngine:
             rows["table_rows"].append([self.trash_page] * pps)
             rows["n_valids"].append(1)
             rows["slots"].append(self.trash_slot)
+            rows["lora_ids"].append(0)
 
     def _dev_tensor(self, rows, dtype):
         return torch.tensor(rows, dtype=dtype).to(self.device)
@@ -623,6 +673,7 @@ class InferenceEngine:
             table_t,
             self._dev_tensor(rows["n_valids"], torch.int64),
             self._dev_tensor(rows["slots"], torch.int64),
+            rows["lora_ids"],
         )
         if self.health_config.check_numerics:
             watchdog_check(
@@ -636,14 +687,15 @@ class InferenceEngine:
             )
 
     def _ragged_prefill_impl(self, hist_cap: int, tokens, table_rows,
-                             starts, n_valids, slots):
+                             starts, n_valids, slots, lora_ids):
         """A batch of chunks at different stages in one dispatch: row b's
         tokens sit at positions [starts[b], starts[b] + n_valids[b]) of
         its own sequence. Attention runs over the pages with per-row
         offsets (paged, when hist_cap is page-aligned) or over each row's
         history gathered to hist_cap plus the chunk
         (``flash_attention_ragged``); the chunk's K/V append to the row's
-        pages. Returns (last-valid-position logits [B, vocab], finite)."""
+        pages; ``lora_ids`` are the rows' adapter ids. Returns
+        (last-valid-position logits [B, vocab], finite)."""
         ps = self.config.cache.page_size
         pps = self.config.cache.max_pages_per_seq
         b, bucket = tokens.shape
@@ -702,7 +754,7 @@ class InferenceEngine:
 
         logits = self.model.forward(
             self.params, tokens, kv_hook=kv_hook, positions=positions,
-            attention_fn=attention_fn,
+            attention_fn=attention_fn, proj_hook=self._lora_hook(lora_ids),
         )
         last = logits[torch.arange(b, device=dev), n_valids.long() - 1]
         return last, torch.isfinite(logits).all()
@@ -742,6 +794,7 @@ class InferenceEngine:
                 table + [self.trash_page] * (pps - len(table)))
             rows["n_valids"].append(1)
             rows["slots"].append(s)
+            rows["lora_ids"].append(req.lora_id)
             starts.append(feed)
         n_pad = bb - len(chunks) - len(ditems)
         self._pad_rows(rows, n_pad, bucket)
@@ -754,6 +807,7 @@ class InferenceEngine:
             self._dev_tensor(starts, torch.int64),
             self._dev_tensor(rows["n_valids"], torch.int64),
             self._dev_tensor(rows["slots"], torch.int64),
+            rows["lora_ids"],
         )
         if self.health_config.check_numerics:
             watchdog_check(
@@ -822,10 +876,21 @@ class InferenceEngine:
         self.lengths[slot] = new_len
         sp = req.sampling
         self._install_request(slot, req)
-        # Index the prompt's full pages written so far for prefix reuse.
-        if self.prefix_index is not None:
+        # Index the prompt's full pages written so far for prefix reuse;
+        # adapter-specific KV never registers (base requests must not
+        # alias it).
+        if self.prefix_index is not None and not req.lora_id:
             self.prefix_index.register(req._prompt[:new_len], table)
         if new_len < req.prompt_len:
+            return
+        if req.resume_token is not None:
+            # A recomputed victim: the prompt now holds every token whose
+            # KV was prefilled again; decode resumes by feeding the newest
+            # emitted token (sampling it again would fork the stream the
+            # client has seen).
+            self.last_tokens[slot] = req.resume_token
+            self.active[slot] = True
+            req.resume_token = None
             return
         # Final chunk: its last-position logits (biased) emit the first
         # token.
@@ -860,7 +925,7 @@ class InferenceEngine:
             self.active[slot] = False
 
     def _install_request(self, slot: int, req: Request) -> None:
-        """Point ``slot``'s sampling parameters and logit bias at
+        """Point ``slot``'s sampling parameters, adapter and logit bias at
         ``req``: its bias row is written once (prefill calls this per
         chunk), and a row a previous request left is cleared."""
         sp = req.sampling
@@ -868,6 +933,7 @@ class InferenceEngine:
         self.top_ks[slot] = sp.top_k
         self.top_ps[slot] = sp.top_p
         self.min_ps[slot] = sp.min_p
+        self.lora_ids[slot] = req.lora_id
         bias = getattr(req, "_logit_bias", None)
         if bias:
             if self._slot_bias_req[slot] == req.req_id:
@@ -883,6 +949,90 @@ class InferenceEngine:
             self.logit_bias[slot] = 0.0
             self._slot_bias[slot] = False
             self._slot_bias_req[slot] = -1
+
+    # -- preemption (optimistic admission) --------------------------------------
+
+    def _install_table_row(self, slot: int, rid: int) -> None:
+        pps = self.config.cache.max_pages_per_seq
+        table = self.scheduler.page_table(rid)
+        self.page_tables[slot] = self._dev_tensor(
+            table + [self.trash_page] * (pps - len(table)), torch.int32)
+
+    def _host_preempt_recompute(self, req: Request) -> None:
+        """Scheduler hook (preemption="recompute"): fold the generated
+        tokens into the prompt so that admission prefills them again, and
+        keep the newest one, emitted and never sampled again, as the
+        point decode resumes from. The budget moves with the fold:
+        generated becomes 1 (the resume token) and max_new_tokens drops by
+        the folded count, so the remaining budget and the done test are
+        unchanged."""
+        if req.batch_slot >= 0:
+            self.active[req.batch_slot] = False
+        outs = self.outputs.get(req.req_id, [])
+        g = req.generated
+        if g > 0 and outs:
+            # The KV written covers the prompt and all but the newest
+            # emitted token.
+            req._prompt = list(req._prompt) + outs[len(outs) - g:-1]
+            req.prompt_len = len(req._prompt)
+            req.resume_token = outs[-1]
+            req.max_new_tokens -= g - 1
+            req.generated = 1
+        req.swap_npages = 0
+
+    def _host_swap_out(self, req: Request, pages: List[int]) -> None:
+        """Scheduler hook (preemption="swap"): copy the sequence's pages
+        (both sides' payloads and scales, the page axis being dim 2 on
+        every tier, as ``PagedKVCache.copy_pages`` reads them) and its
+        slot's exact recent ring to CPU tensors before its pages are
+        released. A victim preempted again before its restore keeps its
+        first stash."""
+        if req.batch_slot >= 0:
+            self.active[req.batch_slot] = False
+        rid = req.req_id
+        if rid in self._swapped or not pages:
+            return
+        cache = self.cache
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        arrays = [t[:, :, idx].cpu() for t in (
+            cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales)
+            if t is not None]
+        stash = {"n": len(pages), "arrays": arrays}
+        if cache.k_recent is not None and req.batch_slot >= 0:
+            # A copy even when the cache is on the CPU (where .cpu() of a
+            # slice would return the live slot, which the slot's next
+            # request overwrites).
+            stash["recent"] = tuple(
+                r[:, req.batch_slot].to("cpu", copy=True)
+                for r in (cache.k_recent, cache.v_recent))
+        self._swapped[rid] = stash
+
+    def _swap_restore(self, req: Request) -> None:
+        """Write a swapped-out sequence's stash into its new pages (and
+        ring) and reinstall its slot: table row, sampling parameters,
+        adapter and logit bias; a victim caught mid-decode resumes by
+        feeding its newest emitted token at its position."""
+        rid = req.req_id
+        stash = self._swapped.pop(rid)
+        cache = self.cache
+        pages = self.scheduler.page_table(rid)[:stash["n"]]
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        targets = [t for t in (cache.k_pages, cache.v_pages, cache.k_scales,
+                               cache.v_scales) if t is not None]
+        for t, a in zip(targets, stash["arrays"], strict=True):
+            t[:, :, idx] = a.to(self.device)
+        slot = req.batch_slot
+        if "recent" in stash and cache.k_recent is not None:
+            cache.k_recent[:, slot] = stash["recent"][0].to(self.device)
+            cache.v_recent[:, slot] = stash["recent"][1].to(self.device)
+        self._install_table_row(slot, rid)
+        self._install_request(slot, req)
+        if req.generated > 0:
+            # KV exists for all but the newest emitted token.
+            self.lengths[slot] = req.prefilled + req.generated - 1
+            self.last_tokens[slot] = self.outputs[rid][-1]
+            self.active[slot] = True
+        req.swap_npages = 0
 
     # -- parallel sampling (n > 1 branches a prompt) ---------------------------
 
@@ -903,7 +1053,6 @@ class InferenceEngine:
         if not children:
             return
         ps = self.config.cache.page_size
-        pps = self.config.cache.max_pages_per_seq
         shared_n = req.prompt_len // ps
         if req.prompt_len % ps:
             self.cache.copy_pages(
@@ -929,10 +1078,7 @@ class InferenceEngine:
                                                 lps.double()]))
         for i, ch in enumerate(children):
             slot = ch.batch_slot
-            ctable = sched.page_table(ch.req_id)
-            self.page_tables[slot] = self._dev_tensor(
-                ctable + [self.trash_page] * (pps - len(ctable)),
-                torch.int32)
+            self._install_table_row(slot, ch.req_id)
             self.lengths[slot] = req.prompt_len
             self._install_request(slot, ch)
             ch.state = RequestState.RUNNING
@@ -944,11 +1090,12 @@ class InferenceEngine:
     # -- decode ----------------------------------------------------------------
 
     def _decode_step_impl(self, tokens, lengths, active_mask, temps,
-                          top_ks, top_ps, min_ps, bias=None):
+                          top_ks, top_ps, min_ps, bias=None, hook=None):
         """One decode token for every batch slot (inactive slots write the
         trash page; their outputs are ignored); ``bias`` [mb, vocab] is
-        added to the logits when given. Returns (next_tokens,
-        new_lengths, finite, logps)."""
+        added to the logits when given, ``hook`` is the slots' LoRA
+        ``proj_hook``. Returns (next_tokens, new_lengths, finite,
+        logps)."""
         model = self.model
         cfg = model.config
         params = self.params
@@ -973,7 +1120,8 @@ class InferenceEngine:
         slot_ids = torch.arange(mb, device=self.device)
         for li, layer in enumerate(params["layers"]):
             xn = _rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-            q, k_new, v_new = model.decode_qkv(params, li, xn, positions)
+            q, k_new, v_new = model.decode_qkv(params, li, xn, positions,
+                                               proj_hook=hook)
             cache.append(li, k_new, v_new, page_ids, offsets,
                          slots=slot_ids if ring else None,
                          positions=positions)
@@ -989,9 +1137,13 @@ class InferenceEngine:
                 recent_k=cache.k_recent[li, :mb] if use_tail else None,
                 recent_v=cache.v_recent[li, :mb] if use_tail else None,
             )
-            x = x + attn.reshape(mb, -1) @ layer["wo"]
+            attn = attn.reshape(mb, -1)
+            proj = attn @ layer["wo"]
+            if hook is not None:
+                proj = hook(li, "wo", attn, proj)
+            x = x + proj
             xn = _rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
-            x = x + model._mlp(layer, xn)
+            x = x + model._mlp(layer, xn, li, hook)
         x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
         logits = (x @ params["lm_head"]).float()
         if bias is not None:
@@ -1014,12 +1166,13 @@ class InferenceEngine:
         between them (``bias``: as ``_decode_step_impl``'s). Returns
         (tokens [n, mb], finite, logps [n, mb])."""
         toks, flags, logps = [], [], []
+        hook = self._lora_hook(self.lora_ids.tolist())
         for _ in range(n_steps):
             (self.last_tokens, self.lengths, finite, lp) = (
                 self._decode_step_impl(
                     self.last_tokens, self.lengths, active_mask,
                     self.temps, self.top_ks, self.top_ps, self.min_ps,
-                    bias,
+                    bias, hook,
                 )
             )
             toks.append(self.last_tokens)
@@ -1126,15 +1279,17 @@ class InferenceEngine:
         return torch.einsum("bhqk,bhkd->bhqd", w, vf).to(q.dtype)
 
     def _verify_impl(self, n_tok: int, tokens, lengths_b, table_rows, temps,
-                     top_ks, top_ps, draft_lens, min_ps, slots, bias=None):
+                     top_ks, top_ps, draft_lens, min_ps, slots, bias,
+                     lora_ids):
         """Verify a batch of [last_token, draft...] rows [B, n_tok] in one
         forward at per-row offsets ``lengths_b``, then exact rejection
         sampling per row. Every row's n_tok tokens' K/V append to the
         pages (rejected entries are masked by lengths and overwritten when
         their positions are reached); the exact ring takes only the
         accepted rows, after the sampler (the rest go to the trash slot).
-        ``bias`` [B, vocab], when given, is added to every row's logits.
-        Returns (emit [B, n_tok], n_emit [B], finite, logps [B, n_tok])."""
+        ``bias`` [B, vocab], when given, is added to every row's logits;
+        ``lora_ids`` are the rows' adapter ids. Returns (emit [B, n_tok],
+        n_emit [B], finite, logps [B, n_tok])."""
         ps = self.config.cache.page_size
         pps = self.config.cache.max_pages_per_seq
         hist_full = pps * ps
@@ -1181,7 +1336,7 @@ class InferenceEngine:
 
         logits = self.model.forward(
             self.params, tokens, kv_hook=kv_hook, positions=positions,
-            attention_fn=attention_fn,
+            attention_fn=attention_fn, proj_hook=self._lora_hook(lora_ids),
         )  # [B, n_tok, vocab]
         if bias is not None:
             logits = logits + bias[:, None, :]
@@ -1258,6 +1413,7 @@ class InferenceEngine:
             param("top_k", torch.int64), param("top_p", torch.float32),
             torch.tensor(dlens, dtype=torch.long, device=dev),
             param("min_p", torch.float32), slot_rows, bias,
+            [req.lora_id for req, _, _ in items] + [0] * n_pad,
         )
         # One host fetch: tokens, log-probs, counts (exact in float64) and
         # the finite flag.

@@ -195,26 +195,39 @@ class FlashTransformer:
             return q
         return q * torch.tensor(self._q_mult, dtype=q.dtype)
 
-    def _qkv(self, layer: Params, x: torch.Tensor, positions):
+    def _qkv(self, layer: Params, x: torch.Tensor, positions, li: int = 0,
+             proj_hook=None):
         """x [b, s, hidden] -> q [b, hq, s, d], k/v [b, hkv, s, d], with
-        rope on q/k (head counts from the weight shapes)."""
+        rope on q/k (head counts from the weight shapes).
+        ``proj_hook(li, name, x, y)`` post-processes each projection's
+        output (the multi-LoRA seam)."""
         b, s, _ = x.shape
         d = self.config.head_dim
         hq = layer["wq"].shape[1] // d
         hkv = layer["wk"].shape[1] // d
-        q = (x @ layer["wq"]).reshape(b, s, hq, d).transpose(1, 2)
-        k = (x @ layer["wk"]).reshape(b, s, hkv, d).transpose(1, 2)
-        v = (x @ layer["wv"]).reshape(b, s, hkv, d).transpose(1, 2)
+
+        def proj(name):
+            y = x @ layer[name]
+            return y if proj_hook is None else proj_hook(li, name, x, y)
+
+        q = proj("wq").reshape(b, s, hq, d).transpose(1, 2)
+        k = proj("wk").reshape(b, s, hkv, d).transpose(1, 2)
+        v = proj("wv").reshape(b, s, hkv, d).transpose(1, 2)
         if self._alibi is not None:
             return q, k, v
         q = self._scale_q(apply_rope(q, positions, self.freqs))
         k = apply_rope(k, positions, self.freqs)
         return q, k, v
 
-    def _mlp(self, layer: Params, x: torch.Tensor) -> torch.Tensor:
-        gate = torch.nn.functional.silu((x @ layer["w_gate"]).float())
-        up = (x @ layer["w_up"]).float()
-        return (gate * up).to(x.dtype) @ layer["w_down"]
+    def _mlp(self, layer: Params, x: torch.Tensor, li: int = 0,
+             proj_hook=None) -> torch.Tensor:
+        def proj(name, inp):
+            y = inp @ layer[name]
+            return y if proj_hook is None else proj_hook(li, name, inp, y)
+
+        gate = torch.nn.functional.silu(proj("w_gate", x).float())
+        up = proj("w_up", x).float()
+        return proj("w_down", (gate * up).to(x.dtype))
 
     def forward(
         self,
@@ -228,6 +241,7 @@ class FlashTransformer:
         attention_fn=None,
         segment_ids: Optional[torch.Tensor] = None,
         order_exact: bool = False,
+        proj_hook=None,
     ):
         """Causal forward over a token block; logits [b, s, vocab] f32.
 
@@ -239,8 +253,10 @@ class FlashTransformer:
         multi-document training -- attention is segment-masked and rope
         positions restart at each document (not with kv_hook or
         attention_fn). ``order_exact``: the flash call takes the forward
-        kernel's order-exact entry (``flash_attention``). With
-        ``return_kv`` also the per-layer (k, v)."""
+        kernel's order-exact entry (``flash_attention``).
+        ``proj_hook(li, name, x, y)`` post-processes each of the seven
+        projections' outputs (the multi-LoRA seam; None costs nothing).
+        With ``return_kv`` also the per-layer (k, v)."""
         cfg = self.config
         seg_attn = None
         if segment_ids is not None:
@@ -261,7 +277,7 @@ class FlashTransformer:
         kvs = []
         for li, layer in enumerate(params["layers"]):
             xn = _rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-            q, k, v = self._qkv(layer, xn, positions)
+            q, k, v = self._qkv(layer, xn, positions, li, proj_hook)
             if return_kv:
                 kvs.append((k, v))
             if kv_hook is not None:
@@ -277,9 +293,12 @@ class FlashTransformer:
                 )
             b, h, s, d = attn.shape
             attn = attn.transpose(1, 2).reshape(b, s, h * d)
-            x = x + attn @ layer["wo"]
+            proj = attn @ layer["wo"]
+            if proj_hook is not None:
+                proj = proj_hook(li, "wo", attn, proj)
+            x = x + proj
             xn = _rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
-            x = x + self._mlp(layer, xn)
+            x = x + self._mlp(layer, xn, li, proj_hook)
         x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
         logits = (x @ params["lm_head"]).float()
         if return_kv:
@@ -306,17 +325,24 @@ class FlashTransformer:
         return (nll * same).sum() / same.sum().clamp(min=1.0)
 
     def decode_qkv(self, params: Params, layer_idx: int, x: torch.Tensor,
-                   positions: torch.Tensor):
+                   positions: torch.Tensor, proj_hook=None):
         """Decode-path projections: x [b, hidden] at positions [b] ->
-        q [b, hq, d], k/v [b, hkv, d], rope applied."""
+        q [b, hq, d], k/v [b, hkv, d], rope applied (``proj_hook`` as in
+        :meth:`forward`)."""
         layer = params["layers"][layer_idx]
         b = x.shape[0]
         d = self.config.head_dim
         hq = layer["wq"].shape[1] // d
         hkv = layer["wk"].shape[1] // d
-        q = (x @ layer["wq"]).reshape(b, hq, 1, d)
-        k = (x @ layer["wk"]).reshape(b, hkv, 1, d)
-        v = (x @ layer["wv"]).reshape(b, hkv, d)
+
+        def proj(name):
+            y = x @ layer[name]
+            return (y if proj_hook is None
+                    else proj_hook(layer_idx, name, x, y))
+
+        q = proj("wq").reshape(b, hq, 1, d)
+        k = proj("wk").reshape(b, hkv, 1, d)
+        v = proj("wv").reshape(b, hkv, d)
         if self._alibi is not None:
             return q[:, :, 0], k[:, :, 0], v
         q = apply_rope(q, positions[:, None], self.freqs)[:, :, 0]

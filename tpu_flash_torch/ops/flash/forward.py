@@ -241,9 +241,12 @@ def _flash_fwd_cuda(kernel, q, k, v, *, causal, sm_scale, q_offset=0,
     alibi = None if alibi is None else alibi.float().contiguous()
     q_seg, kv_seg = segment_ids_for_kernel(q_seg, kv_seg)
     o = torch.empty_like(q)
+    # With segment ids the kernel's second pass reads each row's lse (a
+    # row that no key reaches ends at the mask value), so it is written
+    # whether the caller keeps it or not.
     lse = (
         torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-        if save_lse else None
+        if save_lse or q_seg is not None else None
     )
     rows, scratch, slots = 0, None, 0  # the tensor cores take neither
     if kernel is build.FLASH_FWD_EXACT or q.dtype == torch.float32:
