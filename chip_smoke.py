@@ -98,6 +98,33 @@ network. Phases, one JSON line each:
      (42 layers, head width 256, seeded random bf16 weights) on the int8
      + ring and bf16 caches. Launch counters (per kernel and per page
      tier) reset before each run;
+  parallel (after phase 4's Llama-3-8B runs, on their weights, before
+     Gemma-2-9B): multi-device serving as far as one card runs it (NCCL
+     refuses two ranks on one device; multi-rank correctness is held on
+     gloo CPU groups by the tests): (a) a process group of one on NCCL
+     from a torchrun-style environment (``initialize_multihost``) and
+     the (data, seq, model) mesh over it, one all-reduce; (b) a 4-rank
+     ring's schedule in one process (``ring_attention_schedule``: every
+     rank's sources in ring order through ``ring_block_state``, merged)
+     on Llama-3-8B attention at 8192 tokens, Gemma-2-9B's 16/8 heads of
+     256 with its 4096 window and cap 50 over four 2048-token blocks
+     (diagonal, dense, banded with rows that see no key, empty), ALiBi
+     and sinks at d 128 and 4096 tokens: every row within a bar from
+     the error model (RING_BLOCK_ULPS, RING_REF_ULPS) against K1 over
+     the whole sequence and against the plain version, the last rank's
+     block states merged without its own block missing it in at least
+     half that rank's rows; the ring's, its block calls' and K1's times; (c)
+     ``sharded_paged_attention``'s and ``sharded_flash_attention``'s
+     per-rank bodies on each half of the kv heads (K4 on int8 and bf16
+     pages, K1 bf16 causal), bit for bit the whole call's slices; (d)
+     the tensor-parallel engine at a model axis of 1 on phase 4's
+     weights (shared), int8 + ring: no model group (an axis of one is
+     one device), phase 4's tokens bit for bit; (e)
+     ``DataParallelEngine`` with two replicas sharing the card and the
+     weights: each request's tokens those of the request served alone,
+     aggregate prefill and decode tok/s of 2 replicas against 1 (a
+     figure), a DP snapshot mid-decode restored into a fresh engine and
+     run on, token for token;
   5. trained model: checkpoints/tiny-byte-llama served at the engine's
      defaults on every cache tier, and a staggered two-request scenario
      that reaches every route (int8, int4, fp8); the int8 runs again with
@@ -2715,24 +2742,31 @@ def main_path_prompts(vocab_size):
             .tolist() for i in range(8)]
 
 
-def main_path_engine(model, params, kv_dtype, ring, prompts, num_pages=161,
-                     **config):
-    """The main path's engine at its default routing (``config`` overrides
-    EngineConfig fields), warmed up by one short request so that
-    CUDA/cuBLAS initialisation and allocator growth stay out of timed
-    runs. ``ring`` None leaves the cache layout to the engine's auto
-    policy; otherwise ``num_pages`` pages of 128 tokens and that ring."""
+def main_path_config(kv_dtype, ring, num_pages=161, **config):
+    """The main path's EngineConfig (``config`` overrides its fields).
+    ``ring`` None leaves the cache layout to the engine's auto policy;
+    otherwise ``num_pages`` pages of 128 tokens and that ring."""
     from tpu_flash_torch.core.config import CacheConfig, EngineConfig
-    from tpu_flash_torch.engine import InferenceEngine
 
     layout = {} if ring is None else dict(
         page_size=128, num_pages=num_pages, max_pages_per_seq=16,
         recent_window=ring)
-    cfg = EngineConfig(
+    return EngineConfig(
         max_batch_size=8, max_seq_len=2048, prefill_chunk=512,
         cache=CacheConfig(kv_dtype=kv_dtype, **layout), **config,
     )
-    eng = InferenceEngine(model, params, cfg)
+
+
+def main_path_engine(model, params, kv_dtype, ring, prompts, num_pages=161,
+                     mesh=None, **config):
+    """The main path's engine at its default routing, warmed up by one
+    short request so that CUDA/cuBLAS initialisation and allocator growth
+    stay out of timed runs; ``mesh`` makes it tensor-parallel."""
+    from tpu_flash_torch.engine import InferenceEngine
+
+    eng = InferenceEngine(
+        model, params, main_path_config(kv_dtype, ring, num_pages, **config),
+        mesh=mesh)
     eng.submit(prompts[0][:64], 2)
     eng.run()
     return eng
@@ -2878,7 +2912,9 @@ def check_main_path(dev):
     """Phase 4: the default routing on the int8 and bf16 tiers, both
     again with paged_prefill=False (gathered history, the ragged kernel),
     the int4, fp8, int4g32 and k8v4 tiers at the auto layout, a traced
-    decode window, and a speculative run."""
+    decode window, and a speculative run. Returns the records and what
+    phase "parallel" shares: the model, its weights, the prompts and the
+    int8 + ring run's tokens."""
     import torch
 
     from tpu_flash_torch.models import LLAMA3_8B
@@ -2947,10 +2983,8 @@ def check_main_path(dev):
             raise AssertionError(f"no speculative step: {rec}")
         require_launches(rec, ["paged_prefill"])
         recs.append(rec)
-    del params, model
-    gc.collect()
-    torch.cuda.empty_cache()
-    return recs
+    return recs, dict(model=model, params=params, prompts=prompts,
+                      reserve_out=reserve[1])
 
 
 # Optimistic admission at full width: the main path's 8 prompts (100-1500
@@ -3442,6 +3476,482 @@ def trace_decode_window(model, params, prompts):
             f"paged_decode not among the decode window's {TRACE_TOP} "
             f"heaviest kernels: {rec['top_kernels']}")
     return rec
+
+
+# -- phase "parallel": multi-device serving on one card -------------------------
+#
+# One H100 cannot run a multi-rank collective (NCCL refuses two ranks on
+# one device), so the card runs what one card can: a process group of one
+# (NCCL) and the mesh over it, the ring's per-block kernel calls in a
+# single-process schedule, head-sliced kernel calls, the tensor-parallel
+# engine at a model axis of 1, and two data-parallel replicas sharing the
+# card. Multi-rank correctness is held on the CPU (gloo groups in
+# tests/test_torch_parallel.py and tests/test_torch_sharded_engine.py).
+
+# The ring merges f32 states of bf16 block outputs and rounds once. A
+# block's output is within BF16_TOL_ULPS (2) bf16 ulps of its row's max
+# of the plain version's, which is within one ulp of exact attention (it
+# rounds P to bf16 and the output once): RING_BLOCK_ULPS ulps of the
+# block's own row max, weighted in the merge by the block's share of the
+# row's softmax mass (exp(lse_b - lse)). The ring's final rounding and
+# the whole-sequence plain reference's own error add RING_REF_ULPS ulps
+# of the reference row's max; against K1 over the whole sequence, K1's
+# BF16_TOL_ULPS more.
+RING_BLOCK_ULPS = 3.0
+RING_REF_ULPS = 1.5
+RING_N = 4
+# name -> (b, hq, hkv, s, d, options): Llama-3-8B attention; Gemma-2-9B's
+# geometry with its 4096 window over four 2048-token blocks (diagonal,
+# dense, banded with rows that see no key, empty) and cap 50; ALiBi and
+# sinks at d 128.
+RING_CASES = {
+    "llama3_8b_causal": (1, 32, 8, 8192, 128, {}),
+    "gemma2_9b_window": (1, 16, 8, 8192, 256,
+                         dict(window=4096, softcap=50.0)),
+    "alibi_d128": (1, 32, 8, 4096, 128, dict(alibi=True)),
+    "sinks_d128": (1, 32, 8, 4096, 128, dict(sinks=True)),
+}
+
+
+def bf16_ulps(top):
+    """The bf16 ulp at each magnitude in ``top`` (0 where it is 0)."""
+    import torch
+
+    _, e = torch.frexp(top)  # top in [2^(e-1), 2^e): ulp 2^(e - 8)
+    return torch.where(top > 0, torch.ldexp(torch.ones_like(top), e - 8),
+                       torch.zeros_like(top))
+
+
+def ring_block_terms(states, n, sinks):
+    """Per output row, the sum over the row's ring blocks of the block's
+    share of the row's softmax mass times the bf16 ulp of the block's row
+    max (RING_BLOCK_ULPS multiplies it): [b, h, s] f32. ``states``: every
+    rank's block states, rank-major, source-minor."""
+    import torch
+
+    terms = []
+    for my in range(n):
+        row = states[my * n:(my + 1) * n]
+        m = torch.stack([st.m[..., 0] for st in row])
+        mass = m if sinks is None else torch.cat([m, sinks.float()[
+            None, None, :, None].expand(1, *m.shape[1:])])
+        w = torch.exp(m - torch.logsumexp(mass, dim=0))
+        ulps = torch.stack([bf16_ulps(st.acc.abs().amax(-1)) for st in row])
+        terms.append((w * ulps).sum(0))
+    return torch.cat(terms, dim=2)
+
+
+def ring_dropped_own_block(states, n, sinks, dtype):
+    """The control: the last rank's output block from its block states
+    (``states`` as ring_block_terms takes them) merged in ring order with
+    its own (diagonal) block left out."""
+    from tpu_flash_torch.core.softmax import (
+        finalize,
+        finalize_with_sinks,
+        merge_softmax_states,
+    )
+
+    my = n - 1
+    row = states[my * n:(my + 1) * n]
+    state = row[my - 1]
+    for src in range(my - 2, -1, -1):
+        state = merge_softmax_states(state, row[src])
+    if sinks is not None:
+        return finalize_with_sinks(state, sinks, dtype)
+    return finalize(state, dtype)
+
+
+def check_ring_case(dev, name, i):
+    """One ring case: the schedule (every rank's sources in ring order
+    through ring_block_state, merged) against K1 over the whole sequence
+    and against the plain version, each row within its bar; the control
+    (the last rank's block states merged with its own block left out)
+    must miss the bar in at least half of that rank's rows."""
+    import torch
+
+    from tpu_flash_torch.core.reference import alibi_slopes
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.ops.flash import flash_attention
+    from tpu_flash_torch.parallel.mesh import take_shard
+    from tpu_flash_torch.parallel.ring import (
+        ring_attention_schedule,
+        ring_block_state,
+    )
+
+    b, hq, hkv, s, d, extra = RING_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(SEED + 40 + i)
+    q = torch.randn(b, hq, s, d, generator=g, device=dev).bfloat16()
+    k = torch.randn(b, hkv, s, d, generator=g, device=dev).bfloat16()
+    v = torch.randn(b, hkv, s, d, generator=g, device=dev).bfloat16()
+    opts = dict(causal=True, window=extra.get("window"),
+                softcap=extra.get("softcap"))
+    if extra.get("alibi"):
+        opts["alibi"] = alibi_slopes(hq, dev)
+    if extra.get("sinks"):
+        opts["sinks"] = torch.randn(hq, generator=g, device=dev)
+
+    def ring():
+        return ring_attention_schedule(q, k, v, RING_N, **opts)
+
+    blocks = [[take_shard(x, RING_N, r, 2) for r in range(RING_N)]
+              for x in (q, k, v)]
+
+    def block_calls():
+        # The schedule's block states alone, unmerged.
+        return [ring_block_state(
+            blocks[0][my], blocks[1][src], blocks[2][src],
+            distance=my - src, n_ring=RING_N, causal=True,
+            window=opts["window"], softcap=opts["softcap"],
+            alibi=opts.get("alibi"))
+            for my in range(RING_N) for src in range(RING_N)]
+
+    build.reset_launch_counts()
+    out = ring()
+    torch.cuda.synchronize()
+    launches = build.launch_counts()
+    ring_ms = time_ms(ring, 5)
+    blocks_ms = time_ms(block_calls, 5)
+    whole = flash_attention(q, k, v, **opts)
+    whole_ms = time_ms(lambda: flash_attention(q, k, v, **opts), 5)
+    with plain_versions(["flash_fwd"]):
+        ref = flash_attention(q, k, v, **opts)
+    # The block states again (comparison launches, not counted).
+    states = block_calls()
+    terms = ring_block_terms(states, RING_N, opts.get("sinks"))
+    ref_ulp = bf16_ulps(ref.float().abs().amax(-1))
+    bar_plain = RING_BLOCK_ULPS * terms + RING_REF_ULPS * ref_ulp
+    bar_k1 = bar_plain + BF16_TOL_ULPS * ref_ulp
+    err_plain = (out.float() - ref.float()).abs().amax(-1)
+    err_k1 = (out.float() - whole.float()).abs().amax(-1)
+    ctl = ring_dropped_own_block(states, RING_N, opts.get("sinks"),
+                                 q.dtype)
+    last = slice((RING_N - 1) * s // RING_N, s)
+    ctl_err = (ctl.float() - ref[..., last, :].float()).abs().amax(-1)
+    ctl_missed = float((ctl_err > bar_plain[..., last]).float().mean())
+    rec = dict(
+        case=name, b=b, hq=hq, hkv=hkv, s=s, d=d, n_ring=RING_N,
+        window=extra.get("window"), softcap=extra.get("softcap"),
+        alibi=bool(extra.get("alibi")), sinks=bool(extra.get("sinks")),
+        launches=launches, ring_ms=ring_ms, blocks_ms=blocks_ms,
+        whole_k1_ms=whole_ms,
+        max_abs_err_plain=float(err_plain.max()),
+        max_abs_err_k1=float(err_k1.max()),
+        rows_over_bar_plain=int((err_plain > bar_plain).sum()),
+        rows_over_bar_k1=int((err_k1 > bar_k1).sum()),
+        max_of_bar_plain=float((err_plain / bar_plain).max()),
+        max_of_bar_k1=float((err_k1 / bar_k1).max()),
+        control_rows_missed=ctl_missed,
+        finite=bool(torch.isfinite(out).all()),
+    )
+    log("parallel_ring", gpu=gpu_query(), **rec)
+    if not (rec["finite"] and rec["rows_over_bar_plain"] == 0
+            and rec["rows_over_bar_k1"] == 0 and ctl_missed >= 0.5):
+        raise AssertionError(f"ring case {name} off its bar: {rec}")
+    require_launches(rec, ["flash_fwd"])
+    return rec
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def check_group_of_one(device_type="cuda"):
+    """(a) A process group of one (NCCL on the card) from torchrun's
+    environment, and the three-dimensional mesh over it; one all-reduce
+    on its model group."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_flash_torch.core.config import MeshConfig
+    from tpu_flash_torch.parallel import build_mesh, initialize_multihost
+    from tpu_flash_torch.parallel.multihost import BACKENDS
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    # NCCL's bootstrap needs a socket interface; this one-host group of
+    # one has the loopback.
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    if not initialize_multihost(device_type=device_type):
+        raise AssertionError("initialize_multihost() found no environment")
+    again = initialize_multihost(device_type=device_type)
+    mesh = build_mesh(MeshConfig(), device_type)
+    x = torch.arange(8.0, device=device_type)
+    dist.all_reduce(x, group=mesh.get_group("model"))
+    if device_type == "cuda":
+        torch.cuda.synchronize()
+    rec = dict(backend=dist.get_backend(), world=dist.get_world_size(),
+               idempotent=again, dims=list(mesh.mesh_dim_names),
+               shape=list(mesh.shape), device_type=mesh.device_type,
+               all_reduce_ok=bool(torch.equal(x.cpu(), torch.arange(8.0))),
+               init_s=time.perf_counter() - t0)
+    log("parallel_group", **rec)
+    if (rec["backend"] != BACKENDS[device_type]
+            or rec["dims"] != ["data", "seq", "model"]
+            or rec["shape"] != [1, 1, 1] or not rec["all_reduce_ok"]
+            or not again):
+        raise AssertionError(f"group of one: {rec}")
+    return mesh
+
+
+def check_head_slices(dev, mesh):
+    """(c) Each half of the kv heads through the sharded functions'
+    per-rank bodies: K4 (int8 and bf16 pages, the main path's decode
+    shape) and K1 (bf16 causal, b 1 x 2048) outputs bit for bit the whole
+    call's slice."""
+    import torch
+
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.ops.quant import QuantizedTensor
+    from tpu_flash_torch.parallel import (
+        sharded_flash_attention,
+        sharded_paged_attention,
+    )
+
+    def halves(x, n_heads, dim):
+        h = n_heads // 2
+        return [x.narrow(dim, r * h, h).contiguous() for r in range(2)]
+
+    def page_halves(p):
+        if isinstance(p, QuantizedTensor):
+            return [p._replace(values=vals, scales=sc) for vals, sc in zip(
+                halves(p.values, 8, 0), halves(p.scales, 8, 0))]
+        return halves(p, 8, 0)
+
+    build.reset_launch_counts()
+    paged = sharded_paged_attention(mesh).local
+    cases = {}
+    for tier in ("int8", "bfloat16"):
+        q, kp, vp, lengths, table, _ = decode_inputs(dev, tier, 0)
+        whole = paged(q, kp, vp, lengths, table)
+        parts = [paged(qh, kh, vh, lengths, table) for qh, kh, vh in zip(
+            halves(q, 32, 1), page_halves(kp), page_halves(vp))]
+        cases[f"paged_{tier}"] = differing(torch.cat(parts, 1), whole)
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    q = torch.randn(1, 32, 2048, 128, generator=g, device=dev).bfloat16()
+    k = torch.randn(1, 8, 2048, 128, generator=g, device=dev).bfloat16()
+    v = torch.randn(1, 8, 2048, 128, generator=g, device=dev).bfloat16()
+    flash = sharded_flash_attention(mesh, causal=True).local
+    whole = flash(q, k, v)
+    parts = [flash(*xs) for xs in zip(halves(q, 32, 1), halves(k, 8, 1),
+                                      halves(v, 8, 1))]
+    cases["flash_bf16_causal"] = differing(torch.cat(parts, 1), whole)
+    torch.cuda.synchronize()
+    rec = dict(differing=cases, launches=build.launch_counts())
+    log("parallel_head_slices", **rec)
+    if any(cases.values()):
+        raise AssertionError(f"head-sliced calls off the whole call: {rec}")
+    require_launches(rec, ["paged_decode", "flash_fwd"])
+    return rec
+
+
+def check_tp_engine(model, params, prompts, reserve_out, mesh):
+    """(d) The tensor-parallel engine at a model axis of 1 on phase 4's
+    weights (shared, not copied), int8 + ring, phase 4's 8 prompts x 32
+    greedy tokens: no model group (no all-reduce on a group of one) and
+    the tokens of phase 4's engine, bit for bit."""
+    import torch
+
+    from tpu_flash_torch.ops import build
+
+    eng = main_path_engine(model, params, "int8", 128, prompts, mesh=mesh)
+    shared = eng.params is params
+    # A model axis of one is one device: the engine keeps no group.
+    grouped = eng._tp_group is not None
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, 32) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = [eng.outputs[i] for i in ids]
+    rec = dict(launches=build.launch_counts(), wall_s=wall,
+               routes=eng.metrics.route_counts(), weights_shared=shared,
+               model_group=grouped,
+               cache_kv_heads=eng.cache.k_pages.shape[1],
+               match=token_match(out, reserve_out))
+    eng.close()
+    log("parallel_tp_engine", gpu=gpu_query(), **rec)
+    if out != reserve_out or not shared or grouped:
+        raise AssertionError(f"TP engine off phase 4's tokens: {rec}")
+    require_launches(rec, ["flash_fwd_exact", "paged_decode",
+                           "paged_prefill"])
+    return rec
+
+
+# The DP replicas: phase 4's int8 + ring engine on 64 pages (the 8
+# prompts need 53 at once; two 161-page caches would make a 3.4 GB
+# snapshot: int8 pages and scales, rings as f32). Solo runs and their
+# waves take 16 new tokens, the timed runs 32.
+DP_PAGES, DP_SOLO_TOKENS = 64, 16
+
+
+def dp_serve(dp, prompts, new_tokens, snapshot=None):
+    """Serve ``prompts`` on a DataParallelEngine, a host-timed step at a
+    time (each step ends in its replicas' host fetches; the device is
+    synchronised after it): steps that prefill count toward prefill
+    seconds, the rest toward decode. ``snapshot(dp)`` runs once, when
+    every request holds 8 tokens, outside the timing. Returns the record
+    and the fleet's outputs."""
+    import torch
+
+    ids = [dp.submit(p, new_tokens) for p in prompts]
+    pre_s = dec_s = 0.0
+    dec_tok = 0
+    snap_s = None
+
+    def totals():
+        return (sum(e.metrics.prefill_tokens for e in dp.engines),
+                sum(e.metrics.decode_tokens for e in dp.engines))
+
+    while dp.has_work():
+        p0, d0 = totals()
+        t0 = time.perf_counter()
+        dp.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        p1, d1 = totals()
+        if p1 > p0:
+            pre_s += dt
+        else:
+            dec_s += dt
+            dec_tok += d1 - d0
+        if snapshot is not None and snap_s is None and min(
+                len(dp.outputs[i]) for i in ids) >= 8:
+            t0 = time.perf_counter()
+            snapshot(dp)
+            snap_s = time.perf_counter() - t0
+    prompt_tok = sum(len(p) for p in prompts)
+    rec = dict(replicas=dp.replicas, requests=len(prompts),
+               prompt_tokens=prompt_tok, prefill_s=pre_s,
+               prefill_tok_per_s=prompt_tok / pre_s, decode_s=dec_s,
+               decode_tokens=dec_tok,
+               decode_tok_per_s=dec_tok / dec_s if dec_s else None,
+               snapshot_s=snap_s)
+    return rec, [dp.outputs[i] for i in ids]
+
+
+def check_dp(dev, model, params, prompts):
+    """(e) DataParallelEngine with two replicas sharing the card and the
+    weights (devices cuda:0 twice), int8 + ring on DP_PAGES pages,
+    speculation off:
+    - each request's tokens equal that request served alone through one
+      engine (cuBLAS picks its algorithm by rows, so a request is held
+      against a run of the same rows): four waves of two requests, one a
+      replica, against the 8 prompts served one at a time, each for
+      DP_SOLO_TOKENS tokens;
+    - aggregate prefill and decode tok/s of the 8 prompts at once on 2
+      replicas (4 each) against 1 replica (all 8), printed, not a target
+      (decode is host-bound, and the replicas' threads share one
+      interpreter lock);
+    - the 2-replica run snapshotted mid-decode, restored into a fresh DP
+      engine and run on: token for token the uninterrupted run."""
+    import torch
+
+    from tpu_flash_torch.checkpoint import (
+        restore_dp_engine,
+        snapshot_dp_engine,
+    )
+    from tpu_flash_torch.engine import DataParallelEngine, InferenceEngine
+    from tpu_flash_torch.ops import build
+
+    cfg = main_path_config("int8", 128, num_pages=DP_PAGES)
+    device = "cuda:0" if dev == "cuda" else dev
+
+    def fleet(replicas):
+        dp = DataParallelEngine(model, params, cfg, replicas=replicas,
+                                devices=[device] * replicas)
+        for e in dp.engines:
+            e.speculation_k = 0
+        return dp
+
+    solo = InferenceEngine(model, params, cfg)
+    solo.speculation_k = 0
+    t0 = time.perf_counter()
+    want = []
+    for p in prompts:
+        rid = solo.submit(p, DP_SOLO_TOKENS)
+        want.append(solo.run()[rid])
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    solo.close()
+    # The record's launches are the DP runs' alone (waves, 1 and 2
+    # replicas, the restore), not the solo reference's.
+    build.reset_launch_counts()
+    dp = fleet(2)
+    shared = all(e.params["embed"] is params["embed"] for e in dp.engines)
+    t0 = time.perf_counter()
+    got = []
+    for w in range(0, len(prompts), 2):
+        ids = [dp.submit(p, DP_SOLO_TOKENS) for p in prompts[w:w + 2]]
+        out = dp.run()
+        got += [out[i] for i in ids]
+    torch.cuda.synchronize()
+    waves_s = time.perf_counter() - t0
+    per_replica = [e.metrics.decode_tokens for e in dp.engines]
+    dp.close()
+    del dp
+    runs = {}
+    with build_tempdir("dp-snapshot-") as tmp:
+        def snapshot(fl):
+            snapshot_dp_engine(tmp, fl)
+            torch.cuda.synchronize()
+
+        for replicas in (1, 2):
+            fl = fleet(replicas)
+            runs[replicas] = dp_serve(fl, prompts, 32,
+                                      snapshot if replicas == 2 else None)
+            fl.close()
+        snap_bytes = dir_bytes(tmp)
+        fresh = fleet(2)
+        t0 = time.perf_counter()
+        restore_dp_engine(tmp, fresh)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        resumed = fresh.run()
+        resumed = [resumed[i] for i in range(len(prompts))]
+        fresh.close()
+    one, two = runs[1][0], runs[2][0]
+    rec = dict(
+        launches=build.launch_counts(), weights_shared=shared,
+        solo_match=token_match(got, want), solo_s=solo_s,
+        waves_2x1_s=waves_s, decode_tokens_per_replica=per_replica,
+        one_replica=one, two_replicas=two,
+        prefill_2_over_1=two["prefill_tok_per_s"] / one["prefill_tok_per_s"],
+        decode_2_over_1=two["decode_tok_per_s"] / one["decode_tok_per_s"],
+        snapshot_bytes=snap_bytes, snapshot_write_s=two["snapshot_s"],
+        snapshot_read_s=read_s,
+        resume_match=token_match(resumed, runs[2][1]),
+    )
+    log("parallel_dp", gpu=gpu_query(), **rec)
+    if got != want or resumed != runs[2][1] or not shared:
+        raise AssertionError(f"DP replicas off their reference: {rec}")
+    require_launches(rec, ["flash_fwd_exact", "paged_decode",
+                           "paged_prefill"])
+    return rec
+
+
+def check_parallel(dev, model, params, prompts, reserve_out):
+    """Phase "parallel": (a) the group of one, (b) the ring schedule's
+    cases, (c) head-sliced K4 and K1 calls, (d) the TP engine, (e) the
+    data-parallel engine. Every part's launches join the kernels line."""
+    import torch.distributed as dist
+
+    mesh = check_group_of_one()
+    try:
+        recs = [check_ring_case(dev, name, i)
+                for i, name in enumerate(RING_CASES)]
+        recs.append(check_head_slices(dev, mesh))
+        recs.append(check_tp_engine(model, params, prompts, reserve_out,
+                                    mesh))
+        recs.append(check_dp(dev, model, params, prompts))
+    finally:
+        dist.destroy_process_group()
+    return recs
 
 
 # Gemma-2-9B at full width (GEMMA2_9B: hidden 3584, 16 q / 8 kv heads of
@@ -4686,8 +5196,13 @@ def main() -> int:
     check_flash_orphan(dev, summary)
     check_decode_wide_group(dev)
     lap("kernels")
-    main_runs = check_main_path(dev)
+    main_runs, shared = check_main_path(dev)
     lap("main_path_llama3_8b")
+    main_runs += check_parallel(dev, **shared)
+    del shared
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("parallel")
     main_runs += check_gemma_path(dev)
     lap("main_path_gemma2_9b")
     check_trained(dev)

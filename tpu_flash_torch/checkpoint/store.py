@@ -14,7 +14,14 @@ The port of ``tpu_flash/checkpoint/store.py``. Three surfaces:
   resumes mid-sequence. The files and keys are the JAX package's
   (``engine_meta.json``, ``engine_arrays.npz``), so the two snapshots
   compare key by key; the random state is the engine's
-  ``torch.Generator`` state.
+  ``torch.Generator`` state. A tensor-parallel engine's snapshot holds
+  the global cache: its kv-head shards are gathered over the model group
+  and its rank 0 writes JAX's files; a restore reads them on every rank
+  and keeps its own heads, so a TP snapshot restores into a one-device
+  engine and the other way round.
+* ``snapshot_dp_engine`` / ``restore_dp_engine``: a ``DataParallelEngine``
+  as one engine snapshot a replica (``replica_<i>/``) and the routing
+  table (``dp_meta.json``), JAX's layout.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _PARAMS_FILE = "params.pt"
 _STATE_FILE = "state.pt"
@@ -187,6 +195,50 @@ def _torch(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
         device=like.device, dtype=like.dtype)
 
 
+# The kv-head axis of each snapshot array: pages and scales [L, hkv, ...],
+# recent rings [L, slots, hkv, W, d]; a swap stash's arrays are pages'
+# slices [L, hkv, n, ...] and its ring rows [L, hkv, W, d].
+_HEAD_DIM = {"k_pages": 1, "v_pages": 1, "k_scales": 1, "v_scales": 1,
+             "k_recent": 2, "v_recent": 2}
+
+
+def _tp(engine):
+    """(group, rank, size) of a tensor-parallel engine's model group, or
+    None for an engine on one device (the engine keeps no group for a
+    model dimension of one)."""
+    group = engine._tp_group
+    if group is None:
+        return None
+    return group, dist.get_rank(group), dist.get_world_size(group)
+
+
+def _global_heads(t: torch.Tensor, dim: int, tp, device) -> torch.Tensor:
+    """The kv-head shards of ``t`` gathered over the model group along
+    ``dim`` (through ``device``, where the group's backend works); ``t``
+    itself without TP."""
+    if tp is None:
+        return t
+    group, _, n = tp
+    x = t.to(device).contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _own_heads(a: np.ndarray, dim: int, local: int, tp, name: str):
+    """This rank's kv heads of a snapshot's global array: all of them on
+    one device, its contiguous block under TP."""
+    n, rank = (1, 0) if tp is None else (tp[2], tp[1])
+    if a.shape[dim] != local * n:
+        raise ValueError(
+            f"snapshot {name} has {a.shape[dim]} kv heads; this engine "
+            f"holds {local} on each of {n} rank(s)"
+        )
+    if n == 1:
+        return a
+    return np.take(a, range(rank * local, (rank + 1) * local), axis=dim)
+
+
 def snapshot_engine(path, engine) -> None:
     """Snapshot a live ``InferenceEngine`` into the directory ``path``: KV
     pages (and scales, and exact recent rings), page tables, lengths,
@@ -194,13 +246,21 @@ def snapshot_engine(path, engine) -> None:
     generator state, allocator ownership, every active and waiting
     request (pending fork children inline), outputs and log-probs, branch
     ids, adapter names and swap stashes. The arrays go uncompressed into
-    one npz: KV payloads barely compress."""
+    one npz: KV payloads barely compress. Under tensor parallelism every
+    rank of the model group calls it: the kv-head shards gather over the
+    group, its rank 0 writes, and every rank returns once the files are
+    there."""
     path = _abs(path)
-    path.mkdir(parents=True, exist_ok=True)
     cache = engine.cache
+    tp = _tp(engine)
+    dev = engine.device
+
+    def whole(name, t):
+        return _np(_global_heads(t, _HEAD_DIM[name], tp, dev))
+
     arrays = {
-        "k_pages": _np(cache.k_pages),
-        "v_pages": _np(cache.v_pages),
+        "k_pages": whole("k_pages", cache.k_pages),
+        "v_pages": whole("v_pages", cache.v_pages),
         "page_tables": _np(engine.page_tables),
         "lengths": _np(engine.lengths),
         "last_tokens": _np(engine.last_tokens).astype(np.int32),
@@ -215,17 +275,23 @@ def snapshot_engine(path, engine) -> None:
         "rng": engine._generator.get_state().numpy(),
     }
     if cache.quantized:
-        arrays["k_scales"] = _np(cache.k_scales)
-        arrays["v_scales"] = _np(cache.v_scales)
+        arrays["k_scales"] = whole("k_scales", cache.k_scales)
+        arrays["v_scales"] = whole("v_scales", cache.v_scales)
     if cache.k_recent is not None:
-        arrays["k_recent"] = _np(cache.k_recent)
-        arrays["v_recent"] = _np(cache.v_recent)
+        arrays["k_recent"] = whole("k_recent", cache.k_recent)
+        arrays["v_recent"] = whole("v_recent", cache.v_recent)
     for rid, stash in engine._swapped.items():
         for j, a in enumerate(stash["arrays"]):
-            arrays[f"swap_{rid}_{j}"] = _np(a)
+            arrays[f"swap_{rid}_{j}"] = _np(_global_heads(a, 1, tp, dev))
         if "recent" in stash:
-            arrays[f"swap_{rid}_rk"] = _np(stash["recent"][0])
-            arrays[f"swap_{rid}_rv"] = _np(stash["recent"][1])
+            arrays[f"swap_{rid}_rk"] = _np(
+                _global_heads(stash["recent"][0], 1, tp, dev))
+            arrays[f"swap_{rid}_rv"] = _np(
+                _global_heads(stash["recent"][1], 1, tp, dev))
+    if tp is not None and tp[1] != 0:
+        dist.barrier(group=tp[0])  # rank 0 writes the files
+        return
+    path.mkdir(parents=True, exist_ok=True)
     np.savez(path / _ENGINE_ARRAYS, **arrays)
 
     sched = engine.scheduler
@@ -288,6 +354,8 @@ def snapshot_engine(path, engine) -> None:
         },
     }
     (path / _ENGINE_META).write_text(json.dumps(meta))
+    if tp is not None:
+        dist.barrier(group=tp[0])
 
 
 @torch.inference_mode()
@@ -296,7 +364,9 @@ def restore_engine(path, engine) -> None:
     (shapes must match), with the same adapters registered in the same
     order. Decoding resumes where the snapshot left it: page ownership,
     request progress, device state and the generator all round-trip. The
-    prefix index restores cold."""
+    prefix index restores cold. Each rank of a tensor-parallel engine
+    keeps its own kv heads of the snapshot's global cache, whichever
+    engine (one device or TP) wrote it."""
     from tpu_flash_torch.engine.sampling import SamplingParams
     from tpu_flash_torch.engine.scheduler import Request, RequestState
 
@@ -308,7 +378,10 @@ def restore_engine(path, engine) -> None:
         raise ValueError("snapshot page_size mismatch")
     if meta["kv_dtype"] != cache.kv_dtype:
         raise ValueError("snapshot kv_dtype mismatch")
-    if tuple(data["k_pages"].shape) != tuple(cache.k_pages.shape):
+    tp = _tp(engine)
+    local = cache.k_pages.shape[1]
+    k_pages = _own_heads(data["k_pages"], 1, local, tp, "k_pages")
+    if tuple(k_pages.shape) != tuple(cache.k_pages.shape):
         raise ValueError(
             f"snapshot cache shape {data['k_pages'].shape} != engine "
             f"{tuple(cache.k_pages.shape)}"
@@ -327,7 +400,9 @@ def restore_engine(path, engine) -> None:
         names += ["k_recent", "v_recent"]
     for name in names:
         t = getattr(cache, name)
-        t.copy_(_torch(data[name], t))
+        a = k_pages if name == "k_pages" else _own_heads(
+            data[name], _HEAD_DIM[name], local, tp, name)
+        t.copy_(_torch(a, t))
     for name in ("page_tables", "lengths", "last_tokens", "logit_bias"):
         t = getattr(engine, name)
         t.copy_(_torch(data[name], t))
@@ -411,13 +486,63 @@ def restore_engine(path, engine) -> None:
     engine._swapped = {}
     sides = [cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales]
     for rid, info in meta["swapped"].items():
-        arrays = [torch.from_numpy(data[f"swap_{rid}_{j}"]).to(sides[j].dtype)
+        def own(key):
+            return torch.from_numpy(np.ascontiguousarray(
+                _own_heads(data[key], 1, local, tp, key)))
+
+        arrays = [own(f"swap_{rid}_{j}").to(sides[j].dtype)
                   for j in range(info["k"])]
         stash = {"n": info["n"], "arrays": arrays}
         if f"swap_{rid}_rk" in data:
             ring = cache.k_recent.dtype
-            stash["recent"] = (
-                torch.from_numpy(data[f"swap_{rid}_rk"]).to(ring),
-                torch.from_numpy(data[f"swap_{rid}_rv"]).to(ring),
-            )
+            stash["recent"] = (own(f"swap_{rid}_rk").to(ring),
+                               own(f"swap_{rid}_rv").to(ring))
         engine._swapped[int(rid)] = stash
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel engine snapshots
+# ---------------------------------------------------------------------------
+
+_DP_META = "dp_meta.json"
+
+
+def snapshot_dp_engine(path, dp_engine) -> None:
+    """Snapshot a ``DataParallelEngine``: one engine snapshot a replica
+    (``replica_<i>/``, exactly ``snapshot_engine``'s files) plus the
+    request routing table, as the JAX package lays them out."""
+    path = _abs(path)
+    path.mkdir(parents=True, exist_ok=True)
+    for i, eng in enumerate(dp_engine.engines):
+        snapshot_engine(path / f"replica_{i}", eng)
+    meta = {
+        "replicas": dp_engine.replicas,
+        "tp": dp_engine.tp,
+        "route": {str(k): list(v) for k, v in dp_engine._route.items()},
+        "branch_ids": {
+            str(k): list(v) for k, v in dp_engine._branch_ids.items()
+        },
+        "next_id": dp_engine._next_id,
+        "rr": dp_engine._rr,
+    }
+    (path / _DP_META).write_text(json.dumps(meta))
+
+
+def restore_dp_engine(path, dp_engine) -> None:
+    """Restore into a freshly built ``DataParallelEngine`` of the same
+    config and replica count (adapters registered as at the snapshot)."""
+    path = _abs(path)
+    meta = json.loads((path / _DP_META).read_text())
+    if meta["replicas"] != dp_engine.replicas:
+        raise ValueError(
+            f"snapshot has {meta['replicas']} replicas; engine has "
+            f"{dp_engine.replicas}"
+        )
+    for i, eng in enumerate(dp_engine.engines):
+        restore_engine(path / f"replica_{i}", eng)
+    dp_engine._route = {int(k): tuple(v) for k, v in meta["route"].items()}
+    dp_engine._branch_ids = {
+        int(k): list(v) for k, v in meta.get("branch_ids", {}).items()
+    }
+    dp_engine._next_id = meta["next_id"]
+    dp_engine._rr = meta.get("rr", 0)

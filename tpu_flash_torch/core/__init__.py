@@ -2,6 +2,7 @@ from tpu_flash_torch.core.config import (
     AttentionConfig,
     CacheConfig,
     EngineConfig,
+    MeshConfig,
     TileSizes,
 )
 from tpu_flash_torch.core.reference import (
@@ -15,7 +16,8 @@ from tpu_flash_torch.core.reference import (
 )
 
 __all__ = [
-    "AttentionConfig", "CacheConfig", "EngineConfig", "TileSizes",
+    "AttentionConfig", "CacheConfig", "EngineConfig", "MeshConfig",
+    "TileSizes",
     "DEFAULT_MASK_VALUE", "SegmentIds", "alibi_slopes",
     "gather_pages_to_dense", "reference_attention",
     "reference_decode_attention", "reference_gqa_attention",

@@ -221,3 +221,26 @@ class EngineConfig:
                 f"fused_mixed_step must be 'auto', True or False, got "
                 f"{self.fused_mixed_step!r}"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Named device-mesh layout (``parallel/mesh.py::build_mesh``).
+
+    ``data``  -- batch / request parallelism (DP)
+    ``model`` -- attention-head tensor parallelism (TP, GQA-aware)
+    ``seq``   -- sequence/context parallelism (ring and Ulysses attention)
+    """
+
+    data: int = 1
+    model: int = 1
+    seq: int = 1
+
+    def __post_init__(self):
+        _check_pos("data", self.data)
+        _check_pos("model", self.model)
+        _check_pos("seq", self.seq)
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.seq

@@ -2,8 +2,8 @@
 
 The port of ``tpu_flash/core/softmax.py``: an associative, commutative
 operator on (acc, m, l) states with an unnormalized accumulator, finalized
-once. The cross-device ``merge_over_axis`` needs a device mesh and comes
-with the parallel slice.
+once; ``merge_over_axis`` is the same merge across the ranks of a
+``torch.distributed`` group.
 """
 
 from __future__ import annotations
@@ -87,3 +87,21 @@ def finalize_with_sinks(
     l_tot = state.l * scale + torch.exp(sk - m2)
     out = state.acc * (scale / l_tot)
     return out.to(dtype) if dtype is not None else out
+
+
+def merge_over_axis(state: SoftmaxState, group=None) -> SoftmaxState:
+    """Merge partial states across the ranks of a process group (JAX's
+    ``merge_over_axis`` over a mesh axis): the global max by an
+    all-reduce MAX, then SUM of the rescaled (acc, l). A rank whose m is
+    -inf (attention over no key) adds nothing. Every rank gets the
+    merged state."""
+    import torch.distributed as dist
+
+    m = state.m.clone()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    alpha = _rescale(state.m, m)
+    acc = state.acc * alpha
+    l = state.l * alpha
+    dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(l, op=dist.ReduceOp.SUM, group=group)
+    return SoftmaxState(acc=acc, m=m, l=l)

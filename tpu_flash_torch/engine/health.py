@@ -102,7 +102,9 @@ class DeadlineFetcher:
     ``fetch(x)`` returns ``x`` as a numpy array (a ``.cpu()`` copy, which
     waits for the device) or raises ``StepTimeoutError`` when the
     deadline passes. With a deadline the copy runs on a worker thread so
-    a hung device does not wedge the engine's control loop.
+    a hung device does not wedge the engine's control loop; it runs on
+    the caller's current CUDA stream (a data-parallel replica steps on a
+    stream of its own), so it waits for the work that made ``x``.
     """
 
     def __init__(self, timeout_s: Optional[float]):
@@ -114,9 +116,14 @@ class DeadlineFetcher:
         )
 
     @staticmethod
-    def _to_host(x):
+    def _to_host(x, stream=None):
         import numpy as np
 
+        if stream is not None:
+            import torch
+
+            with torch.cuda.stream(stream):
+                return x.detach().cpu().numpy()
         if hasattr(x, "detach"):
             return x.detach().cpu().numpy()
         return np.asarray(x)
@@ -126,7 +133,12 @@ class DeadlineFetcher:
         passes its step count so the per-step contract holds)."""
         if self._pool is None:
             return self._to_host(x)
-        fut = self._pool.submit(self._to_host, x)
+        stream = None
+        if getattr(x, "is_cuda", False):
+            import torch
+
+            stream = torch.cuda.current_stream(x.device)
+        fut = self._pool.submit(self._to_host, x, stream)
         try:
             return fut.result(timeout=self._timeout * scale)
         except concurrent.futures.TimeoutError:

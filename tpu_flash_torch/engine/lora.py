@@ -169,16 +169,30 @@ def _as_f32(x) -> np.ndarray:
 
 
 def apply_lora(stacks, li: int, proj: str, x: torch.Tensor, y: torch.Tensor,
-               ids: torch.Tensor) -> torch.Tensor:
+               ids: torch.Tensor, tp_rank: Optional[int] = None
+               ) -> torch.Tensor:
     """Add each row's adapter delta to a base projection output.
 
     x: [..., fan_in] activations, y: [..., fan_out] = x @ W_base, ids:
     [batch] adapter ids aligned with x's leading axis; [batch, fan]
-    (decode) and [batch, seq, fan] (prefill) rows."""
+    (decode) and [batch, seq, fan] (prefill) rows.
+
+    Under tensor parallelism (``tp_rank``: this rank's index on the model
+    axis) the stacks hold global shapes while x and y are this rank's
+    slices; the sharded side follows from the local shapes, as in JAX:
+    a column-sharded projection takes its slice of B's fan-out, a
+    row-sharded one (``wo``, ``w_down``) its slice of A's fan-in, and its
+    delta then joins the base before the all-reduce."""
     ab = stacks.get(li, {}).get(proj)
     if ab is None:
         return y
     a_stack, b_stack = ab
+    if tp_rank is not None:
+        fi, fo = x.shape[-1], y.shape[-1]
+        if a_stack.shape[1] != fi:
+            a_stack = a_stack[:, tp_rank * fi:(tp_rank + 1) * fi]
+        if b_stack.shape[2] != fo:
+            b_stack = b_stack[:, :, tp_rank * fo:(tp_rank + 1) * fo]
     a = a_stack[ids]  # [batch, fan_in, R]
     b = b_stack[ids]  # [batch, R, fan_out]
     xf = x.float()

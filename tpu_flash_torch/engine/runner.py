@@ -49,6 +49,17 @@ scattered back into new pages when it is admitted again (``"swap"``).
 ``submit(lora=name)`` applies to every projection of that request's rows
 on every route; adapted requests never share prefix pages.
 
+Tensor-parallel serving (``mesh`` with a "model" dimension, one process
+per device): every rank takes the global params and keeps its shard
+(``models/transformer.py::shard_params``), its cache holds its own kv
+heads, and every dispatch (chunked and ragged prefill, fused steps, the
+decode burst, speculative verify) runs the model with the mesh's model
+group, all-reducing the row-sharded projections. Every rank runs the same
+host loop on the same submissions, and sampling draws from one seed on
+every rank, so the ranks agree token for token; preemption and swap act
+on each rank's own heads. A model dimension of one runs as one device
+(no group, no all-reduce).
+
 The engine runs on ``model.device`` ("cuda" unless the model was built
 for "cpu"); it mutates its cache and slot tensors in place.
 """
@@ -82,13 +93,19 @@ from tpu_flash_torch.engine.sampling import (
     speculative_sample,
 )
 from tpu_flash_torch.engine.scheduler import Request, RequestState, Scheduler
-from tpu_flash_torch.models.transformer import FlashTransformer, _rms_norm
+from tpu_flash_torch.models.transformer import (
+    FlashTransformer,
+    _rms_norm,
+    shard_params,
+    tp_reduce,
+)
 from tpu_flash_torch.ops.decode import paged_attention
 from tpu_flash_torch.ops.flash import (
     flash_attention_ragged,
     paged_prefill_attention,
 )
 from tpu_flash_torch.ops.quant import QuantizedTensor, dequantize
+from tpu_flash_torch.parallel.mesh import shard_head_slice
 from tpu_flash_torch.utils.tuning import resolve_cache_config
 
 
@@ -107,12 +124,19 @@ class InferenceEngine:
         config: EngineConfig,
         seed: int = 0,
         draft=None,
+        mesh=None,
     ):
         """``draft``: an optional ``(FlashTransformer, params)`` pair, a
         small draft model for speculative decoding. When set, drafts come
         from the draft model (greedy, over a sliding context window)
         instead of prompt lookup; verification is the same either way, so
-        outputs stay exact."""
+        outputs stay exact.
+
+        ``mesh``: a ``DeviceMesh`` (``parallel/mesh.py::build_mesh``) with
+        a "model" dimension turns on tensor-parallel serving over it:
+        ``params`` are the global weights, of which this rank keeps its
+        shard; num_q_heads and num_kv_heads must be divisible by the
+        model dimension's size."""
         cfg = model.config
         # Auto (None) cache-layout fields resolve from the serving regime
         # (kv_dtype, context, batch) by the JAX engine's policy.
@@ -124,9 +148,31 @@ class InferenceEngine:
         if config.cache.num_pages < 2:
             raise ValueError("need at least 2 pages (one is reserved)")
         self.model = model
-        self.params = params
         self.config = config
         self.device = model.device
+        self.mesh = mesh
+        self._tp_group = self._tp_rank = None
+        n_tp = 1
+        if mesh is not None:
+            if "model" not in (mesh.mesh_dim_names or ()):
+                raise ValueError('engine mesh needs a "model" dimension')
+            n_tp = mesh.shape[mesh.mesh_dim_names.index("model")]
+            if cfg.num_q_heads % n_tp or cfg.num_kv_heads % n_tp:
+                raise ValueError(
+                    f"model axis ({n_tp}) must divide q heads "
+                    f"({cfg.num_q_heads}) and kv heads ({cfg.num_kv_heads})"
+                )
+        # A model axis of one is no tensor parallelism: no group, so no
+        # all-reduce (JAX's psum over an axis of one costs nothing).
+        if n_tp > 1:
+            self._tp_group = mesh.get_group("model")
+            self._tp_rank = mesh.get_local_rank("model")
+        self.params = (params if self._tp_group is None
+                       else shard_params(params, self._tp_rank, n_tp))
+        # This rank's ALiBi slopes (its q heads under TP), sliced once
+        # here; every attention call and the model's forward take them.
+        self._alibi = shard_head_slice(model.alibi_for(),
+                                       cfg.num_q_heads // n_tp, mesh, "model")
         self._windows = tuple(
             cfg.layer_window(li) for li in range(cfg.num_layers)
         )
@@ -148,8 +194,8 @@ class InferenceEngine:
         # +1 ring slot: row max_batch_size is the trash slot.
         mb = config.max_batch_size
         self.cache = PagedKVCache.create(
-            cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, config.cache,
-            num_slots=mb + 1, device=self.device,
+            cfg.num_layers, cfg.num_kv_heads // n_tp, cfg.head_dim,
+            config.cache, num_slots=mb + 1, device=self.device,
         )
         self.trash_slot = mb
         pps = config.cache.max_pages_per_seq
@@ -327,7 +373,7 @@ class InferenceEngine:
         ids_t = self._dev_tensor(ids, torch.int64)
 
         def hook(li, name, x, y):
-            return apply_lora(stacks, li, name, x, y, ids_t)
+            return apply_lora(stacks, li, name, x, y, ids_t, self._tp_rank)
 
         return hook
 
@@ -504,7 +550,7 @@ class InferenceEngine:
             window=self._windows[li],
             softcap=self.model.config.attn_softcap,
             sinks=self.params["layers"][li].get("sinks"),
-            alibi=self.model.alibi_for(),
+            alibi=self._alibi,
         )
 
     def _gather_history(self, layer: int, table_rows: torch.Tensor,
@@ -619,7 +665,8 @@ class InferenceEngine:
         logits = self.model.forward(
             self.params, tokens, q_offset=hist_keep, kv_hook=kv_hook,
             positions=positions, attention_fn=attention_fn, order_exact=True,
-            proj_hook=self._lora_hook(lora_ids),
+            proj_hook=self._lora_hook(lora_ids), tp_group=self._tp_group,
+            alibi=self._alibi,
         )
         last = logits[torch.arange(b, device=dev), n_valids.long() - 1]
         return last, torch.isfinite(logits).all()
@@ -755,6 +802,7 @@ class InferenceEngine:
         logits = self.model.forward(
             self.params, tokens, kv_hook=kv_hook, positions=positions,
             attention_fn=attention_fn, proj_hook=self._lora_hook(lora_ids),
+            tp_group=self._tp_group, alibi=self._alibi,
         )
         last = logits[torch.arange(b, device=dev), n_valids.long() - 1]
         return last, torch.isfinite(logits).all()
@@ -1133,7 +1181,7 @@ class InferenceEngine:
                 q, k_view, v_view, attn_lengths, self.page_tables,
                 window=None if use_tail else self._windows[li],
                 softcap=cfg.attn_softcap, sinks=layer.get("sinks"),
-                alibi=model.alibi_for(),
+                alibi=self._alibi,
                 recent_k=cache.k_recent[li, :mb] if use_tail else None,
                 recent_v=cache.v_recent[li, :mb] if use_tail else None,
             )
@@ -1141,9 +1189,9 @@ class InferenceEngine:
             proj = attn @ layer["wo"]
             if hook is not None:
                 proj = hook(li, "wo", attn, proj)
-            x = x + proj
+            x = x + tp_reduce(proj, self._tp_group)
             xn = _rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
-            x = x + model._mlp(layer, xn, li, hook)
+            x = x + model._mlp(layer, xn, li, hook, self._tp_group)
         x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
         logits = (x @ params["lm_head"]).float()
         if bias is not None:
@@ -1261,7 +1309,7 @@ class InferenceEngine:
         win = self._windows[li]
         if win is not None:
             allow = allow & (key_pos > q_pos - win)
-        alibi = self.model.alibi_for()
+        alibi = self._alibi
         if alibi is not None:
             s = s + alibi.float()[None, :, None, None] * (
                 key_pos - q_pos
@@ -1337,6 +1385,7 @@ class InferenceEngine:
         logits = self.model.forward(
             self.params, tokens, kv_hook=kv_hook, positions=positions,
             attention_fn=attention_fn, proj_hook=self._lora_hook(lora_ids),
+            tp_group=self._tp_group, alibi=self._alibi,
         )  # [B, n_tok, vocab]
         if bias is not None:
             logits = logits + bias[:, None, :]

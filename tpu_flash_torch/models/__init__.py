@@ -9,10 +9,10 @@ from tpu_flash_torch.models.configs import (
     TINY_TEST,
     ModelConfig,
 )
-from tpu_flash_torch.models.transformer import FlashTransformer
+from tpu_flash_torch.models.transformer import FlashTransformer, shard_params
 
 __all__ = [
     "BLOOM_7B", "GEMMA2_9B", "LLAMA2_7B", "LLAMA3_8B", "LLAMA31_8B",
     "MISTRAL_7B", "QWEN2_7B", "TINY_TEST", "ModelConfig",
-    "FlashTransformer",
+    "FlashTransformer", "shard_params",
 ]

@@ -10,6 +10,13 @@ training takes ``loss_fn`` (the forward is differentiable end to end:
 no in-place writes into saved tensors, no detaching casts). The
 projection and MLP matmuls stay ``torch.matmul``, as the JAX package left
 them to XLA.
+
+Tensor parallelism (serving): with ``tp_group`` (a ``torch.distributed``
+group, JAX's ``tp_axis``) each rank holds :func:`shard_params`' shard --
+its attention heads and MLP hidden columns, the matching rows of ``wo``
+and ``w_down`` -- head counts follow the weights' shapes, activations stay
+replicated, and the two row-sharded projections all-reduce their partial
+products (after the ``proj_hook``, so a LoRA delta joins the sum).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from tpu_flash_torch.core.reference import SegmentIds, alibi_slopes
 from tpu_flash_torch.models.configs import ModelConfig
@@ -220,14 +228,15 @@ class FlashTransformer:
         return q, k, v
 
     def _mlp(self, layer: Params, x: torch.Tensor, li: int = 0,
-             proj_hook=None) -> torch.Tensor:
+             proj_hook=None, tp_group=None) -> torch.Tensor:
         def proj(name, inp):
             y = inp @ layer[name]
             return y if proj_hook is None else proj_hook(li, name, inp, y)
 
         gate = torch.nn.functional.silu(proj("w_gate", x).float())
         up = proj("w_up", x).float()
-        return proj("w_down", (gate * up).to(x.dtype))
+        # Row-sharded w_down: partial products sum over the TP group.
+        return tp_reduce(proj("w_down", (gate * up).to(x.dtype)), tp_group)
 
     def forward(
         self,
@@ -242,6 +251,8 @@ class FlashTransformer:
         segment_ids: Optional[torch.Tensor] = None,
         order_exact: bool = False,
         proj_hook=None,
+        tp_group=None,
+        alibi: Optional[torch.Tensor] = None,
     ):
         """Causal forward over a token block; logits [b, s, vocab] f32.
 
@@ -256,8 +267,13 @@ class FlashTransformer:
         kernel's order-exact entry (``flash_attention``).
         ``proj_hook(li, name, x, y)`` post-processes each of the seven
         projections' outputs (the multi-LoRA seam; None costs nothing).
-        With ``return_kv`` also the per-layer (k, v)."""
+        ``tp_group``: run tensor-parallel over that group on
+        :func:`shard_params`' shard (serving); ``alibi`` then gives this
+        rank's slopes (None: the model's own, every head). With
+        ``return_kv`` also the per-layer (k, v)."""
         cfg = self.config
+        if alibi is None:
+            alibi = self._alibi
         seg_attn = None
         if segment_ids is not None:
             if kv_hook is not None or attention_fn is not None:
@@ -289,16 +305,17 @@ class FlashTransformer:
                     q, k, v, causal=True, q_offset=q_offset,
                     window=cfg.layer_window(li), softcap=cfg.attn_softcap,
                     segment_ids=seg_attn, sinks=layer.get("sinks"),
-                    alibi=self.alibi_for(), order_exact=order_exact,
+                    alibi=alibi,
+                    order_exact=order_exact,
                 )
             b, h, s, d = attn.shape
             attn = attn.transpose(1, 2).reshape(b, s, h * d)
             proj = attn @ layer["wo"]
             if proj_hook is not None:
                 proj = proj_hook(li, "wo", attn, proj)
-            x = x + proj
+            x = x + tp_reduce(proj, tp_group)  # row-sharded wo
             xn = _rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
-            x = x + self._mlp(layer, xn, li, proj_hook)
+            x = x + self._mlp(layer, xn, li, proj_hook, tp_group)
         x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
         logits = (x @ params["lm_head"]).float()
         if return_kv:
@@ -348,3 +365,44 @@ class FlashTransformer:
         q = apply_rope(q, positions[:, None], self.freqs)[:, :, 0]
         k = apply_rope(k, positions[:, None], self.freqs)[:, :, 0]
         return self._scale_q(q), k, v
+
+
+def tp_reduce(partial: torch.Tensor, tp_group) -> torch.Tensor:
+    """Sum a row-sharded projection's partial products over the TP group
+    (JAX's ``psum`` over ``tp_axis``), in place; unchanged without a
+    group."""
+    if tp_group is not None:
+        dist.all_reduce(partial, group=tp_group)
+    return partial
+
+
+# The dim each per-layer weight splits along over the model axis
+# (``tpu_flash/parallel/train.py::param_specs``): by column for the heads
+# and MLP hidden of an output, by row for the output projections' inputs,
+# by head for the sink logits. Weights not named are replicated.
+SHARD_DIMS = {"wq": 1, "wk": 1, "wv": 1, "w_gate": 1, "w_up": 1,
+              "wo": 0, "w_down": 0, "sinks": 0}
+
+
+def shard_params(params: Params, rank: int, n: int) -> Params:
+    """This rank's tensor-parallel shard of a params dict, as JAX's
+    ``param_specs`` lays it out over a model axis of ``n``: ``wq``, ``wk``,
+    ``wv``, ``w_gate`` and ``w_up`` split by column, ``wo`` and ``w_down``
+    by row, ``sinks`` by head; every other weight replicated. Shards are
+    contiguous copies; with ``n`` 1 the dict's own tensors are kept (not
+    copied)."""
+    if n == 1:
+        return params
+
+    def cut(w, dim):
+        if w.shape[dim] % n:
+            raise ValueError(
+                f"a weight of shape {tuple(w.shape)} does not split {n} ways "
+                f"along dim {dim}"
+            )
+        step = w.shape[dim] // n
+        return w.narrow(dim, rank * step, step).contiguous()
+
+    layers = [{name: cut(w, SHARD_DIMS[name]) if name in SHARD_DIMS else w
+               for name, w in layer.items()} for layer in params["layers"]]
+    return {**params, "layers": layers}

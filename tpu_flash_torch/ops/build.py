@@ -15,7 +15,10 @@ on a machine without ``nvcc`` only the CPU plain versions work.
 Every kernel carries ``launches``, a plain integer its wrapper raises by
 one per launch, so a run can show which kernels its path went through;
 a wrapper that serves several page tiers also counts each launch under
-its tier in ``launches_by_tag``.
+its tier in ``launches_by_tag``. Both are thread-safe: data-parallel
+replicas launch from threads of their own, so a first build and load
+runs once under a lock (kernels that share a source share its library
+and its temporary file), and every count is raised under a lock.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -42,6 +46,9 @@ P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # block needs more shared memory than the card gives one block (the
 # source checks its own layout against the card's limit).
 ERR_SHARED_MEMORY = -2
+# One first build-and-load at a time, and the launch counts' updates.
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -122,13 +129,15 @@ class CudaKernel:
     def function(self):
         """The loaded C entry point (building the library if needed)."""
         if self._lib is None:
-            if not self.library_path().exists():
-                self.finish_build(self.start_build())
-            lib = ctypes.CDLL(str(self.library_path()))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._lib = lib
+            with _BUILD_LOCK:
+                if self._lib is None:
+                    if not self.library_path().exists():
+                        self.finish_build(self.start_build())
+                    lib = ctypes.CDLL(str(self.library_path()))
+                    fn = getattr(lib, self.symbol)
+                    fn.argtypes = self.argtypes
+                    fn.restype = ctypes.c_int
+                    self._lib = lib
         return getattr(self._lib, self.symbol)
 
     def entry(self, name: str, argtypes: List):
@@ -154,9 +163,11 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.name} kernel launch failed: CUDA error {rc}"
             )
-        self.launches += 1
-        if tag is not None:
-            self.launches_by_tag[tag] = self.launches_by_tag.get(tag, 0) + 1
+        with _COUNT_LOCK:
+            self.launches += 1
+            if tag is not None:
+                self.launches_by_tag[tag] = (
+                    self.launches_by_tag.get(tag, 0) + 1)
 
 
 _FLASH_FWD_ARGS = [P] * 10 + [L] + [I] * 10 + [F, I, I, I, F, F, P]
