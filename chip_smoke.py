@@ -97,7 +97,9 @@ network. Phases, one JSON line each:
      weights, the base logits missing it); then Gemma-2-9B at full width
      (42 layers, head width 256, seeded random bf16 weights) on the int8
      + ring and bf16 caches. Launch counters (per kernel and per page
-     tier) reset before each run;
+     tier) reset before each run; every served run records the page
+     allocator its engine used, which must be the native one (g++ at
+     first use, ``engine/allocator.py``), in phases 4 and 5;
   parallel (after phase 4's Llama-3-8B runs, on their weights, before
      Gemma-2-9B): multi-device serving as far as one card runs it (NCCL
      refuses two ranks on one device; multi-rank correctness is held on
@@ -113,7 +115,18 @@ network. Phases, one JSON line each:
      the error model (RING_BLOCK_ULPS, RING_REF_ULPS) against K1 over
      the whole sequence and against the plain version, the last rank's
      block states merged without its own block missing it in at least
-     half that rank's rows; the ring's, its block calls' and K1's times; (c)
+     half that rank's rows; the ring's, its block calls' and K1's times;
+     (f) in each of those cases the ring's backward: the schedule's dq,
+     dk, dv (and the sink logits') gradients for a seeded dO, through
+     K8/K9 on every live block with the merge's lse cotangent, against
+     the plain whole-sequence backward, every row within a bar from the
+     error model (ulps of each block's own contribution and of the
+     reference, and the bf16 roundings inside the backward's sums), the
+     control (the last rank's own and first received blocks dropped)
+     missing it in at least half the last rank's dq rows and its own kv
+     block's dk and dv rows; the schedule's forward +
+     backward ms beside one K1 + K8/K9 pair over the whole sequence, and
+     the launches of K1 and K8/K9 in one of them; (c)
      ``sharded_paged_attention``'s and ``sharded_flash_attention``'s
      per-rank bodies on each half of the kv heads (K4 on int8 and bf16
      pages, K1 bf16 causal), bit for bit the whole call's slices; (d)
@@ -148,6 +161,14 @@ network. Phases, one JSON line each:
      4 x 2048 tokens, AdamW with a norm clip for 6 steps on one repeated
      seeded batch: loss per step, train tok/s, the first step's
      gradients against the plain versions' (and a control batch's);
+     (g) then the DP x TP x SP step (``make_train_step(model, mesh)``)
+     on a fresh NCCL group of one at the same widths, weights and batch,
+     AdamW: its first loss within 0.02 nats of the one-device step's and
+     every gradient within the 5% bar (another batch's gradients
+     missing it), 2 steps, a sharded ``TrainCheckpointManager``
+     checkpoint, 2 more, then the checkpoint restored into a fresh shard
+     and optimizer and the 2 steps again, every loss bit for bit; train
+     tok/s beside the one-device step's;
   7. the trained checkpoint: its loss over windows of the repo's own
      Markdown on the kernels and on the plain versions, then 10 AdamW
      steps on each path from the same weights and batches (one batch
@@ -2849,7 +2870,11 @@ def serve_main(model, params, kv_dtype, ring, prompts, new_tokens, *,
         launches=launches,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         prefill_scratch_mib=scratch["bytes"] / 2**20,
+        allocator=type(eng.scheduler.allocator).__name__,
     )
+    if rec["allocator"] != "NativeAllocator":
+        raise AssertionError(f"the engine ran on {rec['allocator']}, not "
+                             f"the native allocator")
     if inspect is not None:
         rec.update(inspect(eng))
     eng.close()
@@ -3561,6 +3586,257 @@ def ring_dropped_own_block(states, n, sinks, dtype):
     return finalize(state, dtype)
 
 
+# (f) The ring's backward: each block's gradients come from the backward
+# kernels (K8/K9) with the lse cotangent of the merge, and a row of dQ,
+# dK or dV is the bf16 sum of its blocks' contributions. A block's
+# contribution is within BF16_TOL_ULPS (2) ulps of its own row max of its
+# plain version's, whose final rounding and the bf16 addition into the
+# row add half an ulp each: RING_GRAD_BLOCK_ULPS ulps of each
+# contribution's own row max, summed over the row's blocks (contributions
+# may cancel, so the row's own max does not bound them). The
+# whole-sequence plain reference's
+# rounding adds RING_REF_ULPS ulps of its row max. Both sides also round
+# inputs of the backward's sums to bf16, each element by at most u =
+# 2^-9 of itself, at other magnitudes (a block's P is normalized by its
+# own lse): the forward's o (in di = o . dO), the ring's per-block dO (in
+# dP, di and dV), dS (before the dQ and dK products) and P (before dV, in
+# the kernels). Such roundings are independent from element to element,
+# so over a sum of many terms they add as a random walk: a sum of e_t
+# with |e_t| <= u |t| has a standard deviation under u sqrt(sum t^2) /
+# sqrt(3), and RING_RSS of such root sums a side (over 7 deviations for
+# the two sides together) bound it. To first order, with D_ij = dS_ij^2
+# + (P_ij cap'_ij scale)^2 (dO_i^2 . v_j^2) and E_i = sum_d (o_id
+# dO_id)^2 (di's roundings), on each side dQ_i moves by at most u RING_RSS
+# (sqrt(sum_j D_ij k_j^2) + 2 sqrt(E_i) |sum_j P_ij cap'_ij scale k_j|)
+# (di is one number for the whole row), dK_j by u RING_RSS sqrt(sum_i
+# (D_ij + 4 (P_ij cap'_ij scale)^2 E_i) q_i^2) and dV_j by u RING_RSS
+# sqrt(2 sum_i P_ij^2 dO_i^2), over the whole sequence
+# (ring_rounding_terms). dQ and dK rows keep bwd_row_bars' floor. The
+# control, the last rank's output with its own block and its first
+# received one dropped (its nearest keys, which ALiBi favours, and a
+# quarter to a half of each row's keys), must miss in at least half of
+# that rank's dQ rows and of its own kv block's dK and dV rows (which no
+# other rank reads, and the control leaves no contribution). The sink
+# logits'
+# gradient is held at RING_SINK_REL of its max |ref|; its control, the
+# plain gradient with dO's early half scaled by RING_SINK_SHIFT (a sink
+# holds weight in early rows, which see few keys), must miss.
+RING_GRAD_BLOCK_ULPS = 3.0
+RING_ROUND_U = 2.0 ** -9
+RING_RSS = 3.0
+RING_SINK_REL = 2.0 ** -6
+RING_SINK_SHIFT = 2.0
+
+
+def ring_grad_terms(leaves, opts, do):
+    """Per row of dq, dk and dv, the sum over the ring's blocks of the
+    bf16 ulp of the block's own contribution's row max: each rank's
+    block states differentiated one at a time with the cotangents that
+    the merge gives them (comparison launches, after the counted run)."""
+    import torch
+
+    from tpu_flash_torch.core.softmax import (
+        empty_state,
+        finalize,
+        finalize_with_sinks,
+        merge_softmax_states,
+    )
+    from tpu_flash_torch.parallel.mesh import take_shard
+    from tpu_flash_torch.parallel.ring import block_kind, ring_block_state
+
+    q, k, v = leaves[:3]
+    sinks = opts.get("sinks")
+    blk = [[take_shard(x, RING_N, r, 2) for r in range(RING_N)]
+           for x in (q, k, v)]
+    terms = [torch.zeros(x.shape[:3], device=x.device) for x in (q, k, v)]
+    for my in range(RING_N):
+        live = [src for src in range(my, -1, -1)
+                if block_kind(my - src, blk[0][my].shape[2], True,
+                              opts["window"]) != "empty"]
+        states = [ring_block_state(
+            blk[0][my], blk[1][src], blk[2][src], distance=my - src,
+            n_ring=RING_N, causal=True, window=opts["window"],
+            softcap=opts["softcap"], alibi=opts.get("alibi"))
+            for src in live]
+        state = empty_state(blk[0][my].shape[:3], q.shape[3],
+                            device=q.device)
+        for st in states:
+            state = merge_softmax_states(state, st)
+        out = (finalize(state, q.dtype) if sinks is None
+               else finalize_with_sinks(state, sinks, q.dtype))
+        cots = torch.autograd.grad(
+            out, [t for st in states for t in (st.acc, st.m)],
+            take_shard(do, RING_N, my, 2), retain_graph=True)
+        for j, st in enumerate(states):
+            parts = torch.autograd.grad(
+                (st.acc, st.m), (q, k, v), cots[2 * j:2 * j + 2],
+                retain_graph=True)
+            for t, part in zip(terms, parts):
+                t += bf16_ulps(part.float().abs().amax(-1))
+    return terms
+
+
+def ring_rounding_terms(q, k, v, do, opts):
+    """Per row of dq, dk and dv, what the bf16 roundings of o, dO, dS and
+    P can move on the two sides together (the comment above RING_RSS
+    gives the sums), max over d, with the whole sequence's P and di (the
+    plain forward's lse and output), a kv tile at a time."""
+    import torch
+
+    from tpu_flash_torch.ops.flash.backward import recompute_p, softmax_di
+    from tpu_flash_torch.ops.flash.forward import flash_fwd_plain
+
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    scale = d ** -0.5
+    kw = dict(causal=True, window=opts["window"], softcap=opts["softcap"],
+              alibi=opts.get("alibi"))
+    sinks = opts.get("sinks")
+    o, lse = flash_fwd_plain(q, k, v, sm_scale=scale, save_lse=True,
+                             sinks=None if sinks is None else sinks.detach(),
+                             **kw)
+    qf = q.float().reshape(b, hkv, g, s, d)
+    dof = do.float().reshape(b, hkv, g, s, d)
+    lse_c = lse.float().reshape(b, hkv, g, s, 1)
+    di = softmax_di(o, do).reshape(b, hkv, g, s, 1)
+    e = (o.float() * do.float()).square().sum(-1).reshape(b, hkv, g, s, 1)
+    pk, aq2 = torch.zeros_like(qf), torch.zeros_like(qf)
+    ak2 = torch.zeros_like(qf[:, :, 0])
+    av2 = torch.zeros_like(ak2)
+    for t0 in range(0, s, 512):
+        kt = k[:, :, t0:t0 + 512].float()
+        vt = v[:, :, t0:t0 + 512].float()
+        p, dcap = recompute_p(qf, kt, lse_c, t0, sm_scale=scale, **kw)
+        pc = p if dcap is None else p * dcap
+        ds = pc * (torch.einsum("bhgqd,bhkd->bhgqk", dof, vt) - di) * scale
+        pc = pc * scale
+        dd = ds.square() + pc.square() * torch.einsum(
+            "bhgqd,bhkd->bhgqk", dof.square(), vt.square())
+        pk += torch.einsum("bhgqk,bhkd->bhgqd", pc, kt)
+        aq2 += torch.einsum("bhgqk,bhkd->bhgqd", dd, kt.square())
+        ak2[:, :, t0:t0 + 512] = torch.einsum(
+            "bhgqk,bhgqd->bhkd", dd + 4 * pc.square() * e, qf.square())
+        av2[:, :, t0:t0 + 512] = torch.einsum(
+            "bhgqk,bhgqd->bhkd", p.square(), dof.square())
+    sides = 2 * RING_ROUND_U * RING_RSS
+    dq = aq2.sqrt() + 2 * e.sqrt() * pk.abs()
+    return (sides * dq.reshape(b, hq, s, d).amax(-1),
+            sides * ak2.sqrt().amax(-1),
+            sides * (2 * av2).sqrt().amax(-1))
+
+
+def ring_grad_rows(got, ref, terms, rounding, control, grad, rows):
+    """One gradient's rows against the plain reference at the ring's
+    bar, and the control's ``rows`` (the last rank's q rows, or its own
+    kv block) against it."""
+    import torch
+
+    floor, _ = bwd_row_bars(ref, grad)
+    floor = floor * (RING_REF_ULPS / BF16_TOL_ULPS)
+    bars = (RING_GRAD_BLOCK_ULPS * terms + rounding
+            + RING_REF_ULPS * bf16_ulps(ref.float().abs().amax(-1)))
+    bars = torch.maximum(bars, floor)
+    err = (got.float() - ref.float()).abs().amax(-1)
+    ctl = (control[..., rows, :].float()
+           - ref[..., rows, :].float()).abs().amax(-1)
+    return dict(max_abs_err=float(err.max()),
+                max_abs_ref=float(ref.float().abs().max()),
+                rows_over_bar=int((err > bars).sum()),
+                max_of_bar=float((err / bars.clamp_min(1e-30)).max()),
+                control_rows_missed=float((ctl > bars[..., rows])
+                                          .float().mean()),
+                finite=bool(torch.isfinite(got).all()))
+
+
+def check_ring_backward(dev, q, k, v, opts, i):
+    """(f) The schedule's dq, dk, dv (and dsinks) against the plain
+    whole-sequence backward, each row within its bar; the control (the
+    last rank's two nearest blocks dropped) missing; the schedule's
+    forward + backward ms beside one K1 + K8/K9 pair over the whole
+    sequence, and the kernels' launches in one schedule's forward and
+    backward."""
+    import torch
+
+    from tpu_flash_torch.core.softmax import (
+        empty_state,
+        finalize,
+        finalize_with_sinks,
+        merge_softmax_states,
+    )
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.ops.flash import flash_attention
+    from tpu_flash_torch.parallel.mesh import take_shard
+    from tpu_flash_torch.parallel.ring import (
+        ring_attention_schedule,
+        ring_block_state,
+    )
+
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    opts = dict(opts)
+    if opts.get("sinks") is not None:
+        leaves.append(opts["sinks"].detach().requires_grad_())
+        opts["sinks"] = leaves[3]
+    g = torch.Generator(device=dev).manual_seed(SEED + 60 + i)
+    do = torch.randn(q.shape, generator=g, device=dev).bfloat16()
+
+    def ring():
+        out = ring_attention_schedule(*leaves[:3], RING_N, **opts)
+        return torch.autograd.grad(out, leaves, do)
+
+    def whole(grad_out=do):
+        out = flash_attention(*leaves[:3], **opts)
+        return torch.autograd.grad(out, leaves, grad_out)
+
+    build.reset_launch_counts()
+    got = ring()
+    torch.cuda.synchronize()
+    launches = build.launch_counts()
+    ring_ms = time_ms(ring, 3, warmup=1)
+    whole_ms = time_ms(whole, 3, warmup=1)
+    terms = ring_grad_terms(leaves, opts, do)
+    rounding = ring_rounding_terms(q, k, v, do, opts)
+    with plain_versions():
+        ref = whole()
+    # The control: the last rank's output from its block states merged
+    # in ring order without its own and its first received one,
+    # differentiated alone.
+    s = q.shape[2]
+    blk_len = s // RING_N
+    my = RING_N - 1
+    blk = [[take_shard(x, RING_N, r, 2) for r in range(RING_N)]
+           for x in leaves[:3]]
+    state = empty_state(blk[0][my].shape[:3], q.shape[3], device=q.device)
+    for src in range(my - 2, -1, -1):
+        state = merge_softmax_states(state, ring_block_state(
+            blk[0][my], blk[1][src], blk[2][src], distance=my - src,
+            n_ring=RING_N, causal=True, window=opts["window"],
+            softcap=opts["softcap"], alibi=opts.get("alibi")))
+    ctl_out = (finalize(state, q.dtype) if opts.get("sinks") is None
+               else finalize_with_sinks(state, opts["sinks"], q.dtype))
+    control = torch.autograd.grad(ctl_out, leaves[:3],
+                                  do[..., my * blk_len:, :])
+    last = slice(my * blk_len, s)
+    grads = {name: ring_grad_rows(a, r, t, rd, c, name, last)
+             for name, a, r, t, rd, c in zip(("dq", "dk", "dv"), got, ref,
+                                             terms, rounding, control)}
+    ok = all(r["rows_over_bar"] == 0 and r["finite"]
+             and r["control_rows_missed"] >= 0.5 for r in grads.values())
+    if len(leaves) == 4:
+        shifted = do.clone()
+        shifted[..., :s // 2, :] *= RING_SINK_SHIFT
+        with plain_versions():
+            ctl = whole(shifted)[3]
+        bar = RING_SINK_REL * float(ref[3].float().abs().max())
+        grads["dsinks"] = dict(max_abs_err=max_err(got[3], ref[3]),
+                               max_abs_ref=float(ref[3].abs().max()),
+                               bar=bar, control_err=max_err(ctl, ref[3]))
+        ok = ok and (grads["dsinks"]["max_abs_err"] <= bar
+                     < grads["dsinks"]["control_err"])
+    return dict(backward_ok=ok, grads=grads, fwd_bwd_ms=ring_ms,
+                whole_k1_k8_k9_ms=whole_ms, fwd_bwd_launches=launches)
+
+
 def check_ring_case(dev, name, i):
     """One ring case: the schedule (every rank's sources in ring order
     through ring_block_state, merged) against K1 over the whole sequence
@@ -3628,11 +3904,14 @@ def check_ring_case(dev, name, i):
     last = slice((RING_N - 1) * s // RING_N, s)
     ctl_err = (ctl.float() - ref[..., last, :].float()).abs().amax(-1)
     ctl_missed = float((ctl_err > bar_plain[..., last]).float().mean())
+    bwd = check_ring_backward(dev, q, k, v, opts, i)
     rec = dict(
         case=name, b=b, hq=hq, hkv=hkv, s=s, d=d, n_ring=RING_N,
         window=extra.get("window"), softcap=extra.get("softcap"),
         alibi=bool(extra.get("alibi")), sinks=bool(extra.get("sinks")),
-        launches=launches, ring_ms=ring_ms, blocks_ms=blocks_ms,
+        launches={n: launches.get(n, 0) + bwd["fwd_bwd_launches"].get(n, 0)
+                  for n in {*launches, *bwd["fwd_bwd_launches"]}},
+        ring_ms=ring_ms, blocks_ms=blocks_ms,
         whole_k1_ms=whole_ms,
         max_abs_err_plain=float(err_plain.max()),
         max_abs_err_k1=float(err_k1.max()),
@@ -3642,12 +3921,16 @@ def check_ring_case(dev, name, i):
         max_of_bar_k1=float((err_k1 / bar_k1).max()),
         control_rows_missed=ctl_missed,
         finite=bool(torch.isfinite(out).all()),
+        backward=bwd,
     )
     log("parallel_ring", gpu=gpu_query(), **rec)
     if not (rec["finite"] and rec["rows_over_bar_plain"] == 0
             and rec["rows_over_bar_k1"] == 0 and ctl_missed >= 0.5):
         raise AssertionError(f"ring case {name} off its bar: {rec}")
-    require_launches(rec, ["flash_fwd"])
+    if not bwd["backward_ok"]:
+        raise AssertionError(f"ring case {name}: backward off its bar, or "
+                             f"a control within it: {bwd}")
+    require_launches(rec, ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"])
     return rec
 
 
@@ -4117,13 +4400,14 @@ def check_trained(dev):
             out = eng.run()
             eng.close()
             return ([out[i] for i in ids], [eng.logprobs[i] for i in ids],
-                    eng.metrics.route_counts(), eng.speculation_stats())
+                    eng.metrics.route_counts(), eng.speculation_stats(),
+                    type(eng.scheduler.allocator).__name__)
 
         shadow = {}
         with shadowed(shadow):
-            got, lp_got, routes, spec = serve()
+            got, lp_got, routes, spec, allocator = serve()
         with plain_versions():
-            want, lp_want, _, _ = serve()
+            want, lp_want, _, _, _ = serve()
         match = token_match(got, want)
         if not results:
             bf16_tokens = got
@@ -4138,8 +4422,11 @@ def check_trained(dev):
                        None if staggered or mdt != "bfloat16"
                        else token_match(got, bf16_tokens)),
                    routes=routes, speculation=spec, shadow=shadow,
+                   allocator=allocator,
                    text=[bytes(t).decode("utf-8", "replace") for t in got])
         name = f"{kv_dtype} ring {ring} paged {paged} model {mdt}"
+        if allocator != "NativeAllocator":
+            failed.append(f"{name}: the engine ran on {allocator}")
         if match < TRAINED_MATCH_MIN:
             prompts = ([STAGGERED[0], STAGGERED[1]] if staggered
                        else [list(p) for p in TRAINED_PROMPTS])
@@ -4528,6 +4815,119 @@ def check_training(dev):
     require_launches(rec, ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"])
     del params, opt, step
     torch.cuda.empty_cache()
+    return [rec, check_mesh_training(dev, model, batch, other, rec)]
+
+
+# (g) The mesh train step (parallel/train.py, make_train_step(model, mesh))
+# on a fresh NCCL group of one, at phase 6's model and batch: its first
+# step's loss within TRAINED_LOSS_TOL (0.02 nats) and every gradient
+# within TRAIN_GRAD_REL_TOL of the one-device step's on the same weights
+# (the two differ in the sequence the model runs, 2049 positions with the
+# last masked against 2048, and so in cuBLAS's algorithms and the bf16
+# roundings after them), the control (another batch's one-device
+# gradients) missing; MESH_RESUME_AT AdamW steps, a sharded
+# TrainCheckpointManager checkpoint, MESH_STEPS - MESH_RESUME_AT more;
+# then the checkpoint restored into a fresh shard and optimizer and the
+# same steps again, every loss bit for bit.
+MESH_STEPS = 4
+MESH_RESUME_AT = 2
+
+
+def check_mesh_training(dev, model, batch, other, one_device):
+    """(g) The DP x TP x SP step at a mesh of one on the card."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_flash_torch.checkpoint import TrainCheckpointManager
+    from tpu_flash_torch.ops import build
+    from tpu_flash_torch.parallel import (make_train_step, param_leaves,
+                                          param_names)
+
+    t_phase = time.perf_counter()
+    mesh = check_group_of_one()
+    try:
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+        loss_one, want = first_step_grads(model, params, batch)
+        _, control = first_step_grads(model, params, other)
+        shard, build_step = make_train_step(
+            model, mesh, make_optimizer=functools.partial(
+                torch.optim.AdamW, lr=TRAIN_LR, weight_decay=0.01))
+        local = shard(params)
+        names = param_names(params)
+        del params
+        step = build_step(local)
+        build.reset_launch_counts()
+        losses, secs = [], []
+
+        def timed_step(st, p):
+            t = time.perf_counter()
+            loss = float(st(p, batch))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            return loss
+
+        losses.append(timed_step(step, local))
+        rel, ctrl = [], []
+        for w, r, c in zip(param_leaves(local), want, control):
+            norm = float(r.float().norm())
+            rel.append(float((w.grad.float() - r.float()).norm()) / norm)
+            ctrl.append(float((c.float() - r.float()).norm()) / norm)
+        del want, control
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        losses += [timed_step(step, local)
+                   for _ in range(MESH_RESUME_AT - 1)]
+        launches = build.launch_counts()
+        with build_tempdir("mesh-ckpt-") as tmp:
+            with TrainCheckpointManager(tmp, max_to_keep=1) as mgr:
+                t0 = time.perf_counter()
+                mgr.save(MESH_RESUME_AT, local, step.optimizer.state_dict(),
+                         mesh=mesh)
+                torch.cuda.synchronize()
+                save_s = time.perf_counter() - t0
+                size = dir_bytes(tmp)
+                losses += [timed_step(step, local)
+                           for _ in range(MESH_STEPS - MESH_RESUME_AT)]
+                del local, step
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                at, rp, ros = mgr.restore_latest(device=dev, mesh=mesh)
+                resumed_step = build_step(rp)
+                resumed_step.optimizer.load_state_dict(ros)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+        resumed = [float(resumed_step(rp, batch))
+                   for _ in range(MESH_STEPS - MESH_RESUME_AT)]
+        del rp, ros, resumed_step
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    positions = TRAIN_TOKENS[0] * (TRAIN_TOKENS[1] - 1)
+    timed = secs[1:]
+    rec = dict(gpu=gpu_query(), mesh=list(mesh.shape), losses=losses,
+               first_loss_one_device=loss_one,
+               first_loss_diff=abs(losses[0] - loss_one),
+               loss_tol=TRAINED_LOSS_TOL, grad_tol=TRAIN_GRAD_REL_TOL,
+               max_rel=rel[worst], worst=names[worst],
+               min_control_rel=min(ctrl), step_s=secs,
+               train_tok_per_s=positions * len(timed) / sum(timed),
+               one_device_train_tok_per_s=one_device["train_tok_per_s"],
+               resumed_at=at, resumed_losses=resumed,
+               bit_for_bit=resumed == losses[MESH_RESUME_AT:],
+               checkpoint_bytes=size, save_s=save_s, restore_s=restore_s,
+               launches=launches, wall_s=time.perf_counter() - t_phase)
+    log("train_mesh", **rec)
+    if not (rec["first_loss_diff"] <= TRAINED_LOSS_TOL
+            and max(rel) <= TRAIN_GRAD_REL_TOL
+            and min(ctrl) > TRAIN_GRAD_REL_TOL
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"the mesh step off the one-device step, or "
+                             f"a control within the bar: {rec}")
+    if not (rec["bit_for_bit"] and at == MESH_RESUME_AT):
+        raise AssertionError(f"resumed mesh training off the uninterrupted "
+                             f"losses: {rec}")
+    require_launches(rec, ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"])
     return rec
 
 
@@ -5207,7 +5607,7 @@ def main() -> int:
     lap("main_path_gemma2_9b")
     check_trained(dev)
     lap("trained_model")
-    main_runs.append(check_training(dev))
+    main_runs += check_training(dev)
     lap("training")
     check_trained_training(dev)
     lap("trained_training")

@@ -19,8 +19,20 @@ on a slice of heads, and no row depends on another head); against JAX
 ring schedule (``ring_attention_schedule``, what one card runs) is
 checked torch against torch in-process, and against the distributed ring
 bit for bit.
+
+The same spawn takes the gradients of seven of the cases (``GRAD_CASES``:
+ring causal, window with softcap, ALiBi, sinks, seq 2 x model 2 with
+ALiBi and a window; Ulysses causal, sinks with ALiBi) for a seeded dO:
+each rank's q, k, v (and sinks) gradients on the global inputs, summed
+over the ranks, against the port's one-device ``flash_attention``
+autograd (ring within 3e-5, the forward's bar: the gradient flows back
+through the same merges; Ulysses bit for bit, as its forward), and the
+ring's causal and window cases against ``jax.vjp`` of the JAX
+``ring_attention`` on its 4-device seq mesh (3e-5). The output taken
+with autograd on is the forward's, bit for bit.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -139,6 +151,68 @@ def test_case_against_jax(group, name):
     got = _gathered(group, name).numpy()
     tol = 2e-5 if W.ATTN_CASES[name][1] == "sharded_paged" else 3e-5
     np.testing.assert_allclose(got, _jax(name), atol=tol, rtol=tol)
+
+
+def _grad_sum(group, name):
+    """Each input's gradient summed over the ranks (each rank's is zero
+    outside the blocks it read)."""
+    grads = [res[f"{name}:grad"] for res in group]
+    return {k: sum(g[k] for g in grads) for k in grads[0]}
+
+
+def _one_device_grads(name):
+    _, _, _, opts = W.ATTN_CASES[name]
+    x = {k: v.requires_grad_(k in W.GRAD_INPUTS)
+         for k, v in _inputs(name).items()}
+    kw = {k: v for k, v in opts.items()
+          if k in ("causal", "window", "softcap")}
+    out = flash_attention(x["q"], x["k"], x["v"], sinks=x.get("sinks"),
+                          alibi=x.get("alibi"), **kw)
+    (out * torch.from_numpy(W.attn_cotangent(name))).sum().backward()
+    return {k: x[k].grad for k in W.GRAD_INPUTS if k in x}
+
+
+@pytest.mark.parametrize("name", W.GRAD_CASES)
+def test_grad_against_one_device(group, name):
+    got = _grad_sum(group, name)
+    ref = _one_device_grads(name)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert torch.isfinite(got[k]).all(), k
+        if W.ATTN_CASES[name][1] == "ring":
+            np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(),
+                                       err_msg=k, **RING_TOL)
+        else:
+            assert torch.equal(got[k], ref[k]), (
+                k, float((got[k] - ref[k]).abs().max()))
+    # The output taken with autograd on is the forward's.
+    out = W.assemble([(res[name][0], res[f"{name}:grad_out"])
+                      for res in group])
+    assert torch.equal(out, _gathered(group, name))
+
+
+@pytest.mark.parametrize("name", ("ring_causal", "ring_window"))
+def test_grad_against_jax(group, name):
+    """The gradients against ``jax.vjp`` of the JAX package's
+    ``ring_attention`` (Pallas in interpret mode) on its seq mesh."""
+    sizes, _, _, opts = W.ATTN_CASES[name]
+    x = W.attn_inputs(name)
+    mesh = j_build_mesh(JMeshConfig(**sizes))
+    kw = {k: v for k, v in opts.items()
+          if k in ("causal", "window", "softcap")}
+
+    @jax.jit
+    def grads(q, k, v, do):
+        _, vjp = jax.vjp(
+            lambda q, k, v: j_ring_attention(q, k, v, mesh, interpret=True,
+                                             **kw), q, k, v)
+        return vjp(do)
+
+    want = grads(x["q"], x["k"], x["v"], W.attn_cotangent(name))
+    got = _grad_sum(group, name)
+    for k, w in zip("qkv", want):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(w),
+                                   err_msg=k, **RING_TOL)
 
 
 def test_ring_is_the_single_process_schedule(group):

@@ -1,5 +1,6 @@
 """One rank of the gloo process groups that the port's multi-rank tests
-spawn (``tests/test_torch_parallel.py``, ``tests/test_torch_sharded_engine.py``).
+spawn (``tests/test_torch_parallel.py``, ``tests/test_torch_sharded_engine.py``,
+``tests/test_torch_train_multichip.py``).
 
     python tests/torch_dist_worker.py <suite> <rank> <world> <dir>
 
@@ -91,6 +92,62 @@ def attn_inputs(name: str):
     return out
 
 
+# The cases whose gradients the attention suite takes too (ring: every
+# block kind, ALiBi's shifted dense blocks, sinks, ring x heads; Ulysses).
+GRAD_CASES = ("ring_causal", "ring_window", "ring_alibi", "ring_sinks",
+              "ring_2d_alibi", "ulysses_causal", "ulysses_sinks_alibi")
+GRAD_INPUTS = ("q", "k", "v", "sinks")
+
+
+def attn_cotangent(name: str):
+    """The seeded f32 output cotangent dO of a case, [b, hq, s, d]."""
+    _, _, (b, hq, _, s, d), _ = ATTN_CASES[name]
+    rng = np.random.default_rng(1000 + sorted(ATTN_CASES).index(name))
+    return rng.standard_normal((b, hq, s, d), np.float32)
+
+
+def _attn_call(mesh, sizes, entry, opts, x):
+    """(coords, output block) of one case on this rank: coords {dim:
+    (index, count)} place the block in the whole output."""
+    from tpu_flash_torch.ops.quant import QuantizedTensor, quantize_int8_rows
+    from tpu_flash_torch.parallel import (
+        ring_attention,
+        sharded_flash_attention,
+        sharded_paged_attention,
+        ulysses_attention,
+    )
+
+    def coord(axis, dim):
+        return dim, (mesh.get_local_rank(axis), sizes.get(axis, 1))
+
+    kw = {k: v for k, v in opts.items()
+          if k in ("causal", "window", "softcap")}
+    if entry == "sharded_flash":
+        out = sharded_flash_attention(mesh, **kw)(x["q"], x["k"], x["v"])
+        dims = dict([coord("data", 0), coord("model", 1)])
+    elif entry == "sharded_paged":
+        kp, vp = x["k"], x["v"]
+        if opts.get("int8"):
+            kq, ks = quantize_int8_rows(kp)
+            vq, vs = quantize_int8_rows(vp)
+            kp = QuantizedTensor(kq, ks, "int8", "lanes")
+            vp = QuantizedTensor(vq, vs, "int8", "lanes")
+        out = sharded_paged_attention(mesh)(
+            x["q"], kp, vp, x["lengths"], x["table"])
+        dims = dict([coord("model", 1)])
+    elif entry == "ring":
+        out = ring_attention(x["q"], x["k"], x["v"], mesh,
+                             sinks=x.get("sinks"), alibi=x.get("alibi"),
+                             **kw)
+        dims = dict([coord("seq", 2), coord("model", 1)])
+    else:
+        out = ulysses_attention(mesh, sinks=x.get("sinks"),
+                                alibi=x.get("alibi"), **kw)(
+            x["q"], x["k"], x["v"])
+        dims = dict([coord("seq", 2)])
+    return {d: c for d, c in dims.items() if c[1] > 1}, out
+
+
 def _mesh(sizes):
     from tpu_flash_torch.core.config import MeshConfig
     from tpu_flash_torch.parallel.mesh import build_mesh
@@ -100,18 +157,14 @@ def _mesh(sizes):
 
 def run_attention(rank: int):
     """Every attention case on this rank: {name: (coords, output)} with
-    coords {dim: (index, count)}, plus the merge and error cases."""
+    coords {dim: (index, count)}; for GRAD_CASES the input gradients
+    (``<name>:grad``) and the output they were taken through
+    (``<name>:grad_out``); plus the merge and error cases."""
     import torch
     import torch.distributed as dist
 
     from tpu_flash_torch.core.softmax import SoftmaxState, merge_over_axis
-    from tpu_flash_torch.ops.quant import QuantizedTensor, quantize_int8_rows
-    from tpu_flash_torch.parallel import (
-        ring_attention,
-        sharded_flash_attention,
-        sharded_paged_attention,
-        ulysses_attention,
-    )
+    from tpu_flash_torch.parallel import ulysses_attention
 
     res = {}
     meshes = {}
@@ -119,39 +172,24 @@ def run_attention(rank: int):
         key = tuple(sorted(sizes.items()))
         if key not in meshes:
             meshes[key] = _mesh(sizes)
-        mesh = meshes[key]
         x = {k: torch.from_numpy(v) for k, v in attn_inputs(name).items()}
+        res[name] = _attn_call(meshes[key], sizes, entry, opts, x)
 
-        def coord(axis, dim):
-            n = sizes.get(axis, 1)
-            return dim, (mesh.get_local_rank(axis), n)
-
-        kw = {k: v for k, v in opts.items()
-              if k in ("causal", "window", "softcap")}
-        if entry == "sharded_flash":
-            out = sharded_flash_attention(mesh, **kw)(x["q"], x["k"], x["v"])
-            dims = dict([coord("data", 0), coord("model", 1)])
-        elif entry == "sharded_paged":
-            kp, vp = x["k"], x["v"]
-            if opts.get("int8"):
-                kq, ks = quantize_int8_rows(kp)
-                vq, vs = quantize_int8_rows(vp)
-                kp = QuantizedTensor(kq, ks, "int8", "lanes")
-                vp = QuantizedTensor(vq, vs, "int8", "lanes")
-            out = sharded_paged_attention(mesh)(
-                x["q"], kp, vp, x["lengths"], x["table"])
-            dims = dict([coord("model", 1)])
-        elif entry == "ring":
-            out = ring_attention(x["q"], x["k"], x["v"], mesh,
-                                 sinks=x.get("sinks"), alibi=x.get("alibi"),
-                                 **kw)
-            dims = dict([coord("seq", 2), coord("model", 1)])
-        else:
-            out = ulysses_attention(mesh, sinks=x.get("sinks"),
-                                    alibi=x.get("alibi"), **kw)(
-                x["q"], x["k"], x["v"])
-            dims = dict([coord("seq", 2)])
-        res[name] = ({d: c for d, c in dims.items() if c[1] > 1}, out)
+    # Gradients: each rank's q, k, v (and sinks) gradients of <out, dO>
+    # over its output block, on the global inputs (zero outside the
+    # rank's blocks); the test sums them over the ranks.
+    for name in GRAD_CASES:
+        sizes, entry, _, opts = ATTN_CASES[name]
+        mesh = meshes[tuple(sorted(sizes.items()))]
+        x = {k: torch.from_numpy(v).requires_grad_(k in GRAD_INPUTS)
+             for k, v in attn_inputs(name).items()}
+        coords, out = _attn_call(mesh, sizes, entry, opts, x)
+        do = torch.from_numpy(attn_cotangent(name))
+        for dim, (i, n) in coords.items():
+            do = do.chunk(n, dim)[i]
+        (out * do).sum().backward()
+        res[f"{name}:grad"] = {k: x[k].grad for k in GRAD_INPUTS if k in x}
+        res[f"{name}:grad_out"] = out.detach()
 
     # merge_over_axis: each rank one partial state; rank 2's is empty.
     rng = np.random.default_rng(100 + rank)
@@ -381,6 +419,213 @@ def run_engine(rank: int, workdir: str):
     return res
 
 
+# -- the training suite (8 ranks) ---------------------------------------------
+
+# tests/test_train_multichip.py's model, meshes and attention variants,
+# plus ALiBi and YaRN (the sliced slopes and the q multiplier).
+TRAIN_CFG = dict(name="tiny-train", vocab_size=64, hidden_size=32,
+                 num_layers=2, num_q_heads=4, num_kv_heads=2, head_dim=8,
+                 intermediate_size=64, dtype="float32")
+TRAIN_VARIANTS = {
+    "base": {},
+    "window": dict(sliding_window=12),
+    "softcap": dict(attn_softcap=8.0),
+    "sinks": dict(attn_sinks=True),
+    "gemma-like": dict(sliding_window=10, sliding_window_pattern=2,
+                       attn_softcap=6.0, attn_sinks=True),
+    "alibi": dict(attn_alibi=True),
+    "yarn": dict(rope_scaling="yarn", rope_scaling_factor=4.0),
+}
+# name -> (mesh {axis: size}, variant): one SGD step each.
+TRAIN_CASES = {
+    "base_d2s2m2": (dict(data=2, seq=2, model=2), "base"),
+    "base_s4m2": (dict(seq=4, model=2), "base"),
+    "base_d8": (dict(data=8), "base"),
+    **{f"{v}_d2s2m2": (dict(data=2, seq=2, model=2), v)
+       for v in ("window", "softcap", "sinks", "gemma-like", "alibi",
+                 "yarn")},
+}
+TRAIN_TOKENS = (8, 32)
+TRAIN_LR = 1e-2
+ADAMW = dict(lr=3e-3, weight_decay=0.01)
+ADAMW_MESH = dict(data=2, seq=2, model=2)
+PART_MESH = dict(seq=2, model=2)  # ranks 0-3 of the 8
+
+
+def train_cfg(variant: str) -> dict:
+    return {**TRAIN_CFG, **TRAIN_VARIANTS[variant]}
+
+
+def train_params(variant: str):
+    """Seeded f32 numpy params in the JAX tree's names and layouts
+    (dense weights [in, out], N(0, 1/fan_in); norms near one; sink
+    logits N(0, 1.5^2) where the variant has them)."""
+    cfg = train_cfg(variant)
+    rng = np.random.default_rng(7)
+    h, d, f = cfg["hidden_size"], cfg["head_dim"], cfg["intermediate_size"]
+    qd, kvd = cfg["num_q_heads"] * d, cfg["num_kv_heads"] * d
+    f32 = np.float32
+
+    def dense(shape):
+        return (rng.standard_normal(shape, f32) * shape[0] ** -0.5).astype(f32)
+
+    def norm():
+        return (1.0 + 0.1 * rng.standard_normal(h, f32)).astype(f32)
+
+    layers = []
+    for _ in range(cfg["num_layers"]):
+        layer = dict(attn_norm=norm(), wq=dense((h, qd)), wk=dense((h, kvd)),
+                     wv=dense((h, kvd)), wo=dense((qd, h)), mlp_norm=norm(),
+                     w_gate=dense((h, f)), w_up=dense((h, f)),
+                     w_down=dense((f, h)))
+        if cfg.get("attn_sinks"):
+            layer["sinks"] = (1.5 * rng.standard_normal(
+                cfg["num_q_heads"], f32)).astype(f32)
+        layers.append(layer)
+    return dict(embed=rng.standard_normal((cfg["vocab_size"], h), f32),
+                layers=layers, final_norm=norm(),
+                lm_head=dense((h, cfg["vocab_size"])))
+
+
+def train_tokens():
+    rng = np.random.default_rng(8)
+    return rng.integers(0, TRAIN_CFG["vocab_size"], TRAIN_TOKENS,
+                        dtype=np.int64)
+
+
+def torch_params(tree):
+    """A numpy params tree as torch tensors (copies)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: torch_params(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [torch_params(v) for v in tree]
+    return torch.tensor(tree)
+
+
+def train_model(variant: str):
+    from tpu_flash_torch.models import FlashTransformer, ModelConfig
+
+    return FlashTransformer(ModelConfig(**train_cfg(variant)), device="cpu")
+
+
+def _detached(local, grad=False):
+    """A copy of a shard's tensors (with ``grad``, of their gradients)."""
+    def get(w):
+        return (w.grad if grad else w).detach().clone()
+
+    return {k: ([{n: get(w) for n, w in lw.items()} for lw in v]
+                if k == "layers" else get(v)) for k, v in local.items()}
+
+
+def _adamw_run(mesh, tokens, ckpt_dir):
+    """(results, build, a fresh shard): two AdamW steps on ``mesh``, a
+    sharded checkpoint into ``ckpt_dir``, two more (the golden losses and
+    shard), then the checkpoint restored into a fresh shard and optimizer
+    and two steps again."""
+    import functools
+
+    import torch
+
+    from tpu_flash_torch.checkpoint import TrainCheckpointManager
+    from tpu_flash_torch.parallel import make_train_step
+
+    shard, build = make_train_step(
+        train_model("base"), mesh,
+        make_optimizer=functools.partial(torch.optim.AdamW, **ADAMW))
+    local = shard(torch_params(train_params("base")))
+    step = build(local)
+    losses = [float(step(local, tokens)) for _ in range(2)]
+    first = _detached(local)
+    with TrainCheckpointManager(ckpt_dir) as mgr:
+        mgr.save(2, local, step.optimizer.state_dict(), mesh=mesh)
+    losses += [float(step(local, tokens)) for _ in range(2)]
+    golden = _detached(local)
+    fresh = shard(torch_params(train_params("base")))
+    with TrainCheckpointManager(ckpt_dir) as mgr:
+        at, rp, ros = mgr.restore_latest(like_params=fresh, mesh=mesh)
+    step = build(rp)
+    step.optimizer.load_state_dict(ros)
+    resumed = [float(step(rp, tokens)) for _ in range(2)]
+    coords = tuple(mesh.get_local_rank(a) for a in ("data", "seq", "model"))
+    return (dict(coords=coords, losses=losses, first=first, golden=golden,
+                 at=at, resumed=resumed, resumed_shard=_detached(rp)),
+            build, fresh)
+
+
+def run_train(rank: int, workdir: str):
+    """Every training case on this rank: {name: (coords, loss, shard,
+    grads)} (coords: this rank's (data, seq, model) indices; the shard
+    after one SGD step and its gradients), then :func:`_adamw_run` on
+    ADAMW_MESH ("adamw", with "gathered": whether each leaf the sharded
+    save gathered came back whole on this rank), the one-device
+    checkpoint the test wrote (``workdir``/one) restored onto that mesh
+    and stepped once, and :func:`_adamw_run` on PART_MESH, ranks 0-3 of
+    the 8 ("adamw_part", on those ranks only)."""
+    import torch
+
+    from tpu_flash_torch.checkpoint import TrainCheckpointManager
+    from tpu_flash_torch.parallel import make_train_step
+
+    tokens = torch.from_numpy(train_tokens())
+    res = {}
+    meshes = {}
+
+    def mesh_of(sizes):
+        key = tuple(sorted(sizes.items()))
+        if key not in meshes:
+            meshes[key] = _mesh(sizes)
+        return meshes[key]
+
+    def coords(mesh):
+        return tuple(mesh.get_local_rank(a) for a in ("data", "seq",
+                                                      "model"))
+
+    for name, (sizes, variant) in TRAIN_CASES.items():
+        mesh = mesh_of(sizes)
+        shard, build = make_train_step(train_model(variant), mesh,
+                                       learning_rate=TRAIN_LR)
+        local = shard(torch_params(train_params(variant)))
+        loss = build(local)(local, tokens)
+        res[name] = (coords(mesh), float(loss), _detached(local),
+                     _detached(local, grad=True))
+
+    from tpu_flash_torch.checkpoint import store
+
+    calls = []
+    gather_leaf = store._gather_leaf
+
+    def recorded(*args):
+        whole = gather_leaf(*args)
+        calls.append(whole is not None)
+        return whole
+
+    store._gather_leaf = recorded
+    try:
+        mesh = mesh_of(ADAMW_MESH)
+        res["adamw"], build, fresh = _adamw_run(
+            mesh, tokens, os.path.join(workdir, "mesh"))
+    finally:
+        store._gather_leaf = gather_leaf
+    res["adamw"]["gathered"] = calls
+    with TrainCheckpointManager(os.path.join(workdir, "one")) as mgr:
+        at_one, op, oos = mgr.restore_latest(like_params=fresh, mesh=mesh)
+    step = build(op)
+    step.optimizer.load_state_dict(oos)
+    res["adamw"].update(at_one=at_one, from_one=float(step(op, tokens)),
+                        from_one_shard=_detached(op))
+    # A mesh over the first ranks of the world: every rank builds it
+    # (DeviceMesh makes its groups over the whole world), only its
+    # members train, and none waits on the others.
+    mesh = mesh_of(PART_MESH)
+    if mesh.get_coordinate() is not None:
+        res["adamw_part"] = _adamw_run(
+            mesh, tokens, os.path.join(workdir, "part"))[0]
+    res["torch_threads"] = torch.get_num_threads()
+    return res
+
+
 def spawn(suite: str, world: int, workdir: str, timeout_s: float = 120.0):
     """Run ``suite`` in ``world`` worker processes and return each rank's
     results; raises with the workers' output if any fails or if the group
@@ -448,8 +693,12 @@ def main() -> int:
         num_processes=world, process_id=rank, device_type="cpu",
         timeout_s=60,
     )
-    res = (run_attention(rank) if suite == "attention"
-           else run_engine(rank, workdir))
+    if suite == "attention":
+        res = run_attention(rank)
+    elif suite == "train":
+        res = run_train(rank, workdir)
+    else:
+        res = run_engine(rank, workdir)
     res["jax_imported"] = "jax" in sys.modules
     res["backend"] = dist.get_backend()
     torch.save(res, os.path.join(workdir, f"{suite}-{rank}.pt"))

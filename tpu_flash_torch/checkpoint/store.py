@@ -6,7 +6,14 @@ The port of ``tpu_flash/checkpoint/store.py``. Three surfaces:
   params dict, ``torch.save`` into a directory, read back with
   ``torch.load(weights_only=True)``).
 * ``TrainCheckpointManager``: step-indexed keep-N checkpoints of the
-  params and a ``torch.optim`` state dict, for training resume.
+  params and a ``torch.optim`` state dict, for training resume. With a
+  ``mesh`` (the sharded train step, ``parallel/train.py``) every rank
+  passes its shard: the model-sharded leaves (and their optimizer state)
+  are gathered over "model", one at a time, onto the mesh's first rank,
+  which moves each to the host and writes whole tensors in
+  ``models.shard_params``' layout; a restore maps the file and each rank
+  copies out its own slices. So a checkpoint written on a mesh restores
+  onto one device, and the other way round.
 * ``snapshot_engine`` / ``restore_engine``: a consistent snapshot of the
   serving engine's paged KV cache and the host state that gives the pages
   meaning (page tables, lengths, allocator ownership, request progress,
@@ -106,12 +113,50 @@ def restore_params(path, like: Optional[Any] = None, device=None):
 # ---------------------------------------------------------------------------
 
 
+def _map_sharded(params, opt_state, fn):
+    """``params`` and ``opt_state`` with ``fn(tensor, dim)`` applied to
+    every tensor split over the model axis (``models.SHARD_DIMS``): each
+    sharded param, and each optimizer state tensor of its param's rank
+    (Adam's moments; not a scalar ``step``)."""
+    from tpu_flash_torch.models.transformer import SHARD_DIMS
+    from tpu_flash_torch.parallel.train import param_names
+
+    layers = [{n: w if SHARD_DIMS.get(n) is None else fn(w, SHARD_DIMS[n])
+               for n, w in lw.items()} for lw in params["layers"]]
+    params = {**params, "layers": layers}
+    if opt_state is not None:
+        # A torch.optim state dict built over param_leaves numbers the
+        # params in that order.
+        dims = [SHARD_DIMS.get(n.rsplit(".", 1)[-1])
+                for n in param_names(params)]
+        order = [i for g in opt_state["param_groups"] for i in g["params"]]
+        by_index = {i: dims[j] for j, i in enumerate(order)}
+        state = {}
+        for i, st in opt_state["state"].items():
+            d = by_index[i]
+            state[i] = {k: fn(t, d) if d is not None and torch.is_tensor(t)
+                        and t.dim() > d else t for k, t in st.items()}
+        opt_state = {**opt_state, "state": state}
+    return params, opt_state
+
+
 class TrainCheckpointManager:
     """Step-indexed keep-N checkpoints of {params, opt_state} under one
     directory (a subdirectory a step). Training loops call ``save(step,
     params, optimizer.state_dict())`` every K steps and
     ``restore_latest()`` on restart, then ``optimizer.load_state_dict``
-    on an optimizer built over the restored params."""
+    on an optimizer built over the restored params.
+
+    The sharded train step's ranks pass ``mesh=`` to both: every rank
+    calls ``save`` with its shard and its optimizer's state dict (built
+    over ``param_leaves`` of the shard); the model-sharded tensors are
+    gathered over "model" one at a time onto the mesh's first rank, which
+    keeps each on the host and writes whole tensors; the other ranks keep
+    nothing, and every rank of the mesh returns once they are written.
+    ``restore_latest(..., mesh=)`` maps the file (``mmap``) on every rank
+    and copies out its shard (``like_params``, when given, is the
+    shard), so a host of several ranks reads one copy through its page
+    cache."""
 
     def __init__(self, directory, *, max_to_keep: int = 3):
         if max_to_keep < 1:
@@ -125,7 +170,30 @@ class TrainCheckpointManager:
                       if p.is_dir() and re.fullmatch(r"\d+", p.name)
                       and (p / _STATE_FILE).exists())
 
-    def save(self, step: int, params, opt_state=None) -> None:
+    def save(self, step: int, params, opt_state=None, *, mesh=None) -> None:
+        if mesh is not None:
+            from tpu_flash_torch.parallel.mesh import (
+                AXIS_ORDER,
+                axis_size,
+                plane_group,
+            )
+
+            writes = all(mesh.get_local_rank(a) == 0 for a in ("data", "seq"))
+            n = axis_size(mesh, "model")
+            if writes and n > 1:
+                group = mesh.get_group("model")
+                params, opt_state = _map_sharded(
+                    params, opt_state,
+                    lambda t, dim: _gather_leaf(t, dim, group, n))
+            if writes and mesh.get_local_rank("model") == 0:
+                self._write(step, params, opt_state)
+            everyone = plane_group(mesh, AXIS_ORDER)
+            if everyone is not None:
+                dist.barrier(group=everyone)
+            return
+        self._write(step, params, opt_state)
+
+    def _write(self, step: int, params, opt_state) -> None:
         state = {"params": _detached(params)}
         if opt_state is not None:
             state["opt_state"] = _detached(opt_state)
@@ -144,16 +212,28 @@ class TrainCheckpointManager:
         return steps[-1] if steps else None
 
     def restore_latest(self, like_params=None, like_opt_state=None,
-                       device=None):
+                       device=None, *, mesh=None):
         """(step, params, opt_state) of the newest checkpoint, or None.
         ``like_params`` / ``like_opt_state`` pin dtypes and devices as
         :func:`restore_params`'s ``like`` does; without them tensors land
-        on ``device`` ("cuda" unless the caller asks for "cpu")."""
+        on ``device`` ("cuda" unless the caller asks for "cpu"). With a
+        ``mesh``, this rank's model shard of the params and of the
+        optimizer state."""
         step = self.latest_step()
         if step is None:
             return None
         state = torch.load(self._dir / str(step) / _STATE_FILE,
-                           map_location="cpu", weights_only=True)
+                           map_location="cpu", weights_only=True,
+                           mmap=mesh is not None)
+        if mesh is not None:
+            from tpu_flash_torch.parallel.mesh import axis_size, take_shard
+
+            n, r = axis_size(mesh, "model"), mesh.get_local_rank("model")
+            state["params"], opt = _map_sharded(
+                state["params"], state.get("opt_state"),
+                lambda t, dim: take_shard(t, n, r, dim, "checkpoint tensor"))
+            if opt is not None:
+                state["opt_state"] = opt
         dev = torch.device(device if device is not None else "cuda")
         params = (_like(state["params"], like_params)
                   if like_params is not None
@@ -210,6 +290,20 @@ def _tp(engine):
     if group is None:
         return None
     return group, dist.get_rank(group), dist.get_world_size(group)
+
+
+def _gather_leaf(t: torch.Tensor, dim: int, group, n: int):
+    """``t``'s model shards gathered along ``dim`` onto the group's first
+    rank and moved to the host there, one whole tensor; None on the
+    other ranks, which send their shard and keep nothing."""
+    x = t.detach().contiguous()
+    first = dist.get_global_rank(group, 0)
+    parts = ([torch.empty_like(x) for _ in range(n)]
+             if dist.get_rank() == first else None)
+    dist.gather(x, parts, dst=first, group=group)
+    if parts is None:
+        return None
+    return torch.cat([p.cpu() for p in parts], dim)
 
 
 def _global_heads(t: torch.Tensor, dim: int, tp, device) -> torch.Tensor:

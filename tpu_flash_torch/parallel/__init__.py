@@ -1,6 +1,7 @@
-"""Multi-device serving on ``torch.distributed`` (the mesh, process-group
-start-up, head-sharded, ring and Ulysses attention) and training on one
-device (multi-device training waits for its own slice)."""
+"""Multi-device serving and training on ``torch.distributed``: the mesh,
+process-group start-up, head-sharded, ring and Ulysses attention (both
+differentiable), and the training step on one device or DP x TP x SP
+over a mesh."""
 
 from tpu_flash_torch.parallel.mesh import build_mesh
 from tpu_flash_torch.parallel.multihost import initialize_multihost

@@ -28,6 +28,8 @@ from torch.distributed.device_mesh import DeviceMesh
 from tpu_flash_torch.core.config import MeshConfig
 
 AXIS_ORDER = ("data", "seq", "model")
+# ranks -> (the default group it was made under, the group).
+_PLANE_GROUPS: dict = {}
 
 
 def build_mesh(config: MeshConfig, device_type: Optional[str] = None
@@ -76,6 +78,30 @@ def axis_size(mesh: Optional[DeviceMesh], axis: str) -> int:
     if mesh is None:
         return 1
     return mesh.shape[mesh.mesh_dim_names.index(axis)]
+
+
+def plane_group(mesh: DeviceMesh, axes) -> Optional[dist.ProcessGroup]:
+    """The process group of the ranks that share this rank's indices on
+    every mesh axis outside ``axes`` (for ("data", "seq"): its data x seq
+    plane; for ``AXIS_ORDER``: the whole mesh), or None when that is this
+    rank alone. Only the members make it (``use_local_synchronization``),
+    so a mesh over the first ranks of a larger world needs nothing of the
+    others; a set of ranks gets one group per default group, made at
+    first use and kept."""
+    coord = mesh.get_coordinate()
+    idx = tuple(slice(None) if name in axes else c
+                for name, c in zip(mesh.mesh_dim_names, coord))
+    ranks = tuple(mesh.mesh[idx].flatten().tolist())
+    if len(ranks) == 1:
+        return None
+    world = dist.group.WORLD
+    if len(ranks) == dist.get_world_size():
+        return world
+    made = _PLANE_GROUPS.get(ranks)
+    if made is None or made[0] is not world:
+        made = _PLANE_GROUPS[ranks] = (world, dist.new_group(
+            list(ranks), use_local_synchronization=True))
+    return made[1]
 
 
 def take_shard(x: torch.Tensor, n: int, index: int, dim: int,

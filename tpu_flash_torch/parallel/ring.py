@@ -1,12 +1,23 @@
 """Ring attention: sequence-parallel exact attention around the ``seq`` axis.
 
-The port of ``tpu_flash/parallel/ring.py`` (forward; the backward comes
-with multi-device training). K/V blocks rotate around the ranks of the
-``seq`` group (``dist.batch_isend_irecv``: an ``isend`` to the next rank
-and an ``irecv`` from the previous one, started before the block in hand
-is computed, so the transfer overlaps the flash kernel), while every rank
+The port of ``tpu_flash/parallel/ring.py``, differentiable in q, k, v
+and the sink logits. K/V blocks rotate around the ranks of the ``seq``
+group (``dist.batch_isend_irecv``: an ``isend`` to the next rank and an
+``irecv`` from the previous one, started before the block in hand is
+computed, so the transfer overlaps the flash kernel), while every rank
 runs the flash forward on the block in front of it; partial results merge
 through the online-softmax algebra (``core/softmax.py``).
+
+The gradient is JAX's, where ``ppermute`` transposes to the reverse
+rotation: each rotation is a :class:`_Rotate` step whose backward sends
+the received block's gradient to the previous rank and takes the sent
+block's from the next one, and every block state is the flash kernel's
+differentiable (o, lse) (``FlashAttentionFn``, the backward kernel with
+the lse cotangent), merged by plain torch ops. Every rank takes part in
+every backward exchange: a rank whose last received block goes unused
+(a causal ring's source ahead of it, or past the window) ties that block
+to its output with a zero gradient (:class:`_Tie`), since autograd never
+runs backward for an unused output and the ring would wait on it.
 
 A block's partial state comes from the kernel's (o, lse) residuals: a
 normalized block output o with logsumexp lse is exactly the state
@@ -112,42 +123,95 @@ def ring_block_state(
 
 
 def _merged(q_blk, my, n_ring, sources, *, causal, sinks, **kw):
-    """Rank ``my``'s output block: its q block's state over each (src,
-    k, v) of ``sources`` in ring order, merged, then normalized (sinks
-    folded in once)."""
+    """(out, unused): rank ``my``'s output block -- its q block's state
+    over each (src, k, v) of ``sources`` in ring order, merged, then
+    normalized (sinks folded in once) -- and the last source's (k, v)
+    when its block went unused (kind "empty"), else None."""
     state = empty_state(q_blk.shape[:3], q_blk.shape[3], device=q_blk.device)
+    unused = None
     for src, k_src, v_src in sources:
+        distance = my - src if causal else 0
         state = merge_softmax_states(state, ring_block_state(
-            q_blk, k_src, v_src, distance=my - src if causal else 0,
-            n_ring=n_ring, causal=causal, **kw))
+            q_blk, k_src, v_src, distance=distance, n_ring=n_ring,
+            causal=causal, **kw))
+        kind = block_kind(distance, q_blk.shape[2], causal, kw.get("window"))
+        unused = (k_src, v_src) if kind == "empty" else None
     if sinks is not None:
-        return finalize_with_sinks(state, sinks, q_blk.dtype)
-    return finalize(state, q_blk.dtype)
+        return finalize_with_sinks(state, sinks, q_blk.dtype), unused
+    return finalize(state, q_blk.dtype), unused
+
+
+def _exchange(send, to, frm, group):
+    """Send each tensor of ``send`` to global rank ``to`` and receive a
+    tensor of the same shape from ``frm`` into a new one; returns (the
+    received tensors, the pending requests)."""
+    recv = [torch.empty_like(t) for t in send]
+    ops = []
+    for s, r in zip(send, recv):
+        ops += [dist.P2POp(dist.isend, s, to, group),
+                dist.P2POp(dist.irecv, r, frm, group)]
+    return recv, dist.batch_isend_irecv(ops)
+
+
+class _Rotate(torch.autograd.Function):
+    """One ring step of a K/V block pair: forward sends (k, v) to the
+    next rank and receives the previous rank's pair. The transfer is
+    started, not waited on: its requests go into ``pending``, which the
+    caller waits on before it reads the received pair. Backward is the
+    reverse rotation (JAX's transpose of ``ppermute``): the received
+    pair's gradients go to the previous rank, the sent pair's come from
+    the next."""
+
+    @staticmethod
+    def forward(ctx, k, v, group, nxt, prv, pending):
+        (k_in, v_in), reqs = _exchange((k, v), nxt, prv, group)
+        pending.extend(reqs)
+        ctx.ring = (group, nxt, prv)
+        return k_in, v_in
+
+    @staticmethod
+    def backward(ctx, dk, dv):
+        group, nxt, prv = ctx.ring
+        (dk_out, dv_out), reqs = _exchange(
+            (dk.contiguous(), dv.contiguous()), prv, nxt, group)
+        for r in reqs:
+            r.wait()
+        return dk_out, dv_out, None, None, None, None
+
+
+class _Tie(torch.autograd.Function):
+    """``out`` unchanged; in backward, zero gradients for the ``unused``
+    tensors, so that the ring steps that made them run their backward
+    exchange on this rank too."""
+
+    @staticmethod
+    def forward(ctx, out, *unused):
+        ctx.unused = [(t.shape, t.dtype, t.device) for t in unused]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(s, dtype=dt, device=dev)
+                     for s, dt, dev in ctx.unused))
 
 
 def _rotating(k_blk, v_blk, group, my: int, n_ring: int):
     """Yield (src, k, v) around the ring: this rank's own block first,
-    then each block received from the previous rank. The next block's
-    transfer (an isend to the next rank, an irecv from the previous one)
-    starts before the block in hand is yielded, so it overlaps the
-    caller's work on it."""
+    then each block received from the previous rank through a
+    :class:`_Rotate` step. The next block's transfer starts before the
+    block in hand is yielded, so it overlaps the caller's work on it."""
     nxt = dist.get_global_rank(group, (my + 1) % n_ring)
     prv = dist.get_global_rank(group, (my - 1) % n_ring)
     k_cur, v_cur = k_blk.contiguous(), v_blk.contiguous()
     for step in range(n_ring):
-        reqs = []
+        pending = []
         if step + 1 < n_ring:
-            k_nxt, v_nxt = torch.empty_like(k_cur), torch.empty_like(v_cur)
-            reqs = dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, k_cur, nxt, group),
-                dist.P2POp(dist.irecv, k_nxt, prv, group),
-                dist.P2POp(dist.isend, v_cur, nxt, group),
-                dist.P2POp(dist.irecv, v_nxt, prv, group),
-            ])
+            k_nxt, v_nxt = _Rotate.apply(k_cur, v_cur, group, nxt, prv,
+                                         pending)
         yield (my - step) % n_ring, k_cur, v_cur
-        for r in reqs:
+        for r in pending:
             r.wait()
-        if reqs:
+        if pending:
             k_cur, v_cur = k_nxt, v_nxt
 
 
@@ -174,7 +238,9 @@ def ring_attention_local(
     """Per-rank ring attention body: q/k/v [b, h, blk, d] are this rank's
     sequence blocks, the ring the ranks of ``group`` in group-rank order
     (None: no ring, one rank). ``sinks`` ([local q heads]) fold into the
-    denominator once, at the end. Returns this rank's output block."""
+    denominator once, at the end. Returns this rank's output block,
+    differentiable in q, k, v and ``sinks``; every rank of the ring must
+    run the backward (the gradients of k and v travel the ring back)."""
     _check_options(causal, window, alibi)
     if sm_scale is None:
         sm_scale = q_blk.shape[-1] ** -0.5
@@ -184,10 +250,13 @@ def ring_attention_local(
                                sm_scale=sm_scale, window=window,
                                softcap=softcap, sinks=sinks, alibi=alibi)
     my = dist.get_rank(group)
-    return _merged(q_blk, my, n_ring, _rotating(k_blk, v_blk, group, my,
-                                                n_ring),
-                   causal=causal, sinks=sinks, window=window,
-                   softcap=softcap, alibi=alibi, sm_scale=sm_scale)
+    out, unused = _merged(
+        q_blk, my, n_ring, _rotating(k_blk, v_blk, group, my, n_ring),
+        causal=causal, sinks=sinks, window=window, softcap=softcap,
+        alibi=alibi, sm_scale=sm_scale)
+    if unused is not None and torch.is_grad_enabled():
+        out = _Tie.apply(out, *unused)
+    return out
 
 
 def ring_attention_schedule(
@@ -220,7 +289,7 @@ def ring_attention_schedule(
             qs[my], my, n_ring,
             [(src, ks[src], vs[src]) for src in order],
             causal=causal, sinks=sinks, window=window, softcap=softcap,
-            alibi=alibi, sm_scale=sm_scale))
+            alibi=alibi, sm_scale=sm_scale)[0])
     return torch.cat(outs, dim=2)
 
 

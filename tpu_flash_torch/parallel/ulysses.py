@@ -16,9 +16,12 @@ attention:
 contiguous tensor, so each exchange makes the split axis leading: heads
 [b, n, h/n, s/n, d] -> [n, b, h/n, s/n, d] on the way in (block j goes to
 rank j; what arrives from rank j is sequence block j), and the sequence
-blocks the same way on the way out. Needs num_q_heads and num_kv_heads
-divisible by n; holds O(s) K/V per rank during attention (the ring holds
-O(s/n)).
+blocks the same way on the way out. Both exchanges go through
+``torch.distributed.nn.functional.all_to_all_single``, whose gradient is
+the inverse all-to-all, so the attention is differentiable in q, k, v
+and the sink logits (every rank must run the backward). Needs
+num_q_heads and num_kv_heads divisible by n; holds O(s) K/V per rank
+during attention (the ring holds O(s/n)).
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.nn.functional import all_to_all_single
 
 from tpu_flash_torch.ops.flash.api import flash_attention
 from tpu_flash_torch.parallel.mesh import (
@@ -41,8 +44,7 @@ def _heads_to_seq(x: torch.Tensor, n: int, group) -> torch.Tensor:
     """[b, h, s/n, d] sequence-sharded -> [b, h/n, s, d] head-sharded."""
     b, h, sl, d = x.shape
     send = x.reshape(b, n, h // n, sl, d).permute(1, 0, 2, 3, 4).contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    recv = all_to_all_single(torch.empty_like(send), send, group=group)
     return recv.permute(1, 2, 0, 3, 4).reshape(b, h // n, n * sl, d)
 
 
@@ -50,8 +52,7 @@ def _seq_to_heads(x: torch.Tensor, n: int, group) -> torch.Tensor:
     """[b, h/n, s, d] head-sharded -> [b, h, s/n, d] sequence-sharded."""
     b, hl, s, d = x.shape
     send = x.reshape(b, hl, n, s // n, d).permute(2, 0, 1, 3, 4).contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    recv = all_to_all_single(torch.empty_like(send), send, group=group)
     return recv.permute(1, 0, 2, 3, 4).reshape(b, n * hl, s // n, d)
 
 
